@@ -1,0 +1,619 @@
+"""Nonlinear model predictive control.
+
+PyTorch port of the standard formulation of ``hilo_mpc_tpu/control/nmpc.py``:
+quadratic tracking costs on states and inputs (constant or runtime
+references), box bounds on states and inputs, scaling, time-invariant
+parameters, warm starts and multi-start. The multiple-shooting structure is
+kept stagewise and solved by the batched interior point of ops/ip_solver.py,
+whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors.
+
+Entry points: ``setup(options, device=..., dtype=...)`` (explicit device and
+dtype, nothing chosen by detection), ``prepare_batch`` -> ``solve_batch_fn``
+for B scenarios at once, ``optimize`` for one closed-loop step and
+``optimize_batch``. Every problem function is batch-first: x (..., n_x),
+u (..., n_u), theta (..., n_theta).
+
+Not ported yet (NotImplementedError at the setter or at setup): Δu costs and
+bounds, control horizon < horizon, path following, minimum time, discrete
+inputs, time-varying parameters and RTI (ROADMAP.md §A item 9); soft
+constraints, generic costs and constraints (item 7). There is no trace
+registry: PyTorch runs eagerly, so there is nothing to trace or share.
+"""
+from __future__ import annotations
+
+import time as _time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.integrators import IntegratorSpec, make_step
+from ..core.model import Model
+from ..core.series import TimeSeries
+from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
+                             _check_supported, solve_ocp)
+from .costs import QuadraticCost
+
+_NLP_OPTION_KEYS = {
+    "integration_method", "degree", "collocation_scheme", "substeps",
+    "newton_iters", "max_iter", "tol", "mu_init", "warm_start", "print_level",
+    "dt", "convexify", "n_linesearch", "early_exit", "u_pf_lb", "u_pf_ub",
+    "ipopt_debugger", "parallel_riccati", "pallas_riccati", "mehrotra",
+    "riccati_unroll", "pallas_full", "pallas_tile", "pallas_full_pack",
+    "pallas_vmem_mb", "const_cost_hessian", "lin_storage_dtype",
+    "mi_neighbors",
+    "mi_max_enum",
+    "initial_guess",
+}
+
+
+def _not_ported(what: str, item: int = 9):
+    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
+                               f"— ROADMAP.md §A item {item}")
+
+
+class NMPC:
+    """Nonlinear MPC over a Model."""
+
+    _controller_type = "NMPC"
+
+    def __init__(self, model: Model, id: Optional[str] = None,
+                 name: Optional[str] = None):
+        self._model = model.copy(keep_solution=False)
+        self.name = name or f"nmpc_{self._model.name}"
+        self.quad_stage_cost = QuadraticCost(self._model)
+        self.quad_terminal_cost = QuadraticCost(self._model)
+
+        self._horizon: Optional[int] = None
+        self._control_horizon: Optional[int] = None
+        nx, nu = self._model.n_x, self._model.n_u
+        self._x_lb = np.full(nx, -np.inf); self._x_ub = np.full(nx, np.inf)
+        self._u_lb = np.full(nu, -np.inf); self._u_ub = np.full(nu, np.inf)
+        self._du_lb = np.full(nu, -np.inf); self._du_ub = np.full(nu, np.inf)
+        self._x_scaling = np.ones(nx)
+        self._u_scaling = np.ones(nu)
+        self._x_guess: Optional[np.ndarray] = None
+        self._u_guess = np.zeros(nu)
+        self._p_defaults: Optional[np.ndarray] = None
+
+        self._setup_done = False
+        self._opts: dict = {}
+        self._device = torch.device("cpu")
+        self._dtype = torch.float32
+        self._time = 0.0
+        self._step_count = 0
+        self._u_old = np.zeros(nu)
+        self._warm = None          # previous (X, U) scaled solution for warm start
+        self.solution: Optional[TimeSeries] = None
+        self.last_prediction = None
+        self.stats: dict = {}
+
+    # -- basic configuration -------------------------------------------------
+    @property
+    def horizon(self) -> Optional[int]:
+        return self._horizon
+
+    @horizon.setter
+    def horizon(self, N: int):
+        if int(N) < 1:
+            raise ValueError("horizon must be >= 1")
+        self._horizon = int(N)
+
+    prediction_horizon = horizon
+
+    @property
+    def control_horizon(self) -> Optional[int]:
+        return self._control_horizon if self._control_horizon else self._horizon
+
+    @control_horizon.setter
+    def control_horizon(self, Nc: int):
+        if int(Nc) < 1:
+            raise ValueError("control horizon must be >= 1")
+        self._control_horizon = int(Nc)
+
+    @property
+    def n_x(self): return self._model.n_x
+    @property
+    def n_u(self): return self._model.n_u
+
+    @property
+    def device(self) -> torch.device: return self._device
+    @property
+    def dtype(self) -> torch.dtype: return self._dtype
+
+    def set_box_constraints(self, x_lb=None, x_ub=None, u_lb=None, u_ub=None,
+                            du_lb=None, du_ub=None, x_soft: bool = False,
+                            soft_weight: float = 1e4):
+        if x_soft:
+            raise _not_ported("soft state bounds (x_soft=True)", item=7)
+
+        def setv(cur, val, n):
+            if val is None:
+                return cur
+            return np.broadcast_to(np.asarray(val, dtype=float).ravel(), (n,)).copy()
+
+        nx, nu = self._model.n_x, self._model.n_u
+        self._x_lb = setv(self._x_lb, x_lb, nx)
+        self._x_ub = setv(self._x_ub, x_ub, nx)
+        self._u_lb = setv(self._u_lb, u_lb, nu)
+        self._u_ub = setv(self._u_ub, u_ub, nu)
+        self._du_lb = setv(self._du_lb, du_lb, nu)
+        self._du_ub = setv(self._du_ub, du_ub, nu)
+        return self
+
+    def set_initial_guess(self, x_guess=None, u_guess=None):
+        if x_guess is not None:
+            self._x_guess = np.asarray(x_guess, dtype=float).ravel()
+        if u_guess is not None:
+            self._u_guess = np.broadcast_to(
+                np.asarray(u_guess, dtype=float).ravel(), (self._model.n_u,)).copy()
+        return self
+
+    def set_scaling(self, x_scaling=None, u_scaling=None):
+        if x_scaling is not None:
+            self._x_scaling = np.broadcast_to(
+                np.asarray(x_scaling, float).ravel(), (self._model.n_x,)).copy()
+        if u_scaling is not None:
+            self._u_scaling = np.broadcast_to(
+                np.asarray(u_scaling, float).ravel(), (self._model.n_u,)).copy()
+        return self
+
+    def set_parameters(self, p):
+        self._p_defaults = np.asarray(p, dtype=float).ravel()
+        return self
+
+    # -- features of later slices ---------------------------------------------
+    @property
+    def stage_cost(self):
+        raise _not_ported("generic stage costs", item=7)
+
+    @property
+    def terminal_cost(self):
+        raise _not_ported("generic terminal costs", item=7)
+
+    def add_stage_constraint(self, *args, **kwargs):
+        raise _not_ported("generic stage constraints", item=7)
+
+    def add_terminal_constraint(self, *args, **kwargs):
+        raise _not_ported("generic terminal constraints", item=7)
+
+    def set_discrete_inputs(self, *args, **kwargs):
+        raise _not_ported("discrete (mixed-integer) inputs")
+
+    def set_time_varying_parameters(self, *args, **kwargs):
+        raise _not_ported("time-varying parameters")
+
+    def create_path_variable(self, *args, **kwargs):
+        raise _not_ported("path following")
+
+    def minimize_final_time(self, *args, **kwargs):
+        raise _not_ported("minimum-time NMPC")
+
+    def rti_prepare(self, *args, **kwargs):
+        raise _not_ported("real-time iteration")
+
+    rti_feedback = rti_prepare_batch = rti_feedback_batch = rti_prepare
+
+    # -- setup ----------------------------------------------------------------
+    def setup(self, options: Optional[dict] = None, solver_options: Optional[dict]
+              = None, nlp_opts: Optional[dict] = None, device="cpu",
+              dtype=torch.float32):
+        """Build the stagewise problem on ``device`` in ``dtype``."""
+        options = dict(options or {})
+        options.update(nlp_opts or {})
+        unknown = set(options) - _NLP_OPTION_KEYS
+        if unknown:
+            raise ValueError(f"unknown options {sorted(unknown)}; "
+                             f"valid: {sorted(_NLP_OPTION_KEYS)}")
+        if self._horizon is None:
+            raise ValueError("set nmpc.horizon before setup()")
+        model = self._model
+        nx, nu, n_p = model.n_x, model.n_u, model.n_p
+        N = self._horizon
+        dt = options.get("dt", model.dt)
+        if dt is None:
+            raise ValueError("no sampling time: set model.setup(dt=...) or pass "
+                             "options={'dt': ...}")
+        if (self.control_horizon < N or np.any(np.isfinite(self._du_lb))
+                or np.any(np.isfinite(self._du_ub))):
+            raise _not_ported("the Δu formulation (Δu bounds or control_horizon "
+                              "< horizon)")
+        self._dt = float(dt)
+        self._opts = options
+        self._device = torch.device(device)
+        self._dtype = dtype
+        kw = dict(dtype=dtype, device=self._device)
+
+        int_method = options.get("integration_method",
+                                 "discrete" if model.discrete else "rk4")
+        if int_method == "multiple_shooting":
+            int_method = "rk4"
+        spec = IntegratorSpec(
+            method=int_method, degree=options.get("degree", 3),
+            scheme=options.get("collocation_scheme", "radau"),
+            substeps=options.get("substeps", 1),
+            newton_iters=options.get("newton_iters", 8))
+        core_step = make_step(model.ode_fn(), model.alg_fn(), nx, model.n_z, spec)
+
+        sx = torch.as_tensor(self._x_scaling, **kw)
+        su = torch.as_tensor(self._u_scaling, **kw)
+
+        # theta layout: [t, dt, p (n_p), stage_refs (n_ref_s), term_refs (n_ref_t)]
+        stage_terms = list(self.quad_stage_cost.terms)
+        term_terms = list(self.quad_terminal_cost.terms)
+        n_ref_s = sum(t.n for t in stage_terms if t.runtime_ref)
+        off_p = 2
+        off_rs = off_p + n_p
+        off_rt = off_rs + n_ref_s
+        step_dt = self._dt
+
+        def unpack(xs, us, theta):
+            x = xs[..., :nx] * sx
+            u = us[..., :nu] * su
+            return x, u, theta[..., off_p:off_p + n_p], theta[..., 0], theta[..., 1]
+
+        def dyn(xs, us, theta):
+            x, u, p, t, h = unpack(xs, us, theta)
+            x_next, _ = core_step(x, x[..., :0], u, p, t, h)
+            return x_next / sx
+
+        def quad_terms_cost(terms, ref_offset, x, u, theta):
+            cost = torch.zeros_like(x[..., 0])
+            off = ref_offset
+            for term in terms:
+                src = x if term.kind == "states" else u
+                v = torch.stack([src[..., int(i)] for i in term.idx], dim=-1)
+                if term.runtime_ref:
+                    ref = theta[..., off:off + term.n]
+                    off += term.n
+                elif term.ref is not None:
+                    ref = torch.as_tensor(term.ref, dtype=x.dtype, device=x.device)
+                else:
+                    ref = torch.zeros(term.n, dtype=x.dtype, device=x.device)
+                e = v - ref
+                # unrolled eᵀWe over the nonzero weights, as the JAX cost
+                for i in range(term.n):
+                    for j in range(term.n):
+                        if term.W[i, j] != 0.0:
+                            cost = cost + float(term.W[i, j]) * e[..., i] * e[..., j]
+            return cost
+
+        def stage_cost(xs, us, theta):
+            x, u, p, t, h = unpack(xs, us, theta)
+            c = quad_terms_cost(stage_terms, off_rs, x, u, theta)
+            # integrate stage cost over the sample interval: multiply by dt
+            return c * h / step_dt
+
+        def term_cost(xs, theta):
+            x = xs[..., :nx] * sx
+            u0 = torch.zeros(x.shape[:-1] + (nu,), dtype=x.dtype, device=x.device)
+            return quad_terms_cost(term_terms, off_rt, x, u0, theta)
+
+        dims = OCPDims(nx=nx, nu=nu, N=N)
+        funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost)
+
+        # --- bounds in solver (scaled) coordinates ---
+        self._bounds = OCPBounds(
+            lbx=torch.as_tensor(np.tile(self._x_lb / self._x_scaling, (N + 1, 1)), **kw),
+            ubx=torch.as_tensor(np.tile(self._x_ub / self._x_scaling, (N + 1, 1)), **kw),
+            lbu=torch.as_tensor(np.tile(self._u_lb / self._u_scaling, (N, 1)), **kw),
+            ubu=torch.as_tensor(np.tile(self._u_ub / self._u_scaling, (N, 1)), **kw))
+        self._dims = dims
+        self._funcs = funcs
+        f64 = dtype == torch.float64
+        ip_opts = IPOptions(
+            max_iter=options.get("max_iter", 40),
+            # 1e-6 KKT is routinely unreachable in f32 — follow the dtype
+            tol=options.get("tol", 1e-6 if f64 else 1e-4),
+            mu_init=options.get("mu_init", 1e-1),
+            convexify=options.get("convexify", True),
+            n_linesearch=options.get("n_linesearch", 10),
+            early_exit=options.get("early_exit", True),
+            record_iterates=options.get("ipopt_debugger", False),
+            parallel_riccati=options.get("parallel_riccati", False),
+            pallas_riccati=options.get("pallas_riccati", False),
+            pallas_full=options.get("pallas_full", False),
+            pallas_tile=options.get("pallas_tile", 256),
+            pallas_full_pack=options.get("pallas_full_pack", 1),
+            pallas_vmem_mb=options.get("pallas_vmem_mb", None),
+            mehrotra=options.get("mehrotra", True),
+            riccati_unroll=options.get("riccati_unroll", 1),
+            # every cost term of this slice is a true quadratic, so the cost
+            # Hessian is point-independent
+            const_cost_hessian=options.get("const_cost_hessian", True),
+            lin_storage_dtype=options.get("lin_storage_dtype", None),
+        )
+        _check_supported(funcs, dims, ip_opts, fix_x0=True)
+        self._ip_opts = ip_opts
+        self._warm_start = options.get("warm_start", True)
+        guess_mode = options.get("initial_guess", "auto")
+        if guess_mode not in ("auto", "rollout", "constant"):
+            raise ValueError(
+                f"initial_guess must be 'auto', 'rollout' or 'constant', "
+                f"got {guess_mode!r}")
+        self._guess_mode = guess_mode
+        # warm-started solves start from a near-optimal point: a small initial
+        # barrier skips the early centering iterations
+        self._mu_cold = float(ip_opts.mu_init)
+        self._mu_warm = min(float(ip_opts.mu_init), 1e-3)
+
+        self.solution = TimeSeries(model.time_unit)
+        self.solution.register("x", model.dynamical_states)
+        self.solution.register("u", model.inputs)
+        self.solution.register("stats", ["iterations", "kkt_error", "extime_ms",
+                                         "converged"])
+        self._setup_done = True
+        self._time = 0.0
+        self._step_count = 0
+        self._warm = None
+        return self
+
+    def is_setup(self) -> bool:
+        return self._setup_done
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, dtype=float), dtype=self._dtype,
+                               device=self._device)
+
+    def _solve(self, theta_B, xs0_B, X_B, U_B, mu0):
+        return solve_ocp(self._funcs, self._dims, self._bounds, theta_B, xs0_B,
+                         X_B, U_B, options=self._ip_opts, fix_x0=True, mu0=mu0)
+
+    # -- theta assembly --------------------------------------------------------
+    def _assemble_p_rows(self, cp, N):
+        n_p = self._model.n_p
+        base = np.zeros(n_p)
+        if self._p_defaults is not None:
+            base[:] = self._p_defaults
+        if cp is not None:
+            cp = np.asarray(cp, dtype=float).ravel()
+            if cp.size != n_p:
+                raise ValueError(f"cp has {cp.size} entries")
+            base[:] = cp
+        return np.tile(base, (N + 1, 1))
+
+    def _ref_dict_column(self, name, value, N, step0, what):
+        """One reference column for a named variable from a ref_sc/ref_tc dict
+        entry: a scalar holds the setpoint over the horizon; a sequence longer
+        than 1 is a time series indexed by the closed-loop step count."""
+        v = np.asarray(value, dtype=float).ravel()
+        if v.size == 1:
+            return np.full(N + 1, float(v[0]))
+        if step0 + N + 1 > v.size:
+            raise ValueError(
+                f"time-varying reference for '{name}' ({what}) has {v.size} "
+                f"points but step {step0} needs {step0 + N + 1} "
+                f"(horizon {N}); supply more data points")
+        return v[step0:step0 + N + 1]
+
+    def _assemble_refs(self, terms, ref_arg, N, step0, terminal=False,
+                       ref_dict=None):
+        what = "ref_tc" if terminal else "ref_sc"
+        if ref_dict is not None:
+            known = {n for term in terms if term.runtime_ref for n in term.names}
+            unknown = set(ref_dict) - known
+            if unknown:
+                raise ValueError(
+                    f"unknown variable(s) {sorted(unknown)} in {what}: no "
+                    f"trajectory-tracking cost term references them "
+                    f"(tracked: {sorted(known)})")
+        cols = []
+        col0 = 0  # running offset into a plain-array ref_arg
+        for term in terms:
+            if not term.runtime_ref:
+                continue
+            if ref_dict is not None and any(n in ref_dict for n in term.names):
+                block = np.zeros((N + 1, term.n))
+                for j, n in enumerate(term.names):
+                    if n in ref_dict:
+                        block[:, j] = self._ref_dict_column(
+                            n, ref_dict[n], N, step0, what)
+                    elif term.ref is not None and term.ref.ndim == 1:
+                        block[:, j] = term.ref[j]
+                cols.append(block)
+            elif term.ref is not None and term.ref.ndim == 2:
+                T = term.ref.shape[0]
+                rows = np.minimum(step0 + np.arange(N + 1), T - 1)
+                cols.append(term.ref[rows])
+            elif ref_arg is not None:
+                r = np.asarray(ref_arg, dtype=float)
+                if r.ndim == 1:
+                    r = np.tile(r[None, :], (N + 1, 1))
+                cols.append(r[:, col0:col0 + term.n])
+            elif term.ref is not None:
+                cols.append(np.tile(term.ref[None, :], (N + 1, 1)))
+            elif term.trajectory_tracking:
+                raise ValueError(
+                    f"variable(s) {term.names} follow a runtime reference but "
+                    f"none was supplied — pass {what}={{name: value}} (or "
+                    f"ref=array) to optimize()")
+            else:
+                cols.append(np.zeros((N + 1, term.n)))
+            col0 += term.n
+        if cols:
+            return np.concatenate(cols, axis=1)
+        return np.zeros((N + 1, 0))
+
+    def _assemble_theta(self, cp, ref, ref_sc=None, ref_tc=None):
+        N = self._horizon
+        step0 = self._step_count
+        t_col = self._time + self._dt * np.arange(N + 1)
+        dt_col = np.full(N + 1, self._dt)
+        p_rows = self._assemble_p_rows(cp, N)
+        refs_s = self._assemble_refs(
+            [t for t in self.quad_stage_cost.terms if t.runtime_ref], ref, N,
+            step0, ref_dict=ref_sc)
+        refs_t = self._assemble_refs(
+            [t for t in self.quad_terminal_cost.terms if t.runtime_ref], ref, N,
+            step0, terminal=True, ref_dict=ref_tc)
+        return np.concatenate(
+            [t_col[:, None], dt_col[:, None], p_rows, refs_s, refs_t], axis=1)
+
+    # -- initial guesses -------------------------------------------------------
+    def _solver_x0(self, x0):
+        return np.asarray(x0, dtype=float) / self._x_scaling
+
+    def _cold_U(self):
+        return np.tile(self._u_guess / self._u_scaling, (self._horizon, 1))
+
+    def _rollout_guess(self, xs0_B, theta, U):
+        """Hold U, roll the dynamics out from every xs0: (B, N+1, nx)."""
+        Bn = xs0_B.shape[0]
+        X = [xs0_B]
+        for k in range(self._dims.N):
+            X.append(self._funcs.dyn(X[-1], U[k].expand(Bn, -1),
+                                     theta[k].expand(Bn, -1)))
+        X = torch.stack(X, dim=1)
+        return torch.nan_to_num(X, nan=0.0, posinf=1e3, neginf=-1e3)
+
+    def _traj_cost(self, X, U, theta):
+        f = self._funcs
+        return (f.stage_cost(X[:, :-1], U, theta[:, :-1]).sum(dim=-1)
+                + f.term_cost(X[:, -1], theta[:, -1]))
+
+    def _select_cold_guess(self, X_roll_B, xs0_B, U_B, theta_B):
+        """Per-scenario cold-start guess: the rollout unless 'auto' finds it
+        decisively costlier than the constant-x0 guess (factor 2) or
+        nonfinite."""
+        if self._guess_mode == "rollout":
+            return X_roll_B
+        Xc_B = xs0_B[:, None, :].expand(X_roll_B.shape).contiguous()
+        if self._guess_mode == "constant":
+            return Xc_B
+        c_roll = self._traj_cost(X_roll_B, U_B, theta_B)
+        c_const = self._traj_cost(Xc_B, U_B, theta_B)
+        use_const = ~torch.isfinite(c_roll) | (c_roll > 2.0 * c_const + 1e-9)
+        return torch.where(use_const[:, None, None], Xc_B, X_roll_B)
+
+    def _initial_trajectory(self, xs0, theta):
+        if self._warm is not None and self._warm_start:
+            X_prev, U_prev = self._warm
+            X = np.vstack([xs0[None, :], X_prev[2:], X_prev[-1:]])
+            U = np.vstack([U_prev[1:], U_prev[-1:]])
+            return X, U
+        U = self._cold_U()
+        if self._x_guess is not None:
+            Xg = np.tile(self._solver_x0(self._x_guess)[None, :],
+                         (self._horizon + 1, 1))
+            Xg[0] = xs0
+            return Xg, U
+        xs0_t, th_t, U_t = self._tensor(xs0)[None], self._tensor(theta), self._tensor(U)
+        X = self._rollout_guess(xs0_t, th_t, U_t)
+        X = self._select_cold_guess(X, xs0_t, U_t[None], th_t[None])
+        return X[0].cpu().numpy(), U
+
+    # -- one closed-loop step --------------------------------------------------
+    def optimize(self, x0, cp=None, tvp=None, ref=None, runs: int = 1,
+                 seed: int = 0, ref_sc=None, ref_tc=None):
+        """One MPC step: solve the horizon problem from measured state x0 and
+        return the first control move. ref_sc / ref_tc map variable names to
+        stage/terminal reference values (scalar setpoint or a time series)."""
+        if not self._setup_done:
+            raise RuntimeError("call setup() first")
+        for nm, d in (("ref_sc", ref_sc), ("ref_tc", ref_tc)):
+            if d is not None and not isinstance(d, dict):
+                raise TypeError(f"{nm} must be a dict mapping variable names to "
+                                f"reference values, got {type(d).__name__}")
+        t_wall = _time.perf_counter()
+        x0 = np.asarray(x0, dtype=float).ravel()
+        if x0.size != self._model.n_x:
+            raise ValueError(f"x0 has {x0.size} entries, expected {self._model.n_x} "
+                             f"({self._model.dynamical_states})")
+        theta = self._assemble_theta(cp, ref, ref_sc=ref_sc, ref_tc=ref_tc)
+        xs0 = self._solver_x0(x0)
+        X_init, U_init = self._initial_trajectory(xs0, theta)
+        mu0 = (self._mu_warm if (self._warm is not None and self._warm_start)
+               else self._mu_cold)
+        th_t, xs0_t = self._tensor(theta)[None], self._tensor(xs0)[None]
+        X_t = self._tensor(X_init)[None]
+        sol = self._solve(th_t, xs0_t, X_t, self._tensor(U_init)[None], mu0)
+        X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
+
+        def scalar(v):
+            return v[0].item()
+
+        if runs > 1:
+            # multi-start: perturbed initial guesses, keep the best converged
+            # objective — a "converged" first solve may sit on a stationary
+            # hump of a nonconvex cost
+            rng = np.random.default_rng(seed)
+            best_obj = scalar(sol.objective) if scalar(sol.converged) else np.inf
+            for _ in range(runs - 1):
+                U_r = U_init + 0.5 * rng.standard_normal(U_init.shape)
+                sol_r = self._solve(th_t, xs0_t, X_t, self._tensor(U_r)[None],
+                                    self._mu_cold)
+                if scalar(sol_r.converged) and scalar(sol_r.objective) < best_obj:
+                    sol, best_obj = sol_r, scalar(sol_r.objective)
+                    X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
+
+        nx, nu = self._model.n_x, self._model.n_u
+        u0 = U[0, :nu] * self._u_scaling
+        self._warm = (X, U)
+        self._u_old = u0.copy()
+        self.last_prediction = {
+            "x": X[:, :nx] * self._x_scaling,
+            "u": U[:, :nu] * self._u_scaling,
+            "t": self._time + self._dt * np.arange(self._horizon + 1),
+        }
+        self._time += self._dt
+        self._step_count += 1
+        self.stats = {
+            "iterations": int(scalar(sol.iterations)),
+            "kkt_error": float(scalar(sol.kkt_error)),
+            "objective": float(scalar(sol.objective)),
+            "converged": bool(scalar(sol.converged)),
+            "status": int(scalar(sol.status)),
+            "extime": _time.perf_counter() - t_wall,
+        }
+        if self.solution is not None:
+            self.solution.append(
+                self._time, x=x0, u=u0,
+                stats=np.array([self.stats["iterations"],
+                                self.stats["kkt_error"],
+                                self.stats["extime"] * 1e3,
+                                float(self.stats["converged"])]))
+        return u0
+
+    # -- batched solve ---------------------------------------------------------
+    def solve_batch_fn(self, warm: bool = False):
+        """Return a function (theta_B, xs0_B, X_init_B, U_init_B) -> OCPSolution
+        batched over scenarios (tensors on this controller's device).
+
+        warm=True uses the warm-start barrier min(mu_init, 1e-3): pass it when
+        the initial trajectories come from a previous solution (the closed-loop
+        regime)."""
+        if not self._setup_done:
+            raise RuntimeError("call setup() first")
+        mu_val = self._mu_warm if warm else self._mu_cold
+        return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)
+
+    def prepare_batch(self, x0_batch, cp=None, tvp=None, ref=None, u_prev=None):
+        """Solver inputs for B scenarios, cold-started by one batched rollout:
+        (theta_B, xs0_B, X_init_B, U_init_B) tensors on this controller's
+        device. ``tvp`` is accepted for API parity and unused (time-varying
+        parameters are not ported)."""
+        if not self._setup_done:
+            raise RuntimeError("call setup() first")
+        if u_prev is not None:
+            raise ValueError("u_prev is only meaningful for the Δu-augmented "
+                             "formulation (Δu costs/bounds or Nc < N)")
+        x0_batch = np.atleast_2d(np.asarray(x0_batch, dtype=float))
+        Bn = x0_batch.shape[0]
+        N, nus = self._dims.N, self._dims.nu
+        theta = self._tensor(self._assemble_theta(cp, ref))
+        xs0 = self._tensor(x0_batch / self._x_scaling)
+        U = self._tensor(self._cold_U())
+        X_B = self._rollout_guess(xs0, theta, U)
+        U_B = U.expand(Bn, N, nus).contiguous()
+        theta_B = theta.expand((Bn,) + tuple(theta.shape)).contiguous()
+        X_B = self._select_cold_guess(X_B, xs0, U_B, theta_B)
+        return theta_B, xs0, X_B, U_B
+
+    def optimize_batch(self, x0_batch, cp=None, tvp=None, ref=None,
+                       u_prev=None):
+        """Solve B independent MPC problems at once; returns ((B, n_u) first
+        moves as numpy, OCPSolution)."""
+        sol = self.solve_batch_fn()(*self.prepare_batch(x0_batch, cp, tvp, ref,
+                                                        u_prev=u_prev))
+        u0 = sol.U[:, 0, :self._model.n_u].cpu().numpy() * self._u_scaling
+        return u0, sol

@@ -1,0 +1,584 @@
+"""Stagewise nonlinear primal-dual interior-point solver for optimal control.
+
+PyTorch port of ``hilo_mpc_tpu/ops/ip_solver.py``. The multiple-shooting
+structure is kept stagewise: each IP iteration linearizes dynamics and costs
+along the horizon, condenses the barrier terms into the stage Hessians and
+solves the block-banded KKT system with a Riccati sweep — on CUDA tensors
+always the hand-written kernel ``ops/cuda_kernels.py:riccati_lq_cuda``
+(ops/riccati.py:make_lq_solver).
+
+Batch-first instead of ``vmap``: every array carries a leading scenario axis B
+(theta (B, N+1, n_theta), x0 (B, nx), X (B, N+1, nx), U (B, N, nu)); scalars of
+the JAX solver (mu, the merit penalty, KKT error, iteration count, flags) are
+(B,) tensors. Derivatives come from ``torch.func``: Jacobians as ``jvp`` pushed
+along the nx+nu basis tangents under ``vmap`` (the counterpart of
+``jax.linearize`` + ``vmap(jvp)``), gradients as ``grad`` of the batch sum
+(scenarios and stages are independent), Hessians as ``jvp`` of that gradient.
+The iteration loop is a Python loop with per-scenario convergence masks:
+finished scenarios are frozen exactly as the JAX ``while_loop`` freezes them,
+and with ``early_exit`` the loop stops once every scenario is finished (one
+host synchronization per iteration).
+
+Problem form (per scenario):
+
+    min   Σ_{k=0}^{N-1} l(x_k, u_k, θ_k)  +  lN(x_N, θ_N)
+    s.t.  x_{k+1} = F(x_k, u_k, θ_k)                    k = 0..N-1
+          lbu ≤ u_k ≤ ubu,  lbx ≤ x_k ≤ ubx             (±inf allowed)
+          x_0 = x̂
+
+Not ported yet (raise NotImplementedError): generic inequality rows and
+equality constraints, ``record_iterates``, ``parallel_riccati`` and
+``lin_storage_dtype`` (ROADMAP.md §A item 7), a free initial state
+(``fix_x0=False``, item 8) and the whole-solve kernel ``pallas_full``
+(§B item 3). ``riccati_unroll``, ``pallas_riccati``, ``pallas_pack``,
+``pallas_tile``, ``pallas_full_pack`` and ``pallas_vmem_mb`` are TPU layout
+knobs: accepted, and without effect here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+from torch.func import grad, jvp, vmap
+
+from .riccati import make_lq_solver
+
+
+class OCPFunctions(NamedTuple):
+    """Batch-first problem functions: x (..., nx), u (..., nu), theta (..., n_theta)."""
+    dyn: Callable                    # F(x, u, theta) -> (..., nx)
+    stage_cost: Callable             # l(x, u, theta) -> (...)
+    term_cost: Callable              # lN(x, thetaN) -> (...)
+    stage_ineq: Optional[Callable] = None
+    term_ineq: Optional[Callable] = None
+    stage_eq: Optional[Callable] = None
+    term_eq: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OCPDims:
+    nx: int
+    nu: int
+    N: int
+    n_h: int = 0
+    n_hN: int = 0
+    n_e: int = 0
+    n_eN: int = 0
+
+
+class OCPBounds(NamedTuple):
+    """±inf-padded box bounds, shared by every scenario.
+    Shapes: lbx/ubx (N+1, nx), lbu/ubu (N, nu)."""
+    lbx: torch.Tensor
+    ubx: torch.Tensor
+    lbu: torch.Tensor
+    ubu: torch.Tensor
+
+
+def default_bounds(dims: OCPDims, dtype=torch.float32, device="cpu") -> OCPBounds:
+    def full(shape, v):
+        return torch.full(shape, v, dtype=dtype, device=device)
+    inf = float("inf")
+    return OCPBounds(lbx=full((dims.N + 1, dims.nx), -inf),
+                     ubx=full((dims.N + 1, dims.nx), inf),
+                     lbu=full((dims.N, dims.nu), -inf),
+                     ubu=full((dims.N, dims.nu), inf))
+
+
+@dataclasses.dataclass(frozen=True)
+class IPOptions:
+    """Same fields and defaults as the JAX package's IPOptions."""
+    max_iter: int = 40
+    tol: float = 1e-6
+    mu_init: float = 1e-1
+    mu_min: float = 1e-9
+    kappa_mu: float = 0.2        # linear mu reduction factor
+    theta_mu: float = 1.5        # superlinear mu reduction exponent
+    kappa_eps: float = 10.0      # barrier-subproblem tolerance = kappa_eps * mu
+    tau_min: float = 0.99        # fraction-to-boundary
+    n_linesearch: int = 6        # backtracking candidates (halvings)
+    reg: float = 1e-8            # Riccati control-Schur regularization
+    convexify: bool = True       # eigenvalue-clip indefinite cost Hessians
+    min_eig: float = 1e-6
+    s_min: float = 1e-2          # slack floor at init (IPOPT's bound_push analogue)
+    early_exit: bool = True      # stop once every scenario is finished
+    rho_eq: float = 1e2
+    rho_eq_max: float = 1e7
+    record_iterates: bool = False
+    parallel_riccati: bool = False
+    pallas_riccati: bool = False  # TPU layout knob; no effect here
+    pallas_pack: int = 8          # TPU layout knob; no effect here
+    pallas_full: bool = False
+    pallas_tile: int = 256        # TPU layout knob; no effect here
+    pallas_full_pack: int = 1     # TPU layout knob; no effect here
+    pallas_vmem_mb: Optional[float] = None  # TPU layout knob; no effect here
+    mehrotra: bool = False       # predictor-corrector with adaptive centering
+    riccati_unroll: int = 1      # TPU layout knob; no effect here
+    # treat the cost Hessian blocks as constant (exact for quadratic costs):
+    # evaluated once at the initial point instead of every iteration
+    const_cost_hessian: bool = False
+    lin_storage_dtype: Optional[str] = None
+
+
+class OCPSolution(NamedTuple):
+    X: torch.Tensor          # (B, N+1, nx)
+    U: torch.Tensor          # (B, N, nu)
+    lam: torch.Tensor        # (B, N, nx)
+    s: torch.Tensor          # (B, N, m)
+    z: torch.Tensor          # (B, N, m)
+    sN: torch.Tensor         # (B, mN)
+    zN: torch.Tensor         # (B, mN)
+    mu: torch.Tensor         # (B,)
+    kkt_error: torch.Tensor  # (B,)
+    objective: torch.Tensor  # (B,)
+    iterations: torch.Tensor  # (B,) int32
+    converged: torch.Tensor  # (B,) bool
+    status: torch.Tensor     # (B,) int32: 0 ok, 1 max_iter, 2 diverged/NaN
+
+
+class _Carry(NamedTuple):
+    X: torch.Tensor
+    U: torch.Tensor
+    lam: torch.Tensor
+    s: torch.Tensor
+    z: torch.Tensor
+    sN: torch.Tensor
+    zN: torch.Tensor
+    mu: torch.Tensor
+    nu_pen: torch.Tensor
+    kkt: torch.Tensor
+    it: torch.Tensor
+    converged: torch.Tensor
+    diverged: torch.Tensor
+
+
+_NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
+               "ROADMAP.md {item}")
+
+
+def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions,
+                     fix_x0: bool):
+    item7 = "§A item 7"
+    todo = [
+        (funcs.stage_ineq is not None or funcs.term_ineq is not None
+         or dims.n_h or dims.n_hN, "generic inequality constraints", item7),
+        (funcs.stage_eq is not None or funcs.term_eq is not None
+         or dims.n_e or dims.n_eN, "equality constraints (augmented Lagrangian)",
+         item7),
+        (opt.record_iterates, "record_iterates", item7),
+        (opt.parallel_riccati, "parallel_riccati", item7),
+        (opt.lin_storage_dtype is not None, "lin_storage_dtype", item7),
+        (opt.pallas_full, "the whole-solve kernel (pallas_full)", "§B item 3"),
+        (not fix_x0, "a free initial state (fix_x0=False)", "§A item 8"),
+    ]
+    for cond, what, item in todo:
+        if cond:
+            raise NotImplementedError(_NOT_PORTED.format(what=what, item=item))
+
+
+# ---------------------------------------------------------------------------
+# batch-first derivatives
+# ---------------------------------------------------------------------------
+
+
+def _basis_tangents(args):
+    """One-hot tangents over the concatenated trailing dims of ``args``:
+    a list of (n, *arg.shape) tensors, n = Σ arg.shape[-1]."""
+    n = sum(a.shape[-1] for a in args)
+    eye = torch.eye(n, dtype=args[0].dtype, device=args[0].device)
+    out, off = [], 0
+    for a in args:
+        k = a.shape[-1]
+        t = eye[:, off:off + k].reshape((n,) + (1,) * (a.dim() - 1) + (k,))
+        out.append(t.expand((n,) + tuple(a.shape)))
+        off += k
+    return out
+
+
+def _jacobian(f, args):
+    """d f / d(args) for a batch-first f: (..., n_out, Σ n_arg)."""
+    J = vmap(lambda *t: jvp(f, tuple(args), tuple(t))[1])(*_basis_tangents(args))
+    return J.movedim(0, -1)
+
+
+def _batch_grad(f, args):
+    """Per-element gradients of a batch-first scalar-valued f, as the
+    gradient of its batch sum (the elements are independent)."""
+    return grad(lambda *a: f(*a).sum(), argnums=tuple(range(len(args))))(*args)
+
+
+def _grad_and_hessian(f, args):
+    """(gradient tuple, full Hessian (..., n, n)) with H[..., a, b] = d g_a / d v_b."""
+    g = _batch_grad(f, args)
+    H = _jacobian(lambda *a: torch.cat(_batch_grad(f, a), dim=-1), args)
+    return g, H
+
+
+def _convexify(M, min_eig):
+    """Eigenvalue-clip symmetric matrices (..., n, n) to be positive definite."""
+    M = 0.5 * (M + M.transpose(-1, -2))
+    w, V = torch.linalg.eigh(M)
+    w = torch.clamp(w, min=min_eig)
+    return (V * w[..., None, :]) @ V.transpose(-1, -2)
+
+
+def _maxabs(t):
+    """Per-scenario max |t| over all trailing dims (0 for empty rows)."""
+    t = t.abs().flatten(1)
+    if t.shape[1] == 0:
+        return torch.zeros(t.shape[0], dtype=t.dtype, device=t.device)
+    return t.amax(dim=1)
+
+
+def _step_cap(v, dv, msk, tau=None):
+    """Largest step in (0, 1] keeping v + a*dv >= (1 - tau) v on masked rows
+    (tau=None: the plain ratio test of the Mehrotra predictor)."""
+    num = -v if tau is None else -tau * v
+    ratio = torch.where((dv < 0) & msk, num / torch.clamp(dv, max=-1e-30), 1.0)
+    return torch.clamp(ratio.flatten(1).amin(dim=1), max=1.0)
+
+
+# ---------------------------------------------------------------------------
+# main solver
+# ---------------------------------------------------------------------------
+
+
+def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
+              theta: torch.Tensor, x0: torch.Tensor, X_init: torch.Tensor,
+              U_init: torch.Tensor, options: IPOptions = IPOptions(),
+              fix_x0: bool = True, mu0: Optional[float] = None) -> OCPSolution:
+    """Solve B OCP instances at once (batch-first, see the module docstring).
+
+    ``mu0`` optionally overrides ``options.mu_init`` at call time: cold- and
+    warm-start solves differ only in the initial barrier."""
+    # the Riccati/Newton arithmetic needs full float32 products: the JAX
+    # solver measured batch convergence falling to 12% with reduced-precision
+    # matmuls, so TF32 stays off for every product the solver issues
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_supported(funcs, dims, options, fix_x0)
+    if bounds.lbx.dim() != 2 or bounds.lbu.dim() != 2:
+        raise ValueError("bounds are shared by all scenarios: lbx/ubx (N+1, nx), "
+                         "lbu/ubu (N, nu)")
+    return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
+                           options, mu0)
+
+
+def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
+                    mu0_dyn) -> OCPSolution:
+    nx, nu, N = dims.nx, dims.nu, dims.N
+    m = 2 * nu + 2 * nx
+    mN = 2 * nx
+    dtype, device = X_init.dtype, X_init.device
+    Bn = X_init.shape[0]
+    kw = dict(dtype=dtype, device=device)
+
+    def safe_b(b):
+        return torch.clamp(torch.nan_to_num(b, posinf=1e20, neginf=-1e20),
+                           -1e20, 1e20)
+
+    lbx_c, ubx_c = safe_b(bounds.lbx[:-1]), safe_b(bounds.ubx[:-1])
+    lbu_c, ubu_c = safe_b(bounds.lbu), safe_b(bounds.ubu)
+    lbxN_c, ubxN_c = safe_b(bounds.lbx[-1]), safe_b(bounds.ubx[-1])
+
+    # pinned (equality-bounded) controls: removed from the barrier, held by a
+    # stiff quadratic in the Riccati blocks and excluded from the stationarity test
+    pin = (torch.isfinite(bounds.ubu) & torch.isfinite(bounds.lbu)
+           & (bounds.ubu - bounds.lbu < 1e-9))
+    pin_f = pin.to(dtype)
+    free_u_f = 1.0 - pin_f
+    pin_val = 0.5 * (lbu_c + ubu_c) * pin_f
+    w_pin = 1e7 if dtype == torch.float64 else 1e5
+
+    # validity masks of the rows [u-ubu; lbu-u; x-ubx; lbx-x] (stage) and
+    # [x-ubx; lbx-x] (terminal); x_0 is not a decision variable
+    m_x = torch.isfinite(bounds.ubx[:-1]).clone()
+    m_lx = torch.isfinite(bounds.lbx[:-1]).clone()
+    m_x[0] = False
+    m_lx[0] = False
+    mask = torch.cat([torch.isfinite(bounds.ubu) & ~pin,
+                      torch.isfinite(bounds.lbu) & ~pin, m_x, m_lx], dim=1)
+    maskN = torch.cat([torch.isfinite(bounds.ubx[-1]),
+                       torch.isfinite(bounds.lbx[-1])])
+    mask_f = mask.to(dtype)
+    maskN_f = maskN.to(dtype)
+
+    # the box rows have constant ±selector jacobians; masked rows are zeroed
+    eye_x = torch.eye(nx, **kw)
+    eye_u = torch.eye(nu, **kw)
+    Cx = torch.cat([torch.zeros(2 * nu, nx, **kw), eye_x, -eye_x]) * mask_f[..., None]
+    Cu = torch.cat([eye_u, -eye_u, torch.zeros(2 * nx, nu, **kw)]) * mask_f[..., None]
+    CxN = torch.cat([eye_x, -eye_x]) * maskN_f[:, None]
+
+    th_s, th_N = theta[:, :-1], theta[:, -1]
+
+    def stage_c(X, U):
+        Xs = X[..., :-1, :]
+        c = torch.cat([U - ubu_c, lbu_c - U, Xs - ubx_c, lbx_c - Xs], dim=-1)
+        return torch.where(mask, c, -1.0)
+
+    def term_c(X):
+        xN = X[..., -1, :]
+        return torch.where(maskN, torch.cat([xN - ubxN_c, lbxN_c - xN], dim=-1), -1.0)
+
+    def objective(X, U, th):
+        stage = funcs.stage_cost(X[..., :-1, :], U, th[..., :-1, :])
+        return stage.sum(dim=-1) + funcs.term_cost(X[..., -1, :], th[..., -1, :])
+
+    def dyn_defect(X, U, th):
+        return funcs.dyn(X[..., :-1, :], U, th[..., :-1, :]) - X[..., 1:, :]
+
+    def cost_terms(Xs, U):
+        """Stage gradients and (optionally convexified) Hessian blocks."""
+        (gx, gu), H = _grad_and_hessian(
+            lambda xx, uu: funcs.stage_cost(xx, uu, th_s), (Xs, U))
+        if opt.convexify:
+            H = _convexify(H, opt.min_eig)
+        return gx, gu, H[..., :nx, :nx], H[..., nx:, :nx], H[..., nx:, nx:]
+
+    def term_terms(xN):
+        (g,), H = _grad_and_hessian(lambda xx: funcs.term_cost(xx, th_N), (xN,))
+        if opt.convexify:
+            H = _convexify(H, opt.min_eig)
+        return g, H
+
+    # -- init ---------------------------------------------------------------
+    X = X_init.clone()
+    if x0 is not None:
+        X[:, 0] = x0
+    U = torch.where(pin, pin_val, U_init)
+    mu0 = torch.full((Bn,), opt.mu_init if mu0_dyn is None else float(mu0_dyn), **kw)
+    # |c| (not -c): a constraint VIOLATED at the initial point still gets a
+    # slack at its own scale
+    s = torch.clamp(stage_c(X, U).abs(), min=opt.s_min)
+    sN = torch.clamp(term_c(X).abs(), min=opt.s_min)
+    z = mu0[:, None, None] / s * mask_f + (1.0 - mask_f)
+    zN = mu0[:, None] / sN * maskN_f + (1.0 - maskN_f)
+
+    const_H = opt.const_cost_hessian
+    if const_H:
+        # quadratic costs: Hessian blocks are point-independent — evaluate once
+        _, _, Hxx_c, Hux_c, Huu_c = cost_terms(X_init[:, :-1], U_init)
+        _, HN_c = term_terms(X_init[:, -1])
+
+    def linearize(X, U):
+        """One full linearization of dynamics/costs/constraints along the horizon."""
+        Xs = X[:, :-1]
+        f = lambda xx, uu: funcs.dyn(xx, uu, th_s)
+        F = f(Xs, U)
+        J = _jacobian(f, (Xs, U))
+        A, Bm = J[..., :nx], J[..., nx:]
+        if const_H:
+            gx, gu = _batch_grad(lambda xx, uu: funcs.stage_cost(xx, uu, th_s),
+                                 (Xs, U))
+            Hxx, Hux, Huu = Hxx_c, Hux_c, Huu_c
+            (gN,) = _batch_grad(lambda xx: funcs.term_cost(xx, th_N), (X[:, -1],))
+            HN = HN_c
+        else:
+            gx, gu, Hxx, Hux, Huu = cost_terms(Xs, U)
+            gN, HN = term_terms(X[:, -1])
+        return F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, stage_c(X, U), term_c(X)
+
+    def kkt_errors(lin, X, lam, s, z, sN, zN, mu):
+        """(err at mu=0, err at current mu) from an existing linearization."""
+        F, A, Bm, gx, gu, _, _, _, gN, _, c, cN = lin
+        zm = z * mask_f
+        zNm = zN * maskN_f
+        r_x = (gx + torch.einsum("bkij,bki->bkj", A, lam)
+               + torch.einsum("kmi,bkm->bki", Cx, zm))
+        r_xN = gN - lam[:, -1] + torch.einsum("mi,bm->bi", CxN, zNm)
+        r_u = (gu + torch.einsum("bkij,bki->bkj", Bm, lam)
+               + torch.einsum("kmi,bkm->bki", Cu, zm)) * free_u_f
+        r_dyn = F - X[:, 1:]
+        r_ineq = (c + s) * mask_f
+        r_ineqN = (cN + sN) * maskN_f
+        sz = s * z * mask_f
+        szN = sN * zN * maskN_f
+        stat_terms = [_maxabs(r_u), _maxabs(r_xN)]
+        if N > 1:
+            stat_terms.append(_maxabs(r_x[:, 1:] - lam[:, :-1]))
+        # scale stationarity like IPOPT's s_d to tolerate large multipliers
+        s_d = torch.clamp((lam.abs().sum(dim=(1, 2)) + zm.abs().sum(dim=(1, 2))
+                           + zNm.abs().sum(dim=1)) / (N * nx + N * m + mN), min=1.0)
+        e_stat = torch.stack(stat_terms).amax(dim=0) / s_d
+        e_feas = torch.maximum(_maxabs(r_dyn), torch.maximum(_maxabs(r_ineq),
+                                                             _maxabs(r_ineqN)))
+
+        def comp_err(mu_val):
+            return torch.maximum(_maxabs(sz - mu_val[:, None, None] * mask_f),
+                                 _maxabs(szN - mu_val[:, None] * maskN_f)) / s_d
+
+        base = torch.maximum(e_stat, e_feas)
+        return (torch.maximum(base, comp_err(torch.zeros_like(mu))),
+                torch.maximum(base, comp_err(mu)))
+
+    def merit(X, U, s, sN, mu, nu_p, th):
+        """l1 barrier merit; inputs may carry extra leading dims before B."""
+        f = objective(X, U, th)
+        bar = -mu * ((torch.log(torch.clamp(s, min=1e-30)) * mask_f).sum(dim=(-2, -1))
+                     + (torch.log(torch.clamp(sN, min=1e-30)) * maskN_f).sum(dim=-1))
+        viol = (dyn_defect(X, U, th).abs().sum(dim=(-2, -1))
+                + ((stage_c(X, U) + s) * mask_f).abs().sum(dim=(-2, -1))
+                + ((term_c(X) + sN) * maskN_f).abs().sum(dim=-1))
+        return f + bar + nu_p * viol
+
+    lq_solver = make_lq_solver(reg=opt.reg)
+    dx0 = torch.zeros(Bn, nx, **kw)
+
+    def iteration(cr: _Carry) -> _Carry:
+        X, U, lam, s, z, sN, zN, mu, nu_p = cr[:9]
+        lin = linearize(X, U)
+        F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, c, cN = lin
+
+        # convergence / barrier bookkeeping on the CURRENT iterate
+        err0, err_mu = kkt_errors(lin, X, lam, s, z, sN, zN, mu)
+        converged = err0 <= opt.tol
+        subproblem_done = err_mu <= opt.kappa_eps * mu
+        mu = torch.where(
+            subproblem_done,
+            torch.clamp(torch.minimum(opt.kappa_mu * mu, mu ** opt.theta_mu),
+                        min=opt.tol / 10.0),
+            mu)
+
+        sigma = torch.where(mask, z / s, 0.0)
+        sigmaN = torch.where(maskN, zN / sN, 0.0)
+        r_ineq = (c + s) * mask_f
+        r_ineqN = (cN + sN) * maskN_f
+
+        # barrier-condensed Hessian blocks (shared by predictor and corrector)
+        Qb = Hxx + torch.einsum("kmi,bkm,kmj->bkij", Cx, sigma, Cx)
+        Rb = (Huu + torch.einsum("kmi,bkm,kmj->bkij", Cu, sigma, Cu)
+              + torch.einsum("km,mn->kmn", w_pin * pin_f, eye_u))
+        Sb = Hux + torch.einsum("kmi,bkm,kmj->bkij", Cu, sigma, Cx)
+        P_term = HN + torch.einsum("mi,bm,mj->bij", CxN, sigmaN, CxN)
+        r_dyn = F - X[:, 1:]
+
+        def newton_step(mu_t, corr, corrN):
+            """One barrier-Newton solve targeting complementarity mu_t with an
+            optional second-order correction term (Mehrotra)."""
+            mu3, mu2 = mu_t[:, None, None], mu_t[:, None]
+            zh = torch.where(mask, (mu3 + z * r_ineq - corr) / s, 0.0)
+            zhN = torch.where(maskN, (mu2 + zN * r_ineqN - corrN) / sN, 0.0)
+            qb = gx + torch.einsum("kmi,bkm->bki", Cx, zh)
+            rb = (gu + torch.einsum("kmi,bkm->bki", Cu, zh)
+                  + w_pin * pin_f * (U - pin_val))
+            p_term = gN + torch.einsum("mi,bm->bi", CxN, zhN)
+            sol = lq_solver(A, Bm, Qb, Sb, Rb, qb, rb, r_dyn, P_term, p_term, dx0)
+            dC = (torch.einsum("kmi,bki->bkm", Cx, sol.dX[:, :-1])
+                  + torch.einsum("kmi,bki->bkm", Cu, sol.dU))
+            dCN = torch.einsum("mi,bi->bm", CxN, sol.dX[:, -1])
+            ds_ = torch.where(mask, -r_ineq - dC, 0.0)
+            dsN_ = torch.where(maskN, -r_ineqN - dCN, 0.0)
+            dz_ = torch.where(mask, (mu3 - s * z - z * ds_ - corr) / s, 0.0)
+            dzN_ = torch.where(maskN, (mu2 - sN * zN - zN * dsN_ - corrN) / sN, 0.0)
+            return sol, ds_, dz_, dsN_, dzN_
+
+        if opt.mehrotra:
+            # affine predictor (target 0 complementarity)
+            _, ds_a, dz_a, dsN_a, dzN_a = newton_step(torch.zeros_like(mu), 0.0, 0.0)
+            a_p = torch.minimum(_step_cap(s, ds_a, mask), _step_cap(sN, dsN_a, maskN))
+            a_d = torch.minimum(_step_cap(z, dz_a, mask), _step_cap(zN, dzN_a, maskN))
+            m_tot = torch.clamp(mask_f.sum() + maskN_f.sum(), min=1.0)
+            gap = ((s * z * mask_f).sum(dim=(1, 2))
+                   + (sN * zN * maskN_f).sum(dim=1)) / m_tot
+            a_p3, a_d3 = a_p[:, None, None], a_d[:, None, None]
+            a_p2, a_d2 = a_p[:, None], a_d[:, None]
+            gap_aff = ((((s + a_p3 * ds_a) * (z + a_d3 * dz_a)) * mask_f).sum(dim=(1, 2))
+                       + (((sN + a_p2 * dsN_a) * (zN + a_d2 * dzN_a))
+                          * maskN_f).sum(dim=1)) / m_tot
+            sig_m = torch.clamp((gap_aff / torch.clamp(gap, min=1e-30)) ** 3, 0.0, 1.0)
+            mu = torch.clamp(sig_m * gap, min=opt.tol / 10.0)
+            sol, ds, dz, dsN, dzN = newton_step(mu, ds_a * dz_a * mask_f,
+                                                dsN_a * dzN_a * maskN_f)
+        else:
+            sol, ds, dz, dsN, dzN = newton_step(mu, 0.0, 0.0)
+        dX, dU, lam_new = sol.dX, sol.dU, sol.lam
+
+        # fraction-to-boundary
+        tau = torch.clamp(1.0 - mu, min=opt.tau_min)
+        a_s = torch.minimum(_step_cap(s, ds, mask, tau[:, None, None]),
+                            _step_cap(sN, dsN, maskN, tau[:, None]))
+        a_z = torch.minimum(_step_cap(z, dz, mask, tau[:, None, None]),
+                            _step_cap(zN, dzN, maskN, tau[:, None]))
+
+        # penalty update from new multipliers
+        lam_inf = _maxabs(lam_new)
+        z_inf = torch.maximum(_maxabs(z + dz), _maxabs(zN + dzN))
+        nu_new = torch.maximum(nu_p, 1.5 * torch.maximum(lam_inf, z_inf) + 1.0)
+
+        # backtracking line search on the l1 barrier merit; the candidates are
+        # evaluated together along a leading candidate axis
+        if opt.n_linesearch <= 1:
+            alpha = a_s
+        else:
+            halv = 0.5 ** torch.arange(opt.n_linesearch, **kw)
+            alphas = a_s[None, :] * halv[:, None]                   # (C, B)
+            a4, a3 = alphas[..., None, None], alphas[..., None]
+            th_c = theta.expand((opt.n_linesearch,) + tuple(theta.shape))
+            phis = merit(X + a4 * dX, U + a4 * dU, s + a4 * ds, sN + a3 * dsN,
+                         mu, nu_new, th_c)
+            phi0 = merit(X, U, s, sN, mu, nu_new, theta)
+            # accept the largest step that does not increase the merit (up to
+            # roundoff); otherwise take the best trial
+            ok = (phis <= phi0 + 1e-12 * (1.0 + phi0.abs())) & torch.isfinite(phis)
+            first_ok = ok.to(torch.int8).argmax(dim=0)
+            best = torch.where(torch.isfinite(phis), phis, float("inf")).argmin(dim=0)
+            pick = torch.where(ok.any(dim=0), first_ok, best)
+            alpha = alphas.gather(0, pick[None])[0]
+
+        al3, al2 = alpha[:, None, None], alpha[:, None]
+        az3, az2 = a_z[:, None, None], a_z[:, None]
+        X_new = X + al3 * dX
+        U_new = U + al3 * dU
+        s_new = torch.clamp(torch.where(mask, s + al3 * ds, 1.0), min=1e-30)
+        sN_new = torch.clamp(torch.where(maskN, sN + al2 * dsN, 1.0), min=1e-30)
+        z_new = torch.clamp(torch.where(mask, z + az3 * dz, 1.0), min=1e-30)
+        zN_new = torch.clamp(torch.where(maskN, zN + az2 * dzN, 1.0), min=1e-30)
+
+        # IPOPT-style dual safeguard: keep z within kappa_Sigma of mu/s
+        kap = 1e10
+        mu3, mu2 = mu[:, None, None], mu[:, None]
+        z_new = torch.clamp(z_new, min=mu3 / (kap * s_new), max=kap * mu3 / s_new)
+        zN_new = torch.clamp(zN_new, min=mu2 / (kap * sN_new), max=kap * mu2 / sN_new)
+
+        finite = (torch.isfinite(X_new).flatten(1).all(dim=1)
+                  & torch.isfinite(U_new).flatten(1).all(dim=1)
+                  & torch.isfinite(z_new).flatten(1).all(dim=1))
+        bad = ~finite
+        # no update when the current iterate already satisfies the KKT
+        # conditions (or the step produced NaNs)
+        keep = converged | bad
+        new = (X_new, U_new, lam_new, s_new, z_new, sN_new, zN_new)
+        old = (X, U, lam, s, z, sN, zN)
+        return _Carry(*[_select(keep, a, b) for a, b in zip(old, new)],
+                      mu=mu, nu_pen=nu_new, kkt=err0, it=cr.it + 1,
+                      converged=converged, diverged=cr.diverged | bad)
+
+    carry = _Carry(X=X, U=U, lam=torch.zeros(Bn, N, nx, **kw), s=s, z=z, sN=sN,
+                   zN=zN, mu=mu0, nu_pen=torch.full((Bn,), 10.0, **kw),
+                   kkt=torch.full((Bn,), float("inf"), **kw),
+                   it=torch.zeros(Bn, dtype=torch.int32, device=device),
+                   converged=torch.zeros(Bn, dtype=torch.bool, device=device),
+                   diverged=torch.zeros(Bn, dtype=torch.bool, device=device))
+
+    for _ in range(opt.max_iter):
+        # finished scenarios freeze themselves, as in the JAX while_loop
+        done = carry.converged | carry.diverged
+        if opt.early_exit and bool(done.all()):
+            break
+        new = iteration(carry)
+        carry = _Carry(*[_select(done, a, b) for a, b in zip(carry, new)])
+
+    obj = objective(carry.X, carry.U, theta)
+    status = torch.where(carry.converged, 0, torch.where(carry.diverged, 2, 1))
+    return OCPSolution(
+        X=carry.X, U=carry.U, lam=carry.lam, s=carry.s, z=carry.z, sN=carry.sN,
+        zN=carry.zN, mu=carry.mu, kkt_error=carry.kkt, objective=obj,
+        iterations=carry.it, converged=carry.converged,
+        status=status.to(torch.int32))
+
+
+def _select(keep, a, b):
+    """Per-scenario where(keep, a, b) for a (B, ...) pair."""
+    return torch.where(keep.reshape(keep.shape + (1,) * (a.dim() - 1)), a, b)

@@ -1,0 +1,145 @@
+"""Riccati block elimination for stagewise (block-banded) KKT systems.
+
+PyTorch port of ``hilo_mpc_tpu/ops/riccati.py``. Batch-first: every block
+carries leading batch dims, the horizon recursion is a Python loop over the
+stage axis, and each per-stage operation is the same unrolled small-matrix
+algebra as the JAX sweeps (ops/smallalg.py). These sweeps are the plain
+version of the CUDA kernel ``ops/cuda_kernels.py:riccati_lq_cuda``.
+
+Equality-constrained LQ problem solved here (per scenario):
+
+    min  Σ_{k=0}^{N-1} [ ½ dxᵀQ_k dx + duᵀS_k dx + ½ duᵀR_k du + q_kᵀdx + r_kᵀdu ]
+         + ½ dx_Nᵀ P_term dx_N + p_termᵀ dx_N
+    s.t. dx_{k+1} = A_k dx_k + B_k du_k + c_k,   dx_0 given.
+
+Stage blocks: Q (..., N, nx, nx), R (..., N, nu, nu), S (..., N, nu, nx),
+q (..., N, nx), r (..., N, nu), A (..., N, nx, nx), B (..., N, nx, nu),
+c (..., N, nx); terminal P_term (..., nx, nx), p_term (..., nx); dx0 (..., nx).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .smallalg import (mm_small as _mm, mv_small as _mv, solve_psd_small,
+                       tmm_small as _tmm, tmv_small as _tmv)
+
+
+class LQSolution(NamedTuple):
+    dX: torch.Tensor      # (..., N+1, nx)
+    dU: torch.Tensor      # (..., N, nu)
+    lam: torch.Tensor     # (..., N, nx) multipliers of the dynamics rows (x_1..x_N)
+    K: torch.Tensor       # (..., N, nu, nx) feedback gains
+    kff: torch.Tensor     # (..., N, nu) feedforward
+    cost_red: torch.Tensor  # (...,) predicted objective reduction
+
+
+def _batch_shape(A, B, Q, S, R, q, r, c, P_term, p_term, dx0=None):
+    """Broadcast batch shape of the LQ blocks (leading dims before the block dims)."""
+    shapes = [A.shape[:-3], B.shape[:-3], Q.shape[:-3], S.shape[:-3],
+              R.shape[:-3], q.shape[:-2], r.shape[:-2], c.shape[:-2],
+              P_term.shape[:-2], p_term.shape[:-1]]
+    if dx0 is not None:
+        shapes.append(dx0.shape[:-1])
+    return torch.broadcast_shapes(*shapes)
+
+
+def backward_sweep(A, B, Q, S, R, q, r, c, P_term, p_term, reg: float = 1e-9):
+    """Backward Riccati recursion. Returns (K, kff, P_0, p_0, Ps_next, ps_next,
+    cost_red) with Ps_next[..., k] = P_{k+1} (what the forward pass needs)."""
+    N, nx = A.shape[-3], A.shape[-1]
+    nu = B.shape[-1]
+    eye_u = torch.eye(nu, dtype=A.dtype, device=A.device)
+    batch = _batch_shape(A, B, Q, S, R, q, r, c, P_term, p_term)
+    P, p = P_term.expand(*batch, nx, nx), p_term.expand(*batch, nx)
+    Ks, kffs, Pns, pns, decs = [None] * N, [None] * N, [None] * N, [None] * N, []
+    for k in range(N - 1, -1, -1):
+        A_k, B_k = A[..., k, :, :], B[..., k, :, :]
+        Pc_p = _mv(P, c[..., k, :]) + p                       # (..., nx)
+        PA = _mm(P, A_k)                                      # (..., nx, nx)
+        PB = _mm(P, B_k)                                      # (..., nx, nu)
+        G = R[..., k, :, :] + _tmm(B_k, PB)                   # (..., nu, nu)
+        G = 0.5 * (G + G.transpose(-1, -2)) + reg * eye_u
+        H_ux = S[..., k, :, :] + _tmm(B_k, PA)                # (..., nu, nx)
+        g_u = r[..., k, :] + _tmv(B_k, Pc_p)                  # (..., nu)
+        sol = -solve_psd_small(G, torch.cat([H_ux, g_u[..., None]], dim=-1))
+        K_k, kff_k = sol[..., :-1], sol[..., -1]
+        Ks[k], kffs[k], Pns[k], pns[k] = K_k, kff_k, P, p
+        P_k = Q[..., k, :, :] + _tmm(A_k, PA) + _tmm(H_ux, K_k)
+        P = 0.5 * (P_k + P_k.transpose(-1, -2))
+        p = q[..., k, :] + _tmv(A_k, Pc_p) + _tmv(H_ux, kff_k)
+        # predicted decrease contribution: -½ kffᵀ g_u
+        decs.append(-0.5 * (kff_k * g_u).sum(dim=-1))
+    # the JAX scan sums the per-stage decrements in stage order 0..N-1
+    dec = torch.stack(decs[::-1], dim=-1).sum(dim=-1)
+    return (torch.stack(Ks, dim=-3), torch.stack(kffs, dim=-2), P, p,
+            torch.stack(Pns, dim=-3), torch.stack(pns, dim=-2), dec)
+
+
+def forward_sweep(A, B, c, K, kff, dx0, Ps_next, ps_next):
+    """Forward rollout of the affine policy; also recovers dynamics multipliers."""
+    N = A.shape[-3]
+    dx = dx0.expand(*torch.broadcast_shapes(dx0.shape[:-1], K.shape[:-3]),
+                    dx0.shape[-1])
+    dXs, dUs, lams = [dx], [], []
+    for k in range(N):
+        du = _mv(K[..., k, :, :], dx) + kff[..., k, :]
+        dx = (_mv(A[..., k, :, :], dx) + _mv(B[..., k, :, :], du)
+              + c[..., k, :])
+        lams.append(_mv(Ps_next[..., k, :, :], dx) + ps_next[..., k, :])
+        dXs.append(dx)
+        dUs.append(du)
+    return (torch.stack(dXs, dim=-2), torch.stack(dUs, dim=-2),
+            torch.stack(lams, dim=-2))
+
+
+def solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
+             reg: float = 1e-9) -> LQSolution:
+    """Solve the stagewise equality-constrained LQ problem by Riccati elimination."""
+    K, kff, _, _, Ps_next, ps_next, dec = backward_sweep(
+        A, B, Q, S, R, q, r, c, P_term, p_term, reg)
+    dX, dU, lam = forward_sweep(A, B, c, K, kff, dx0, Ps_next, ps_next)
+    return LQSolution(dX=dX, dU=dU, lam=lam, K=K, kff=kff, cost_red=dec)
+
+
+def make_lq_solver(reg: float = 1e-9):
+    """The batched LQ solve used by every interior-point iteration; the
+    counterpart of ``hilo_mpc_tpu/ops/riccati.py:make_lq_solver_pallas``.
+
+    CPU tensors go to the plain sweeps above. CUDA tensors ALWAYS go to the
+    hand-written kernel (``ops/cuda_kernels.py:riccati_lq_cuda``), in float32
+    and float64 alike — unlike the JAX dispatcher there is no dtype or shape
+    exit to the plain path; the kernel raises on what it does not take. The
+    blocks are broadcast to one batch shape (flattened to one batch axis)
+    and made contiguous first, because the kernel reads dense batch-first
+    arrays."""
+    factory_reg = reg
+
+    def solve(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=None):
+        if reg is not None and reg != factory_reg:
+            raise ValueError(
+                f"make_lq_solver was built with reg={factory_reg}; per-call "
+                f"reg={reg} is not supported — rebuild the solver")
+        if not A.is_cuda:
+            return solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
+                            reg=factory_reg)
+        from .cuda_kernels import riccati_lq_cuda
+
+        N, nx, nu = A.shape[-3], A.shape[-1], B.shape[-1]
+        batch = _batch_shape(A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+        Bt = 1
+        for d in batch:
+            Bt *= d
+
+        def dense(x, tail):
+            return x.expand(*batch, *tail).reshape(Bt, *tail).contiguous()
+
+        out = riccati_lq_cuda(
+            dense(A, (N, nx, nx)), dense(B, (N, nx, nu)), dense(Q, (N, nx, nx)),
+            dense(S, (N, nu, nx)), dense(R, (N, nu, nu)), dense(q, (N, nx)),
+            dense(r, (N, nu)), dense(c, (N, nx)), dense(P_term, (nx, nx)),
+            dense(p_term, (nx,)), dense(dx0, (nx,)), reg=factory_reg)
+        return LQSolution(*[o.reshape(*batch, *o.shape[1:]) for o in out])
+
+    return solve

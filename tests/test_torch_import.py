@@ -1,0 +1,41 @@
+"""PyTorch port: importing the package needs neither JAX nor a GPU toolchain."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import sys
+import hilo_mpc_tpu_torch
+import hilo_mpc_tpu_torch.ops.cuda_kernels
+import hilo_mpc_tpu_torch.utils.interop
+from hilo_mpc_tpu_torch import NMPC, Model, TimeSeries, library
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "hilo_mpc_tpu", "triton"))
+print("LOADED=" + ",".join(loaded))
+"""
+
+
+def test_import_without_jax_or_toolchain(tmp_path):
+    # nvcc is out of reach: a bare PATH and a CUDA_HOME that does not exist
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": str(tmp_path / "no-cuda"),
+           "PYTHONPATH": ROOT, "HOME": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED=\n" in proc.stdout, proc.stdout
+
+
+def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
+    """No fallback: without nvcc the kernel build raises instead of running
+    something else."""
+    from hilo_mpc_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()

@@ -1,0 +1,142 @@
+"""PyTorch port: the NMPC entry points against the JAX package and the golden
+closed-loop fixture (CPU, f64)."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from golden_configs import CSTR_P, CSTR_REF, build_cstr_tracking
+from hilo_mpc_tpu_torch import NMPC
+from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+from hilo_mpc_tpu_torch.utils.interop import to_numpy
+
+torch.set_num_threads(1)
+F64 = torch.float64
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cstr_tracking.npz")
+
+
+def port_cstr_tracking(options=None, horizon=20, **setup_kw):
+    """The port's twin of golden_configs.build_cstr_tracking."""
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = horizon
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=CSTR_REF)
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    nmpc.set_parameters(CSTR_P)
+    opts = {"dt": 0.1, "integration_method": "rk4", "tol": 1e-9, "max_iter": 80}
+    nmpc.setup(options={**opts, **(options or {})}, **{"dtype": F64, **setup_kw})
+    return nmpc
+
+
+@pytest.mark.parametrize("guess", ["auto", "constant"])
+def test_prepare_batch_matches_jax(guess):
+    jn, _ = build_cstr_tracking()
+    jn._guess_mode = guess
+    tn = port_cstr_tracking({"initial_guess": guess})
+    rng = np.random.default_rng(3)
+    x0s = np.array([0.2, 0.1]) + 0.05 * rng.standard_normal((8, 2))
+    j = jn.prepare_batch(x0s)
+    t = to_numpy(tn.prepare_batch(x0s))
+    for a, b in zip(t, j):
+        assert a.shape == np.asarray(b).shape
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-12)
+
+
+def test_golden_replay():
+    """tests/golden/cstr_tracking.npz through the port's optimize: the
+    BASELINE acceptance max|u - u_gold| < 1e-4 over every closed-loop step
+    (tests/test_golden_parity.py:40-54)."""
+    data = np.load(GOLDEN)
+    nmpc = port_cstr_tracking()
+    X_meas, U_gold = data["X_meas"], data["U_gold"]
+    assert U_gold.shape[0] >= 20
+    devs = []
+    for k in range(U_gold.shape[0]):
+        u = nmpc.optimize(X_meas[k])
+        assert nmpc.stats["converged"] and nmpc.stats["status"] == 0
+        devs.append(np.abs(u - U_gold[k]).max())
+    assert max(devs) < 1e-4, devs
+    assert nmpc.solution["u"].shape == (1, U_gold.shape[0])
+    assert nmpc.solution["stats"].shape == (4, U_gold.shape[0])
+
+
+def test_optimize_batch_and_multistart():
+    nmpc = port_cstr_tracking({"tol": 1e-8})
+    x0s = np.array([[0.2, 0.1], [0.25, 0.12], [0.15, 0.05]])
+    u0, sol = nmpc.optimize_batch(x0s)
+    assert u0.shape == (3, 1) and bool(sol.converged.all())
+    for i, x0 in enumerate(x0s):
+        single = port_cstr_tracking({"tol": 1e-8})
+        u_multi = single.optimize(x0, runs=3, seed=1)
+        np.testing.assert_allclose(u_multi, u0[i], atol=1e-6)
+
+
+def test_runtime_reference():
+    """A trajectory-tracking term takes its reference per solve through theta."""
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = 10
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], trajectory_tracking=True)
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_parameters(CSTR_P)
+    nmpc.setup(options={"dt": 0.1, "tol": 1e-8}, dtype=F64)
+    with pytest.raises(ValueError, match="runtime reference"):
+        nmpc.optimize([0.2, 0.1])
+    u_dict = nmpc.optimize([0.2, 0.1], ref_sc={"x_1": 0.3, "x_2": 0.18055})
+    fixed = port_cstr_tracking({"tol": 1e-8}, horizon=10)
+    np.testing.assert_allclose(u_dict, fixed.optimize([0.2, 0.1]), atol=1e-6)
+
+
+def test_unknown_option_raises():
+    with pytest.raises(ValueError, match="unknown options"):
+        port_cstr_tracking({"max_iters": 5})
+
+
+def test_entry_point_order_is_enforced():
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    with pytest.raises(ValueError, match="horizon"):
+        nmpc.setup(options={"dt": 0.1})
+    nmpc.horizon = 5
+    with pytest.raises(RuntimeError):
+        nmpc.optimize([0.2, 0.1])
+    with pytest.raises(RuntimeError):
+        nmpc.prepare_batch([[0.2, 0.1]])
+
+
+def _du_bounds(n):
+    n.set_box_constraints(du_lb=[-0.1], du_ub=[0.1])
+    n.setup(options={"dt": 0.1})
+
+
+def _control_horizon(n):
+    n.control_horizon = 3
+    n.setup(options={"dt": 0.1})
+
+
+OUT_OF_SLICE = {
+    "inputs_change": lambda n: n.quad_stage_cost.add_inputs_change(weights=1.0),
+    "measurements": lambda n: n.quad_stage_cost.add_measurements(weights=1.0),
+    "path_following": lambda n: n.quad_stage_cost.add_states(path_following=True),
+    "du_bounds": _du_bounds,
+    "control_horizon": _control_horizon,
+    "x_soft": lambda n: n.set_box_constraints(x_ub=[1.0, 1.0], x_soft=True),
+    "stage_cost": lambda n: n.stage_cost,
+    "stage_constraint": lambda n: n.add_stage_constraint(lambda x: x, ub=1.0),
+    "discrete_inputs": lambda n: n.set_discrete_inputs("u"),
+    "tvp": lambda n: n.set_time_varying_parameters(["E"]),
+    "path_variable": lambda n: n.create_path_variable(),
+    "min_time": lambda n: n.minimize_final_time(),
+    "rti": lambda n: n.rti_prepare(x_pred=[0.2, 0.1]),
+    "collocation": lambda n: n.setup(options={"dt": 0.1,
+                                              "integration_method": "collocation"}),
+    "parallel_riccati": lambda n: n.setup(options={"dt": 0.1,
+                                                   "parallel_riccati": True}),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(OUT_OF_SLICE))
+def test_out_of_slice_features_raise(feature):
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = 5
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        OUT_OF_SLICE[feature](nmpc)
