@@ -3,18 +3,29 @@
 
     python3 chip_smoke.py
 
-Phase 0  card name and power limit; build every CUDA kernel from csrc/.
+Phase 0  card name and power limit; build every CUDA kernel from csrc/ (one
+         nvcc per source, all started together).
 Phase 1  each kernel against its plain PyTorch version on the card, at the
-         shapes the main path gives it (float32 and float64), and both timed
-         at the flagship shape.
-Phase 2  the main path at full width: the flagship CSTR NMPC (N=20, RK4,
+         shapes the main paths give it, and both timed at the flagship shape,
+         beside the least time the card could take for the same work.
+Phase 2  the NMPC path at full width: the flagship CSTR NMPC (N=20, RK4,
          box-bounded input, quadratic tracking cost) through
          NMPC.setup(device="cuda") -> prepare_batch -> solve_batch_fn, cold
-         and warm-started, on B=131072 scenarios; kernel launch counts are
-         read around exactly this run. The first 1024 scenarios are solved
-         again with the plain LQ step in place of the kernel and compared.
+         and warm-started, on B=131072 scenarios; the Riccati kernel's launch
+         count is read around exactly this run. The first 1024 scenarios are
+         solved again with the plain LQ step in place of the kernel and
+         compared.
 Phase 3  the golden closed-loop fixture tests/golden/cstr_tracking.npz
          replayed through NMPC.optimize in float64 on the card.
+Phase 4  the linear-MPC path at full width: a discrete double integrator
+         (N=20, |u| <= 1) through Model(discrete=True).set_state_space ->
+         LMPC.setup(device="cuda") -> optimize_batch_fgm on B=131072
+         scenarios (the FGM kernel's launch count is read around exactly
+         this run); the first 1024 scenarios again through the interior point
+         (LMPC.optimize_batch, the Riccati kernel) and compared; the
+         infinite-horizon LQR of the same model against SciPy's DARE.
+Phase 5  the golden fixture tests/golden/lmpc_di.npz replayed through
+         LMPC.optimize in float64 on the card.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -26,11 +37,19 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 131072
 N = 20
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
+GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
+KERNELS = ("riccati_lq", "fgm_boxqp")
+FGM_ITERS = 100
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(*a):
@@ -54,6 +73,35 @@ def cuda_time_ms(fn, reps=10, warmup=3):
         torch.cuda.synchronize()
         ts.append(e0.elapsed_time(e1))
     return float(np.median(ts))
+
+
+def bound_ms(nbytes, flops):
+    """Least time (ms) for the work on the card, and what bounds it: the
+    larger of bytes over the memory rate and float32 FLOPs over the peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def riccati_lq_work(Bt, n, nx, nu, itemsize=4):
+    """(bytes, FLOPs) of one batched LQ solve: each input read once, each
+    output written once; FLOPs of the backward sweep and the forward pass
+    per stage, as the kernel computes them."""
+    per_stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
+    inputs = n * per_stage_in + nx * nx + 2 * nx
+    outputs = (n + 1) * nx + n * (2 * nu + nx + nu * nx) + 1
+    back = (2 * nx * nx + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nu * nu * nx
+            + 2 * nu * nx * nx + 2 * nu * nx + nu ** 3 // 3 + 2 * nu * nu * (nx + 1)
+            + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nx * nx + 2 * nx * nu + 2 * nu)
+    fwd = 2 * nu * nx + 2 * nx * nx + 2 * nx * nu + 2 * nx * nx
+    return Bt * (inputs + outputs) * itemsize, Bt * n * (back + fwd)
+
+
+def fgm_work(Bt, n, nx, iters, with_u0=False):
+    """(bytes, FLOPs) of one batched FGM solve in float32: H, G, x0, lb, ub
+    (and u0) read once, u written once; per scenario g = G x0 once, then per
+    iteration H y (2n²) and the gradient step, clip and momentum (8n)."""
+    nbytes = 4 * (n * n + n * nx + 2 * n + Bt * nx + Bt * n * (2 if with_u0 else 1))
+    return nbytes, Bt * (2 * n * nx + iters * (2 * n * n + 8 * n))
 
 
 def lq_problem(Bt, n, nx, nu, dtype, seed=0):
@@ -108,7 +156,12 @@ def build_cstr_nmpc(options, dtype):
 
 
 def phase1(report):
-    """Kernel vs plain version on the card."""
+    """Each kernel vs its plain version on the card."""
+    phase1_riccati(report.setdefault("riccati_lq", {}))
+    phase1_fgm(report.setdefault("fgm_boxqp", {}))
+
+
+def phase1_riccati(report):
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_cuda,
                                                      riccati_lq_reference)
@@ -139,9 +192,73 @@ def phase1(report):
     args = lq_problem(B_MAIN, N, 2, 1, torch.float32)
     ms = cuda_time_ms(lambda: riccati_lq_cuda(*args, reg=1e-8))
     plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
+    b_ms, b_by = bound_ms(*riccati_lq_work(B_MAIN, N, 2, 1))
     log(f"phase1 riccati_lq B={B_MAIN} N={N} nx=2 nu=1 float32: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (median of 10, CUDA events)")
-    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.4f} ms (median of 10, CUDA events); bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_by=b_by)
+
+
+def random_qp(n, nx=2, seed=0):
+    """Random box-QP (the generator of tests/test_pallas_kernels.py:12-19)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    return M @ M.T + np.eye(n), rng.normal(size=(n, nx)), -np.ones(n), np.ones(n)
+
+
+def phase1_fgm(report):
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (
+        FGM_MAX_N, fgm_boxqp_cuda, fgm_boxqp_launch, fgm_boxqp_reference,
+        fgm_constants)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=float), dtype=torch.float32,
+                               device="cuda").contiguous()
+
+    max_err = 0.0
+    for n in sorted({6, 20, 64, 128, FGM_MAX_N}):
+        for with_u0 in (False, True):
+            for inf in (False, True):
+                H, G, lb, ub = random_qp(n)
+                if inf:
+                    lb[::2], ub[1::3] = -np.inf, np.inf
+                rng = np.random.default_rng(1)
+                x0 = rng.normal(size=(1000, 2))
+                u0 = dev(0.1 * rng.normal(size=(1000, n))) if with_u0 else None
+                args = (dev(H), dev(G), dev(x0), dev(lb), dev(ub), 200, u0)
+                err = float((fgm_boxqp_cuda(*args)
+                             - fgm_boxqp_reference(*args)).abs().max())
+                torch.cuda.synchronize()
+                log(f"phase1 fgm_boxqp B=1000 n={n} iters=200 u0={with_u0} "
+                    f"inf_bounds={inf}: max|kernel-plain| = {err:.3e}")
+                assert err <= 1e-4, err
+                max_err = max(max_err, err)
+    # the flagship shape: phase 4's condensed QP (n = N·nu = 20, nx = 2),
+    # with the constants from its float64 H as LMPC.optimize_batch_fgm takes them
+    H, G, lb, ub = build_di_lmpc(torch.float32, {}, setup=False).condensed_qp()
+    consts = fgm_constants(H)
+    x0 = np.random.default_rng(0).standard_normal((B_MAIN, 2))
+    args = (dev(H), dev(G), dev(x0), dev(lb), dev(ub), FGM_ITERS)
+    err = float((fgm_boxqp_cuda(*args, constants=consts)
+                 - fgm_boxqp_reference(*args, constants=consts)).abs().max())
+    torch.cuda.synchronize()
+    log(f"phase1 fgm_boxqp B={B_MAIN} n={H.shape[0]} iters={FGM_ITERS} (phase 4's "
+        f"QP): max|kernel-plain| = {err:.3e}")
+    assert err <= 1e-4, err
+    max_err = max(max_err, err)
+    ms = cuda_time_ms(lambda: fgm_boxqp_launch(*args, None, *consts))
+    wrapper_ms = cuda_time_ms(lambda: fgm_boxqp_cuda(*args, constants=consts))
+    plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
+    b_ms, b_by = bound_ms(*fgm_work(B_MAIN, H.shape[0], 2, FGM_ITERS))
+    log(f"phase1 fgm_boxqp B={B_MAIN} n={H.shape[0]} nx=2 iters={FGM_ITERS} float32: "
+        f"kernel {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(median of 10, CUDA events); bound {b_ms:.4f} ms ({b_by})")
+    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_by=b_by)
 
 
 def phase2(report):
@@ -194,7 +311,7 @@ def phase2(report):
     log(f"phase2 warm: {B_MAIN / t_warm:.1f} solves/s ({t_warm:.4f} s wall), "
         f"converged {conv_w:.4f}, iterations p50 {it_w:g} max "
         f"{int(sol_w.iterations.max())}")
-    log(f"phase2 riccati_lq launches in the main path: {launches}")
+    log(f"phase2 riccati_lq launches in the NMPC path: {launches}")
 
     # the same solve with the plain LQ step in place of the kernel
     sub = tuple(a[:1024] for a in args)
@@ -207,7 +324,7 @@ def phase2(report):
     dev = float((sol.U[:1024] - sol_ref.U).abs().max())
     log(f"phase2 first 1024 scenarios: max|U_kernel - U_plain| = {dev:.3e}")
     assert dev < 1e-3, dev
-    report["launches"] = launches
+    report["riccati_lq"]["launches"] = launches
 
 
 def phase3():
@@ -232,6 +349,143 @@ def phase3():
     assert max(devs) < 1e-4, devs
 
 
+DI_A = [[1.0, 0.1], [0.0, 1.0]]
+DI_B = [[0.005], [0.1]]
+DI_Q = [[2.0, 0.0], [0.0, 0.5]]
+DI_R = [[0.1]]
+
+
+def di_model():
+    import numpy as np
+    from hilo_mpc_tpu_torch import Model
+    m = Model(name="lin", discrete=True)
+    return m.set_state_space(A=np.array(DI_A), B=np.array(DI_B))
+
+
+def build_di_lmpc(dtype, options, setup=True):
+    """The LMPC of tools/tpu_validation.py:249-260 (discrete double
+    integrator, dt 0.1, N=20, Q=diag(2, 0.5), R=0.1, |u| <= 1) with the
+    terminal weight P = Q: without P the condensed QP weights x_N by Q while
+    the interior point has no terminal cost, and the two answers differ by
+    3.4e-3 (ROADMAP.md §C)."""
+    import numpy as np
+    from hilo_mpc_tpu_torch import LMPC
+    lmpc = LMPC(di_model())
+    lmpc.horizon = N
+    lmpc.Q = np.array(DI_Q)
+    lmpc.R = np.array(DI_R)
+    lmpc.P = lmpc.Q
+    lmpc.set_box_constraints(u_lb=[-1.0], u_ub=[1.0])
+    if setup:
+        lmpc.setup(options={"dt": 0.1, **options}, device="cuda", dtype=dtype)
+    return lmpc
+
+
+def phase4(report):
+    """The linear-MPC path at full width, its interior point and LQR."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+    from hilo_mpc_tpu_torch import LQR
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (fgm_boxqp_cuda, fgm_constants,
+                                                     riccati_lq_cuda)
+
+    lmpc = build_di_lmpc(torch.float32, {})
+    x0s = np.random.default_rng(0).standard_normal((B_MAIN, 2))
+    lmpc.optimize_batch_fgm(x0s, iters=FGM_ITERS)      # untimed, full-size warm-up
+    torch.cuda.synchronize()
+
+    fgm_boxqp_cuda.launches = 0
+    t0 = time.perf_counter()
+    u = lmpc.optimize_batch_fgm(x0s, iters=FGM_ITERS)
+    t_fgm = time.perf_counter() - t0
+    launches = fgm_boxqp_cuda.launches
+    assert u.shape == (B_MAIN, 1), u.shape
+    assert np.isfinite(u).all()
+    assert launches > 0, "the LMPC path never launched the fgm_boxqp kernel"
+    assert np.abs(u).max() <= 1.0 + 1e-6
+    t0 = time.perf_counter()
+    H = lmpc.condensed_qp()[0]
+    t_cond = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fgm_constants(H)                  # as optimize_batch_fgm takes it: on the host
+    t_spec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.as_tensor(x0s, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t_x0 = time.perf_counter() - t0
+    log(f"phase4 LMPC.optimize_batch_fgm B={B_MAIN} N={N} iters={FGM_ITERS} "
+        f"float32: {B_MAIN / t_fgm:.1f} solves/s ({t_fgm:.4f} s wall, x0 from "
+        f"and u to the host included); fgm_boxqp launches {launches}; parts "
+        f"timed alone: condensing {t_cond * 1e3:.3f} ms, spectrum of H "
+        f"{t_spec * 1e3:.3f} ms, x0 to the card {t_x0 * 1e3:.3f} ms")
+    report["fgm_boxqp"]["launches"] = launches
+
+    # the first 1024 scenarios through the interior point, float64 at
+    # tol 1e-9 so that its own error is far below the comparison's
+    ip = build_di_lmpc(torch.float64, {"tol": 1e-9, "max_iter": 80})
+    n0 = riccati_lq_cuda.launches
+    t0 = time.perf_counter()
+    u_ip, sol = ip.optimize_batch(x0s[:1024])
+    t_ip = time.perf_counter() - t0
+    ric = riccati_lq_cuda.launches - n0
+    assert bool(sol.converged.all()), "interior point did not converge"
+    assert ric > 0, "LMPC.optimize_batch never launched the riccati_lq kernel"
+    for iters in (FGM_ITERS, 2 * FGM_ITERS, 4 * FGM_ITERS, 8 * FGM_ITERS):
+        dev = float(np.abs(lmpc.optimize_batch_fgm(x0s[:1024], iters=iters)
+                           - u_ip).max())
+        if dev <= 5e-4:
+            break
+    log(f"phase4 first 1024 scenarios: interior point float64 {t_ip:.3f} s, "
+        f"iterations max {int(sol.iterations.max())}, riccati_lq launches {ric}; "
+        f"FGM at {iters} iterations: max|u_fgm - u_ip| = {dev:.3e}")
+    assert dev <= 5e-4, dev
+
+    lqr = LQR(di_model())
+    lqr.horizon = None
+    lqr.Q, lqr.R = np.array(DI_Q), np.array(DI_R)
+    lqr.setup(dt=0.1, device="cuda", dtype=torch.float64)
+    P_ref = scipy.linalg.solve_discrete_are(np.array(DI_A), np.array(DI_B),
+                                            np.array(DI_Q), np.array(DI_R))
+    dev_P = float(np.abs(lqr.P - P_ref).max())
+    log(f"phase4 LQR infinite horizon float64: max|P - P_scipy| = {dev_P:.3e}")
+    assert dev_P < 1e-6, dev_P
+
+
+def phase5():
+    """Golden lmpc_di replay in float64 on the card (the configuration of
+    tests/golden_configs.py:63-88)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import LMPC, Model
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    data = np.load(GOLDEN_LMPC)
+    X_meas, U_gold = data["X_meas"], data["U_gold"]
+    m = Model(discrete=True)
+    m.set_state_space(A=np.array(DI_A), B=np.array([[0.5 * 0.1 ** 2], [0.1]]))
+    lmpc = LMPC(m)
+    lmpc.horizon = 15
+    lmpc.Q = np.diag([2.0, 0.5])
+    lmpc.R = np.array([[0.1]])
+    lmpc.P = np.diag([8.0, 2.0])
+    lmpc.set_box_constraints(u_lb=[-0.8], u_ub=[0.8], x_lb=[-np.inf, -0.6],
+                             x_ub=[np.inf, 0.6])
+    lmpc.setup(options={"dt": 0.1, "tol": 1e-9, "max_iter": 80}, device="cuda",
+               dtype=torch.float64)
+    n0 = riccati_lq_cuda.launches
+    t0 = time.perf_counter()
+    devs = []
+    for k in range(U_gold.shape[0]):
+        u = lmpc.optimize(X_meas[k])
+        devs.append(float(np.abs(u - U_gold[k]).max()))
+        assert lmpc.stats["converged"], (k, lmpc.stats)
+    dt = time.perf_counter() - t0
+    assert riccati_lq_cuda.launches > n0
+    log(f"phase5 golden lmpc_di float64: {len(devs)} steps in {dt:.2f} s, "
+        f"max|u - u_gold| = {max(devs):.3e}")
+    assert max(devs) < 1e-4, devs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -239,32 +493,45 @@ def main():
         return 2
     from hilo_mpc_tpu_torch.ops import _build
 
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    log(f"phase0 device: {name}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    log(f"phase0 device: {device_name}; torch {torch.__version__} "
+        f"CUDA {torch.version.cuda}")
     log(smi)
     t0 = time.perf_counter()
-    lib = _build.library_path("riccati_lq")
-    log(f"phase0 built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.1f} s")
-    with open(lib + ".log") as fh:
-        for line in fh:
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(_build.library_path, KERNELS))
+    log(f"phase0 built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        with open(lib + ".log") as fh:
+            for line in fh:
+                if "registers" in line or "spill" in line:
+                    log(f"  {os.path.basename(lib)}: " + line.strip())
 
     report = {}
     phase1(report)
     phase2(report)
     phase3()
-    kernels = [{"name": "riccati_lq", "route": "cuda",
-                "source": "hilo_mpc_tpu_torch/csrc/riccati_lq.cu",
-                "replaces": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
-                "launches": report["launches"],
-                "max_abs_err": report["max_abs_err"],
-                "ms": report["ms"], "plain_ms": report["plain_ms"]}]
+    phase4(report)
+    phase5()
+    replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
+                "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26"}
+    kernels = []
+    for name in KERNELS:
+        r = report[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"hilo_mpc_tpu_torch/csrc/{name}.cu",
+                        "replaces": replaces[name], "launches": r["launches"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        # no single PyTorch call computes either function
+                        "library_ms": None})
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))
     return 0
 

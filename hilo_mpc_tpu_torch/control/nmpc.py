@@ -8,7 +8,8 @@ kept stagewise and solved by the batched interior point of ops/ip_solver.py,
 whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors.
 
 Entry points: ``setup(options, device=..., dtype=...)`` (explicit device and
-dtype, nothing chosen by detection), ``prepare_batch`` -> ``solve_batch_fn``
+dtype, nothing chosen by detection; ``"cuda"`` unless the caller passes
+``device="cpu"``), ``prepare_batch`` -> ``solve_batch_fn``
 for B scenarios at once, ``optimize`` for one closed-loop step and
 ``optimize_batch``. Every problem function is batch-first: x (..., n_x),
 u (..., n_u), theta (..., n_theta).
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.integrators import IntegratorSpec, make_step
-from ..core.model import Model
+from ..core.model import Model, resolve_device
 from ..core.series import TimeSeries
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
@@ -196,9 +197,11 @@ class NMPC:
 
     # -- setup ----------------------------------------------------------------
     def setup(self, options: Optional[dict] = None, solver_options: Optional[dict]
-              = None, nlp_opts: Optional[dict] = None, device="cpu",
+              = None, nlp_opts: Optional[dict] = None, device="cuda",
               dtype=torch.float32):
-        """Build the stagewise problem on ``device`` in ``dtype``."""
+        """Build the stagewise problem on ``device`` in ``dtype``. A CUDA
+        device that PyTorch cannot see raises; pass ``device="cpu"`` to run
+        on the CPU."""
         options = dict(options or {})
         options.update(nlp_opts or {})
         unknown = set(options) - _NLP_OPTION_KEYS
@@ -218,9 +221,9 @@ class NMPC:
                 or np.any(np.isfinite(self._du_ub))):
             raise _not_ported("the Δu formulation (Δu bounds or control_horizon "
                               "< horizon)")
+        self._device = resolve_device(device)
         self._dt = float(dt)
         self._opts = options
-        self._device = torch.device(device)
         self._dtype = dtype
         kw = dict(dtype=dtype, device=self._device)
 

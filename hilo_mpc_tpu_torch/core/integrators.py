@@ -7,6 +7,7 @@ time arguments ``t``/``dt`` are numbers or tensors broadcastable against
 
 Conventions:
   - ``ode(x, z, u, p, t) -> dx``   shape (..., nx)
+    (for a discrete-time model: the next state)
   - ``step(x, z, u, p, t, dt) -> (x_next, z_next)``
 
 Implicit integrators (collocation, Newton-solved DAE stages) are not ported
@@ -126,6 +127,19 @@ def make_erk_step(
     return step
 
 
+def make_discrete_step(f: Callable, alg: Optional[Callable] = None, nz: int = 0,
+                       newton_iters: int = 8) -> Callable:
+    """Wrap an already-discrete map x+ = f(x, z, u, p, t) as a step function."""
+    if alg is not None and nz:
+        raise NotImplementedError(
+            _NOT_PORTED.format(what="DAE algebraic states"))
+
+    def step(x, z, u, p, t, dt):
+        return f(x, z, u, p, t), z
+
+    return step
+
+
 def with_substeps(step: Callable, substeps: int) -> Callable:
     """Divide each dt into ``substeps`` equal integrator steps."""
     if substeps <= 1:
@@ -143,7 +157,7 @@ def with_substeps(step: Callable, substeps: int) -> Callable:
 class IntegratorSpec(NamedTuple):
     """Static description of an integrator configuration."""
 
-    method: str = "rk4"  # erk name
+    method: str = "rk4"  # erk name | 'discrete'
     degree: int = 3
     scheme: str = "radau"
     substeps: int = 1
@@ -159,8 +173,12 @@ def make_step(
 ) -> Callable:
     """Dispatch to the right step factory. Returns step(x, z, u, p, t, dt)."""
     m = spec.method.lower()
-    if m in ("collocation", "irk", "cvodes", "idas", "discrete"):
+    if m in ("collocation", "irk", "cvodes", "idas"):
         raise NotImplementedError(
             _NOT_PORTED.format(what=f"integration_method={spec.method!r}"))
-    base = make_erk_step(ode, alg, nz=nz, method=m, newton_iters=spec.newton_iters)
+    if m == "discrete":
+        base = make_discrete_step(ode, alg, nz=nz, newton_iters=spec.newton_iters)
+    else:
+        base = make_erk_step(ode, alg, nz=nz, method=m,
+                             newton_iters=spec.newton_iters)
     return with_substeps(base, spec.substeps)

@@ -4,18 +4,22 @@ PyTorch port of ``hilo_mpc_tpu/core/model.py`` (the parts the batched NMPC
 path needs). A model's equations are plain functions ``f(x, z, u, p, t)`` over
 BATCH-FIRST tensors (``x`` is ``(..., n_x)``, the result ``(..., n_x)``), built
 from the equation-string DSL (utils/parsing.py) or given as callables.
-``setup`` composes them with a fixed-step ERK integrator (core/integrators.py)
-on an explicit device and dtype; ``simulate`` rolls the step out with a Python
-loop over time, every scenario at once.
+A linear model may instead be declared by its state-space matrices
+(``set_state_space``), and a discrete-time model (``Model(discrete=True)``)
+gives the next state instead of the derivative. ``setup`` composes the
+equations with a fixed-step ERK integrator, or the discrete map, on an explicit
+device and dtype (``"cuda"`` unless the caller asks for the CPU); ``simulate``
+rolls the step out with a Python loop over time, every scenario at once.
+``linearize``, ``discretize`` and ``jacobians`` derive linear and discrete
+models by ``torch.func`` forward-mode Jacobians.
 
-Not ported yet: quadratures, DAE algebraic states, discrete-time models,
-linearization and the state-space declaration (ROADMAP.md §A item 7).
+Not ported yet: quadratures and DAE algebraic states (ROADMAP.md §A item 7).
 """
 from __future__ import annotations
 
 import copy as _copy
 import inspect
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,6 +30,32 @@ from .variables import VarSpec
 
 _CANONICAL_ARGS = ("x", "z", "u", "p", "t")
 _NOT_PORTED = "{what} is not ported to the PyTorch package yet — ROADMAP.md §A item 7"
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device that PyTorch cannot
+    see is an error: nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r}, but PyTorch sees no CUDA device; pass "
+            f"device='cpu' to run on the CPU")
+    return dev
+
+
+def _device_matrix(M: np.ndarray):
+    """``M`` as a tensor of the dtype and device of the argument, one copy per
+    (dtype, device): a state-space closure does not copy its matrix to the
+    device on every call."""
+    cache = {}
+
+    def get(like):
+        key = (like.dtype, like.device)
+        if key not in cache:
+            cache[key] = torch.as_tensor(M, dtype=like.dtype, device=like.device)
+        return cache[key]
+
+    return get
 
 
 def wrap_rhs(fn: Callable, what: str = "rhs") -> Callable:
@@ -78,6 +108,9 @@ class Model:
         self._quad: Optional[Callable] = None
         self._equations_src: Optional[str] = None
 
+        # linear state-space matrices if declared that way
+        self._ss: Dict[str, Optional[np.ndarray]] = {k: None for k in "ABCDM"}
+
         self._dt: Optional[float] = None
         self._int_spec: Optional[IntegratorSpec] = None
         self._step = None          # step(x, z, u, p, t, dt) -> (x+, z+, y+, q+)
@@ -90,6 +123,12 @@ class Model:
         self._p0: Optional[np.ndarray] = None
         self._time = 0.0
         self.solution: Optional[TimeSeries] = None
+
+        # deferred linearization: linearize() without a point, then
+        # set_equilibrium_point() on the linearized model
+        self._linearized_parent: Optional["Model"] = None
+        self._needs_equilibrium = False
+        self._equilibrium: Optional[dict] = None
 
     # -- dimensions ---------------------------------------------------------
     @property
@@ -215,6 +254,90 @@ class Model:
                 self._meas = wrap_rhs(fn, what)
         return self
 
+    # -- linear state-space declaration --------------------------------------
+    def set_state_space(self, A=None, B=None, C=None, D=None, M=None):
+        """Declare a (possibly time-discrete) linear model x' = Ax + Bu,
+        y = Cx + Du. Undeclared states, inputs and measurements are named from
+        the matrix shapes (x_0, u_0, y_0, ...)."""
+        for key, val in zip("ABCDM", (A, B, C, D, M)):
+            if val is not None:
+                self._ss[key] = np.atleast_2d(np.asarray(val, dtype=float))
+        A_ = self._ss["A"]
+        if A_ is not None and A_.shape[0] != A_.shape[1]:
+            raise ValueError(f"A must be square, got {A_.shape}")
+        if A_ is not None and self._x.n == 0:
+            self._x.add(A_.shape[0], prefix="x")
+        B_ = self._ss["B"]
+        if B_ is not None and A_ is not None and B_.shape[0] != A_.shape[0]:
+            raise ValueError(f"B has {B_.shape[0]} rows for {A_.shape[0]} states")
+        if B_ is not None and self._u.n == 0:
+            self._u.add(B_.shape[1], prefix="u")
+        C_ = self._ss["C"]
+        if C_ is not None and self._x.n and C_.shape[1] != self._x.n:
+            raise ValueError(f"C has {C_.shape[1]} columns for {self._x.n} states")
+        if C_ is not None and self._y.n == 0:
+            self._y.add(C_.shape[0], prefix="y")
+        D_ = self._ss["D"]
+        if D_ is not None and self._u.n and D_.shape[1] != self._u.n:
+            raise ValueError(f"D has {D_.shape[1]} columns for {self._u.n} inputs")
+        if D_ is not None and C_ is not None and D_.shape[0] != C_.shape[0]:
+            raise ValueError(f"D has {D_.shape[0]} rows for {C_.shape[0]} "
+                             "measurements")
+        if D_ is not None and self._y.n == 0:
+            self._y.add(D_.shape[0], prefix="y")
+
+        nx, nu, ny = self._x.n, self._u.n, self._y.n
+        # transposed snapshots: batch-first rows times Mᵀ
+        At, Bt, Ct, Dt = (None if m is None else _device_matrix(m.T.copy())
+                          for m in (A_, B_, C_, D_))
+
+        def affine(Mx, Mu, n):
+            def fn(x, z, u, p, t):
+                out = torch.zeros(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+                if Mx is not None:
+                    out = out + x @ Mx(x)
+                if Mu is not None and nu:
+                    out = out + u @ Mu(x)
+                return out
+            return fn
+
+        self._ode = affine(At, Bt, nx)
+        if Ct is not None or Dt is not None:
+            self._meas = affine(Ct, Dt, ny)
+        return self
+
+    @property
+    def A(self):
+        return None if self._ss["A"] is None else np.array(self._ss["A"])
+
+    @A.setter
+    def A(self, val):
+        self.set_state_space(A=val)
+
+    @property
+    def B(self):
+        return None if self._ss["B"] is None else np.array(self._ss["B"])
+
+    @B.setter
+    def B(self, val):
+        self.set_state_space(B=val)
+
+    @property
+    def C(self):
+        return None if self._ss["C"] is None else np.array(self._ss["C"])
+
+    @C.setter
+    def C(self, val):
+        self.set_state_space(C=val)
+
+    @property
+    def D(self):
+        return None if self._ss["D"] is None else np.array(self._ss["D"])
+
+    @D.setter
+    def D(self, val):
+        self.set_state_space(D=val)
+
     # -- canonical function access ------------------------------------------
     def ode_fn(self) -> Callable:
         if self._ode is None:
@@ -230,28 +353,70 @@ class Model:
             return self._meas
         return lambda x, z, u, p, t: x
 
+    # -- structural analysis --------------------------------------------------
+    def _probe_args(self, seed: int = 0, spread: float = 0.37):
+        rng = np.random.default_rng(seed)
+
+        def mk(n):
+            return torch.as_tensor(rng.normal(size=n) * spread + 0.21,
+                                   dtype=self._dtype, device=self._device)
+
+        return mk(self.n_x), mk(self.n_z), mk(self.n_u), mk(max(self.n_p, 0)), 0.13
+
+    @property
+    def is_linear(self) -> bool:
+        """Probabilistic affinity check in (x, u): superposition at widely
+        separated random probe points, evaluated in the model's dtype with
+        tolerances of that dtype, so curvature shows up well above the
+        rounding of a genuinely affine map."""
+        if self._ode is None:
+            return False
+        if self._ss["A"] is not None:
+            return True
+        if self._dtype == torch.float64:
+            tol = dict(rtol=1e-9, atol=1e-10)
+        else:
+            tol = dict(rtol=3e-5, atol=1e-6)
+        try:
+            for seeds in ((1, 2), (5, 9)):
+                x1, z, u1, p, t = self._probe_args(seeds[0], spread=1.9)
+                x2, _, u2, _, _ = self._probe_args(seeds[1], spread=1.9)
+
+                def f(x, u):
+                    return self.ode_fn()(x, z, u, p, t)
+
+                a = 0.731
+                lhs = f(a * x1 + (1 - a) * x2, a * u1 + (1 - a) * u2)
+                rhs = a * f(x1, u1) + (1 - a) * f(x2, u2)
+                if not np.allclose(lhs.cpu().numpy(), rhs.cpu().numpy(), **tol):
+                    return False
+            return True
+        except Exception:  # a user function that fails at a probe point is
+            return False   # not known to be linear (the reference's rule)
+
     # -- setup ----------------------------------------------------------------
     def setup(self, dt: float = 1.0, integration_method: Optional[str] = None,
               degree: int = 3, scheme: str = "radau", substeps: int = 1,
               newton_iters: int = 8, options: Optional[dict] = None,
-              device="cpu", dtype=torch.float32):
+              device="cuda", dtype=torch.float32):
         """Build the per-step transition function on ``device`` in ``dtype``
-        (explicit; nothing is chosen by detection). ``integration_method``
-        is one of the ERK names ('euler', 'rk4', ...)."""
+        (explicit; nothing is chosen by detection; ``device="cpu"`` runs on
+        the CPU). ``integration_method`` is one of the ERK names ('euler',
+        'rk4', ...); a discrete-time model always takes 'discrete'."""
         if self._ode is None:
             raise RuntimeError(f"model {self.name!r}: no equations set before setup()")
         if self._quad is not None:
             raise NotImplementedError(_NOT_PORTED.format(what="quadratures"))
-        if self.n_z or self._discrete:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="DAE and discrete-time models"))
-        if integration_method is None:
-            integration_method = "rk4"
+        if self.n_z:
+            raise NotImplementedError(_NOT_PORTED.format(what="DAE models"))
+        if integration_method is None or self._discrete:
+            integration_method = "discrete" if self._discrete else "rk4"
+        device = resolve_device(device)
         self._int_spec = IntegratorSpec(
             method=integration_method, degree=degree, scheme=scheme,
             substeps=substeps, newton_iters=newton_iters)
         self._dt = float(dt)
-        self._device = torch.device(device)
+        self._device = device
         self._dtype = dtype
 
         core = make_step(self._ode, self._alg, self.n_x, self.n_z, self._int_spec)
@@ -408,6 +573,10 @@ class Model:
         leading batch axis. Results are numpy arrays."""
         if not self._setup_done:
             raise RuntimeError("call setup() first")
+        if self._needs_equilibrium:
+            raise RuntimeError(
+                "Model is linearized, but no equilibrium point was set. Please "
+                "set equilibrium point before simulating the model!")
         if steps is None:
             if u is not None:
                 u_arr = np.asarray(u, dtype=float)
@@ -452,12 +621,141 @@ class Model:
             self._time = float(ts[-1])
         return out
 
+    # -- linearization --------------------------------------------------------
+    def _param_vector(self, p):
+        """Parameter values for a Jacobian: ``p``, else the stored initial
+        values, else zeros."""
+        if p is None and self._p0 is not None:
+            return self._p0
+        return np.asarray(p if p is not None else np.zeros(self.n_p), dtype=float)
+
+    def linearize(self, x_eq=None, u_eq=None, z_eq=None, p=None, t: float = 0.0):
+        """Jacobian linearization about an equilibrium: a linear model in
+        Δ-coordinates (states dx, inputs du, measurements dy), with matrices
+        computed in float64 on the CPU.
+
+        Without a point the linearization is deferred: the returned model's
+        A/B/C/D are finalized by ``set_equilibrium_point(...)`` on it, and
+        ``simulate`` raises until then."""
+        if self._linearized_parent is not None:
+            print("Model is already linearized. Nothing to be done.")
+            return self
+        if self.is_linear:
+            print("Model is already linear. Linearization is not necessary. "
+                  "Nothing to be done.")
+            return self
+        deferred = x_eq is None and u_eq is None
+        nx, nu, nz = self.n_x, self.n_u, self.n_z
+
+        def vec(v, n):
+            return torch.as_tensor(np.zeros(n) if v is None else np.asarray(v, float),
+                                   dtype=torch.float64)
+
+        x_v, u_v, z_v = vec(x_eq, nx), vec(u_eq, nu), vec(z_eq, nz)
+        p_v = vec(self._param_vector(p), self.n_p)
+        f, h = self.ode_fn(), self.meas_fn()
+        jac = torch.func.jacfwd
+        A = jac(lambda x: f(x, z_v, u_v, p_v, t))(x_v).numpy()
+        B = jac(lambda u: f(x_v, z_v, u, p_v, t))(u_v).numpy()
+        C = jac(lambda x: h(x, z_v, u_v, p_v, t))(x_v).numpy()
+        D = jac(lambda u: h(x_v, z_v, u, p_v, t))(u_v).numpy()
+        lin = Model(name=f"{self.name}_linearized", discrete=self._discrete,
+                    time_unit=self._time_unit)
+        lin.set_dynamical_states([f"d{n}" for n in self._x.names])
+        if nu:
+            lin.set_inputs([f"d{n}" for n in self._u.names])
+        lin.set_measurements([f"d{n}" for n in self.measurements])
+        lin.set_state_space(A=A, B=B if nu else None, C=C, D=D if nu else None)
+        lin._linearized_parent = self
+        if deferred:
+            lin._needs_equilibrium = True
+        else:
+            lin._equilibrium = {"x": x_v.numpy(), "u": u_v.numpy(), "p": p_v.numpy()}
+        return lin
+
+    def set_equilibrium_point(self, x_eq, u_eq=None, p=None, tol: float = 1e-6):
+        """Validate and store an equilibrium (raises if the dynamics do not
+        rest there). On a model from a deferred ``linearize()`` this finalizes
+        the linearization: A/B/C/D are recomputed at the point from the
+        parent's dynamics."""
+        x_eq = np.asarray(x_eq, dtype=float).ravel()
+        if x_eq.size != self.n_x:
+            raise ValueError(f"x_eq has {x_eq.size} entries, expected {self.n_x}")
+        u_eq = (np.zeros(self.n_u) if u_eq is None
+                else np.asarray(u_eq, dtype=float).ravel())
+        if u_eq.size != self.n_u:
+            raise ValueError(f"u_eq has {u_eq.size} entries, expected {self.n_u}")
+        parent = self._linearized_parent
+        if parent is not None:
+            parent.set_equilibrium_point(x_eq, u_eq, p=p, tol=tol)
+            fresh = parent.linearize(x_eq=x_eq, u_eq=u_eq, p=p)
+            self._ss.update(fresh._ss)
+            self.set_state_space()   # rebind the closures to the new matrices
+            self._equilibrium = dict(fresh._equilibrium)
+            self._needs_equilibrium = False
+            if self._setup_done:
+                spec = self._int_spec
+                self.setup(dt=self._dt, integration_method=spec.method,
+                           degree=spec.degree, scheme=spec.scheme,
+                           substeps=spec.substeps, newton_iters=spec.newton_iters,
+                           device=self._device, dtype=self._dtype)
+            return self
+        p_v = self._param_vector(p)
+        f64 = dict(dtype=torch.float64)
+        res = self.ode_fn()(torch.as_tensor(x_eq, **f64), torch.zeros(self.n_z, **f64),
+                            torch.as_tensor(u_eq, **f64), torch.as_tensor(p_v, **f64),
+                            0.0).numpy()
+        if self._discrete:
+            res = res - x_eq
+        if np.max(np.abs(res)) > tol:
+            raise ValueError(
+                f"({x_eq}, {u_eq}) is not an equilibrium: residual {res} "
+                f"(max |r| = {np.max(np.abs(res)):.3g} > tol {tol})")
+        self._equilibrium = {"x": x_eq, "u": u_eq, "p": np.asarray(p_v)}
+        return self
+
+    def jacobians(self, x, u, z=None, p=None, t: float = 0.0):
+        """(A, B): Jacobians of the right-hand side (continuous- or
+        discrete-time) at a point, as tensors in the model's dtype on its
+        device."""
+        kw = dict(dtype=self._dtype, device=self._device)
+        z = torch.zeros(self.n_z, **kw) if z is None else torch.as_tensor(
+            np.asarray(z, float), **kw)
+        p = torch.as_tensor(self._param_vector(p), **kw)
+        x = torch.as_tensor(np.asarray(x, float), **kw)
+        u = torch.as_tensor(np.asarray(u, float), **kw)
+        f = self.ode_fn()
+        A = torch.func.jacfwd(lambda xx: f(xx, z, u, p, t))(x)
+        B = torch.func.jacfwd(lambda uu: f(x, z, uu, p, t))(u)
+        return A, B
+
+    # -- discretization -------------------------------------------------------
+    def discretize(self, method: str = "rk4", degree: int = 3, substeps: int = 1,
+                   dt: Optional[float] = None):
+        """A discrete-time model whose difference equation is one integrator
+        step of this model (of length ``dt``, else the discrete model's
+        ``setup`` dt)."""
+        if self._discrete:
+            raise RuntimeError("model is already discrete")
+        spec = IntegratorSpec(method=method, degree=degree, substeps=substeps)
+        core = make_step(self.ode_fn(), self._alg, self.n_x, self.n_z, spec)
+        disc = self.copy(keep_solution=False)
+        disc._discrete = True
+
+        def disc_map(x, z, u, p, t):
+            h = dt if dt is not None else (disc._dt or 1.0)
+            return core(x, z, u, p, t, h)[0]
+
+        disc._ode = disc_map
+        return disc
+
     # -- misc -----------------------------------------------------------------
     def copy(self, name: Optional[str] = None, keep_solution: bool = False) -> "Model":
         new = _copy.copy(self)
         new.name = name or self.name
         new._x = self._x.copy(); new._z = self._z.copy(); new._u = self._u.copy()
         new._p = self._p.copy(); new._y = self._y.copy(); new._q = self._q.copy()
+        new._ss = {k: (None if v is None else np.array(v)) for k, v in self._ss.items()}
         new.solution = (self.solution.copy() if (keep_solution and self.solution)
                         else None)
         if not keep_solution:

@@ -3,7 +3,8 @@
 Counterpart of ``hilo_mpc_tpu/ops/pallas_kernels.py``. Each wrapper takes the
 JAX kernel's public layout (batch first), checks device, dtype, contiguity and
 shapes, allocates outputs and scratch with ``torch.empty``, launches on
-PyTorch's current stream without synchronizing, and counts its launches in a
+PyTorch's current stream without synchronizing (``fgm_boxqp_cuda`` called
+without its ``constants`` first reads H back), and counts its launches in a
 plain integer attribute (``<wrapper>.launches``) so a run can show that its
 main path went through the kernel. For CPU tensors — and only for them — a
 wrapper returns its plain version instead; for CUDA tensors it launches the
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -23,6 +25,10 @@ from .riccati import solve_lq
 
 # (nx, nu) pairs instantiated in csrc/riccati_lq.cu
 RICCATI_LQ_SIZES = ((2, 1), (3, 2), (2, 3))
+# largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N)
+FGM_MAX_N = 128
+# what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
+FGM_INF = 1e30
 
 
 def riccati_lq_reference(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
@@ -103,3 +109,127 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
 
 
 riccati_lq_cuda.launches = 0
+
+
+def fgm_constants(H):
+    """(1/L, β) of the fast gradient method from the spectrum of sym(H), in
+    float64 on the host: μ floored at 1e-9, κ = √(L/μ), β = (κ−1)/(κ+1)
+    (hilo_mpc_tpu/ops/pallas_kernels.py:47-52). H is a numpy array or a
+    tensor; a CUDA tensor is copied to the host, which waits for the card."""
+    Hn = (H.detach().to("cpu", torch.float64).numpy() if torch.is_tensor(H)
+          else np.asarray(H, dtype=float))
+    eigs = np.linalg.eigvalsh(0.5 * (Hn + Hn.T))
+    L = float(eigs[-1])
+    mu = float(max(eigs[0], 1e-9))
+    kappa = np.sqrt(L / mu)
+    return 1.0 / L, float((kappa - 1.0) / (kappa + 1.0))
+
+
+def _fgm_bounds(lb, ub):
+    """Bounds with every non-finite entry replaced by ∓FGM_INF."""
+    return (torch.where(torch.isfinite(lb), lb, torch.full_like(lb, -FGM_INF)),
+            torch.where(torch.isfinite(ub), ub, torch.full_like(ub, FGM_INF)))
+
+
+def fgm_boxqp_reference(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
+                        constants=None):
+    """Plain PyTorch version of ``fgm_boxqp_cuda``, the port of
+    ``hilo_mpc_tpu/ops/pallas_kernels.py:fgm_boxqp_batch_xla``: a loop of
+    ``y @ H.T + g`` and ``clamp`` in float32 on the device of ``x0_batch``,
+    with full float32 products (TF32 off for the loop, the caller's setting
+    restored after it). Same arguments and return."""
+    inv_L, beta = fgm_constants(H) if constants is None else constants
+    kw = dict(dtype=torch.float32, device=x0_batch.device)
+    H, G = H.to(**kw), G.to(**kw)
+    lb, ub = _fgm_bounds(lb.to(**kw), ub.to(**kw))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = x0_batch.to(**kw) @ G.T
+        u = torch.zeros_like(g) if u0_batch is None else u0_batch.to(**kw)
+        y = u
+        for _ in range(iters):
+            u_new = torch.clamp(y - inv_L * (y @ H.T + g), lb, ub)
+            y = u_new + beta * (u_new - u)
+            u = u_new
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return u
+
+
+def _fgm_fn():
+    lib = _build.load("fgm_boxqp")
+    fn = lib.fgm_boxqp_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
+                   constants=None):
+    """B box-QPs  min ½uᵀHu + (G x0_b)ᵀu,  lb <= u <= ub,  with H and G shared,
+    by ``iters`` projected fast-gradient steps from u0 (or zero), as ONE CUDA
+    kernel (csrc/fgm_boxqp.cu), replacing
+    ``hilo_mpc_tpu/ops/pallas_kernels.py:fgm_boxqp_batch``.
+
+    Shapes: H (n, n), G (n, nx), x0_batch (B, nx), lb and ub (n,) (infinite
+    entries allowed), u0_batch (B, n) or None; float32, contiguous, one CUDA
+    device; 1 <= n <= ``FGM_MAX_N``. Returns u (B, n) float32. ``constants``
+    is (1/L, β) as ``fgm_constants`` gives them; when it is None they are
+    taken from H here, and that copy of H to the host waits for the card
+    (``LMPC.optimize_batch_fgm`` passes them from its float64 H).
+    """
+    args = [H, G, x0_batch, lb, ub] + ([] if u0_batch is None else [u0_batch])
+    if not any(t.is_cuda for t in args):
+        return fgm_boxqp_reference(H, G, x0_batch, lb, ub, iters, u0_batch,
+                                   constants)
+    if H.dim() != 2 or G.dim() != 2 or x0_batch.dim() != 2:
+        raise ValueError(f"H, G and x0_batch must be 2-D, got {tuple(H.shape)}, "
+                         f"{tuple(G.shape)} and {tuple(x0_batch.shape)}")
+    n, nx, Bt = H.shape[0], G.shape[1], x0_batch.shape[0]
+    if not 1 <= n <= FGM_MAX_N:
+        raise ValueError(f"fgm_boxqp_cuda takes 1 <= n <= FGM_MAX_N = {FGM_MAX_N} "
+                         f"QP variables, got n={n}")
+    if nx < 1 or not 1 <= Bt < 2 ** 31 or int(iters) < 0:
+        raise ValueError(f"need nx >= 1, 1 <= B < 2**31 and iters >= 0, got "
+                         f"nx={nx}, B={Bt}, iters={iters}")
+    expected = {"H": (n, n), "G": (n, nx), "x0_batch": (Bt, nx), "lb": (n,),
+                "ub": (n,), "u0_batch": (Bt, n)}
+    device = x0_batch.device
+    for (name, shape), t in zip(expected.items(), args):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; all inputs must "
+                             f"be torch.float32 on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    lb, ub = _fgm_bounds(lb, ub)
+    if constants is None:
+        constants = fgm_constants(H)
+    out = fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, *constants)
+    fgm_boxqp_cuda.launches += 1
+    return out
+
+
+def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta):
+    """The bare launch behind ``fgm_boxqp_cuda``: inputs already checked,
+    finite bounds, constants given. Not counted; ``chip_smoke.py`` times the
+    kernel alone through it."""
+    Bt, n = x0_batch.shape[0], H.shape[0]
+    out = torch.empty((Bt, n), dtype=torch.float32, device=x0_batch.device)
+    with torch.cuda.device(x0_batch.device):
+        stream = torch.cuda.current_stream(x0_batch.device).cuda_stream
+        rc = _fgm_fn()(H.data_ptr(), G.data_ptr(), x0_batch.data_ptr(),
+                       lb.data_ptr(), ub.data_ptr(),
+                       None if u0_batch is None else u0_batch.data_ptr(),
+                       out.data_ptr(), Bt, n, G.shape[1], int(iters), inv_L, beta,
+                       stream)
+    if rc != 0:
+        raise RuntimeError(f"fgm_boxqp kernel launch failed: cudaError {rc}")
+    return out
+
+
+fgm_boxqp_cuda.launches = 0

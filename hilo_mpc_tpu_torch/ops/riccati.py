@@ -4,7 +4,8 @@ PyTorch port of ``hilo_mpc_tpu/ops/riccati.py``. Batch-first: every block
 carries leading batch dims, the horizon recursion is a Python loop over the
 stage axis, and each per-stage operation is the same unrolled small-matrix
 algebra as the JAX sweeps (ops/smallalg.py). These sweeps are the plain
-version of the CUDA kernel ``ops/cuda_kernels.py:riccati_lq_cuda``.
+version of the CUDA kernel ``ops/cuda_kernels.py:riccati_lq_cuda``;
+``lqr_backward`` and ``dare_solve`` give the LQR gains.
 
 Equality-constrained LQ problem solved here (per scenario):
 
@@ -143,3 +144,38 @@ def make_lq_solver(reg: float = 1e-9):
         return LQSolution(*[o.reshape(*batch, *o.shape[1:]) for o in out])
 
     return solve
+
+
+def lqr_backward(A, B, Q, R, S=None, P_term=None, horizon: int = None):
+    """Finite-horizon time-invariant LQR: gains K_0..K_{N-1} (N, nu, nx) of the
+    policy du = K dx, and P_0, by the backward sweep above with every stage
+    block repeated N times."""
+    nx, nu = A.shape[-1], B.shape[-1]
+    kw = dict(dtype=A.dtype, device=A.device)
+    if S is None:
+        S = torch.zeros((nu, nx), **kw)
+    if P_term is None:
+        P_term = Q
+    N = horizon
+
+    def rep(M):
+        return M.expand((N,) + tuple(M.shape))
+
+    K, _, P0, _, _, _, _ = backward_sweep(
+        rep(A), rep(B), rep(Q), rep(S), rep(R), torch.zeros((N, nx), **kw),
+        torch.zeros((N, nu), **kw), torch.zeros((N, nx), **kw), P_term,
+        torch.zeros(nx, **kw))
+    return K, P0
+
+
+def dare_solve(A, B, Q, R, iters: int = 200):
+    """Infinite-horizon discrete algebraic Riccati equation by ``iters``
+    fixed-point iterations from P = Q. Returns (K, P) with u = -K x."""
+    P = Q
+    for _ in range(iters):
+        G = R + B.T @ P @ B
+        K = solve_psd_small(G, B.T @ P @ A)
+        P_new = Q + A.T @ P @ (A - B @ K)
+        P = 0.5 * (P_new + P_new.T)
+    K = solve_psd_small(R + B.T @ P @ B, B.T @ P @ A)
+    return K, P

@@ -22,6 +22,7 @@ from hilo_mpc_tpu_torch.ops import ip_solver as tip
 from hilo_mpc_tpu_torch.utils.interop import to_numpy, to_torch
 
 torch.set_num_threads(1)
+CPU = "cpu"
 F64 = torch.float64
 
 
@@ -124,7 +125,7 @@ def cstr_pair(request):
     extra = ({"riccati_unroll": 20, "pallas_riccati": True}
              if request.param == "flagship" else {})
     tn = _cstr(TorchNMPC, torch_cstr(), {**opts, **extra}, state_bounds=sb,
-               dtype=F64)
+               device=CPU, dtype=F64)
     rng = np.random.default_rng(5)
     # the second scenario starts far enough out that the input bound is
     # active; every start keeps the state bound feasible

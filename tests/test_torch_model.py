@@ -11,6 +11,7 @@ from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz as torch_cstr
 from hilo_mpc_tpu_torch.utils.parsing import parse_equations
 
 torch.set_num_threads(1)
+CPU = "cpu"
 F64 = torch.float64
 
 
@@ -86,7 +87,7 @@ def test_rk4_rollout_matches_jax(seed):
     oj = mj.rollout_fn()(jnp.asarray(x0), jnp.zeros(0), jnp.asarray(U),
                          jnp.asarray(P), 0.0)
     mt = torch_cstr()
-    mt.setup(dt=0.1, integration_method="rk4", dtype=F64)
+    mt.setup(dt=0.1, integration_method="rk4", device=CPU, dtype=F64)
     ot = mt.rollout_fn()(_t(x0), _t([]), _t(U), _t(P), 0.0)
     for key in ("x", "y"):
         np.testing.assert_allclose(ot[key].numpy(), np.asarray(oj[key]),
@@ -95,7 +96,7 @@ def test_rk4_rollout_matches_jax(seed):
 
 def test_simulate_batched_matches_unbatched():
     mt = torch_cstr()
-    mt.setup(dt=0.1, integration_method="rk4", dtype=F64)
+    mt.setup(dt=0.1, integration_method="rk4", device=CPU, dtype=F64)
     mt.set_initial_conditions([0.2, 0.1])
     mt.set_initial_parameter_values([1.0] * 6)
     one = mt.simulate(u=np.tile([0.4], (5, 1)), steps=5)

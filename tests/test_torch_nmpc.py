@@ -7,11 +7,14 @@ import pytest
 import torch
 
 from golden_configs import CSTR_P, CSTR_REF, build_cstr_tracking
-from hilo_mpc_tpu_torch import NMPC
+import inspect
+
+from hilo_mpc_tpu_torch import LMPC, LQR, NMPC, Model
 from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
 from hilo_mpc_tpu_torch.utils.interop import to_numpy
 
 torch.set_num_threads(1)
+CPU = "cpu"
 F64 = torch.float64
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cstr_tracking.npz")
 
@@ -25,7 +28,8 @@ def port_cstr_tracking(options=None, horizon=20, **setup_kw):
     nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
     nmpc.set_parameters(CSTR_P)
     opts = {"dt": 0.1, "integration_method": "rk4", "tol": 1e-9, "max_iter": 80}
-    nmpc.setup(options={**opts, **(options or {})}, **{"dtype": F64, **setup_kw})
+    nmpc.setup(options={**opts, **(options or {})},
+               **{"device": CPU, "dtype": F64, **setup_kw})
     return nmpc
 
 
@@ -79,7 +83,7 @@ def test_runtime_reference():
     nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], trajectory_tracking=True)
     nmpc.quad_stage_cost.add_inputs(weights=0.1)
     nmpc.set_parameters(CSTR_P)
-    nmpc.setup(options={"dt": 0.1, "tol": 1e-8}, dtype=F64)
+    nmpc.setup(options={"dt": 0.1, "tol": 1e-8}, device=CPU, dtype=F64)
     with pytest.raises(ValueError, match="runtime reference"):
         nmpc.optimize([0.2, 0.1])
     u_dict = nmpc.optimize([0.2, 0.1], ref_sc={"x_1": 0.3, "x_2": 0.18055})
@@ -95,7 +99,7 @@ def test_unknown_option_raises():
 def test_entry_point_order_is_enforced():
     nmpc = NMPC(cstr_schaffner_and_zeitz())
     with pytest.raises(ValueError, match="horizon"):
-        nmpc.setup(options={"dt": 0.1})
+        nmpc.setup(options={"dt": 0.1}, device=CPU)
     nmpc.horizon = 5
     with pytest.raises(RuntimeError):
         nmpc.optimize([0.2, 0.1])
@@ -105,12 +109,12 @@ def test_entry_point_order_is_enforced():
 
 def _du_bounds(n):
     n.set_box_constraints(du_lb=[-0.1], du_ub=[0.1])
-    n.setup(options={"dt": 0.1})
+    n.setup(options={"dt": 0.1}, device=CPU)
 
 
 def _control_horizon(n):
     n.control_horizon = 3
-    n.setup(options={"dt": 0.1})
+    n.setup(options={"dt": 0.1}, device=CPU)
 
 
 OUT_OF_SLICE = {
@@ -128,9 +132,11 @@ OUT_OF_SLICE = {
     "min_time": lambda n: n.minimize_final_time(),
     "rti": lambda n: n.rti_prepare(x_pred=[0.2, 0.1]),
     "collocation": lambda n: n.setup(options={"dt": 0.1,
-                                              "integration_method": "collocation"}),
+                                              "integration_method": "collocation"},
+                                     device=CPU),
     "parallel_riccati": lambda n: n.setup(options={"dt": 0.1,
-                                                   "parallel_riccati": True}),
+                                                   "parallel_riccati": True},
+                                          device=CPU),
 }
 
 
@@ -140,3 +146,49 @@ def test_out_of_slice_features_raise(feature):
     nmpc.horizon = 5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OUT_OF_SLICE[feature](nmpc)
+
+
+def _double_integrator():
+    return Model(discrete=True).set_state_space(A=[[1.0, 0.1], [0.0, 1.0]],
+                                                B=[[0.005], [0.1]])
+
+
+def _entry(kind):
+    """An object of each entry point, ready for setup() with no device."""
+    if kind == "Model":
+        return cstr_schaffner_and_zeitz()
+    if kind == "NMPC":
+        nmpc = NMPC(cstr_schaffner_and_zeitz())
+        nmpc.horizon = 5
+        nmpc.set_parameters(CSTR_P)
+        return nmpc
+    ctrl = (LMPC if kind == "LMPC" else LQR)(_double_integrator())
+    ctrl.horizon = 5
+    return ctrl
+
+
+SETUP_KW = {"Model": dict(dt=0.1), "NMPC": dict(options={"dt": 0.1}),
+            "LMPC": dict(options={"dt": 0.1}), "LQR": dict(dt=0.1)}
+ENTRY_POINTS = sorted(SETUP_KW)
+
+
+@pytest.mark.parametrize("kind", ENTRY_POINTS)
+def test_setup_defaults_to_cuda(kind, monkeypatch):
+    """setup() without a device targets the card."""
+    obj = _entry(kind)
+    assert inspect.signature(obj.setup).parameters["device"].default == "cuda"
+    if kind == "Model":
+        # with a card reported, the model is built for it (setup allocates
+        # nothing, so this runs here)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        assert obj.setup(**SETUP_KW[kind]).device == torch.device("cuda")
+
+
+@pytest.mark.parametrize("kind", ENTRY_POINTS)
+def test_setup_without_a_card_raises(kind):
+    """With no card, setup() with no device is an error, never a silent run
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: setup() runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry(kind).setup(**SETUP_KW[kind])
