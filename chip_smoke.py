@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
 
-Phase 0  card name and power limit; build every CUDA kernel from csrc/ (one
-         nvcc per source, all started together).
+Phase 0  card name and power limit; build every CUDA kernel from the
+         sources in csrc/ (one nvcc per source, all started together): the
+         Riccati template for each (nx, nu) that phase 1 checks, the FGM
+         kernel, and the whole-solve interior point for the flagship problem
+         and phase 1's two other row patterns, generated from the model
+         (ops/codegen_cuda.py); its build time, registers, stack and spills.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it, and both timed at the flagship shape,
          beside the least time the card could take for the same work.
@@ -26,6 +30,11 @@ Phase 4  the linear-MPC path at full width: a discrete double integrator
          infinite-horizon LQR of the same model against SciPy's DARE.
 Phase 5  the golden fixture tests/golden/lmpc_di.npz replayed through
          LMPC.optimize in float64 on the card.
+Phase 6  the whole-solve path at full width: the flagship NMPC with
+         pallas_full=True through solve_batch_fn, cold and warm, on phase 2's
+         B=131072 inputs; the whole-solve kernel's and the Riccati kernel's
+         launch counts are read around exactly this run, and U is held
+         against phase 2's on the jointly converged scenarios.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -44,7 +53,8 @@ B_MAIN = 131072
 N = 20
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
-KERNELS = ("riccati_lq", "fgm_boxqp")
+KERNELS = ("riccati_lq", "fgm_boxqp", "whole_ip")
+RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1))
 FGM_ITERS = 100
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3 bandwidth
@@ -104,6 +114,21 @@ def fgm_work(Bt, n, nx, iters, with_u0=False):
     return nbytes, Bt * (2 * n * nx + iters * (2 * n * n + 8 * n))
 
 
+def whole_ip_work(problem, dims, Bt, nt, iterations, itemsize=4):
+    """(bytes, operations) of one whole-solve launch: theta, x0, X, U and the
+    problem's numbers read once, the solution (X, U, lam, the active
+    slacks and duals, mu, kkt, objective, iterations and two flags) written
+    once; the operations of one iteration of one scenario, counted from the
+    emitted code and the solver template (EmittedProblem.flops), times the
+    iterations this run's scenarios took (the loop ends early)."""
+    nx, nu, n = dims.nx, dims.nu, dims.N
+    rows = len(problem.stage_rows) + len(problem.term_rows)
+    inputs = (n + 1) * nt + nx + (n + 1) * nx + n * nu
+    outputs = (n + 1) * nx + n * nu + n * nx + 2 * rows + 3
+    nbytes = (Bt * (inputs + outputs) + problem.prm.size) * itemsize + Bt * (4 + 2)
+    return nbytes, problem.flops * iterations
+
+
 def lq_problem(Bt, n, nx, nu, dtype, seed=0):
     """Random stagewise LQ problem (the generator of tests/test_pallas_kernels.py)."""
     import numpy as np
@@ -129,18 +154,24 @@ FLAGSHIP = {"tol": 1e-4, "max_iter": 25, "convexify": False, "n_linesearch": 1,
             "mu_init": 1e-2, "mehrotra": False}
 
 
-def plain_lq_factory(reg):
-    """Stand-in for ops/riccati.py:make_lq_solver whose LQ step is the plain
-    PyTorch version of the kernel (patched into ops.ip_solver to compare)."""
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_reference
-    from hilo_mpc_tpu_torch.ops.riccati import LQSolution
-
-    def solve(*a, reg=None, _reg=reg):
-        return LQSolution(*riccati_lq_reference(*a, reg=_reg))
-    return solve
+def flagship_x0s(B=B_MAIN):
+    """The flagship batch: x0 = [0.2, 0.1] + 0.05·N(0,1) from default_rng(0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return (np.array([0.2, 0.1]) + 0.05 * rng.standard_normal((B_MAIN, 2)))[:B]
 
 
-def build_cstr_nmpc(options, dtype):
+# the row patterns of the whole-solve checks: the flagship |u| <= 5; active
+# state and terminal bounds (tests/test_pallas_ip.py:77-96); no bounds at all
+WHOLE_IP_BOUNDS = {
+    "flagship": dict(u_lb=[-5.0], u_ub=[5.0]),
+    "state_terminal_bounds": dict(u_lb=[-5.0], u_ub=[5.0], x_lb=[0.0, 0.0],
+                                  x_ub=[0.29, 0.8]),
+    "unconstrained": {},
+}
+
+
+def build_cstr_nmpc(options, dtype, bounds=None):
     import torch  # noqa: F401
     from hilo_mpc_tpu_torch import NMPC
     from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
@@ -148,7 +179,8 @@ def build_cstr_nmpc(options, dtype):
     nmpc.horizon = N
     nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=[0.3, 0.18055])
     nmpc.quad_stage_cost.add_inputs(weights=0.1)
-    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    nmpc.set_box_constraints(**(WHOLE_IP_BOUNDS["flagship"] if bounds is None
+                                else bounds))
     nmpc.set_parameters([1.0] * 6)
     nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **options},
                device="cuda", dtype=dtype)
@@ -159,6 +191,7 @@ def phase1(report):
     """Each kernel vs its plain version on the card."""
     phase1_riccati(report.setdefault("riccati_lq", {}))
     phase1_fgm(report.setdefault("fgm_boxqp", {}))
+    phase1_whole_ip(report.setdefault("whole_ip", {}))
 
 
 def phase1_riccati(report):
@@ -168,7 +201,7 @@ def phase1_riccati(report):
     names = ("dX", "dU", "lam", "K", "kff", "cost_red")
     max_err = 0.0
     cases = [(1000, nx, nu, dt) for dt in (torch.float32, torch.float64)
-             for nx, nu in ((2, 1), (3, 2), (2, 3))]
+             for nx, nu in RICCATI_SIZES]
     cases.append((B_MAIN, 2, 1, torch.float32))
     for Bt, nx, nu, dt in cases:
         args = lq_problem(Bt, N, nx, nu, dt)
@@ -261,16 +294,93 @@ def phase1_fgm(report):
                   bound_by=b_by)
 
 
+def phase1_whole_ip(report):
+    """The whole-solve kernel against its plain version (solve_ocp with the
+    plain LQ sweeps) on the first 1024 flagship scenarios, for the three row
+    patterns, in float64 (the kernel's algebra: equal iterations, U to 1e-9)
+    and float32 (the kernel's type: U to 5e-4 on the jointly converged
+    scenarios; with active state bounds at tol 1e-4 the float32 plain version
+    itself strays from the float64 answer by ~3e-3, so there the kernel is
+    held to that stray plus 5e-4); then timed at B=131072 in float32."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import (
+        solve_ocp_full_cuda, solve_ocp_full_reference, whole_ip_launch,
+        whole_ip_problem)
+
+    x0s = flagship_x0s(1024)
+    for name, bounds in WHOLE_IP_BOUNDS.items():
+        sols = {}
+        for dt in (torch.float64, torch.float32):
+            nmpc = build_cstr_nmpc(FLAGSHIP, dt, bounds)
+            f = (nmpc._funcs, nmpc._dims, nmpc._bounds)
+            args = nmpc.prepare_batch(x0s)
+            k = solve_ocp_full_cuda(*f, *args, nmpc._ip_opts)
+            r = solve_ocp_full_reference(*f, *args, nmpc._ip_opts)
+            torch.cuda.synchronize()
+            both = k.converged & r.converged
+            err = float((k.U - r.U).abs()[both].max())
+            eq = float((k.iterations == r.iterations).float().mean())
+            log(f"phase1 whole_ip {name} B=1024 N={N} {str(dt)[6:]}: converged "
+                f"kernel {float(k.converged.float().mean()):.4f} plain "
+                f"{float(r.converged.float().mean()):.4f}, equal iterations "
+                f"{eq:.4f}, max|U_kernel - U_plain| on the jointly converged "
+                f"{err:.3e}")
+            assert float(both.float().mean()) >= 0.95, name
+            sols[dt] = (k, r, both, err)
+        k64, r64, both64, err64 = sols[torch.float64]
+        if name == "flagship":
+            assert torch.equal(k64.iterations, r64.iterations)
+            err64 = float((k64.U - r64.U).abs().max())
+        assert torch.equal(k64.iterations[both64], r64.iterations[both64]), name
+        assert err64 <= 1e-9, (name, err64)
+        k32, r32, both32, err32 = sols[torch.float32]
+        tol = 5e-4
+        if name == "state_terminal_bounds":
+            j = both32 & both64
+            stray = float((r32.U.double() - r64.U).abs()[j].max())
+            off = float((k32.U.double() - r64.U).abs()[j].max())
+            log(f"phase1 whole_ip {name}: max|U - U_plain_f64| float32 plain "
+                f"{stray:.3e}, float32 kernel {off:.3e}")
+            assert off <= stray + tol, (off, stray)
+        else:
+            assert err32 <= tol, (name, err32)
+
+    # the flagship shape, timed
+    nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
+    f, opts = (nmpc._funcs, nmpc._dims, nmpc._bounds), nmpc._ip_opts
+    args = nmpc.prepare_batch(flagship_x0s())
+    problem = whole_ip_problem(*f, args[0].shape[2], opts)
+    ms = cuda_time_ms(lambda: whole_ip_launch(problem, nmpc._dims, *args,
+                                              opts.mu_init))
+    wrapper_ms = cuda_time_ms(lambda: solve_ocp_full_cuda(*f, *args, opts))
+    plain_ms = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args, opts))
+    k = solve_ocp_full_cuda(*f, *args, opts)
+    r = solve_ocp_full_reference(*f, *args, opts)
+    torch.cuda.synchronize()
+    both = k.converged & r.converged
+    err = float((k.U - r.U).abs()[both].max())
+    its = int(k.iterations.sum())
+    b_ms, b_by = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN,
+                                         args[0].shape[2], its))
+    log(f"phase1 whole_ip flagship B={B_MAIN} N={N} float32: max|U_kernel - "
+        f"U_plain| on the jointly converged {err:.3e}; kernel {ms:.4f} ms, "
+        f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10, "
+        f"CUDA events); bound {b_ms:.4f} ms ({b_by}; {problem.flops} operations "
+        f"per scenario-iteration, {its} scenario-iterations)")
+    assert err <= 5e-4, err
+    report.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_by=b_by)
+
+
 def phase2(report):
     """The main path at full width."""
-    import numpy as np
     import torch
-    import hilo_mpc_tpu_torch.ops.ip_solver as ips
     from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp
+    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
 
     nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
-    rng = np.random.default_rng(0)
-    x0s = np.array([0.2, 0.1]) + 0.05 * rng.standard_normal((B_MAIN, 2))
+    x0s = flagship_x0s()
     # untimed warm-up at a small batch (CUDA context, library handles)
     nmpc.solve_batch_fn()(*nmpc.prepare_batch(x0s[:256]))
     torch.cuda.synchronize()
@@ -315,16 +425,14 @@ def phase2(report):
 
     # the same solve with the plain LQ step in place of the kernel
     sub = tuple(a[:1024] for a in args)
-    saved = ips.make_lq_solver
-    ips.make_lq_solver = plain_lq_factory
-    try:
-        sol_ref = nmpc.solve_batch_fn()(*sub)
-    finally:
-        ips.make_lq_solver = saved
+    sol_ref = solve_ocp(nmpc._funcs, nmpc._dims, nmpc._bounds, *sub,
+                        options=nmpc._ip_opts, mu0=nmpc._ip_opts.mu_init,
+                        lq_solver=make_plain_lq_solver)
     dev = float((sol.U[:1024] - sol_ref.U).abs().max())
     log(f"phase2 first 1024 scenarios: max|U_kernel - U_plain| = {dev:.3e}")
     assert dev < 1e-3, dev
     report["riccati_lq"]["launches"] = launches
+    report["phase2"] = sol
 
 
 def phase3():
@@ -486,13 +594,85 @@ def phase5():
     assert max(devs) < 1e-4, devs
 
 
+def phase6(report):
+    """The whole-solve path at full width, on phase 2's inputs."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
+
+    nmpc = build_cstr_nmpc({**FLAGSHIP, "pallas_full": True}, torch.float32)
+    x0s = flagship_x0s()
+    nmpc.solve_batch_fn()(*nmpc.prepare_batch(x0s[:256]))   # untimed warm-up
+    torch.cuda.synchronize()
+
+    solve_ocp_full_cuda.launches = 0
+    n_ric = riccati_lq_cuda.launches
+    t0 = time.perf_counter()
+    args = nmpc.prepare_batch(x0s)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol = nmpc.solve_batch_fn()(*args)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    theta_B, xs0_B, _, _ = args
+    X_w = torch.cat([sol.X[:, 1:], sol.X[:, -1:]], dim=1)
+    X_w[:, 0] = xs0_B
+    U_w = torch.cat([sol.U[:, 1:], sol.U[:, -1:]], dim=1)
+    t0 = time.perf_counter()
+    sol_w = nmpc.solve_batch_fn(warm=True)(theta_B, xs0_B, X_w, U_w)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    launches = solve_ocp_full_cuda.launches
+    ric = riccati_lq_cuda.launches - n_ric
+
+    for name, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
+        assert s_.U.shape == (B_MAIN, N, 1) and s_.X.shape == (B_MAIN, N + 1, 2)
+        assert bool(torch.isfinite(s_.U).all()) and bool(torch.isfinite(s_.X).all())
+        conv = float(s_.converged.float().mean())
+        assert conv >= 0.97, f"{name} converged fraction {conv}"
+        log(f"phase6 {name}: {B_MAIN / t:.1f} solves/s ({t:.4f} s wall), "
+            f"converged {conv:.4f}, iterations p50 "
+            f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}")
+    assert launches == 2, f"whole_ip launches in the path: {launches}"
+    assert ric == 0, f"the whole-solve path launched the Riccati kernel {ric} times"
+    ref = report["phase2"]
+    both = sol.converged & ref.converged
+    dev = float((sol.U - ref.U).abs()[both].max())
+    eq = float((sol.iterations == ref.iterations).float().mean())
+    log(f"phase6 whole-solve path B={B_MAIN} N={N} float32: prepare_batch "
+        f"{t_prep:.4f} s; whole_ip launches {launches}, riccati_lq launches {ric}; "
+        f"max|U - U_phase2| on the jointly converged {dev:.3e}, equal iteration "
+        f"counts {eq:.4f}")
+    assert dev <= 5e-4, dev
+    report["whole_ip"]["launches"] = launches
+
+
+def build_jobs():
+    """(label, build function, its argument) for every kernel the phases
+    launch."""
+    import torch
+    from hilo_mpc_tpu_torch.ops import _build
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_source
+    from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
+
+    jobs = [(f"riccati_lq nx={nx} nu={nu}", _build.source_library_path,
+             riccati_lq_source(nx, nu)) for nx, nu in RICCATI_SIZES]
+    jobs.append(("fgm_boxqp", _build.library_path, "fgm_boxqp"))
+    for name, bounds in WHOLE_IP_BOUNDS.items():
+        nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32, bounds)
+        nt = nmpc.prepare_batch(flagship_x0s(1))[0].shape[2]
+        text = whole_ip_problem(nmpc._funcs, nmpc._dims, nmpc._bounds, nt,
+                                nmpc._ip_opts).text
+        jobs.append((f"whole_ip {name}", _build.source_library_path, text))
+    return jobs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from hilo_mpc_tpu_torch.ops import _build
-
     device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -500,16 +680,24 @@ def main():
     log(f"phase0 device: {device_name}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     log(smi)
+    jobs = build_jobs()
+
+    def build(job):
+        t = time.perf_counter()
+        lib = job[1](job[2])
+        return job[0], lib, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(_build.library_path, KERNELS))
-    log(f"phase0 built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    for lib in libs:
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(build, jobs))
+    log(f"phase0 built {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc each, all started together)")
+    for label, lib, secs in built:
+        log(f"  {label}: {os.path.relpath(lib, ROOT)} in {secs:.1f} s")
         with open(lib + ".log") as fh:
             for line in fh:
                 if "registers" in line or "spill" in line:
-                    log(f"  {os.path.basename(lib)}: " + line.strip())
+                    log("    " + line.strip())
 
     report = {}
     phase1(report)
@@ -517,18 +705,24 @@ def main():
     phase3()
     phase4(report)
     phase5()
+    phase6(report)
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
-                "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26"}
+                "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
+                "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143"}
+    sources = {"riccati_lq": "riccati_lq.cuh", "fgm_boxqp": "fgm_boxqp.cu",
+               "whole_ip": "whole_ip.cuh"}
     kernels = []
     for name in KERNELS:
         r = report[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"hilo_mpc_tpu_torch/csrc/{name}.cu",
+                        "source": f"hilo_mpc_tpu_torch/csrc/{sources[name]}",
                         "replaces": replaces[name], "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        # no single PyTorch call computes either function
+                        # no single PyTorch call computes any of the three:
+                        # a batched LQ solve, a projected gradient method, a
+                        # batched NLP
                         "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

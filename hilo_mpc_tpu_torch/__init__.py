@@ -1,9 +1,10 @@
 """hilo_mpc_tpu_torch — the PyTorch/CUDA port of hilo_mpc_tpu.
 
 Same flat names as the JAX package for the ported slices (the batched NMPC
-solve; linear models, LMPC with its condensed fast-gradient path, LQR); every
-Pallas kernel on those paths is a CUDA kernel written by hand for Hopper
-(ops/cuda_kernels.py, csrc/). Device and dtype are explicit arguments of
+solve, with the whole-solve interior point behind ``pallas_full``; linear
+models, LMPC with its condensed fast-gradient path, LQR); every Pallas kernel
+of the JAX package is a CUDA kernel written by hand for Hopper
+(ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
 ``Model.setup``, ``NMPC.setup``, ``LMPC.setup`` and ``LQR.setup``; the device
 is ``"cuda"`` unless the caller passes ``device="cpu"``, and a missing card is
 an error. Importing the package needs neither a GPU nor ``nvcc``. See

@@ -5,7 +5,10 @@ quadratic tracking costs on states and inputs (constant or runtime
 references), box bounds on states and inputs, scaling, time-invariant
 parameters, warm starts and multi-start. The multiple-shooting structure is
 kept stagewise and solved by the batched interior point of ops/ip_solver.py,
-whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors.
+whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors. With
+the ``pallas_full`` option, ``solve_batch_fn`` sends eligible problems to the
+whole-solve interior point instead: one CUDA kernel per batched solve, with
+the model and cost emitted as C++ (ops/whole_ip.py, ops/codegen_cuda.py).
 
 Entry points: ``setup(options, device=..., dtype=...)`` (explicit device and
 dtype, nothing chosen by detection; ``"cuda"`` unless the caller passes
@@ -22,7 +25,9 @@ registry: PyTorch runs eagerly, so there is nothing to trace or share.
 """
 from __future__ import annotations
 
+import dataclasses
 import time as _time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -31,8 +36,10 @@ import torch
 from ..core.integrators import IntegratorSpec, make_step
 from ..core.model import Model, resolve_device
 from ..core.series import TimeSeries
+from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
+from ..ops.whole_ip import solve_ocp_full_cuda, whole_ip_supported
 from .costs import QuadraticCost
 
 _NLP_OPTION_KEYS = {
@@ -293,7 +300,13 @@ class NMPC:
             return quad_terms_cost(term_terms, off_rt, x, u0, theta)
 
         dims = OCPDims(nx=nx, nu=nu, N=N)
-        funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost)
+        source = OCPSource(
+            model=model, spec=spec, off_rs=off_rs, off_rt=off_rt,
+            stage_terms=tuple(stage_terms), term_terms=tuple(term_terms),
+            x_scaling=tuple(self._x_scaling), u_scaling=tuple(self._u_scaling),
+            dt=step_dt)
+        funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost,
+                             source=source)
 
         # --- bounds in solver (scaled) coordinates ---
         self._bounds = OCPBounds(
@@ -588,7 +601,36 @@ class NMPC:
         if not self._setup_done:
             raise RuntimeError("call setup() first")
         mu_val = self._mu_warm if warm else self._mu_cold
+        opts = self._ip_opts
+        if opts.pallas_full:
+            if whole_ip_supported(self._dims, self._bounds, opts, True,
+                                  self._model):
+                return self._whole_ip_fn(dataclasses.replace(opts, mu_init=mu_val))
+            warnings.warn("pallas_full requested but the problem shape is not "
+                          "kernel-eligible (needs box-only constraints, pure "
+                          "Newton steps, fix_x0 and a model in the equation "
+                          "DSL or by state-space matrices); using the general "
+                          "path")
         return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)
+
+    def _whole_ip_fn(self, opts):
+        """The whole-solve kernel in float32 (the JAX kernel's precision):
+        CUDA inputs are cast to float32 and the solution back to this
+        controller's dtype. CPU inputs go to the kernel's plain version in
+        this controller's dtype, which runs the controller's own functions.
+        ``pallas_tile``, ``pallas_full_pack`` and ``pallas_vmem_mb`` are TPU
+        knobs without effect."""
+        funcs, dims, dtype = self._funcs, self._dims, self._dtype
+
+        def solve(th, x0s, Xi, Ui):
+            kdt = torch.float32 if th.is_cuda else dtype
+            bounds = OCPBounds(*[b.to(kdt) for b in self._bounds])
+            sol = solve_ocp_full_cuda(
+                funcs, dims, bounds, *[a.to(kdt).contiguous()
+                                       for a in (th, x0s, Xi, Ui)], options=opts)
+            return type(sol)(*[v.to(dtype) if v.is_floating_point() else v
+                               for v in sol])
+        return solve
 
     def prepare_batch(self, x0_batch, cp=None, tvp=None, ref=None, u_prev=None):
         """Solver inputs for B scenarios, cold-started by one batched rollout:

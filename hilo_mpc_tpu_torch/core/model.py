@@ -107,6 +107,11 @@ class Model:
         self._meas: Optional[Callable] = None
         self._quad: Optional[Callable] = None
         self._equations_src: Optional[str] = None
+        # where the state equations came from: "dsl" (self._dsl keeps the
+        # parse), "state_space" (self._ss) or "callable"; code generation for
+        # the card (ops/codegen_cuda.py) reads the first two
+        self._ode_origin: Optional[str] = None
+        self._dsl = None
 
         # linear state-space matrices if declared that way
         self._ss: Dict[str, Optional[np.ndarray]] = {k: None for k in "ABCDM"}
@@ -217,7 +222,7 @@ class Model:
     def set_dynamical_equations(self, fn: Union[Callable, str, Sequence[str]]):
         if isinstance(fn, (str, list, tuple)):
             return self.set_equations(ode=fn)
-        self._ode = wrap_rhs(fn, "ode")
+        self._set_callable_ode(fn)
         return self
 
     def set_measurement_equations(self, fn: Union[Callable, str, Sequence[str]]):
@@ -236,7 +241,7 @@ class Model:
             equations = None
         if equations is not None:
             if callable(equations):
-                self._ode = wrap_rhs(equations, "ode")
+                self._set_callable_ode(equations)
                 return self
             if isinstance(equations, (list, tuple)):
                 equations = "\n".join(equations)
@@ -249,10 +254,14 @@ class Model:
             if isinstance(fn, (str, list, tuple)):
                 apply_parsed_equations(self, fn if isinstance(fn, str) else "\n".join(fn))
             elif what == "ode":
-                self._ode = wrap_rhs(fn, what)
+                self._set_callable_ode(fn)
             else:
                 self._meas = wrap_rhs(fn, what)
         return self
+
+    def _set_callable_ode(self, fn: Callable):
+        self._ode = wrap_rhs(fn, "ode")
+        self._ode_origin, self._dsl = "callable", None
 
     # -- linear state-space declaration --------------------------------------
     def set_state_space(self, A=None, B=None, C=None, D=None, M=None):
@@ -302,6 +311,7 @@ class Model:
             return fn
 
         self._ode = affine(At, Bt, nx)
+        self._ode_origin, self._dsl = "state_space", None
         if Ct is not None or Dt is not None:
             self._meas = affine(Ct, Dt, ny)
         return self
@@ -747,6 +757,7 @@ class Model:
             return core(x, z, u, p, t, h)[0]
 
         disc._ode = disc_map
+        disc._ode_origin, disc._dsl = "callable", None
         return disc
 
     # -- misc -----------------------------------------------------------------

@@ -16,10 +16,12 @@
 // Design. The TPU kernel puts the batch in vector lanes and unrolls stages
 // and indices at trace time. Here each thread owns one scenario: nx and nu
 // are template parameters, so every small matrix lives in registers and all
-// index loops unroll; the horizon N is a runtime loop bound. Threads with
-// b >= Bt return, which replaces the padded-lane R = I trick of the TPU
-// kernel. The (P, p) stash for the forward pass goes to a scratch buffer the
-// caller allocates.
+// index loops unroll; the horizon N is a runtime loop bound. This header
+// holds the template; ops/cuda_kernels.py:riccati_lq_source writes the
+// instantiation for one (nx, nu) (RICCATI_LQ_EXPORTS below), built at first
+// use. Threads with b >= Bt return, which replaces the padded-lane R = I
+// trick of the TPU kernel. The (P, p) stash for the forward pass goes to a
+// scratch buffer the caller allocates.
 //
 // Bound. At the flagship shape (nx=2, nu=1) a scenario moves about
 // 4·(N·(2nx²+2nx·nu+nu²+3nx+nu) + outputs + stash) bytes in float32 and does a
@@ -29,10 +31,12 @@
 // apart and loads do not coalesce; a scenario-minor layout or shared-memory
 // staging is the next step. The launcher takes PyTorch's current stream,
 // allocates nothing and never synchronizes.
+#pragma once
+
 #include <cuda_runtime.h>
 #include <cstddef>
 
-namespace {
+namespace rlq {
 
 template <typename T> __device__ __forceinline__ T dsqrt(T v);
 template <> __device__ __forceinline__ float dsqrt<float>(float v) { return sqrtf(v); }
@@ -286,54 +290,23 @@ cudaError_t launch(const void* A, const void* B, const void* Q, const void* S,
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int nx, int nu, const void* A, const void* B, const void* Q,
-             const void* S, const void* R, const void* q, const void* r,
-             const void* c, const void* P_term, const void* p_term,
-             const void* dx0, void* dX, void* dU, void* lam, void* K, void* kff,
-             void* cost_red, void* Pn, void* pn, int Bt, int N, double reg,
-             void* stream) {
-  if (Bt <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RLQ_CASE(NX_, NU_)                                                    \
-  if (nx == NX_ && nu == NU_)                                                 \
-    return static_cast<int>(launch<T, NX_, NU_>(A, B, Q, S, R, q, r, c,       \
-                                                P_term, p_term, dx0, dX, dU,  \
-                                                lam, K, kff, cost_red, Pn, pn,\
-                                                Bt, N, reg, s));
-  RLQ_CASE(2, 1)
-  RLQ_CASE(3, 2)
-  RLQ_CASE(2, 3)
-#undef RLQ_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+}  // namespace rlq
 
-}  // namespace
-
-// Plain C entry points (bound with ctypes). Each returns the cudaError_t of
-// the launch; 0 means the kernel was enqueued on `stream`.
-extern "C" int riccati_lq_f32(int nx, int nu, const void* A, const void* B,
-                              const void* Q, const void* S, const void* R,
-                              const void* q, const void* r, const void* c,
-                              const void* P_term, const void* p_term,
-                              const void* dx0, void* dX, void* dU, void* lam,
-                              void* K, void* kff, void* cost_red, void* Pn,
-                              void* pn, int Bt, int N, double reg,
-                              void* stream) {
-  return dispatch<float>(nx, nu, A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
-                         dX, dU, lam, K, kff, cost_red, Pn, pn, Bt, N, reg,
-                         stream);
-}
-
-extern "C" int riccati_lq_f64(int nx, int nu, const void* A, const void* B,
-                              const void* Q, const void* S, const void* R,
-                              const void* q, const void* r, const void* c,
-                              const void* P_term, const void* p_term,
-                              const void* dx0, void* dX, void* dU, void* lam,
-                              void* K, void* kff, void* cost_red, void* Pn,
-                              void* pn, int Bt, int N, double reg,
-                              void* stream) {
-  return dispatch<double>(nx, nu, A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
-                          dX, dU, lam, K, kff, cost_red, Pn, pn, Bt, N, reg,
-                          stream);
-}
+// The C entry points of one (NX, NU) instantiation (bound with ctypes). Each
+// returns the cudaError_t of the launch; 0 means the kernel was enqueued on
+// `stream`.
+#define RLQ_ARGS                                                              \
+  const void *A, const void *B, const void *Q, const void *S, const void *R,  \
+      const void *q, const void *r, const void *c, const void *P_term,        \
+      const void *p_term, const void *dx0, void *dX, void *dU, void *lam,     \
+      void *K, void *kff, void *cost_red, void *Pn, void *pn, int Bt, int N,  \
+      double reg, void *stream
+#define RLQ_CALL(T, NX, NU)                                                   \
+  (Bt <= 0 || N <= 0)                                                         \
+      ? static_cast<int>(cudaErrorInvalidValue)                               \
+      : static_cast<int>(rlq::launch<T, NX, NU>(                              \
+            A, B, Q, S, R, q, r, c, P_term, p_term, dx0, dX, dU, lam, K, kff, \
+            cost_red, Pn, pn, Bt, N, reg, static_cast<cudaStream_t>(stream)))
+#define RICCATI_LQ_EXPORTS(NX, NU)                                            \
+  extern "C" int riccati_lq_f32(RLQ_ARGS) { return RLQ_CALL(float, NX, NU); } \
+  extern "C" int riccati_lq_f64(RLQ_ARGS) { return RLQ_CALL(double, NX, NU); }

@@ -1,0 +1,576 @@
+"""Emit C++ for the card from a model and an optimal-control problem.
+
+Counterpart of what ``hilo_mpc_tpu/ops/pallas_ip.py`` does before its
+``pallas_call``: ``_stage_rows`` (lines 92-121) picks the active box rows and
+``_scalarized`` with the ``*_lane`` helpers (lines 215-322) trace the user's
+dynamics and cost into the kernel and differentiate them there. CUDA has no
+in-kernel AD, so this module writes the model as C++ instead:
+
+- the model's equations are walked as Python ``ast`` (numbers, names,
+  ``+ - * / **``, unary minus and calls into the DSL's function table) into
+  a function template over a scalar type ``S``; with ``S`` the dual number of
+  ``csrc/dual.cuh`` one pass gives F and [A | B] (forward mode);
+- the step wraps it in the configured ERK tableau with substeps, or the
+  discrete map, with the solver scaling and the theta unpack of
+  ``control/nmpc.py`` (x = xs·sx, u = us·su, p = theta[2:2+n_p],
+  t = theta[0], h = theta[1]);
+- the quadratic cost gets its gradient and Hessian in closed form:
+  g = (h/dt)·sx∘(W+Wᵀ)e and H = (h/dt)·diag(sx)(W+Wᵀ)diag(sx), scattered by
+  the term's indices (no h factor and u = 0 in the terminal cost). These are
+  exact for the only cost form the port has (ROADMAP.md §A item 7 brings
+  generic costs);
+- the box rows become bit masks over the candidate rows
+  ``[u-ub; lb-u; x-ub; lb-x]`` of each stage (no x rows at k = 0), then the
+  terminal rows ``[x-ub; lb-x]``.
+
+Structure goes into the source (sizes, the active-row pattern, the tableau,
+the expressions, the cost's sparsity); numbers go into the array ``prm``
+(bound offsets, weights, constant references, scalings, dt, the IP
+constants), so controllers that differ only in numbers share one build.
+What cannot be emitted (a model given as a Python callable, DAE states, a
+function outside the DSL table) raises ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import ast
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+
+from ..core.integrators import IntegratorSpec, erk_tableau
+from ..utils.parsing import _CallStripper
+
+# DSL function -> (C++ function in csrc/dual.cuh, arity)
+_FUNCS = {
+    "exp": ("m_exp", 1), "log": ("m_log", 1), "ln": ("m_log", 1),
+    "log10": ("m_log10", 1), "sqrt": ("m_sqrt", 1), "sin": ("m_sin", 1),
+    "cos": ("m_cos", 1), "tan": ("m_tan", 1), "asin": ("m_asin", 1),
+    "arcsin": ("m_asin", 1), "acos": ("m_acos", 1), "arccos": ("m_acos", 1),
+    "atan": ("m_atan", 1), "arctan": ("m_atan", 1), "atan2": ("m_atan2", 2),
+    "arctan2": ("m_atan2", 2), "sinh": ("m_sinh", 1), "cosh": ("m_cosh", 1),
+    "tanh": ("m_tanh", 1), "asinh": ("m_asinh", 1), "arsinh": ("m_asinh", 1),
+    "acosh": ("m_acosh", 1), "arcosh": ("m_acosh", 1), "atanh": ("m_atanh", 1),
+    "artanh": ("m_atanh", 1), "abs": ("m_abs", 1), "fabs": ("m_abs", 1),
+    "sign": ("m_sign", 1), "fmin": ("m_fmin", 2), "fmax": ("m_fmax", 2),
+    "minimum": ("m_fmin", 2), "maximum": ("m_fmax", 2), "floor": ("m_floor", 1),
+    "ceil": ("m_ceil", 1), "erf": ("m_erf", 1),
+}
+_CONSTS = {"pi": math.pi}
+# candidate rows of a stage fit one 32-bit mask
+MAX_ROWS = 32
+# the IP constants at the head of prm, in this order (then max_iter)
+_IP_FIELDS = ("tol", "tol10", "reg", "s_min", "kappa_eps", "kappa_mu",
+              "theta_mu", "tau_min", "max_iter")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class OCPSource:
+    """What the emitter needs of an NMPC problem (``NMPC.setup`` attaches it
+    to its ``OCPFunctions``): the model and integrator, the theta layout
+    [t, h, p (n_p), stage refs, terminal refs], the quadratic cost terms
+    (control/costs.py:QuadTerm), the solver scalings and the sampling time
+    that divides the stage cost's h."""
+    model: object
+    spec: IntegratorSpec
+    off_rs: int
+    off_rt: int
+    stage_terms: tuple
+    term_terms: tuple
+    x_scaling: tuple
+    u_scaling: tuple
+    dt: float
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EmittedProblem:
+    """One problem as C++ (``text``, compiled together with
+    csrc/whole_ip.cuh) and its numbers (``prm``, float64, cast to the
+    kernel's type at launch). ``stage_rows`` lists (k, full column) of each
+    active stage row in slot order, ``term_rows`` the full column of each
+    active terminal row; ``flops`` the operations of one IP iteration of one
+    scenario, counted from the emitted code and the solver template."""
+    text: str
+    prm: np.ndarray
+    stage_rows: tuple
+    term_rows: tuple
+    flops: int
+
+
+def _lit(v: float) -> str:
+    v = float(v)
+    if math.isinf(v):
+        return "hm::m_inf<T>()" if v > 0 else "(-hm::m_inf<T>())"
+    if math.isnan(v):
+        raise NotImplementedError("a NaN constant in the model cannot be emitted")
+    return f"T({v!r})"
+
+
+class _Expr:
+    """C++ for one DSL expression; ``names`` maps DSL names to C++. Counts
+    the operations it emits (``ops``: arithmetic, ``calls``: functions)."""
+
+    def __init__(self, names):
+        self.names = names
+        self.ops = 0
+        self.calls = 0
+
+    def __call__(self, src: str) -> str:
+        tree = _CallStripper().visit(ast.parse(src, mode="eval"))
+        return self.emit(tree.body)
+
+    @staticmethod
+    def _number(node) -> Optional[float]:
+        if isinstance(node, ast.Constant) and type(node.value) in (int, float):
+            return float(node.value)
+        if isinstance(node, ast.UnaryOp) and isinstance(node.op, (ast.USub, ast.UAdd)):
+            v = _Expr._number(node.operand)
+            if v is not None:
+                return -v if isinstance(node.op, ast.USub) else v
+        return None
+
+    def emit(self, node) -> str:
+        if isinstance(node, ast.Constant):
+            if type(node.value) not in (int, float):
+                raise NotImplementedError(
+                    f"constant {node.value!r} cannot be emitted as C++")
+            return _lit(node.value)
+        if isinstance(node, ast.Name):
+            if node.id in self.names:
+                return self.names[node.id]
+            if node.id in _CONSTS:
+                return _lit(_CONSTS[node.id])
+            if node.id == "inf":
+                return _lit(float("inf"))
+            raise NotImplementedError(f"unknown name {node.id!r} in a model equation")
+        if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
+            self.ops += 1
+            return f"(-{self.emit(node.operand)})"
+        if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
+            return self.emit(node.operand)
+        if isinstance(node, ast.BinOp):
+            ops = {ast.Add: "+", ast.Sub: "-", ast.Mult: "*", ast.Div: "/"}
+            if type(node.op) in ops:
+                self.ops += 1
+                return (f"({self.emit(node.left)} {ops[type(node.op)]} "
+                        f"{self.emit(node.right)})")
+            if isinstance(node.op, ast.Pow):
+                return self._pow(node)
+            raise NotImplementedError(
+                f"operator {type(node.op).__name__} cannot be emitted as C++")
+        if isinstance(node, ast.Call):
+            fn = node.func.id if isinstance(node.func, ast.Name) else None
+            if fn not in _FUNCS or node.keywords:
+                raise NotImplementedError(
+                    f"function {fn or ast.dump(node.func)!r} is not in the DSL "
+                    f"table and cannot be emitted as C++")
+            cxx, arity = _FUNCS[fn]
+            if len(node.args) != arity:
+                raise NotImplementedError(f"{fn} takes {arity} argument(s)")
+            self.calls += 1
+            return f"hm::{cxx}({', '.join(self.emit(a) for a in node.args)})"
+        raise NotImplementedError(
+            f"{type(node).__name__} cannot be emitted as C++ (numbers, names, "
+            f"+ - * / **, unary minus and the DSL functions can)")
+
+    def _pow(self, node) -> str:
+        base = self.emit(node.left)
+        c = self._number(node.right)
+        # the exponents torch.pow computes by multiplication or a root
+        if c == 1.0:
+            return base
+        if c == 2.0:
+            self.ops += 1
+            return f"hm::m_sq({base})"
+        if c == 0.5:
+            self.calls += 1
+            return f"hm::m_sqrt({base})"
+        self.calls += 1
+        if c is not None:
+            return f"hm::m_pow({base}, {_lit(c)})"
+        return f"hm::m_pow({base}, {self.emit(node.right)})"
+
+
+def model_emit_error(model) -> Optional[str]:
+    """Why ``model`` cannot be emitted as C++, or None if it can."""
+    try:
+        emit_model(model)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def emit_model(model) -> tuple:
+    """C++ of the model's state equations: (text of ``rhs``, operation
+    count, function-call count). ``rhs(x, u, p, t, out)`` is a function
+    template over the scalar type ``S`` of x, u and out (T or a dual
+    number); p and t are plain ``T``."""
+    nx, nu = model.n_x, model.n_u
+    if model.n_z:
+        raise NotImplementedError("DAE models (algebraic states) cannot be "
+                                  "emitted as C++")
+    if nu == 0:
+        raise NotImplementedError("a model without inputs cannot be emitted "
+                                  "for the whole-solve kernel")
+    origin = getattr(model, "_ode_origin", None)
+    body = []
+    if origin == "dsl":
+        dsl = model._dsl
+        names = {n: f"x[{i}]" for n, i in dsl.x_idx.items()}
+        names.update({n: f"u[{i}]" for n, i in dsl.u_idx.items()})
+        names.update({n: f"p[{i}]" for n, i in dsl.p_idx.items()})
+        names.update({n: _lit(v) for n, v in dsl.constants.items()})
+        names.update(t="t", k="t")
+        ex = _Expr(names)
+        for j, (name, src) in enumerate(dsl.aux):
+            body.append(f"  const auto a{j} = {ex(src)};")
+            ex.names[name] = f"a{j}"
+        for i, src in enumerate(dsl.rhs):
+            body.append(f"  out[{i}] = S({ex(src)});")
+        ops, calls = ex.ops, ex.calls
+    elif origin == "state_space":
+        A = model._ss["A"]
+        Bm = model._ss["B"]
+        ops, calls = 0, 0
+        for i in range(nx):
+            terms = [f"x[{j}] * {_lit(A[i, j])}" for j in range(nx) if A[i, j] != 0.0]
+            if Bm is not None:
+                terms += [f"u[{j}] * {_lit(Bm[i, j])}" for j in range(nu)
+                          if Bm[i, j] != 0.0]
+            ops += max(2 * len(terms) - 1, 0)
+            body.append(f"  out[{i}] = S({' + '.join(terms) or _lit(0.0)});")
+    else:
+        raise NotImplementedError(
+            "the model's equations are a Python callable: only models given "
+            "in the equation DSL or by state-space matrices can be emitted as "
+            "C++ (a torch.fx emitter is the later extension, ROADMAP.md §C)")
+    text = ("  template <typename T, typename S>\n"
+            "  HM_HD static void rhs(const S* x, const S* u, const T* p, T t, "
+            "S* out) {\n"
+            + "\n".join("  " + line for line in body) + "\n  }\n")
+    return text, ops, calls
+
+
+class _Prm:
+    """The numbers array, filled while the source is written."""
+
+    def __init__(self):
+        self.vals = []
+
+    def add(self, v) -> int:
+        self.vals.append(float(v))
+        return len(self.vals) - 1
+
+
+def _emit_step(spec: IntegratorSpec, nx: int) -> tuple:
+    """The integrator step from x at time t0 over h, in place on x, as
+    core/integrators.py:make_step builds it; returns (lines, RHS
+    evaluations, combination count)."""
+    lines, n_rhs, n_comb = [], 0, 0
+    m = max(int(spec.substeps), 1)
+    method = spec.method.lower()
+    if m > 1:
+        lines += [f"    const T hh = h / {_lit(m)};",
+                  f"    for (int q = 0; q < {m}; ++q) {{",
+                  "      const T tq = t0 + T(q) * hh;"]
+    else:
+        lines += ["    const T hh = h;", "    {", "      const T tq = t0;"]
+    if method == "discrete":
+        lines += [f"      S xn[{nx}];", "      rhs(x, u, p, tq, xn);",
+                  f"      for (int i = 0; i < {nx}; ++i) x[i] = xn[i];"]
+        n_rhs = 1
+    else:
+        A, b, c = erk_tableau(method)
+        s = len(b)
+        for i in range(s):
+            lines.append(f"      S k{i}[{nx}], x{i}[{nx}];")
+            lines.append(f"      for (int n = 0; n < {nx}; ++n) {{")
+            lines.append("        S v = x[n];")
+            for j in range(i):
+                if float(A[i][j]) != 0.0:
+                    lines.append(f"        v = v + (hh * {_lit(A[i][j])}) * k{j}[n];")
+                    n_comb += 1
+            lines.append(f"        x{i}[n] = v;")
+            lines.append("      }")
+            lines.append(f"      rhs(x{i}, u, p, tq + {_lit(c[i])} * hh, k{i});")
+        lines.append(f"      for (int n = 0; n < {nx}; ++n) {{")
+        lines.append("        S v = x[n];")
+        for i in range(s):
+            if float(b[i]) != 0.0:
+                lines.append(f"        v = v + (hh * {_lit(b[i])}) * k{i}[n];")
+                n_comb += 1
+        lines += ["        x[n] = v;", "      }"]
+        n_rhs = s
+    lines.append("    }")
+    return lines, n_rhs * m, n_comb * m
+
+
+def _rows(bounds, N: int, nx: int, nu: int):
+    """Active rows in _stage_rows order: per stage a mask over the candidate
+    rows and the bound offsets (-ub for upper, +lb for lower rows)."""
+    lbx, ubx, lbu, ubu = (np.asarray(b, np.float64) for b in bounds)
+    masks, offs = [], []
+    for k in range(N):
+        cand = ([(ubu[k, j], -1.0) for j in range(nu)]
+                + [(lbu[k, j], 1.0) for j in range(nu)])
+        if k > 0:                                  # x_0 is fixed
+            cand += ([(ubx[k, i], -1.0) for i in range(nx)]
+                     + [(lbx[k, i], 1.0) for i in range(nx)])
+        mask = 0
+        for r, (v, sg) in enumerate(cand):
+            if np.isfinite(v):
+                mask |= 1 << r
+                offs.append(sg * v)
+        masks.append(mask)
+    tcand = ([(ubx[N, i], -1.0) for i in range(nx)]
+             + [(lbx[N, i], 1.0) for i in range(nx)])
+    tmask, toffs = 0, []
+    for t, (v, sg) in enumerate(tcand):
+        if np.isfinite(v):
+            tmask |= 1 << t
+            toffs.append(sg * v)
+    return masks, offs, tmask, toffs
+
+
+def _runs(masks):
+    """Consecutive stages with one mask: [(k0, k1, mask, first slot)]."""
+    runs, slot = [], 0
+    for k, m in enumerate(masks):
+        if runs and runs[-1][2] == m:
+            runs[-1][1] = k + 1
+        else:
+            runs.append([k, k + 1, m, slot])
+        slot += bin(m).count("1")
+    return runs
+
+
+def _emit_cost(terms, ref_off: int, prm: _Prm, nx: int, nu: int,
+               terminal: bool) -> tuple:
+    """(value, gradient, Hessian) C++ bodies of a quadratic cost, and its
+    operation count. x and u are the unscaled variables, g and H come out
+    with respect to the solver-scaled ones."""
+    val, grad, hess = [], [], []
+    ops = 0
+    off = ref_off
+    for n_t, term in enumerate(terms):
+        src = "x" if term.kind == "states" else "u"
+        idx = [int(i) for i in term.idx]
+        W = np.asarray(term.W, np.float64)
+        Ws = W + W.T
+        e = []
+        for i, vi in enumerate(idx):
+            v = "T(0)" if (terminal and src == "u") else f"{src}[{vi}]"
+            if term.runtime_ref:
+                e.append(f"({v} - th[{off + i}])")
+            elif term.ref is not None:
+                e.append(f"({v} - prm[{prm.add(term.ref[i])}])")
+            else:
+                e.append(v)
+        if term.runtime_ref:
+            off += term.n
+        names = [f"e{n_t}_{i}" for i in range(len(idx))]
+        decl = [f"    const T {nm} = {ex};" for nm, ex in zip(names, e)]
+        val += decl
+        for i in range(len(idx)):
+            for j in range(len(idx)):
+                if W[i, j] != 0.0:
+                    val.append(f"    c = c + prm[{prm.add(W[i, j])}] * {names[i]}"
+                               f" * {names[j]};")
+                    ops += 3
+        if terminal and src == "u":
+            continue                        # constant: no gradient, no Hessian
+        grad += decl
+        g = "gx" if src == "x" else "gu"
+        H = "Hxx" if src == "x" else "Huu"
+        dim = nx if src == "x" else nu
+        for i, vi in enumerate(idx):
+            for j, vj in enumerate(idx):
+                if Ws[i, j] != 0.0:
+                    w = prm.add(Ws[i, j])
+                    grad.append(f"    {g}[{vi}] = {g}[{vi}] + prm[{w}] * {names[j]};")
+                    hess.append(f"    {H}[{vi * dim + vj}] = {H}[{vi * dim + vj}]"
+                                f" + prm[{w}];")
+                    ops += 2
+    return val, grad, hess, ops
+
+
+def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> EmittedProblem:
+    """The C++ problem struct for csrc/whole_ip.cuh and its numbers.
+    ``bounds`` are numpy arrays (lbx, ubx, lbu, ubu) in solver coordinates;
+    ``options`` the IPOptions whose constants go into prm."""
+    nx, nu, N = dims.nx, dims.nu, dims.N
+    if 2 * nu + 2 * nx > MAX_ROWS:
+        raise NotImplementedError(
+            f"2·nu + 2·nx = {2 * nu + 2 * nx} candidate box rows per stage; the "
+            f"whole-solve kernel takes at most {MAX_ROWS}")
+    rhs, model_ops, model_calls = emit_model(src.model)
+    prm = _Prm()
+    tol = float(options.tol)
+    for name in _IP_FIELDS:
+        prm.add(tol / 10.0 if name == "tol10" else getattr(options, name))
+    p_dt = prm.add(src.dt)
+    p_sx = len(prm.vals)
+    for v in src.x_scaling:
+        prm.add(v)
+    p_su = len(prm.vals)
+    for v in src.u_scaling:
+        prm.add(v)
+    sv, sg, sh, s_ops = _emit_cost(src.stage_terms, src.off_rs, prm, nx, nu, False)
+    tv, tg, th_, t_ops = _emit_cost(src.term_terms, src.off_rt, prm, nx, nu, True)
+    masks, offs, tmask, toffs = _rows(bounds, N, nx, nu)
+    p_row = len(prm.vals)
+    for v in offs:
+        prm.add(v)
+    p_trow = len(prm.vals)
+    for v in toffs:
+        prm.add(v)
+    prm.add(0.0)                  # keeps P_ROW and P_TROW inside the array
+    step, n_rhs, n_comb = _emit_step(src.spec, nx)
+
+    runs = _runs(masks)
+    k0, _, m_last, s_last = runs[-1]
+    mask_fn = "".join(f"    if (k < {k1}) return {m}u;\n" for _, k1, m, _ in runs[:-1])
+    mask_fn += f"    return {m_last}u;"
+    off_fn = "".join(f"    if (k < {k1}) return {s0} + (k - {k0}) * "
+                     f"{bin(m).count('1')};\n" for k0, k1, m, s0 in runs[:-1])
+    off_fn += f"    return {s_last} + (k - {k0}) * {bin(m_last).count('1')};"
+    scale_in = "\n".join(
+        [f"    T x[{nx}], u[{nu}];"]
+        + [f"    x[{i}] = xs[{i}] * prm[{p_sx + i}];" for i in range(nx)]
+        + [f"    u[{j}] = us[{j}] * prm[{p_su + j}];" for j in range(nu)])
+    zero = lambda name, n: f"    for (int i = 0; i < {n}; ++i) {name}[i] = T(0);"  # noqa: E731
+    scale_h = "\n".join(
+        [f"    Hxx[{a * nx + b}] = Hxx[{a * nx + b}] * (hs * (prm[{p_sx + a}] * "
+         f"prm[{p_sx + b}]));" for a in range(nx) for b in range(nx)]
+        + [f"    Huu[{a * nu + b}] = Huu[{a * nu + b}] * (hs * (prm[{p_su + a}] * "
+           f"prm[{p_su + b}]));" for a in range(nu) for b in range(nu)])
+    text = f"""// Generated by hilo_mpc_tpu_torch/ops/codegen_cuda.py: one NMPC problem
+// for the whole-solve interior point of csrc/whole_ip.cuh.
+#include "whole_ip.cuh"
+
+struct Problem {{
+  static constexpr int NX = {nx}, NU = {nu}, N = {N}, NT = {n_theta};
+  static constexpr int RS = {len(offs)}, RT = {len(toffs)};
+  static constexpr unsigned TERM_MASK = {tmask}u;
+  static constexpr int P_TOL = 0, P_TOL10 = 1, P_REG = 2, P_SMIN = 3,
+                       P_KEPS = 4, P_KMU = 5, P_TMU = 6, P_TAUMIN = 7,
+                       P_MAXIT = 8, P_ROW = {p_row}, P_TROW = {p_trow};
+
+  // active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, and the slot
+  // of the first of them
+  HM_HD static unsigned row_mask(int k) {{
+{mask_fn}
+  }}
+  HM_HD static int row_off(int k) {{
+{off_fn}
+  }}
+
+{rhs}
+  // x_next of the solver-scaled (xs, us) at the stage parameters th
+  template <typename T, typename S>
+  HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
+                        S* out) {{
+    S x[{nx}], u[{nu}];
+    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+    for (int j = 0; j < {nu}; ++j) u[j] = us[j] * prm[{p_su} + j];
+    const T* p = th + 2;
+    const T t0 = th[0], h = th[1];
+{chr(10).join(step)}
+    for (int i = 0; i < {nx}; ++i) out[i] = x[i] / prm[{p_sx} + i];
+  }}
+
+  template <typename T>
+  HM_HD static T stage_cost(const T* xs, const T* us, const T* th,
+                            const T* prm) {{
+{scale_in}
+    (void)x; (void)u;
+    T c = T(0);
+{chr(10).join(sv)}
+    return c * th[1] / prm[{p_dt}];
+  }}
+  template <typename T>
+  HM_HD static void stage_grad(const T* xs, const T* us, const T* th,
+                               const T* prm, T* gx, T* gu) {{
+{scale_in}
+    (void)x; (void)u;
+{zero("gx", nx)}
+{zero("gu", nu)}
+{chr(10).join(sg)}
+    const T hs = th[1] / prm[{p_dt}];
+    for (int i = 0; i < {nx}; ++i) gx[i] = hs * (prm[{p_sx} + i] * gx[i]);
+    for (int j = 0; j < {nu}; ++j) gu[j] = hs * (prm[{p_su} + j] * gu[j]);
+  }}
+  template <typename T>
+  HM_HD static void stage_hess(const T* th, const T* prm, T* Hxx, T* Huu) {{
+{zero("Hxx", nx * nx)}
+{zero("Huu", nu * nu)}
+{chr(10).join(sh)}
+    const T hs = th[1] / prm[{p_dt}];
+{scale_h}
+  }}
+  template <typename T>
+  HM_HD static T term_cost(const T* xs, const T* th, const T* prm) {{
+    T x[{nx}];
+    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+    (void)x;
+    T c = T(0);
+{chr(10).join(tv)}
+    return c;
+  }}
+  template <typename T>
+  HM_HD static void term_grad(const T* xs, const T* th, const T* prm, T* gx) {{
+    T x[{nx}];
+    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+    (void)x;
+{zero("gx", nx)}
+{chr(10).join(tg)}
+    for (int i = 0; i < {nx}; ++i) gx[i] = prm[{p_sx} + i] * gx[i];
+  }}
+  template <typename T>
+  HM_HD static void term_hess(const T* prm, T* Hxx) {{
+{zero("Hxx", nx * nx)}
+{chr(10).join(th_)}
+    for (int a = 0; a < {nx}; ++a)
+      for (int b = 0; b < {nx}; ++b)
+        Hxx[a * {nx} + b] = Hxx[a * {nx} + b] * (prm[{p_sx} + a] * prm[{p_sx} + b]);
+  }}
+}};
+
+HM_WHOLE_IP_EXPORTS(Problem)
+"""
+    stage_rows = tuple((k, r) for k, m in enumerate(masks)
+                       for r in range(2 * nu + 2 * nx) if (m >> r) & 1)
+    term_rows = tuple(t for t in range(2 * nx) if (tmask >> t) & 1)
+    flops = _iteration_flops(nx, nu, N, len(offs), len(toffs), model_ops,
+                             model_calls, n_rhs, n_comb, s_ops)
+    return EmittedProblem(text=text, prm=np.asarray(prm.vals, np.float64),
+                          stage_rows=stage_rows, term_rows=term_rows, flops=flops)
+
+
+def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
+                     cost_ops) -> int:
+    """Operations of one IP iteration of one scenario, as the emitted step
+    and csrc/whole_ip.cuh execute them: each dual operation counts its value
+    and its D = nx + nu derivative lanes (a product 1 + 3D, a function call
+    2 + 2D), one operation per add, multiply, divide, square root or
+    exponential of the solver algebra."""
+    D = nx + nu
+    step = (n_rhs * (model_ops * (1 + 3 * D) + model_calls * (2 + 2 * D))
+            + n_comb * nx * (1 + 2 * (1 + D)) + (2 * nx + nu) * (1 + D))
+    grad = cost_ops + 2 * (nx + nu) + 2
+    kkt = nu * (2 * nx + 3) + nx * (2 * nx + 3) + nx + 2 * nx
+    rows_kkt = 8                                      # per active row
+    cond = 6 + 2 * nx * nx + 2 * nu * nu              # Hessians, per stage
+    rows_cond = 8
+    riccati = (2 * nx * nx + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nu * nu * nx
+               + 2 * nu * nx * nx + 2 * nu * nx + nu ** 3 + 2 * nu * nu * (nx + 1)
+               + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nx * nx + 2 * nx * nu
+               + 2 * nu + 3 * nu * nu + 3 * nx * nx)
+    fwd = 2 * nu * nx + nu + 2 * nx * nx + 2 * nx * nu + 2 * nx + 2 * nx * nx + nx
+    rows_step = 12 + 14                               # direction + candidate
+    cand = 2 * (nx + nu)
+    per_stage = step + grad + kkt + cond + riccati + fwd + cand
+    per_row = rows_kkt + rows_cond + rows_step
+    tail = 20 + nx * (nx + 4) + RT * per_row
+    return int(N * per_stage + RS * per_row + tail)

@@ -11,7 +11,9 @@ wrapper returns its plain version instead; for CUDA tensors it launches the
 kernel or raises.
 
 Sources live in ``hilo_mpc_tpu_torch/csrc/`` and are built by ``nvcc`` at first
-use (ops/_build.py).
+use (ops/_build.py); the Riccati kernel is a template there, instantiated for
+each (nx, nu) a caller needs. The whole-solve interior point is in
+ops/whole_ip.py.
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ import torch
 from . import _build
 from .riccati import solve_lq
 
-# (nx, nu) pairs instantiated in csrc/riccati_lq.cu
-RICCATI_LQ_SIZES = ((2, 1), (3, 2), (2, 3))
+# the largest (nx, nu) riccati_lq_cuda instantiates (csrc/riccati_lq.cuh)
+RICCATI_MAX_NX = 8
+RICCATI_MAX_NU = 4
 # largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N)
 FGM_MAX_N = 128
 # what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
@@ -38,11 +41,21 @@ def riccati_lq_reference(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     return tuple(solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=reg))
 
 
-def _riccati_fn(dtype):
-    lib = _build.load("riccati_lq")
+def riccati_lq_source(nx: int, nu: int) -> str:
+    """Source of the ``riccati_lq`` instantiation for one (nx, nu), from the
+    template csrc/riccati_lq.cuh; built at first use."""
+    if not (1 <= nx <= RICCATI_MAX_NX and 1 <= nu <= RICCATI_MAX_NU):
+        raise ValueError(f"riccati_lq_cuda takes 1 <= nx <= {RICCATI_MAX_NX} and "
+                         f"1 <= nu <= {RICCATI_MAX_NU} (RICCATI_MAX_NX, "
+                         f"RICCATI_MAX_NU), got nx={nx}, nu={nu}")
+    return f'#include "riccati_lq.cuh"\nRICCATI_LQ_EXPORTS({nx}, {nu})\n'
+
+
+def _riccati_fn(nx, nu, dtype):
+    lib = _build.load_source(riccati_lq_source(nx, nu))
     fn = lib.riccati_lq_f32 if dtype == torch.float32 else lib.riccati_lq_f64
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 19
+        fn.argtypes = ([ctypes.c_void_p] * 19
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -51,13 +64,14 @@ def _riccati_fn(dtype):
 
 def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
                     reg: float = 1e-8):
-    """Batched stagewise LQ solve as ONE CUDA kernel (csrc/riccati_lq.cu),
+    """Batched stagewise LQ solve as ONE CUDA kernel (csrc/riccati_lq.cuh),
     replacing ``hilo_mpc_tpu/ops/pallas_kernels.py:riccati_lq_pallas``.
 
     Shapes (Bt = batch): A (Bt,N,nx,nx), B (Bt,N,nx,nu), Q (Bt,N,nx,nx),
     S (Bt,N,nu,nx), R (Bt,N,nu,nu), q (Bt,N,nx), r (Bt,N,nu), c (Bt,N,nx),
     P_term (Bt,nx,nx), p_term (Bt,nx), dx0 (Bt,nx); float32 or float64, one
-    dtype, contiguous, one CUDA device; (nx, nu) in ``RICCATI_LQ_SIZES``.
+    dtype, contiguous, one CUDA device; nx <= ``RICCATI_MAX_NX`` and
+    nu <= ``RICCATI_MAX_NU`` (each size is built at its first use).
     Returns (dX (Bt,N+1,nx), dU (Bt,N,nu), lam (Bt,N,nx), K (Bt,N,nu,nx),
     kff (Bt,N,nu), cost_red (Bt,)).
     """
@@ -68,9 +82,7 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
         raise ValueError(f"A and B must be (Bt, N, nx, nx) / (Bt, N, nx, nu), "
                          f"got {tuple(A.shape)} and {tuple(B.shape)}")
     Bt, N, nx, nu = A.shape[0], A.shape[1], A.shape[2], B.shape[3]
-    if (nx, nu) not in RICCATI_LQ_SIZES:
-        raise ValueError(f"riccati_lq_cuda has no instantiation for nx={nx}, "
-                         f"nu={nu}; built sizes: {RICCATI_LQ_SIZES}")
+    riccati_lq_source(nx, nu)                     # raises above the cap
     if Bt < 1 or N < 1 or Bt >= 2 ** 31:
         raise ValueError(f"need 1 <= Bt < 2**31 and N >= 1, got Bt={Bt}, N={N}")
     expected = {
@@ -96,10 +108,10 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     dX, dU, lam = empty(Bt, N + 1, nx), empty(Bt, N, nu), empty(Bt, N, nx)
     K, kff, dec = empty(Bt, N, nu, nx), empty(Bt, N, nu), empty(Bt)
     Pn, pn = empty(Bt, N, nx, nx), empty(Bt, N, nx)       # (P, p)_{k+1} stash
-    fn = _riccati_fn(dtype)
+    fn = _riccati_fn(nx, nu, dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(nx, nu, *[t.data_ptr() for t in args],
+        rc = fn(*[t.data_ptr() for t in args],
                 *[t.data_ptr() for t in (dX, dU, lam, K, kff, dec, Pn, pn)],
                 Bt, N, float(reg), stream)
     if rc != 0:

@@ -28,11 +28,12 @@ Problem form (per scenario):
 
 Not ported yet (raise NotImplementedError): generic inequality rows and
 equality constraints, ``record_iterates``, ``parallel_riccati`` and
-``lin_storage_dtype`` (ROADMAP.md §A item 7), a free initial state
-(``fix_x0=False``, item 8) and the whole-solve kernel ``pallas_full``
-(§B item 3). ``riccati_unroll``, ``pallas_riccati``, ``pallas_pack``,
-``pallas_tile``, ``pallas_full_pack`` and ``pallas_vmem_mb`` are TPU layout
-knobs: accepted, and without effect here.
+``lin_storage_dtype`` (ROADMAP.md §A item 7) and a free initial state
+(``fix_x0=False``, item 8). As in the JAX package, ``solve_ocp`` ignores
+``pallas_full``: only ``NMPC.solve_batch_fn`` reads it and routes eligible
+problems to the whole-solve kernel (ops/whole_ip.py). ``riccati_unroll``,
+``pallas_riccati``, ``pallas_pack``, ``pallas_tile``, ``pallas_full_pack`` and
+``pallas_vmem_mb`` are TPU layout knobs: accepted, and without effect here.
 """
 from __future__ import annotations
 
@@ -54,6 +55,9 @@ class OCPFunctions(NamedTuple):
     term_ineq: Optional[Callable] = None
     stage_eq: Optional[Callable] = None
     term_eq: Optional[Callable] = None
+    # the problem as ops/codegen_cuda.py emits it for the whole-solve kernel
+    # (an OCPSource; NMPC.setup attaches it)
+    source: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +80,7 @@ class OCPBounds(NamedTuple):
     ubu: torch.Tensor
 
 
-def default_bounds(dims: OCPDims, dtype=torch.float32, device="cpu") -> OCPBounds:
+def default_bounds(dims: OCPDims, dtype=torch.float32, device="cuda") -> OCPBounds:
     def full(shape, v):
         return torch.full(shape, v, dtype=dtype, device=device)
     inf = float("inf")
@@ -169,7 +173,6 @@ def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions,
         (opt.record_iterates, "record_iterates", item7),
         (opt.parallel_riccati, "parallel_riccati", item7),
         (opt.lin_storage_dtype is not None, "lin_storage_dtype", item7),
-        (opt.pallas_full, "the whole-solve kernel (pallas_full)", "§B item 3"),
         (not fix_x0, "a free initial state (fix_x0=False)", "§A item 8"),
     ]
     for cond, what, item in todo:
@@ -247,11 +250,15 @@ def _step_cap(v, dv, msk, tau=None):
 def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
               theta: torch.Tensor, x0: torch.Tensor, X_init: torch.Tensor,
               U_init: torch.Tensor, options: IPOptions = IPOptions(),
-              fix_x0: bool = True, mu0: Optional[float] = None) -> OCPSolution:
+              fix_x0: bool = True, mu0: Optional[float] = None,
+              lq_solver: Callable = make_lq_solver) -> OCPSolution:
     """Solve B OCP instances at once (batch-first, see the module docstring).
 
     ``mu0`` optionally overrides ``options.mu_init`` at call time: cold- and
-    warm-start solves differ only in the initial barrier."""
+    warm-start solves differ only in the initial barrier. ``lq_solver(reg)``
+    builds the LQ step of every iteration: ``make_lq_solver`` (the CUDA
+    kernel on CUDA tensors) or ``ops/riccati.py:make_plain_lq_solver`` (the
+    plain sweeps on any device)."""
     # the Riccati/Newton arithmetic needs full float32 products: the JAX
     # solver measured batch convergence falling to 12% with reduced-precision
     # matmuls, so TF32 stays off for every product the solver issues
@@ -262,11 +269,11 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
         raise ValueError("bounds are shared by all scenarios: lbx/ubx (N+1, nx), "
                          "lbu/ubu (N, nu)")
     return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
-                           options, mu0)
+                           options, mu0, lq_solver)
 
 
 def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
-                    mu0_dyn) -> OCPSolution:
+                    mu0_dyn, make_lq) -> OCPSolution:
     nx, nu, N = dims.nx, dims.nu, dims.N
     m = 2 * nu + 2 * nx
     mN = 2 * nx
@@ -423,7 +430,7 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
                 + ((term_c(X) + sN) * maskN_f).abs().sum(dim=-1))
         return f + bar + nu_p * viol
 
-    lq_solver = make_lq_solver(reg=opt.reg)
+    lq_solver = make_lq(reg=opt.reg)
     dx0 = torch.zeros(Bn, nx, **kw)
 
     def iteration(cr: _Carry) -> _Carry:

@@ -4,8 +4,9 @@ PyTorch port of ``hilo_mpc_tpu/ops/riccati.py``. Batch-first: every block
 carries leading batch dims, the horizon recursion is a Python loop over the
 stage axis, and each per-stage operation is the same unrolled small-matrix
 algebra as the JAX sweeps (ops/smallalg.py). These sweeps are the plain
-version of the CUDA kernel ``ops/cuda_kernels.py:riccati_lq_cuda``;
-``lqr_backward`` and ``dare_solve`` give the LQR gains.
+version of the CUDA kernel ``ops/cuda_kernels.py:riccati_lq_cuda``
+(``make_plain_lq_solver``); ``lqr_backward`` and ``dare_solve`` give the LQR
+gains.
 
 Equality-constrained LQ problem solved here (per scenario):
 
@@ -19,6 +20,7 @@ c (..., N, nx); terminal P_term (..., nx, nx), p_term (..., nx); dx0 (..., nx).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -144,6 +146,13 @@ def make_lq_solver(reg: float = 1e-9):
         return LQSolution(*[o.reshape(*batch, *o.shape[1:]) for o in out])
 
     return solve
+
+
+def make_plain_lq_solver(reg: float = 1e-9):
+    """The plain sweeps above as the LQ step of ``ops/ip_solver.py:solve_ocp``
+    on any device (its ``lq_solver`` argument): the plain version of the
+    kernel that ``make_lq_solver`` launches on CUDA tensors."""
+    return functools.partial(solve_lq, reg=reg)
 
 
 def lqr_backward(A, B, Q, R, S=None, P_term=None, horizon: int = None):

@@ -30,7 +30,7 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def to_torch(tree, device="cpu", dtype=torch.float64):
+def to_torch(tree, device="cuda", dtype=torch.float64):
     """Arrays -> tensors on ``device``; floating arrays are cast to ``dtype``,
     integer and boolean arrays keep their type."""
     if _is_namedtuple(tree):

@@ -172,6 +172,22 @@ class ParsedEquations:
     aux_src: List[tuple] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass(frozen=True)
+class DSLSource:
+    """What code generation needs of a model's state equations
+    (ops/codegen_cuda.py emits C++ from it): the RHS source of each state in
+    state order (ODE or difference equation), the auxiliary definitions in
+    dependency order, the numeric constants, and the name -> index maps of
+    the state, input and parameter vectors."""
+    rhs: tuple                   # (source, ...) per state, in state order
+    aux: tuple                   # ((name, source), ...) in dependency order
+    constants: Dict[str, float]
+    x_idx: Dict[str, int]
+    u_idx: Dict[str, int]
+    p_idx: Dict[str, int]
+    discrete: bool
+
+
 def parse_equations(text: str, known_states: Optional[List[str]] = None,
                     known_inputs: Optional[List[str]] = None,
                     known_parameters: Optional[List[str]] = None,
@@ -405,6 +421,14 @@ def apply_parsed_equations(model, text: str) -> None:
         model._discrete = True
     if parsed.ode is not None:
         model._ode = parsed.ode
+        model._ode_origin = "dsl"
+        model._dsl = DSLSource(
+            rhs=tuple(parsed.ode_src[n] for n in parsed.states),
+            aux=tuple(parsed.aux_src), constants=dict(parsed.constants),
+            x_idx={n: i for i, n in enumerate(parsed.states)},
+            u_idx={n: i for i, n in enumerate(parsed.inputs)},
+            p_idx={n: i for i, n in enumerate(parsed.parameters)},
+            discrete=parsed.discrete)
     if parsed.alg is not None:
         model._alg = parsed.alg
     if parsed.meas is not None:

@@ -7,6 +7,7 @@ iteration counts within one (a last-digit difference can move a barrier
 update or a line-search decision by one iteration).
 """
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,9 +76,9 @@ def test_double_integrator_matches_jax(bounded, pinned):
     jsol = jip.solve_ocp_batched(jfuncs, jdims, jip.OCPBounds(*map(jnp.asarray, bnd)),
                                  *map(jnp.asarray, args),
                                  jip.IPOptions(max_iter=40, tol=1e-6))
-    tbnd = (tip.OCPBounds(*to_torch(bnd)) if bounded
-            else tip.default_bounds(tdims, dtype=F64))
-    tsol = tip.solve_ocp(tfuncs, tdims, tbnd, *to_torch(args),
+    tbnd = (tip.OCPBounds(*to_torch(bnd, device=CPU)) if bounded
+            else tip.default_bounds(tdims, dtype=F64, device=CPU))
+    tsol = tip.solve_ocp(tfuncs, tdims, tbnd, *to_torch(args, device=CPU),
                          tip.IPOptions(max_iter=40, tol=1e-6))
     assert bool(tsol.converged.all())
     if pinned:
@@ -139,7 +140,7 @@ def cstr_pair(request):
 
 def test_cstr_cold_matches_jax(cstr_pair):
     jn, tn, args, jsol = cstr_pair
-    tsol = tn.solve_batch_fn()(*to_torch(args))
+    tsol = tn.solve_batch_fn()(*to_torch(args, device=CPU))
     assert bool(tsol.converged.all())
     u_max = 0.5 / np.asarray(tn._u_scaling)        # the u bound in solver units
     assert np.abs(to_numpy(tsol.U)).max() > u_max - 1e-4   # a bound is active
@@ -155,7 +156,7 @@ def test_cstr_warm_matches_jax(cstr_pair):
     Uw = np.concatenate([U[:, 1:], U[:, -1:]], axis=1)
     warm_args = (np.asarray(args[0]), np.asarray(args[1]), Xw, Uw)
     jw = jn.solve_batch_fn(warm=True)(*map(jnp.asarray, warm_args))
-    tw = tn.solve_batch_fn(warm=True)(*to_torch(warm_args))
+    tw = tn.solve_batch_fn(warm=True)(*to_torch(warm_args, device=CPU))
     assert_same_solution(tw, jw)
 
 
@@ -170,7 +171,6 @@ _NOT_PORTED = {
     "record_iterates": dict(opts=dict(record_iterates=True)),
     "parallel_riccati": dict(opts=dict(parallel_riccati=True)),
     "lin_storage_dtype": dict(opts=dict(lin_storage_dtype="bfloat16")),
-    "pallas_full": dict(opts=dict(pallas_full=True)),
     "fix_x0": dict(fix_x0=False),
 }
 
@@ -181,6 +181,25 @@ def test_out_of_slice_options_raise(feature):
     spec = _NOT_PORTED[feature]
     funcs = tfuncs._replace(**spec.get("funcs", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tip.solve_ocp(funcs, tdims, tip.OCPBounds(*to_torch(bnd)), *to_torch(args),
+        tip.solve_ocp(funcs, tdims, tip.OCPBounds(*to_torch(bnd, device=CPU)),
+                      *to_torch(args, device=CPU),
                       tip.IPOptions(**spec.get("opts", {})),
                       fix_x0=spec.get("fix_x0", True))
+
+
+def test_solve_ocp_ignores_pallas_full():
+    """As in the JAX package, solve_ocp does not read pallas_full: only
+    NMPC.solve_batch_fn routes to the whole-solve kernel."""
+    _, tfuncs, _, tdims, bnd, args = _di_problem(True)
+    bounds = tip.OCPBounds(*to_torch(bnd, device=CPU))
+    sols = [tip.solve_ocp(tfuncs, tdims, bounds, *to_torch(args, device=CPU),
+                          tip.IPOptions(pallas_full=flag)) for flag in (False, True)]
+    for a, b in zip(*sols):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fn", [tip.default_bounds, to_torch])
+def test_helpers_default_to_cuda(fn):
+    """default_bounds and to_torch target the card unless the caller passes
+    device="cpu", like every entry point of the port."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -10,12 +10,15 @@ from hilo_mpc_tpu.ops.pallas_kernels import riccati_lq_pallas
 from hilo_mpc_tpu.ops.riccati import solve_lq as jax_solve_lq
 from hilo_mpc_tpu_torch.ops import smallalg
 from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_cuda,
-                                                 riccati_lq_reference)
+                                                 riccati_lq_reference,
+                                                 riccati_lq_source)
 from hilo_mpc_tpu_torch.ops.riccati import make_lq_solver, solve_lq
 from hilo_mpc_tpu_torch.utils.interop import to_numpy, to_torch
 
 torch.set_num_threads(1)
 SIZES = [(2, 1), (3, 2), (2, 3)]
+# the kernel is instantiated for any size up to its cap at first use
+CARD_SIZES = SIZES + [(4, 1), (8, 4)]
 NAMES = ("dX", "dU", "lam", "K", "kff", "cost_red")
 
 
@@ -50,7 +53,7 @@ def test_solve_lq_matches_jax(nx, nu, dtype):
     jdt = jnp.float64 if dtype == "float64" else jnp.float32
     ref = jax.vmap(lambda *a: jax_solve_lq(*a, reg=1e-8))(
         *[jnp.asarray(a, jdt) for a in arrs])
-    out = solve_lq(*to_torch(arrs, dtype=getattr(torch, dtype)), reg=1e-8)
+    out = solve_lq(*to_torch(arrs, device="cpu", dtype=getattr(torch, dtype)), reg=1e-8)
     for name, a, b in zip(NAMES, out, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                    err_msg=name, **_tol(name, dtype == "float32"))
@@ -63,14 +66,14 @@ def test_reference_matches_pallas_interpret(nx, nu):
     arrs = lq_problem(5, 5, nx, nu, seed=1)
     out_pl = riccati_lq_pallas(*[jnp.asarray(a, jnp.float32) for a in arrs],
                                tile_b=8)
-    out = riccati_lq_reference(*to_torch(arrs, dtype=torch.float32), reg=1e-8)
+    out = riccati_lq_reference(*to_torch(arrs, device="cpu", dtype=torch.float32), reg=1e-8)
     for name, a, b in zip(NAMES, out, out_pl):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
                                    **_tol(name, True))
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    arrs = to_torch(lq_problem(3, 4, 2, 1))
+    arrs = to_torch(lq_problem(3, 4, 2, 1), device="cpu")
     riccati_lq_cuda.launches = 0
     out = riccati_lq_cuda(*arrs, reg=1e-8)
     sol = make_lq_solver(reg=1e-8)(*arrs)
@@ -81,7 +84,7 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 def test_lq_solver_rejects_another_reg():
-    arrs = to_torch(lq_problem(2, 3, 2, 1))
+    arrs = to_torch(lq_problem(2, 3, 2, 1), device="cpu")
     with pytest.raises(ValueError, match="reg"):
         make_lq_solver(reg=1e-8)(*arrs, reg=1e-6)
 
@@ -89,7 +92,7 @@ def test_lq_solver_rejects_another_reg():
 def test_lq_solver_broadcasts_shared_blocks():
     """Blocks without a batch axis (shared by all scenarios) give the same
     solution as their explicit per-scenario copies."""
-    A, B, Q, S, R, q, r, c, Pt, pt, dx0 = to_torch(lq_problem(4, 5, 2, 1))
+    A, B, Q, S, R, q, r, c, Pt, pt, dx0 = to_torch(lq_problem(4, 5, 2, 1), device="cpu")
     shared = make_lq_solver(1e-8)(A, B, Q[0], S, R[0], q, r, c, Pt[0], pt, dx0)
     full = make_lq_solver(1e-8)(A, B, Q, S, R, q, r, c, Pt, pt, dx0)
     for a, b in zip(shared, full):
@@ -116,16 +119,29 @@ def test_interop_round_trip():
     arrs = lq_problem(2, 3, 2, 1)
     ref = jax.vmap(lambda *a: jax_solve_lq(*a, reg=1e-8))(
         *[jnp.asarray(a) for a in arrs])
-    port = to_torch(ref)
+    port = to_torch(ref, device="cpu")
     assert type(port).__name__ == "LQSolution" and torch.is_tensor(port.dX)
     back = JaxLQ(*to_numpy(port))
     for a, b in zip(back, ref):
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
+@pytest.mark.parametrize("nx,nu", [(9, 1), (2, 5), (0, 1)])
+def test_sizes_beyond_the_cap_raise(nx, nu):
+    with pytest.raises(ValueError, match="RICCATI_MAX_NX, RICCATI_MAX_NU"):
+        riccati_lq_source(nx, nu)
+
+
+def test_one_instantiation_per_size():
+    """Each (nx, nu) is its own generated source over csrc/riccati_lq.cuh."""
+    a, b = riccati_lq_source(2, 1), riccati_lq_source(4, 1)
+    assert '#include "riccati_lq.cuh"' in a and "RICCATI_LQ_EXPORTS(4, 1)" in b
+    assert a != b
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("nx,nu", SIZES)
+@pytest.mark.parametrize("nx,nu", CARD_SIZES)
 def test_kernel_matches_plain_on_card(nx, nu, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no CPU mode)")
