@@ -8,10 +8,18 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          Riccati template for each (nx, nu) that phase 1 checks, the FGM
          kernel, and the whole-solve interior point for the flagship problem
          and phase 1's two other row patterns, generated from the model
-         (ops/codegen_cuda.py); its build time, registers, stack and spills.
+         (ops/codegen_cuda.py); its build time, registers, stack and spills,
+         and each Riccati instance's tiles (TB, KC) and shared memory.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
-         shapes the main paths give it, and both timed at the flagship shape,
-         beside the least time the card could take for the same work.
+         shapes the main paths give it (for the Riccati kernel also a ragged
+         last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
+         16-byte aligned), and both timed at the flagship shape, beside the
+         least time the card could take for the same work (the Riccati
+         kernel in float32 and float64, with its share of the bound and the
+         bytes/s it reaches). Each kernel is timed as one call alone, its
+         enqueue included (the "ms" of the kernels line), and as calls back
+         to back, where the enqueue hides behind the previous call
+         ("back_to_back_ms").
 Phase 2  the NMPC path at full width: the flagship CSTR NMPC (N=20, RK4,
          box-bounded input, quadratic tracking cost) through
          NMPC.setup(device="cuda") -> prepare_batch -> solve_batch_fn, cold
@@ -36,11 +44,12 @@ Phase 6  the whole-solve path at full width: the flagship NMPC with
          launch counts are read around exactly this run, and U is held
          against phase 2's on the jointly converged scenarios.
 
-Any failed phase raises and the script exits non-zero. Without a CUDA device,
-or outside a checkout of the repository, it exits non-zero and prints no
-result. The second-to-last line is the kernels JSON object, the last line
+Any failed phase raises and the script exits non-zero. Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result. The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}.
 """
+import ctypes
 import json
 import os
 import subprocess
@@ -54,11 +63,15 @@ N = 20
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
 KERNELS = ("riccati_lq", "fgm_boxqp", "whole_ip")
-RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1))
+RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4))
+# back-to-back timings run this many calls between two events, so the
+# host's time to enqueue a call hides behind the previous one
+INNER = 10
 FGM_ITERS = 100
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 
 
@@ -66,8 +79,10 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, reps=10, warmup=3):
-    """Median device time of fn() over `reps` timed calls (CUDA events)."""
+def cuda_time_ms(fn, reps=10, warmup=3, inner=1):
+    """Median device time of fn() over `reps` timed runs (CUDA events), each
+    run `inner` calls back to back divided by `inner` (with inner=1 the
+    host's time to enqueue the call is part of it)."""
     import numpy as np
     import torch
     for _ in range(warmup):
@@ -78,17 +93,19 @@ def cuda_time_ms(fn, reps=10, warmup=3):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         torch.cuda.synchronize()
-        ts.append(e0.elapsed_time(e1))
+        ts.append(e0.elapsed_time(e1) / inner)
     return float(np.median(ts))
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_FP32):
     """Least time (ms) for the work on the card, and what bounds it: the
-    larger of bytes over the memory rate and float32 FLOPs over the peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    larger of bytes over the memory rate and FLOPs over the peak of their
+    type (float32 unless given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -154,6 +171,13 @@ FLAGSHIP = {"tol": 1e-4, "max_iter": 25, "convexify": False, "n_linesearch": 1,
             "mu_init": 1e-2, "mehrotra": False}
 
 
+def plain_lq_factory(reg=1e-9):
+    """The plain sweeps as the LQ step of solve_ocp (what
+    tools/profile_torch_port.py swaps in for the kernel)."""
+    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
+    return make_plain_lq_solver(reg)
+
+
 def flagship_x0s(B=B_MAIN):
     """The flagship batch: x0 = [0.2, 0.1] + 0.05·N(0,1) from default_rng(0)."""
     import numpy as np
@@ -194,43 +218,73 @@ def phase1(report):
     phase1_whole_ip(report.setdefault("whole_ip", {}))
 
 
+def offset_views(args):
+    """Copies of args that start one element into their storage, so their
+    data_ptr is not 16-byte aligned (as for a view such as A[1:])."""
+    import torch
+    out = []
+    for t in args:
+        v = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+        v = v.view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0
+        out.append(v)
+    return tuple(out)
+
+
+def lq_tol(name, f32):
+    """f32: the tolerances of tests/test_pallas_kernels.py:94-101 (lam and the
+    summed cost_red carry more roundoff); f64: 1e-10."""
+    if f32:
+        return dict(rtol=1e-4, atol=1e-3 if name in ("lam", "cost_red") else 1e-4)
+    return dict(rtol=1e-10, atol=1e-10)
+
+
 def phase1_riccati(report):
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_cuda,
                                                      riccati_lq_reference)
     names = ("dX", "dU", "lam", "K", "kff", "cost_red")
+    f32, f64 = torch.float32, torch.float64
     max_err = 0.0
-    cases = [(1000, nx, nu, dt) for dt in (torch.float32, torch.float64)
+    # (B, N, nx, nu, dtype, inputs offset by one element)
+    cases = [(1000, N, nx, nu, dt, False) for dt in (f32, f64)
              for nx, nu in RICCATI_SIZES]
-    cases.append((B_MAIN, 2, 1, torch.float32))
-    for Bt, nx, nu, dt in cases:
-        args = lq_problem(Bt, N, nx, nu, dt)
+    cases += [(B_MAIN, N, 2, 1, f32, False), (131071, 7, 2, 1, f32, False),
+              (131071, 7, 2, 1, f64, False), (1000, 64, 8, 4, f64, False),
+              (1000, 7, 2, 1, f32, True), (1000, 7, 2, 1, f64, True)]
+    for Bt, n, nx, nu, dt, offset in cases:
+        ref_args = lq_problem(Bt, n, nx, nu, dt)
+        args = offset_views(ref_args) if offset else ref_args
         out = riccati_lq_cuda(*args, reg=1e-8)
-        ref = riccati_lq_reference(*args, reg=1e-8)
+        ref = riccati_lq_reference(*ref_args, reg=1e-8)
         torch.cuda.synchronize()
-        f32 = dt == torch.float32
         errs = {}
         for name, a, b in zip(names, out, ref):
-            # f32: the tolerances of tests/test_pallas_kernels.py:94-101
-            # (lam and the summed cost_red carry more roundoff); f64: 1e-10
-            if f32:
-                tol = dict(rtol=1e-4, atol=1e-3 if name in ("lam", "cost_red") else 1e-4)
-            else:
-                tol = dict(rtol=1e-10, atol=1e-10)
-            torch.testing.assert_close(a, b, **tol)
+            torch.testing.assert_close(a, b, **lq_tol(name, dt == f32))
             errs[name] = float((a - b).abs().max())
         max_err = max(max_err, max(errs.values()))
-        log(f"phase1 riccati_lq B={Bt} N={N} nx={nx} nu={nu} {str(dt)[6:]}: "
-            f"max|kernel-plain| " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
-    args = lq_problem(B_MAIN, N, 2, 1, torch.float32)
-    ms = cuda_time_ms(lambda: riccati_lq_cuda(*args, reg=1e-8))
-    plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
-    b_ms, b_by = bound_ms(*riccati_lq_work(B_MAIN, N, 2, 1))
-    log(f"phase1 riccati_lq B={B_MAIN} N={N} nx=2 nu=1 float32: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (median of 10, CUDA events); bound "
-        f"{b_ms:.4f} ms ({b_by})")
-    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                  bound_by=b_by)
+        log(f"phase1 riccati_lq B={Bt} N={n} nx={nx} nu={nu} {str(dt)[6:]}"
+            f"{' unaligned inputs' if offset else ''}: max|kernel-plain| "
+            + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    # the flagship shape (B=131072, N=20, nx=2, nu=1), timed in both dtypes
+    for dt in (f32, f64):
+        args = lq_problem(B_MAIN, N, 2, 1, dt)
+        kernel = lambda: riccati_lq_cuda(*args, reg=1e-8)  # noqa: E731
+        ms = cuda_time_ms(kernel)
+        b2b_ms = cuda_time_ms(kernel, inner=INNER)
+        plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
+        nbytes, flops = riccati_lq_work(B_MAIN, N, 2, 1, itemsize=8 if dt == f64 else 4)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_FP64 if dt == f64 else PEAK_FP32)
+        log(f"phase1 riccati_lq B={B_MAIN} N={N} nx=2 nu=1 {str(dt)[6:]}: kernel "
+            f"{ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} calls "
+            f"per run), plain {plain_ms:.4f} ms (median of 10 runs, CUDA events); "
+            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB): {b_ms / ms:.1%} "
+            f"of the bound one call, {b_ms / b2b_ms:.1%} back to back, "
+            f"{nbytes / b2b_ms / 1e6:.1f} GB/s back to back")
+        if dt == f32:
+            report.update(max_abs_err=max_err, ms=ms, back_to_back_ms=b2b_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def random_qp(n, nx=2, seed=0):
@@ -283,15 +337,18 @@ def phase1_fgm(report):
         f"QP): max|kernel-plain| = {err:.3e}")
     assert err <= 1e-4, err
     max_err = max(max_err, err)
-    ms = cuda_time_ms(lambda: fgm_boxqp_launch(*args, None, *consts))
+    kernel = lambda: fgm_boxqp_launch(*args, None, *consts)  # noqa: E731
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
     wrapper_ms = cuda_time_ms(lambda: fgm_boxqp_cuda(*args, constants=consts))
     plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
     b_ms, b_by = bound_ms(*fgm_work(B_MAIN, H.shape[0], 2, FGM_ITERS))
     log(f"phase1 fgm_boxqp B={B_MAIN} n={H.shape[0]} nx=2 iters={FGM_ITERS} float32: "
-        f"kernel {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(median of 10, CUDA events); bound {b_ms:.4f} ms ({b_by})")
-    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                  bound_by=b_by)
+        f"kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} "
+        f"calls per run), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(median of 10 runs, CUDA events); bound {b_ms:.4f} ms ({b_by})")
+    report.update(max_abs_err=max_err, ms=ms, back_to_back_ms=b2b_ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase1_whole_ip(report):
@@ -350,8 +407,10 @@ def phase1_whole_ip(report):
     f, opts = (nmpc._funcs, nmpc._dims, nmpc._bounds), nmpc._ip_opts
     args = nmpc.prepare_batch(flagship_x0s())
     problem = whole_ip_problem(*f, args[0].shape[2], opts)
-    ms = cuda_time_ms(lambda: whole_ip_launch(problem, nmpc._dims, *args,
-                                              opts.mu_init))
+    kernel = lambda: whole_ip_launch(problem, nmpc._dims, *args,  # noqa: E731
+                                     opts.mu_init)
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
     wrapper_ms = cuda_time_ms(lambda: solve_ocp_full_cuda(*f, *args, opts))
     plain_ms = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args, opts))
     k = solve_ocp_full_cuda(*f, *args, opts)
@@ -363,13 +422,14 @@ def phase1_whole_ip(report):
     b_ms, b_by = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN,
                                          args[0].shape[2], its))
     log(f"phase1 whole_ip flagship B={B_MAIN} N={N} float32: max|U_kernel - "
-        f"U_plain| on the jointly converged {err:.3e}; kernel {ms:.4f} ms, "
-        f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10, "
-        f"CUDA events); bound {b_ms:.4f} ms ({b_by}; {problem.flops} operations "
+        f"U_plain| on the jointly converged {err:.3e}; kernel {ms:.4f} ms one "
+        f"call, {b2b_ms:.4f} ms back to back ({INNER} calls per run), wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 runs, CUDA "
+        f"events); bound {b_ms:.4f} ms ({b_by}; {problem.flops} operations "
         f"per scenario-iteration, {its} scenario-iterations)")
     assert err <= 5e-4, err
-    report.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                  bound_by=b_by)
+    report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase2(report):
@@ -673,6 +733,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_layout
     device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -696,8 +757,14 @@ def main():
         log(f"  {label}: {os.path.relpath(lib, ROOT)} in {secs:.1f} s")
         with open(lib + ".log") as fh:
             for line in fh:
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Compiling" in line:
                     log("    " + line.strip())
+        if label.startswith("riccati_lq"):
+            handle = ctypes.CDLL(lib)
+            log("    " + ", ".join(
+                f"{str(dt)[6:]}: (TB, KC) = {tuple(lay[:2])}, {lay[2]} bytes of "
+                f"dynamic shared memory" for dt in (torch.float32, torch.float64)
+                for lay in [riccati_lq_layout(handle, dt)]))
 
     report = {}
     phase1(report)
@@ -718,6 +785,7 @@ def main():
                         "source": f"hilo_mpc_tpu_torch/csrc/{sources[name]}",
                         "replaces": replaces[name], "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "back_to_back_ms": r["back_to_back_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         # no single PyTorch call computes any of the three:

@@ -18,6 +18,7 @@ ops/whole_ip.py.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -28,6 +29,14 @@ from .riccati import solve_lq
 # the largest (nx, nu) riccati_lq_cuda instantiates (csrc/riccati_lq.cuh)
 RICCATI_MAX_NX = 8
 RICCATI_MAX_NU = 4
+# shared memory of one riccati_lq block: the most Hopper gives a block
+# (227 KB), and the most riccati_lq_tiling aims for, so that five blocks fit
+# on an SM; the tile (scenarios per block) and the chunks (stages per copy)
+# it tries, in order
+RICCATI_SMEM_MAX = 232448
+RICCATI_SMEM_TARGET = 48 * 1024
+RICCATI_TILE = 32
+RICCATI_CHUNKS = (8, 4, 2, 1)
 # largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N)
 FGM_MAX_N = 128
 # what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
@@ -41,25 +50,137 @@ def riccati_lq_reference(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     return tuple(solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=reg))
 
 
-def riccati_lq_source(nx: int, nu: int) -> str:
-    """Source of the ``riccati_lq`` instantiation for one (nx, nu), from the
-    template csrc/riccati_lq.cuh; built at first use."""
+def riccati_lq_smem_bytes(nx: int, nu: int, dtype, tiling) -> int:
+    """Dynamic shared memory of one block of the ``riccati_lq`` kernel with
+    tiles ``tiling`` = (TB, KC): two input buffers of the eight per-stage
+    fields and one output buffer, each KC stages of rows of TB+1 elements
+    (csrc/riccati_lq.cuh:smem_elems)."""
+    tb, kc = tiling
+    f_in = 2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
+    f_out = max(nu * nx + nu, 2 * nx + nu)
+    return (2 * f_in + f_out) * kc * (tb + 1) * (torch.finfo(dtype).bits // 8)
+
+
+def riccati_lq_tiling(nx: int, nu: int, dtype) -> tuple:
+    """(TB, KC) of the ``riccati_lq`` kernel for one (nx, nu, dtype): TB
+    scenarios per block, KC stages per staged chunk. One warp per block and
+    the longest chunk whose shared memory stays within
+    ``RICCATI_SMEM_TARGET``; the sizes where none does take (32, 1), which
+    fits ``RICCATI_SMEM_MAX`` up to (8, 4) in float64. At the flagship (2, 1)
+    this gives (32, 8) in float32 and (32, 4) in float64, which ranked first
+    among the tilings timed on an H100 (PERF.md §6)."""
+    for kc in RICCATI_CHUNKS:
+        if riccati_lq_smem_bytes(nx, nu, dtype, (RICCATI_TILE, kc)) <= RICCATI_SMEM_TARGET:
+            return RICCATI_TILE, kc
+    return RICCATI_TILE, 1
+
+
+def _check_tiling(nx, nu, dtype, tiling):
+    tb, kc = tiling
+    if not (tb % 32 == 0 and 32 <= tb <= 1024 and kc >= 1):
+        raise ValueError(f"riccati_lq tiles need TB a multiple of 32 in [32, 1024] "
+                         f"and KC >= 1, got (TB, KC) = {tiling}")
+    smem = riccati_lq_smem_bytes(nx, nu, dtype, tiling)
+    if smem > RICCATI_SMEM_MAX:
+        raise ValueError(f"riccati_lq tiles {tiling} for nx={nx}, nu={nu}, {dtype} "
+                         f"need {smem} bytes of shared memory per block, more than "
+                         f"RICCATI_SMEM_MAX = {RICCATI_SMEM_MAX}")
+    return int(tb), int(kc)
+
+
+def _check_size(nx, nu):
     if not (1 <= nx <= RICCATI_MAX_NX and 1 <= nu <= RICCATI_MAX_NU):
         raise ValueError(f"riccati_lq_cuda takes 1 <= nx <= {RICCATI_MAX_NX} and "
                          f"1 <= nu <= {RICCATI_MAX_NU} (RICCATI_MAX_NX, "
                          f"RICCATI_MAX_NU), got nx={nx}, nu={nu}")
-    return f'#include "riccati_lq.cuh"\nRICCATI_LQ_EXPORTS({nx}, {nu})\n'
 
 
-def _riccati_fn(nx, nu, dtype):
-    lib = _build.load_source(riccati_lq_source(nx, nu))
-    fn = lib.riccati_lq_f32 if dtype == torch.float32 else lib.riccati_lq_f64
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 19
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def riccati_lq_source(nx: int, nu: int, tiling=None) -> str:
+    """Source of the ``riccati_lq`` instantiation for one (nx, nu), from the
+    template csrc/riccati_lq.cuh; built at first use. ``tiling`` (TB, KC)
+    applies to both dtypes; by default each takes ``riccati_lq_tiling``."""
+    _check_size(nx, nu)
+    tiles = {dt: _check_tiling(nx, nu, dt, tiling or riccati_lq_tiling(nx, nu, dt))
+             for dt in (torch.float32, torch.float64)}
+    (t32, k32), (t64, k64) = tiles[torch.float32], tiles[torch.float64]
+    return ('#include "riccati_lq.cuh"\n'
+            f"#define RICCATI_LQ_TILES_F32 {t32}, {k32}\n"
+            f"#define RICCATI_LQ_TILES_F64 {t64}, {k64}\n"
+            f"RICCATI_LQ_EXPORTS({nx}, {nu})\n")
+
+
+def _suffix(dtype):
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+@functools.lru_cache(maxsize=None)
+def _lq_entry(nx: int, nu: int, dtype, host: bool, tiling=None):
+    """(entry point bound with ctypes, TB) of the instance for (nx, nu,
+    dtype), built at first use: ``riccati_lq_f32`` / ``_f64`` on the card
+    (last argument the stream), ``riccati_lq_host_*`` on the host."""
+    text = riccati_lq_source(nx, nu, tiling)
+    if host:
+        fn = getattr(_build.load_host(text), f"riccati_lq_host_{_suffix(dtype)}")
+    else:
+        fn = getattr(_build.load_source(text), f"riccati_lq_{_suffix(dtype)}")
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+                   + ([] if host else [ctypes.c_void_p]))
+    fn.restype = ctypes.c_int
+    return fn, (tiling or riccati_lq_tiling(nx, nu, dtype))[0]
+
+
+def riccati_lq_layout(lib, dtype) -> tuple:
+    """(TB, KC, dynamic shared memory bytes) of a built instance, as its
+    ``riccati_lq_layout_f32`` / ``_f64`` entry point reports them."""
+    out = (ctypes.c_int * 3)()
+    getattr(lib, f"riccati_lq_layout_{_suffix(dtype)}")(out)
+    return tuple(out)
+
+
+def _check_lq(args, host: bool):
+    """Shapes, dtype, device and contiguity of the inputs; returns
+    (Bt, N, nx, nu)."""
+    A, B = args[0], args[1]
+    if A.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"A and B must be (Bt, N, nx, nx) / (Bt, N, nx, nu), "
+                         f"got {tuple(A.shape)} and {tuple(B.shape)}")
+    Bt, N, nx, nu = A.shape[0], A.shape[1], A.shape[2], B.shape[3]
+    _check_size(nx, nu)
+    if Bt < 1 or N < 1 or Bt >= 2 ** 31:
+        raise ValueError(f"need 1 <= Bt < 2**31 and N >= 1, got Bt={Bt}, N={N}")
+    expected = {
+        "A": (Bt, N, nx, nx), "B": (Bt, N, nx, nu), "Q": (Bt, N, nx, nx),
+        "S": (Bt, N, nu, nx), "R": (Bt, N, nu, nu), "q": (Bt, N, nx),
+        "r": (Bt, N, nu), "c": (Bt, N, nx), "P_term": (Bt, nx, nx),
+        "p_term": (Bt, nx), "dx0": (Bt, nx)}
+    dtype, device = A.dtype, A.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"riccati_lq_cuda takes float32 or float64, got {dtype}")
+    if host and device.type != "cpu":
+        raise ValueError(f"riccati_lq_host takes CPU tensors, got {device}")
+    for (name, shape), t in zip(expected.items(), args):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; all inputs must "
+                             f"be {dtype} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return Bt, N, nx, nu
+
+
+def _lq_buffers(args, Bt, N, nx, nu, tb):
+    """The outputs (dX, dU, lam, K, kff, cost_red) and the stash: (P, p, K,
+    kff)_k per stage, scenario-minor within each tile of TB."""
+    kw = dict(dtype=args[0].dtype, device=args[0].device)
+    return (torch.empty((Bt, N + 1, nx), **kw), torch.empty((Bt, N, nu), **kw),
+            torch.empty((Bt, N, nx), **kw), torch.empty((Bt, N, nu, nx), **kw),
+            torch.empty((Bt, N, nu), **kw), torch.empty((Bt,), **kw),
+            torch.empty((-(-Bt // tb), N, nx * nx + nx + nu * nx + nu, tb), **kw))
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors]
 
 
 def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
@@ -78,49 +199,35 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
     if not any(t.is_cuda for t in args):
         return riccati_lq_reference(*args, reg=reg)
-    if A.dim() != 4 or B.dim() != 4:
-        raise ValueError(f"A and B must be (Bt, N, nx, nx) / (Bt, N, nx, nu), "
-                         f"got {tuple(A.shape)} and {tuple(B.shape)}")
-    Bt, N, nx, nu = A.shape[0], A.shape[1], A.shape[2], B.shape[3]
-    riccati_lq_source(nx, nu)                     # raises above the cap
-    if Bt < 1 or N < 1 or Bt >= 2 ** 31:
-        raise ValueError(f"need 1 <= Bt < 2**31 and N >= 1, got Bt={Bt}, N={N}")
-    expected = {
-        "A": (Bt, N, nx, nx), "B": (Bt, N, nx, nu), "Q": (Bt, N, nx, nx),
-        "S": (Bt, N, nu, nx), "R": (Bt, N, nu, nu), "q": (Bt, N, nx),
-        "r": (Bt, N, nu), "c": (Bt, N, nx), "P_term": (Bt, nx, nx),
-        "p_term": (Bt, nx), "dx0": (Bt, nx)}
-    dtype, device = A.dtype, A.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"riccati_lq_cuda takes float32 or float64, got {dtype}")
-    for (name, shape), t in zip(expected.items(), args):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.device != device or t.dtype != dtype:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}; all inputs must "
-                             f"be {dtype} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=dtype, device=device)
-
-    dX, dU, lam = empty(Bt, N + 1, nx), empty(Bt, N, nu), empty(Bt, N, nx)
-    K, kff, dec = empty(Bt, N, nu, nx), empty(Bt, N, nu), empty(Bt)
-    Pn, pn = empty(Bt, N, nx, nx), empty(Bt, N, nx)       # (P, p)_{k+1} stash
-    fn = _riccati_fn(nx, nu, dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in args],
-                *[t.data_ptr() for t in (dX, dU, lam, K, kff, dec, Pn, pn)],
-                Bt, N, float(reg), stream)
+    Bt, N, nx, nu = _check_lq(args, host=False)
+    fn, tb = _lq_entry(nx, nu, A.dtype, host=False)
+    bufs = _lq_buffers(args, Bt, N, nx, nu, tb)
+    with torch.cuda.device(A.device):
+        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg),
+                torch.cuda.current_stream(A.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"riccati_lq kernel launch failed: cudaError {rc}")
     riccati_lq_cuda.launches += 1
-    return dX, dU, lam, K, kff, dec
+    return bufs[:6]
 
 
 riccati_lq_cuda.launches = 0
+
+
+def riccati_lq_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
+                    reg: float = 1e-8, tiling=None):
+    """The kernel's own block schedule (csrc/riccati_lq.cuh), compiled with the
+    host C++ compiler, on CPU tensors: every block and thread in a loop, plain
+    copies in place of ``cp.async``. Same arguments and returns as
+    ``riccati_lq_cuda``; ``tiling`` (TB, KC) overrides
+    ``riccati_lq_tiling``."""
+    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+    Bt, N, nx, nu = _check_lq(args, host=True)
+    fn, tb = _lq_entry(nx, nu, A.dtype, True, None if tiling is None else tuple(tiling))
+    bufs = _lq_buffers(args, Bt, N, nx, nu, tb)
+    if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg)) != 0:
+        raise RuntimeError("riccati_lq_host refused its arguments")
+    return bufs[:6]
 
 
 def fgm_constants(H):

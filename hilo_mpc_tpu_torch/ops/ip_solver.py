@@ -251,14 +251,15 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
               theta: torch.Tensor, x0: torch.Tensor, X_init: torch.Tensor,
               U_init: torch.Tensor, options: IPOptions = IPOptions(),
               fix_x0: bool = True, mu0: Optional[float] = None,
-              lq_solver: Callable = make_lq_solver) -> OCPSolution:
+              lq_solver: Optional[Callable] = None) -> OCPSolution:
     """Solve B OCP instances at once (batch-first, see the module docstring).
 
     ``mu0`` optionally overrides ``options.mu_init`` at call time: cold- and
     warm-start solves differ only in the initial barrier. ``lq_solver(reg)``
     builds the LQ step of every iteration: ``make_lq_solver`` (the CUDA
-    kernel on CUDA tensors) or ``ops/riccati.py:make_plain_lq_solver`` (the
-    plain sweeps on any device)."""
+    kernel on CUDA tensors; the default, looked up at call time) or
+    ``ops/riccati.py:make_plain_lq_solver`` (the plain sweeps on any
+    device)."""
     # the Riccati/Newton arithmetic needs full float32 products: the JAX
     # solver measured batch convergence falling to 12% with reduced-precision
     # matmuls, so TF32 stays off for every product the solver issues
@@ -269,7 +270,7 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
         raise ValueError("bounds are shared by all scenarios: lbx/ubx (N+1, nx), "
                          "lbu/ubu (N, nu)")
     return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
-                           options, mu0, lq_solver)
+                           options, mu0, lq_solver or make_lq_solver)
 
 
 def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,

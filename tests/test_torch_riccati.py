@@ -142,11 +142,14 @@ def test_one_instantiation_per_size():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("nx,nu", CARD_SIZES)
-def test_kernel_matches_plain_on_card(nx, nu, dtype):
+# ragged last tiles (Bt=1, 33, 1000) and horizons (N=64 runs many chunks,
+# one stage each at (8, 4))
+@pytest.mark.parametrize("Bt,N", [(1000, 20), (1, 1), (33, 7), (1000, 64), (1, 64)])
+def test_kernel_matches_plain_on_card(nx, nu, dtype, Bt, N):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no CPU mode)")
     dt = getattr(torch, dtype)
-    arrs = to_torch(lq_problem(1000, 20, nx, nu), device="cuda", dtype=dt)
+    arrs = to_torch(lq_problem(Bt, N, nx, nu), device="cuda", dtype=dt)
     n0 = riccati_lq_cuda.launches
     out = riccati_lq_cuda(*arrs, reg=1e-8)
     ref = riccati_lq_reference(*arrs, reg=1e-8)
