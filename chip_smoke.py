@@ -5,21 +5,29 @@
 
 Phase 0  card name and power limit; build every CUDA kernel from the
          sources in csrc/ (one nvcc per source, all started together): the
-         Riccati template for each (nx, nu) that phase 1 checks, the FGM
-         kernel, and the whole-solve interior point for the flagship problem
-         and phase 1's two other row patterns, generated from the model
-         (ops/codegen_cuda.py); its build time, registers, stack and spills,
-         and each Riccati instance's tiles (TB, KC) and shared memory.
+         tiled Riccati template for each (nx, nu) that phase 1 checks, the
+         wide Riccati variant for phase 1's and phase 4's larger sizes, the
+         FGM kernel, and the whole-solve interior point for the flagship
+         problem and phase 1's two other row patterns, generated from the
+         model (ops/codegen_cuda.py); its build time, registers, stack and
+         spills, each Riccati instance's tiles (TB, KC) or warps per block
+         and shared memory, and each whole-solve build's tiles (TB, MINB,
+         the region per scenario in a global scratch, no shared memory).
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
-         16-byte aligned), and both timed at the flagship shape, beside the
-         least time the card could take for the same work (the Riccati
-         kernel in float32 and float64, with its share of the bound and the
-         bytes/s it reaches). Each kernel is timed as one call alone, its
-         enqueue included (the "ms" of the kernels line), and as calls back
-         to back, where the enqueue hides behind the previous call
-         ("back_to_back_ms").
+         16-byte aligned; the wide variant at (9, 2), (16, 4) and its cap
+         (32, 16) on a ragged batch; the FGM kernel up to n = 512, through
+         both of its designs), and each timed at the shape of its main path
+         (the FGM kernel's column blocks at phase 4's n = 160),
+         beside the least time the card could take for the same work (the
+         Riccati kernel in float32 and float64, with its share of the bound
+         and the bytes/s it reaches). Each kernel is timed as one call alone,
+         its enqueue included (the "ms" of the kernels line), and as calls
+         back to back, where the enqueue hides behind the previous call
+         ("back_to_back_ms"); the whole-solve kernel also through the NMPC
+         controller's prepared path, and the share of its lane-iterations
+         that finished lanes of a warp leave idle.
 Phase 2  the NMPC path at full width: the flagship CSTR NMPC (N=20, RK4,
          box-bounded input, quadratic tracking cost) through
          NMPC.setup(device="cuda") -> prepare_batch -> solve_batch_fn, cold
@@ -35,14 +43,21 @@ Phase 4  the linear-MPC path at full width: a discrete double integrator
          scenarios (the FGM kernel's launch count is read around exactly
          this run); the first 1024 scenarios again through the interior point
          (LMPC.optimize_batch, the Riccati kernel) and compared; the
-         infinite-horizon LQR of the same model against SciPy's DARE.
+         infinite-horizon LQR of the same model against SciPy's DARE. Then a
+         second linear model: eight decoupled double integrators (nx=16,
+         nu=8, N=20, |u| <= 1, P = Q), B=1024, whose interior point runs
+         through the wide Riccati variant and whose FGM path (n = 160)
+         through the column-blocked FGM kernel, each against its plain
+         counterpart and the two against each other.
 Phase 5  the golden fixture tests/golden/lmpc_di.npz replayed through
          LMPC.optimize in float64 on the card.
 Phase 6  the whole-solve path at full width: the flagship NMPC with
          pallas_full=True through solve_batch_fn, cold and warm, on phase 2's
          B=131072 inputs; the whole-solve kernel's and the Riccati kernel's
          launch counts are read around exactly this run, and U is held
-         against phase 2's on the jointly converged scenarios.
+         against phase 2's on the jointly converged scenarios; the idle-lane
+         share of the cold and the warm solve, and the kernel's share of
+         the cold call.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -62,8 +77,14 @@ B_MAIN = 131072
 N = 20
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
-KERNELS = ("riccati_lq", "fgm_boxqp", "whole_ip")
+KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_column_blocks",
+           "whole_ip")
 RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4))
+# the wide variant: phase 1's sizes (its cap last) and phase 4's (16, 8)
+RICCATI_WIDE_SIZES = ((9, 2), (16, 4), (32, 16), (16, 8))
+# phase 4's second model: eight decoupled double integrators
+N_DI = 8
+B_WIDE = 1024
 # back-to-back timings run this many calls between two events, so the
 # host's time to enqueue a call hides behind the previous one
 INNER = 10
@@ -171,13 +192,6 @@ FLAGSHIP = {"tol": 1e-4, "max_iter": 25, "convexify": False, "n_linesearch": 1,
             "mu_init": 1e-2, "mehrotra": False}
 
 
-def plain_lq_factory(reg=1e-9):
-    """The plain sweeps as the LQ step of solve_ocp (what
-    tools/profile_torch_port.py swaps in for the kernel)."""
-    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
-    return make_plain_lq_solver(reg)
-
-
 def flagship_x0s(B=B_MAIN):
     """The flagship batch: x0 = [0.2, 0.1] + 0.05·N(0,1) from default_rng(0)."""
     import numpy as np
@@ -214,8 +228,23 @@ def build_cstr_nmpc(options, dtype, bounds=None):
 def phase1(report):
     """Each kernel vs its plain version on the card."""
     phase1_riccati(report.setdefault("riccati_lq", {}))
+    phase1_riccati_wide(report.setdefault("riccati_lq_wide", {}))
     phase1_fgm(report.setdefault("fgm_boxqp", {}))
+    phase1_fgm_column_blocks(report.setdefault("fgm_boxqp_column_blocks", {}))
     phase1_whole_ip(report.setdefault("whole_ip", {}))
+
+
+def idle_lane_share(iterations):
+    """Share of lane-iterations that finished lanes leave idle in the
+    whole-solve kernel, whose warps take 32 consecutive scenarios: the sum
+    over warps of (the warp's most iterations - each lane's), over the sum
+    of the lanes' iterations."""
+    import torch
+    it = iterations.to(torch.int64)
+    warp = torch.arange(it.numel(), device=it.device) // 32
+    most = torch.zeros(int(warp[-1]) + 1, dtype=it.dtype, device=it.device)
+    most.scatter_reduce_(0, warp, it, "amax")
+    return float((most[warp] - it).sum()) / max(float(it.sum()), 1.0)
 
 
 def offset_views(args):
@@ -287,6 +316,49 @@ def phase1_riccati(report):
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def phase1_riccati_wide(report):
+    """The wide variant against the plain sweeps at (9, 2), (16, 4) and its
+    cap (32, 16) on a ragged batch (B=1001 with W scenarios per block),
+    float32 and float64 (1e-12); timed at phase 4's shape (B=1024, N=20,
+    (16, 8), float64)."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_reference,
+                                                     riccati_lq_wide_cuda)
+    names = ("dX", "dU", "lam", "K", "kff", "cost_red")
+    max_err = 0.0
+    for nx, nu in RICCATI_WIDE_SIZES[:3]:
+        for dt in (torch.float32, torch.float64):
+            args = lq_problem(1001, N, nx, nu, dt, seed=3)
+            out = riccati_lq_wide_cuda(*args, reg=1e-8)
+            ref = riccati_lq_reference(*args, reg=1e-8)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b in zip(names, out, ref):
+                tol = (lq_tol(name, True) if dt == torch.float32
+                       else dict(rtol=1e-12, atol=1e-12))
+                torch.testing.assert_close(a, b, **tol)
+                errs[name] = float((a - b).abs().max())
+            if dt == torch.float64:
+                max_err = max(max_err, max(errs.values()))
+            log(f"phase1 riccati_lq_wide B=1001 N={N} nx={nx} nu={nu} {str(dt)[6:]}: "
+                f"max|kernel-plain| " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    nx, nu = RICCATI_WIDE_SIZES[3]
+    args = lq_problem(B_WIDE, N, nx, nu, torch.float64)
+    kernel = lambda: riccati_lq_wide_cuda(*args, reg=1e-8)  # noqa: E731
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
+    plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
+    nbytes, flops = riccati_lq_work(B_WIDE, N, nx, nu, itemsize=8)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_FP64)
+    log(f"phase1 riccati_lq_wide B={B_WIDE} N={N} nx={nx} nu={nu} float64: kernel "
+        f"{ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} calls per "
+        f"run), plain {plain_ms:.4f} ms (median of 10 runs, CUDA events); bound "
+        f"{b_ms:.4f} ms ({b_by}, {flops:.3e} FLOPs, {nbytes / 1e6:.1f} MB): "
+        f"{b_ms / ms:.1%} of the bound one call")
+    report.update(max_abs_err=max_err, ms=ms, back_to_back_ms=b2b_ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def random_qp(n, nx=2, seed=0):
     """Random box-QP (the generator of tests/test_pallas_kernels.py:12-19)."""
     import numpy as np
@@ -299,15 +371,16 @@ def phase1_fgm(report):
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
-        FGM_MAX_N, fgm_boxqp_cuda, fgm_boxqp_launch, fgm_boxqp_reference,
-        fgm_constants)
+        FGM_MAX_N, fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_launch,
+        fgm_boxqp_reference, fgm_constants)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=float), dtype=torch.float32,
                                device="cuda").contiguous()
 
     max_err = 0.0
-    for n in sorted({6, 20, 64, 128, FGM_MAX_N}):
+    # n <= 128 keeps Hᵀ resident; 129, 256 and 512 stage it in column blocks
+    for n in sorted({6, 20, 64, 128, 129, 256, FGM_MAX_N}):
         for with_u0 in (False, True):
             for inf in (False, True):
                 H, G, lb, ub = random_qp(n)
@@ -320,8 +393,9 @@ def phase1_fgm(report):
                 err = float((fgm_boxqp_cuda(*args)
                              - fgm_boxqp_reference(*args)).abs().max())
                 torch.cuda.synchronize()
-                log(f"phase1 fgm_boxqp B=1000 n={n} iters=200 u0={with_u0} "
-                    f"inf_bounds={inf}: max|kernel-plain| = {err:.3e}")
+                log(f"phase1 fgm_boxqp B=1000 n={n} ({fgm_boxqp_design(n)[0]}) "
+                    f"iters=200 u0={with_u0} inf_bounds={inf}: max|kernel-plain| "
+                    f"= {err:.3e}")
                 assert err <= 1e-4, err
                 max_err = max(max_err, err)
     # the flagship shape: phase 4's condensed QP (n = N·nu = 20, nx = 2),
@@ -351,6 +425,42 @@ def phase1_fgm(report):
                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def phase1_fgm_column_blocks(report):
+    """The FGM kernel's column-blocked design at phase 4's second model
+    (B=1024, n = N·nu = 160, nx=16, 100 iterations), timed as the resident
+    design is at n=20, against its plain version."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (
+        fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_launch, fgm_boxqp_reference,
+        fgm_constants)
+
+    H, G, lb, ub = wide_di_lmpc(torch.float32, {}).condensed_qp()
+    n, nx = G.shape
+    consts = fgm_constants(H)
+    x0 = np.random.default_rng(5).standard_normal((B_WIDE, nx))
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous()
+                 for a in (H, G, x0, lb, ub)) + (FGM_ITERS,)
+    err = float((fgm_boxqp_cuda(*args, constants=consts)
+                 - fgm_boxqp_reference(*args, constants=consts)).abs().max())
+    torch.cuda.synchronize()
+    assert err <= 1e-4, err
+    kernel = lambda: fgm_boxqp_launch(*args, None, *consts)  # noqa: E731
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
+    plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
+    nbytes, flops = fgm_work(B_WIDE, n, nx, FGM_ITERS)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"phase1 fgm_boxqp B={B_WIDE} n={n} nx={nx} iters={FGM_ITERS} float32 "
+        f"({fgm_boxqp_design(n)}, phase 4's second QP): max|kernel-plain| = "
+        f"{err:.3e}; kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms back to back "
+        f"({INNER} calls per run), plain {plain_ms:.4f} ms (median of 10 runs, CUDA "
+        f"events); bound {b_ms:.4f} ms ({b_by}, {flops:.3e} FLOPs): {b_ms / ms:.1%} "
+        f"of the bound one call, {b_ms / b2b_ms:.1%} back to back")
+    report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def phase1_whole_ip(report):
     """The whole-solve kernel against its plain version (solve_ocp with the
     plain LQ sweeps) on the first 1024 flagship scenarios, for the three row
@@ -360,8 +470,9 @@ def phase1_whole_ip(report):
     itself strays from the float64 answer by ~3e-3, so there the kernel is
     held to that stray plus 5e-4); then timed at B=131072 in float32."""
     import torch
+    from hilo_mpc_tpu_torch.ops.codegen_cuda import WIP_MIN_BLOCKS, WIP_TB
     from hilo_mpc_tpu_torch.ops.whole_ip import (
-        solve_ocp_full_cuda, solve_ocp_full_reference, whole_ip_launch,
+        WholeIPLaunch, solve_ocp_full_cuda, solve_ocp_full_reference,
         whole_ip_problem)
 
     x0s = flagship_x0s(1024)
@@ -402,34 +513,64 @@ def phase1_whole_ip(report):
         else:
             assert err32 <= tol, (name, err32)
 
-    # the flagship shape, timed
+    # the flagship shape, timed: the bare launch, the controller's prepared
+    # path (NMPC with pallas_full), the per-call wrapper and the plain version
     nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
+    ctl = build_cstr_nmpc({**FLAGSHIP, "pallas_full": True}, torch.float32)
     f, opts = (nmpc._funcs, nmpc._dims, nmpc._bounds), nmpc._ip_opts
     args = nmpc.prepare_batch(flagship_x0s())
     problem = whole_ip_problem(*f, args[0].shape[2], opts)
-    kernel = lambda: whole_ip_launch(problem, nmpc._dims, *args,  # noqa: E731
-                                     opts.mu_init)
+    launch = WholeIPLaunch(problem, nmpc._dims, torch.float32, args[0].device)
+    kernel = lambda: launch.launch(*args, opts.mu_init)  # noqa: E731
     ms = cuda_time_ms(kernel)
     b2b_ms = cuda_time_ms(kernel, inner=INNER)
+    path = ctl.solve_batch_fn()
+    path_ms = cuda_time_ms(lambda: path(*args))
     wrapper_ms = cuda_time_ms(lambda: solve_ocp_full_cuda(*f, *args, opts))
     plain_ms = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args, opts))
     k = solve_ocp_full_cuda(*f, *args, opts)
     r = solve_ocp_full_reference(*f, *args, opts)
+    p = path(*args)
     torch.cuda.synchronize()
+    for a, b in zip(p, k):
+        assert torch.equal(a, b), "the controller's prepared path and the wrapper differ"
     both = k.converged & r.converged
     err = float((k.U - r.U).abs()[both].max())
     its = int(k.iterations.sum())
     b_ms, b_by = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN,
                                          args[0].shape[2], its))
-    log(f"phase1 whole_ip flagship B={B_MAIN} N={N} float32: max|U_kernel - "
-        f"U_plain| on the jointly converged {err:.3e}; kernel {ms:.4f} ms one "
-        f"call, {b2b_ms:.4f} ms back to back ({INNER} calls per run), wrapper "
-        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 runs, CUDA "
-        f"events); bound {b_ms:.4f} ms ({b_by}; {problem.flops} operations "
-        f"per scenario-iteration, {its} scenario-iterations)")
+    log(f"phase1 whole_ip flagship B={B_MAIN} N={N} float32 (TB={WIP_TB}, "
+        f"MINB={WIP_MIN_BLOCKS[0]}, {problem.region} values per scenario): "
+        f"max|U_kernel - U_plain| on the jointly converged {err:.3e}; kernel "
+        f"{ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} calls per "
+        f"run), the controller's prepared path {path_ms:.4f} ms ({path_ms - ms:+.4f} "
+        f"ms against the kernel one call), the per-call wrapper {wrapper_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (median of 10 runs, CUDA events); bound "
+        f"{b_ms:.4f} ms ({b_by}; {problem.flops} operations per "
+        f"scenario-iteration, {its} scenario-iterations): {b_ms / ms:.1%} of "
+        f"the bound one call, {b_ms / b2b_ms:.1%} back to back")
+    log(f"phase1 whole_ip flagship B={B_MAIN}: idle-lane share "
+        f"{idle_lane_share(k.iterations):.4f} (iterations p50 "
+        f"{float(k.iterations.float().median()):g} max {int(k.iterations.max())})")
     assert err <= 5e-4, err
     report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms,
                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # the float64 instance at the same shape (its own register budget)
+    args64 = [a.double() for a in args]
+    launch64 = WholeIPLaunch(problem, nmpc._dims, torch.float64, args[0].device)
+    kernel64 = lambda: launch64.launch(*args64, opts.mu_init)  # noqa: E731
+    ms64 = cuda_time_ms(kernel64)
+    b2b64 = cuda_time_ms(kernel64, inner=INNER)
+    plain64 = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args64, opts), reps=3)
+    k64 = launch64(*args64, opts.mu_init)
+    b64, by64 = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN, args[0].shape[2],
+                                        int(k64.iterations.sum()), itemsize=8),
+                         PEAK_FP64)
+    log(f"phase1 whole_ip flagship B={B_MAIN} N={N} float64 (MINB="
+        f"{WIP_MIN_BLOCKS[1]}): kernel {ms64:.4f} ms one call, {b2b64:.4f} ms back "
+        f"to back, plain {plain64:.4f} ms (median of 3 runs); bound {b64:.4f} ms "
+        f"({by64}): {b64 / ms64:.1%} of the bound one call")
 
 
 def phase2(report):
@@ -609,6 +750,8 @@ def phase4(report):
         f"FGM at {iters} iterations: max|u_fgm - u_ip| = {dev:.3e}")
     assert dev <= 5e-4, dev
 
+    phase4_wide(report)
+
     lqr = LQR(di_model())
     lqr.horizon = None
     lqr.Q, lqr.R = np.array(DI_Q), np.array(DI_R)
@@ -618,6 +761,87 @@ def phase4(report):
     dev_P = float(np.abs(lqr.P - P_ref).max())
     log(f"phase4 LQR infinite horizon float64: max|P - P_scipy| = {dev_P:.3e}")
     assert dev_P < 1e-6, dev_P
+
+
+def wide_di_lmpc(dtype, options):
+    """N_DI decoupled double integrators (the model of build_di_lmpc, block
+    diagonal: nx=16, nu=8), N=20, Q, R and P = Q block diagonal, |u| <= 1."""
+    import numpy as np
+    import scipy.linalg
+    from hilo_mpc_tpu_torch import LMPC, Model
+    m = Model(name="lin8", discrete=True)
+    m.set_state_space(A=scipy.linalg.block_diag(*[np.array(DI_A)] * N_DI),
+                      B=scipy.linalg.block_diag(*[np.array(DI_B)] * N_DI))
+    lmpc = LMPC(m)
+    lmpc.horizon = N
+    lmpc.Q = scipy.linalg.block_diag(*[np.array(DI_Q)] * N_DI)
+    lmpc.R = scipy.linalg.block_diag(*[np.array(DI_R)] * N_DI)
+    lmpc.P = lmpc.Q
+    lmpc.set_box_constraints(u_lb=[-1.0] * N_DI, u_ub=[1.0] * N_DI)
+    lmpc.setup(options={"dt": 0.1, **options}, device="cuda", dtype=dtype)
+    return lmpc
+
+
+def phase4_wide(report):
+    """The second linear model: the interior point through the wide Riccati
+    variant and the FGM path (n = 160) through the column-blocked FGM
+    kernel, each against its plain counterpart, then the two paths."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (fgm_boxqp_cuda,
+                                                     fgm_boxqp_design,
+                                                     riccati_lq_wide_cuda)
+    from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp
+    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
+
+    nx = 2 * N_DI
+    x0s = np.random.default_rng(5).standard_normal((B_WIDE, nx))
+    ip = wide_di_lmpc(torch.float64, {"tol": 1e-9, "max_iter": 80})
+    ip.optimize_batch(x0s[:4])                    # untimed warm-up and build
+    torch.cuda.synchronize()
+    riccati_lq_wide_cuda.launches = 0
+    t0 = time.perf_counter()
+    u_ip, sol = ip.optimize_batch(x0s)
+    t_ip = time.perf_counter() - t0
+    launches = riccati_lq_wide_cuda.launches
+    assert launches > 0, "LMPC.optimize_batch never launched the wide Riccati kernel"
+    assert bool(sol.converged.all()), "interior point (nx=16) did not converge"
+    args = ip.prepare_batch(x0s)
+    plain = solve_ocp(ip._funcs, ip._dims, ip._bounds, *args, options=ip._ip_opts,
+                      mu0=ip._ip_opts.mu_init, lq_solver=make_plain_lq_solver)
+    torch.cuda.synchronize()
+    eq = float((plain.iterations == sol.iterations).float().mean())
+    dev_ip = float((sol.U - plain.U).abs().max())
+    log(f"phase4 second model (nx={nx}, nu={N_DI}) B={B_WIDE} N={N} interior point "
+        f"float64: {t_ip:.3f} s, iterations max {int(sol.iterations.max())}, "
+        f"riccati_lq_wide launches {launches}; against the plain LQ step: equal "
+        f"iterations {eq:.4f}, max|U_kernel - U_plain| = {dev_ip:.3e}")
+    assert dev_ip <= 1e-8, dev_ip
+
+    fgm = wide_di_lmpc(torch.float32, {})
+    n = N * N_DI
+    fgm.optimize_batch_fgm(x0s[:4], iters=10)     # untimed warm-up
+    torch.cuda.synchronize()
+    fgm_boxqp_cuda.launches = 0
+    t0 = time.perf_counter()
+    u_fgm = fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS)
+    t_fgm = time.perf_counter() - t0
+    ran = fgm_boxqp_cuda.launches
+    u_ref = fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS, backend="xla")
+    dev_fgm = float(np.abs(u_fgm - u_ref).max())
+    log(f"phase4 second model optimize_batch_fgm n={n} ({fgm_boxqp_design(n)[0]}) "
+        f"B={B_WIDE} iters={FGM_ITERS} float32: {t_fgm * 1e3:.3f} ms wall, "
+        f"fgm_boxqp launches {ran}; max|u_kernel - u_plain| = {dev_fgm:.3e}")
+    assert ran == 1 and dev_fgm <= 1e-4, (ran, dev_fgm)
+    for iters in (FGM_ITERS, 2 * FGM_ITERS, 4 * FGM_ITERS, 8 * FGM_ITERS):
+        dev = float(np.abs(fgm.optimize_batch_fgm(x0s, iters=iters) - u_ip).max())
+        if dev <= 5e-4:
+            break
+    log(f"phase4 second model: FGM at {iters} iterations against the interior "
+        f"point: max|u_fgm - u_ip| = {dev:.3e}")
+    assert dev <= 5e-4, dev
+    report["riccati_lq_wide"]["launches"] = launches
+    report["fgm_boxqp_column_blocks"]["launches"] = ran
 
 
 def phase5():
@@ -686,6 +910,9 @@ def phase6(report):
     launches = solve_ocp_full_cuda.launches
     ric = riccati_lq_cuda.launches - n_ric
 
+    # the kernel alone on the cold inputs, through the controller's launch
+    launch = next(iter(nmpc._wip["launch"].values()))
+    k_ms = cuda_time_ms(lambda: launch.launch(*args, nmpc._mu_cold), reps=5)
     for name, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
         assert s_.U.shape == (B_MAIN, N, 1) and s_.X.shape == (B_MAIN, N + 1, 2)
         assert bool(torch.isfinite(s_.U).all()) and bool(torch.isfinite(s_.X).all())
@@ -693,7 +920,11 @@ def phase6(report):
         assert conv >= 0.97, f"{name} converged fraction {conv}"
         log(f"phase6 {name}: {B_MAIN / t:.1f} solves/s ({t:.4f} s wall), "
             f"converged {conv:.4f}, iterations p50 "
-            f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}")
+            f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}, "
+            f"idle-lane share {idle_lane_share(s_.iterations):.4f}")
+    log(f"phase6 cold call split: kernel alone {k_ms:.4f} ms (CUDA events, median "
+        f"of 5), the rest of the {t_cold * 1e3:.4f} ms wall {t_cold * 1e3 - k_ms:.4f} "
+        f"ms (host work, casts, assembly)")
     assert launches == 2, f"whole_ip launches in the path: {launches}"
     assert ric == 0, f"the whole-solve path launched the Riccati kernel {ric} times"
     ref = report["phase2"]
@@ -713,18 +944,22 @@ def build_jobs():
     launch."""
     import torch
     from hilo_mpc_tpu_torch.ops import _build
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_source
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_source,
+                                                     riccati_lq_wide_source)
     from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
 
     jobs = [(f"riccati_lq nx={nx} nu={nu}", _build.source_library_path,
              riccati_lq_source(nx, nu)) for nx, nu in RICCATI_SIZES]
+    jobs += [(f"riccati_lq_wide nx={nx} nu={nu}", _build.source_library_path,
+              riccati_lq_wide_source(nx, nu)) for nx, nu in RICCATI_WIDE_SIZES]
     jobs.append(("fgm_boxqp", _build.library_path, "fgm_boxqp"))
     for name, bounds in WHOLE_IP_BOUNDS.items():
         nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32, bounds)
         nt = nmpc.prepare_batch(flagship_x0s(1))[0].shape[2]
-        text = whole_ip_problem(nmpc._funcs, nmpc._dims, nmpc._bounds, nt,
-                                nmpc._ip_opts).text
-        jobs.append((f"whole_ip {name}", _build.source_library_path, text))
+        problem = whole_ip_problem(nmpc._funcs, nmpc._dims, nmpc._bounds, nt,
+                                   nmpc._ip_opts)
+        jobs.append((f"whole_ip {name} ({problem.region} values per scenario)",
+                     _build.source_library_path, problem.text))
     return jobs
 
 
@@ -733,7 +968,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_layout
+    from hilo_mpc_tpu_torch.ops.codegen_cuda import WIP_MIN_BLOCKS, WIP_TB
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_layout,
+                                                     riccati_lq_wide_layout)
     device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -759,12 +996,24 @@ def main():
             for line in fh:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("    " + line.strip())
-        if label.startswith("riccati_lq"):
+        dts = (torch.float32, torch.float64)
+        if label.startswith("riccati_lq_wide"):
+            handle = ctypes.CDLL(lib)
+            log("    " + ", ".join(
+                f"{str(dt)[6:]}: {lay[0]} warps (scenarios) per block, {lay[1]} "
+                f"bytes of dynamic shared memory" for dt in dts
+                for lay in [riccati_lq_wide_layout(handle, dt)]))
+        elif label.startswith("riccati_lq"):
             handle = ctypes.CDLL(lib)
             log("    " + ", ".join(
                 f"{str(dt)[6:]}: (TB, KC) = {tuple(lay[:2])}, {lay[2]} bytes of "
-                f"dynamic shared memory" for dt in (torch.float32, torch.float64)
+                f"dynamic shared memory" for dt in dts
                 for lay in [riccati_lq_layout(handle, dt)]))
+        elif label.startswith("whole_ip"):
+            log(f"    tiles of {WIP_TB} scenarios, {WIP_MIN_BLOCKS[0]} (float32) and "
+                f"{WIP_MIN_BLOCKS[1]} (float64) blocks per SM (__launch_bounds__), "
+                f"the region scenario-minor in a global scratch, 0 bytes of "
+                f"dynamic shared memory")
 
     report = {}
     phase1(report)
@@ -774,9 +1023,12 @@ def main():
     phase5()
     phase6(report)
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
+                "riccati_lq_wide": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
                 "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
+                "fgm_boxqp_column_blocks": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143"}
-    sources = {"riccati_lq": "riccati_lq.cuh", "fgm_boxqp": "fgm_boxqp.cu",
+    sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
+               "fgm_boxqp": "fgm_boxqp.cu", "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
                "whole_ip": "whole_ip.cuh"}
     kernels = []
     for name in KERNELS:
@@ -788,7 +1040,7 @@ def main():
                         "back_to_back_ms": r["back_to_back_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        # no single PyTorch call computes any of the three:
+                        # no single PyTorch call computes any of them:
                         # a batched LQ solve, a projected gradient method, a
                         # batched NLP
                         "library_ms": None})

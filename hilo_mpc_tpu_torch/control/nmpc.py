@@ -39,7 +39,8 @@ from ..core.series import TimeSeries
 from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
-from ..ops.whole_ip import solve_ocp_full_cuda, whole_ip_supported
+from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_problem,
+                            whole_ip_supported)
 from .costs import QuadraticCost
 
 _NLP_OPTION_KEYS = {
@@ -95,6 +96,8 @@ class NMPC:
         self.solution: Optional[TimeSeries] = None
         self.last_prediction = None
         self.stats: dict = {}
+        # the whole-solve path prepared for the current problem (_whole_ip_cache)
+        self._wip: Optional[dict] = None
 
     # -- basic configuration -------------------------------------------------
     @property
@@ -603,9 +606,9 @@ class NMPC:
         mu_val = self._mu_warm if warm else self._mu_cold
         opts = self._ip_opts
         if opts.pallas_full:
-            if whole_ip_supported(self._dims, self._bounds, opts, True,
-                                  self._model):
-                return self._whole_ip_fn(dataclasses.replace(opts, mu_init=mu_val))
+            cache = self._whole_ip_cache()
+            if cache["eligible"]:
+                return self._whole_ip_fn(cache, mu_val)
             warnings.warn("pallas_full requested but the problem shape is not "
                           "kernel-eligible (needs box-only constraints, pure "
                           "Newton steps, fix_x0 and a model in the equation "
@@ -613,21 +616,61 @@ class NMPC:
                           "path")
         return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)
 
-    def _whole_ip_fn(self, opts):
+    def _weights_key(self):
+        """The numbers of the cost terms that the emitted problem bakes into
+        prm, as bytes: a term edited in place after setup() changes it."""
+        src = self._funcs.source
+        return tuple((t.kind, np.asarray(t.idx).tobytes(), np.asarray(t.W).tobytes(),
+                      None if t.ref is None else np.asarray(t.ref).tobytes(),
+                      t.runtime_ref)
+                     for t in (*src.stage_terms, *src.term_terms))
+
+    def _whole_ip_cache(self) -> dict:
+        """The whole-solve path prepared for the current problem: the gate's
+        result and a ``WholeIPLaunch`` per (device, n_theta) (each with its
+        emitted problem, bound entry point, prm on the card and row
+        indices). Bounds, weights and options reach the solver only through
+        setup(), which makes new ``_funcs``, ``_bounds`` and ``_ip_opts``;
+        the cache is keyed on those objects and on the cost terms' numbers,
+        so a new setup() or a weight edited in place drops it. Cold and warm
+        solves share it: they differ only in mu0, a launch argument."""
+        c = self._wip
+        weights = self._weights_key()
+        if (c is None or c["funcs"] is not self._funcs or c["bounds"] is not self._bounds
+                or c["opts"] != self._ip_opts or c["weights"] != weights):
+            eligible = whole_ip_supported(self._dims, self._bounds, self._ip_opts,
+                                          True, self._model)
+            c = self._wip = dict(funcs=self._funcs, bounds=self._bounds,
+                                 opts=self._ip_opts, weights=weights,
+                                 eligible=eligible, launch={})
+        return c
+
+    def _whole_ip_fn(self, cache, mu0):
         """The whole-solve kernel in float32 (the JAX kernel's precision):
         CUDA inputs are cast to float32 and the solution back to this
-        controller's dtype. CPU inputs go to the kernel's plain version in
-        this controller's dtype, which runs the controller's own functions.
+        controller's dtype, through the launch prepared once per device.
+        CPU inputs go to the kernel's plain version in this controller's
+        dtype, which runs the controller's own functions.
         ``pallas_tile``, ``pallas_full_pack`` and ``pallas_vmem_mb`` are TPU
         knobs without effect."""
         funcs, dims, dtype = self._funcs, self._dims, self._dtype
+        opts = dataclasses.replace(self._ip_opts, mu_init=mu0)
 
         def solve(th, x0s, Xi, Ui):
-            kdt = torch.float32 if th.is_cuda else dtype
-            bounds = OCPBounds(*[b.to(kdt) for b in self._bounds])
-            sol = solve_ocp_full_cuda(
-                funcs, dims, bounds, *[a.to(kdt).contiguous()
-                                       for a in (th, x0s, Xi, Ui)], options=opts)
+            if not th.is_cuda:
+                return solve_ocp_full_cuda(funcs, dims, self._bounds, th, x0s, Xi, Ui,
+                                           options=opts)
+            key = (th.device, th.shape[2])
+            launch = cache["launch"].get(key)
+            if launch is None:
+                problem = whole_ip_problem(funcs, dims, self._bounds, th.shape[2],
+                                           self._ip_opts)
+                launch = cache["launch"][key] = WholeIPLaunch(
+                    problem, dims, torch.float32, th.device)
+            f32 = torch.float32
+            sol = launch(*[a.to(f32).contiguous() for a in (th, x0s, Xi, Ui)], mu0)
+            if dtype == f32:
+                return sol
             return type(sol)(*[v.to(dtype) if v.is_floating_point() else v
                                for v in sol])
         return solve

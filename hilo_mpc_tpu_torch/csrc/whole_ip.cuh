@@ -29,15 +29,53 @@
 // that differ only in numbers share one build. The quadratic cost has no
 // x-u cross term, so the Riccati step carries no Hux block.
 //
-// Design. Stage loops stay loops (#pragma unroll 1); only the NX/NU-sized
-// algebra is unrolled. The per-stage state (X, U, lam, s, z, the
-// linearization, the Riccati stash K, kff, P, p, the step) is about 30
-// values per stage and does not fit in registers: it lives in per-thread
-// local arrays, which the hardware interleaves across the threads of a warp,
-// so their loads and stores coalesce. Bound: the local-memory traffic of the
-// five passes over the horizon per iteration; arithmetic is a few thousand
-// FLOPs per stage and iteration. Threads past the batch return at once.
-// Scenarios of one warp stop at different iterations (accepted here).
+// Bound. Per scenario-iteration the algorithm does ~21,000 operations at the
+// flagship (N=20, nx=2, nu=1, RK4; EmittedProblem.flops) on a few hundred
+// values of state, so the operations bound it (0.17 ms at B=131072 in
+// float32); the inputs and outputs cross HBM once. On the card the limit is
+// the issue rate of one long serial chain per thread: ~100 registers in
+// float32 and ~190 in float64 allow 10-18 warps per SM, which hide little
+// of the latency of dependent arithmetic. The first design also kept ~770 values
+// per scenario in thread-local arrays (local memory, through L2 and HBM:
+// the resident threads' state was twice the 50 MB L2). The TPU kernel kept
+// every per-stage quantity in VMEM.
+//
+// Design. The same per-scenario arithmetic, the state carried less and
+// placed for Hopper:
+//  - the candidate point is only checked for finiteness (pass 4) and
+//    recomputed in place by the accepting pass (pass 5), from the same
+//    formulas; the new multipliers are recomputed there from the stash; P's
+//    stash is its upper triangle; the gradients gx, gu are recomputed in the
+//    pass that uses them. The linearization of each stage (A, B,
+//    F - x_{k+1}) is computed once per iteration, in the KKT pass, and kept
+//    for the backward and forward passes. What remains per scenario (WipLay
+//    below): theta, X, U, lam, the active rows' s and z, the stash (K, kff,
+//    P upper, p), the direction (dX, dU) and the linearization: 730 values
+//    at the flagship, theta 168 of them;
+//  - that region is scenario-minor in a global scratch the wrapper
+//    allocates: a block owns a tile of P::TB scenarios, and element e of
+//    its scenario s sits at region[e * TB + s], so a warp's accesses are 32
+//    consecutive words;
+//  - the tile's inputs (theta, X, U) are one contiguous run each in the
+//    batch-first layout: the block copies them word by word (thread t takes
+//    words t, t+TB, ...: coalesced) into the region, and stores X, U, lam
+//    and the slacks and duals (in the full row layout, masked rows at 1.0)
+//    back the same way. No thread-local array remains: the per-stage algebra
+//    (the dual pass, P, the Schur complement) lives in registers, every index
+//    known at compile time;
+//  - __launch_bounds__(P::TB, MINB): tiles of 64; in float32 8 blocks (16
+//    warps) per SM, at most 128 registers a thread; float64 spills at that
+//    budget and at 5 blocks, so it asks for 4 (~190 registers, no spills).
+// ops/codegen_cuda.py writes TB and MINB into the problem. They were chosen
+// by timing on an H100 (PERF.md): the region in shared memory (2-3 one-warp
+// blocks per SM), 8 warps per SM in float32, recomputing the linearization
+// in each pass, and refilling finished lanes from a counter all ran slower.
+//
+// The block schedule is __host__ __device__: compiled with the host C++
+// compiler (ops/_build.py:host_library_path) it runs tile by tile, threads in
+// a loop, ragged last tile included, so the CPU tests reach the region
+// layout. The launcher takes PyTorch's current stream, allocates nothing and
+// never synchronizes.
 #pragma once
 
 #include <stddef.h>
@@ -68,16 +106,32 @@ struct WipOut {
   T* X;    // (B, N+1, NX)
   T* U;    // (B, N, NU)
   T* lam;  // (B, N, NX)
-  T* s;    // (B, max(RS, 1)) active stage rows
+  T* s;    // (B, N, 2NU+2NX): every candidate row, 1.0 where masked
   T* z;
-  T* sN;   // (B, max(RT, 1)) active terminal rows
+  T* sN;   // (B, 2NX)
   T* zN;
   T* mu;   // (B,)
   T* kkt;
   T* obj;
   int* it;
   unsigned char* conv;
-  unsigned char* div;
+  int* status;  // 0 converged, 1 max_iter, 2 diverged
+};
+
+// Offsets of one scenario's region (elements; scenario-minor, stride TB).
+template <typename P>
+struct WipLay {
+  static constexpr int NX = P::NX, NU = P::NU, N = P::N, NT = P::NT;
+  static constexpr int NTRI = NX * (NX + 1) / 2;
+  static constexpr int TH = 0, X = TH + (N + 1) * NT, U = X + (N + 1) * NX;
+  static constexpr int LAM = U + N * NU, S = LAM + N * NX, Z = S + P::RS;
+  static constexpr int SN = Z + P::RS, ZN = SN + P::RT;
+  static constexpr int K = ZN + P::RT, KF = K + N * NU * NX, PU = KF + N * NU;
+  static constexpr int PV = PU + N * NTRI, DX = PV + N * NX, DU = DX + N * NX;
+  static constexpr int LW = NX * NX + NX * NU + NX;  // one stage's linearization
+  static constexpr int AB = DU + N * NU, E = AB + N * LW;
+  // slot of P[i][j], i <= j, in a stage's upper triangle (row-major)
+  HM_HD static int tri(int i, int j) { return i * NX - i * (i - 1) / 2 + (j - i); }
 };
 
 // number of set bits of mask below bit r
@@ -95,12 +149,72 @@ HM_HD bool finite(T v) {
   return v == v && v - v == T(0);
 }
 
-template <typename T, typename P>
-HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
+// f(t) for this thread on the card; for every thread of the block, in order,
+// on the host
+template <int TB, typename F>
+HM_HD void each_thread(const F& f) {
+#ifdef __CUDA_ARCH__
+  f(static_cast<int>(threadIdx.x));
+#else
+  for (int t = 0; t < TB; ++t) f(t);
+#endif
+}
+
+HM_HD void block_sync() {
+#ifdef __CUDA_ARCH__
+  __syncthreads();
+#endif
+}
+
+// Thread t's share of copying the tile's runs of L words (scenario s's run at
+// g + (b0+s)·L) into rows w·TB + s of `rows`: words t, t+TB, ... of the
+// tile's nb·L contiguous words, so a warp's loads coalesce.
+template <typename T, int TB>
+HM_HD void load_runs(T* rows, const T* g, int L, int b0, int nb, int t) {
+  const T* src = g + static_cast<size_t>(b0) * L;
+  for (int idx = t; idx < nb * L; idx += TB) {
+    const int s = idx / L, w = idx - s * L;
+    rows[w * TB + s] = src[idx];
+  }
+}
+
+// The reverse into runs of Lo words per scenario: word w of a scenario's run
+// is row slot(w) of `rows`, or 1.0 where slot(w) < 0 (a masked slack row).
+template <typename T, int TB, typename Slot>
+HM_HD void store_runs(T* g, const T* rows, int Lo, int b0, int nb, int t,
+                      const Slot& slot) {
+  T* dst = g + static_cast<size_t>(b0) * Lo;
+  for (int idx = t; idx < nb * Lo; idx += TB) {
+    const int s = idx / Lo, w = idx - s * Lo;
+    const int r = slot(w);
+    dst[idx] = r >= 0 ? rows[r * TB + s] : T(1);
+  }
+}
+
+// The region slot of word w of a scenario's full slack layout: stage rows
+// (N, 2NU+2NX) and terminal rows (2NX); -1 for a masked row
+template <typename P>
+HM_HD int stage_slot(int w) {
+  constexpr int M = 2 * P::NU + 2 * P::NX;
+  const int k = w / M, r = w - k * M;
+  const unsigned mask = P::row_mask(k);
+  return ((mask >> r) & 1u) ? P::row_off(k) + popc_below(mask, r) : -1;
+}
+template <typename P>
+HM_HD int term_slot(int t) {
+  return ((P::TERM_MASK >> t) & 1u) ? popc_below(P::TERM_MASK, t) : -1;
+}
+
+// The solve of scenario b by one thread; st points at its column of the
+// block's region (element e at st[e * LD]), into which the block has loaded
+// the scenario's theta, X and U (wip_block). Writes the scalar outputs; the
+// block stores the rest from the region.
+template <typename T, typename P, int LD>
+HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b) {
+  using Lay = WipLay<P>;
   constexpr int NX = P::NX, NU = P::NU, N = P::N, NT = P::NT;
   constexpr int D = NX + NU;
   constexpr int M = 2 * NU + 2 * NX, MN = 2 * NX;
-  constexpr int RS = P::RS > 0 ? P::RS : 1, RT = P::RT > 0 ? P::RT : 1;
   constexpr unsigned TM = P::TERM_MASK;
   // candidate row r of a stage: kind, index, sign; terminal row t likewise
   auto row_u = [](int r) { return r < 2 * NU; };
@@ -111,9 +225,9 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
   auto row_s = [](int r) {
     return (r < NU || (r >= 2 * NU && r < 2 * NU + NX)) ? T(1) : T(-1);
   };
+  auto V = [st](int e) -> T& { return st[e * LD]; };
 
   const T* prm = in.prm;
-  const T* th = in.th + b * (N + 1) * NT;
   const T tol = prm[P::P_TOL], tol10 = prm[P::P_TOL10], reg = prm[P::P_REG];
   const T s_min = prm[P::P_SMIN], keps = prm[P::P_KEPS];
   const T kmu = prm[P::P_KMU], tmu = prm[P::P_TMU];
@@ -124,45 +238,116 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
   const T* roff = prm + P::P_ROW;   // bound offset of each active stage row
   const T* toff = prm + P::P_TROW;  // ... of each active terminal row
 
-  T X[(N + 1) * NX], U[N * NU], lam[N * NX], s[RS], z[RS], sN[RT], zN[RT];
-  for (int i = 0; i < (N + 1) * NX; ++i) X[i] = in.X[b * (N + 1) * NX + i];
+  // stage k's theta, x_k, u_k (and x_{k+1}) from the region into registers
+  auto get_th = [&](int k, T* th) {
 #pragma unroll
-  for (int i = 0; i < NX; ++i) X[i] = in.x0[b * NX + i];
-  for (int i = 0; i < N * NU; ++i) U[i] = in.U[b * N * NU + i];
-  for (int i = 0; i < N * NX; ++i) lam[i] = T(0);
-
-  // constraint value of candidate row r of stage k / terminal row t
-  auto c_row = [&](int k, int r, int ridx) {
-    const T v = row_u(r) ? U[k * NU + row_i(r)] : X[k * NX + row_i(r)];
+    for (int j = 0; j < NT; ++j) th[j] = V(Lay::TH + k * NT + j);
+  };
+  auto get_x = [&](int k, T* x) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = V(Lay::X + k * NX + i);
+  };
+  auto get_u = [&](int k, T* u) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) u[j] = V(Lay::U + k * NU + j);
+  };
+  // the direction of x_k (dX_0 = 0) and of u_k
+  auto get_dx = [&](int k, T* dx) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) dx[i] = k == 0 ? T(0) : V(Lay::DX + (k - 1) * NX + i);
+  };
+  auto get_du = [&](int k, T* du) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) du[j] = V(Lay::DU + k * NU + j);
+  };
+  // F - x_{k+1} and [A | B] of stage k by one dual-number pass
+  auto lin = [&](const T* x, const T* u, const T* th, const T* x1, T* A, T* Bm,
+                 T* rd) {
+    Dual<T, D> xd[NX], ud[NU], Fd[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      xd[i] = Dual<T, D>(x[i]);
+      xd[i].d[i] = T(1);
+    }
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      ud[j] = Dual<T, D>(u[j]);
+      ud[j].d[NX + j] = T(1);
+    }
+    P::dyn(xd, ud, th, prm, Fd);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      rd[i] = Fd[i].v - x1[i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) A[i * NX + j] = Fd[i].d[j];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bm[i * NU + j] = Fd[i].d[NX + j];
+    }
+  };
+  // stage k's linearization: computed and kept (pass 1), or taken from the
+  // region (passes 2 and 3)
+  auto lin_store = [&](int k, const T* x, const T* u, const T* th, const T* x1, T* A,
+                      T* Bm, T* rd) {
+    lin(x, u, th, x1, A, Bm, rd);
+    const int o = Lay::AB + k * Lay::LW;
+#pragma unroll
+    for (int e = 0; e < NX * NX; ++e) V(o + e) = A[e];
+#pragma unroll
+    for (int e = 0; e < NX * NU; ++e) V(o + NX * NX + e) = Bm[e];
+#pragma unroll
+    for (int e = 0; e < NX; ++e) V(o + NX * NX + NX * NU + e) = rd[e];
+  };
+  auto lin_load = [&](int k, T* A, T* Bm, T* rd) {
+    const int o = Lay::AB + k * Lay::LW;
+#pragma unroll
+    for (int e = 0; e < NX * NX; ++e) A[e] = V(o + e);
+#pragma unroll
+    for (int e = 0; e < NX * NU; ++e) Bm[e] = V(o + NX * NX + e);
+#pragma unroll
+    for (int e = 0; e < NX; ++e) rd[e] = V(o + NX * NX + NX * NU + e);
+  };
+  // constraint value of candidate row r (slot ridx) of a stage at (x, u);
+  // of terminal row t (slot tidx) at x_N
+  auto c_row = [&](int r, int ridx, const T* x, const T* u) {
+    const T v = row_u(r) ? u[row_i(r)] : x[row_i(r)];
     return row_s(r) * v + roff[ridx];
   };
-  auto c_term = [&](int t, int tidx) {
-    const T v = X[N * NX + (t < NX ? t : t - NX)];
+  auto c_term = [&](int t, int tidx, const T* xN) {
+    const T v = xN[t < NX ? t : t - NX];
     return (t < NX ? T(1) : T(-1)) * v + toff[tidx];
   };
 
-  // ---- initial slacks and duals ---------------------------------------------
+  // ---- x_0, lam = 0, the initial slacks and duals ---------------------------
+#pragma unroll
+  for (int i = 0; i < NX; ++i) V(Lay::X + i) = in.x0[b * NX + i];
+#pragma unroll 1
+  for (int i = 0; i < N * NX; ++i) V(Lay::LAM + i) = T(0);
 #pragma unroll 1
   for (int k = 0; k < N; ++k) {
+    T xk[NX], uk[NU];
+    get_x(k, xk);
+    get_u(k, uk);
     const unsigned mask = P::row_mask(k);
     int ridx = P::row_off(k);
 #pragma unroll
     for (int r = 0; r < M; ++r) {
       if (!((mask >> r) & 1u)) continue;
-      const T si = m_fmax(m_abs(c_row(k, r, ridx)), s_min);
-      s[ridx] = si;
-      z[ridx] = in.mu0 / si;
+      const T si = m_fmax(m_abs(c_row(r, ridx, xk, uk)), s_min);
+      V(Lay::S + ridx) = si;
+      V(Lay::Z + ridx) = in.mu0 / si;
       ++ridx;
     }
   }
   {
+    T xN[NX];
+    get_x(N, xN);
     int tidx = 0;
 #pragma unroll
     for (int t = 0; t < MN; ++t) {
       if (!((TM >> t) & 1u)) continue;
-      const T si = m_fmax(m_abs(c_term(t, tidx)), s_min);
-      sN[tidx] = si;
-      zN[tidx] = in.mu0 / si;
+      const T si = m_fmax(m_abs(c_term(t, tidx, xN)), s_min);
+      V(Lay::SN + tidx) = si;
+      V(Lay::ZN + tidx) = in.mu0 / si;
       ++tidx;
     }
   }
@@ -170,106 +355,98 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
   T mu = in.mu0, kkt = T(1e30);
   int it = 0;
   bool conv = false, div = false;
-
-  // per-iteration storage: linearization, Riccati stash, step
-  T A[N * NX * NX], Bm[N * NX * NU], rd[N * NX], gx[N * NX], gu[N * NU];
-  T K[N * NU * NX], kff[N * NU], Pn[N * NX * NX], pn[N * NX];
-  T dX[(N + 1) * NX], dU[N * NU], lamN[N * NX];
-  T sc[RS], zc[RS], sNc[RT], zNc[RT], gN[NX];
-
   while (!conv && !div && it < max_iter) {
+    // ---- one interior-point iteration ----------------------------------------
     // ---- pass 1: linearize; KKT errors at the current iterate ---------------
     T e_stat = T(0), abs_mult = T(0), e_feas = T(0), comp0 = T(0),
       comp_mu = T(0);
+    T lam_prev[NX];
 #pragma unroll 1
     for (int k = 0; k < N; ++k) {
-      const T* thk = th + k * NT;
-      Dual<T, D> xd[NX], ud[NU], Fd[NX];
+      T thk[NT], xk[NX], uk[NU], x1[NX], lamk[NX];
+      get_th(k, thk);
+      get_x(k, xk);
+      get_u(k, uk);
+      get_x(k + 1, x1);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        xd[i] = Dual<T, D>(X[k * NX + i]);
-        xd[i].d[i] = T(1);
-      }
-#pragma unroll
-      for (int j = 0; j < NU; ++j) {
-        ud[j] = Dual<T, D>(U[k * NU + j]);
-        ud[j].d[NX + j] = T(1);
-      }
-      P::dyn(xd, ud, thk, prm, Fd);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        rd[k * NX + i] = Fd[i].v - X[(k + 1) * NX + i];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) A[(k * NX + i) * NX + j] = Fd[i].d[j];
-#pragma unroll
-        for (int j = 0; j < NU; ++j) Bm[(k * NX + i) * NU + j] = Fd[i].d[NX + j];
-      }
-      P::stage_grad(X + k * NX, U + k * NU, thk, prm, gx + k * NX, gu + k * NU);
+      for (int i = 0; i < NX; ++i) lamk[i] = V(Lay::LAM + k * NX + i);
+      T A[NX][NX], Bm[NX][NU], rd[NX], gx[NX], gu[NU];
+      lin_store(k, xk, uk, thk, x1, &A[0][0], &Bm[0][0], rd);
+      P::stage_grad(xk, uk, thk, prm, gx, gu);
 
       const unsigned mask = P::row_mask(k);
       const int r0 = P::row_off(k);
       // r_u = gu + Bᵀ lam + Cuᵀ z
 #pragma unroll
       for (int j = 0; j < NU; ++j) {
-        T r = gu[k * NU + j];
+        T r = gu[j];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) r = r + Bm[(k * NX + i) * NU + j] * lam[k * NX + i];
-        if ((mask >> j) & 1u) r = r + z[r0 + popc_below(mask, j)];
-        if ((mask >> (NU + j)) & 1u) r = r - z[r0 + popc_below(mask, NU + j)];
+        for (int i = 0; i < NX; ++i) r = r + Bm[i][j] * lamk[i];
+        if ((mask >> j) & 1u) r = r + V(Lay::Z + r0 + popc_below(mask, j));
+        if ((mask >> (NU + j)) & 1u) r = r - V(Lay::Z + r0 + popc_below(mask, NU + j));
         e_stat = m_fmax(e_stat, m_abs(r));
       }
       // r_x (k >= 1) = gx + Aᵀ lam - lam_{k-1} + Cxᵀ z
       if (k >= 1) {
 #pragma unroll
         for (int i = 0; i < NX; ++i) {
-          T r = gx[k * NX + i] - lam[(k - 1) * NX + i];
+          T r = gx[i] - lam_prev[i];
 #pragma unroll
-          for (int l = 0; l < NX; ++l) r = r + A[(k * NX + l) * NX + i] * lam[k * NX + l];
-          if ((mask >> (2 * NU + i)) & 1u) r = r + z[r0 + popc_below(mask, 2 * NU + i)];
+          for (int l = 0; l < NX; ++l) r = r + A[l][i] * lamk[l];
+          if ((mask >> (2 * NU + i)) & 1u)
+            r = r + V(Lay::Z + r0 + popc_below(mask, 2 * NU + i));
           if ((mask >> (2 * NU + NX + i)) & 1u)
-            r = r - z[r0 + popc_below(mask, 2 * NU + NX + i)];
+            r = r - V(Lay::Z + r0 + popc_below(mask, 2 * NU + NX + i));
           e_stat = m_fmax(e_stat, m_abs(r));
         }
       }
 #pragma unroll
-      for (int i = 0; i < NX; ++i) abs_mult = abs_mult + m_abs(lam[k * NX + i]);
+      for (int i = 0; i < NX; ++i) abs_mult = abs_mult + m_abs(lamk[i]);
       int ridx = r0;
 #pragma unroll
       for (int r = 0; r < M; ++r)
-        if ((mask >> r) & 1u) abs_mult = abs_mult + m_abs(z[ridx++]);
+        if ((mask >> r) & 1u) abs_mult = abs_mult + m_abs(V(Lay::Z + ridx++));
 #pragma unroll
-      for (int i = 0; i < NX; ++i) e_feas = m_fmax(e_feas, m_abs(rd[k * NX + i]));
+      for (int i = 0; i < NX; ++i) e_feas = m_fmax(e_feas, m_abs(rd[i]));
       ridx = r0;
 #pragma unroll
       for (int r = 0; r < M; ++r) {
         if (!((mask >> r) & 1u)) continue;
-        const T si = s[ridx], zi = z[ridx];
-        e_feas = m_fmax(e_feas, m_abs(c_row(k, r, ridx) + si));
+        const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
+        e_feas = m_fmax(e_feas, m_abs(c_row(r, ridx, xk, uk) + si));
         const T sz = si * zi;
         comp0 = m_fmax(comp0, m_abs(sz));
         comp_mu = m_fmax(comp_mu, m_abs(sz - mu));
         ++ridx;
       }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) lam_prev[i] = lamk[i];
     }
-    P::term_grad(X + N * NX, th + N * NT, prm, gN);
+    T xN[NX], gN[NX];
+    {
+      T thN[NT];
+      get_th(N, thN);
+      get_x(N, xN);
+      P::term_grad(xN, thN, prm, gN);
+    }
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      T r = gN[i] - lam[(N - 1) * NX + i];
-      if ((TM >> i) & 1u) r = r + zN[popc_below(TM, i)];
-      if ((TM >> (NX + i)) & 1u) r = r - zN[popc_below(TM, NX + i)];
+      T r = gN[i] - lam_prev[i];
+      if ((TM >> i) & 1u) r = r + V(Lay::ZN + popc_below(TM, i));
+      if ((TM >> (NX + i)) & 1u) r = r - V(Lay::ZN + popc_below(TM, NX + i));
       e_stat = m_fmax(e_stat, m_abs(r));
     }
     {
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t)
-        if ((TM >> t) & 1u) abs_mult = abs_mult + m_abs(zN[tidx++]);
+        if ((TM >> t) & 1u) abs_mult = abs_mult + m_abs(V(Lay::ZN + tidx++));
       tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
         if (!((TM >> t) & 1u)) continue;
-        const T si = sN[tidx], zi = zN[tidx];
-        e_feas = m_fmax(e_feas, m_abs(c_term(t, tidx) + si));
+        const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
+        e_feas = m_fmax(e_feas, m_abs(c_term(t, tidx, xN) + si));
         const T sz = si * zi;
         comp0 = m_fmax(comp0, m_abs(sz));
         comp_mu = m_fmax(comp_mu, m_abs(sz - mu));
@@ -297,8 +474,8 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
       for (int t = 0; t < MN; ++t) {
         if (!((TM >> t) & 1u)) continue;
         const int i = t < NX ? t : t - NX;
-        const T si = sN[tidx], zi = zN[tidx];
-        const T r_in = c_term(t, tidx) + si;
+        const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
+        const T r_in = c_term(t, tidx, xN) + si;
         Pm[i][i] = Pm[i][i] + zi / si;
         pv[i] = pv[i] + (t < NX ? T(1) : T(-1)) * ((mu_new + zi * r_in) / si);
         ++tidx;
@@ -306,21 +483,24 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
     }
 #pragma unroll 1
     for (int k = N - 1; k >= 0; --k) {
-      T Qb[NX][NX], Rb[NU][NU], qb[NX], rb[NU];
-      P::stage_hess(th + k * NT, prm, &Qb[0][0], &Rb[0][0]);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) qb[i] = gx[k * NX + i];
-#pragma unroll
-      for (int j = 0; j < NU; ++j) rb[j] = gu[k * NU + j];
+      T thk[NT], xk[NX], uk[NU];
+      get_th(k, thk);
+      get_x(k, xk);
+      get_u(k, uk);
+      T Ak[NX][NX], Bk[NX][NU], ck[NX], qb[NX], rb[NU];
+      lin_load(k, &Ak[0][0], &Bk[0][0], ck);
+      P::stage_grad(xk, uk, thk, prm, qb, rb);
+      T Qb[NX][NX], Rb[NU][NU];
+      P::stage_hess(thk, prm, &Qb[0][0], &Rb[0][0]);
       const unsigned mask = P::row_mask(k);
       int ridx = P::row_off(k);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
         if (!((mask >> r) & 1u)) continue;
         const int i = row_i(r);
-        const T si = s[ridx], zi = z[ridx];
+        const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
         const T sigma = zi / si;
-        const T r_in = c_row(k, r, ridx) + si;
+        const T r_in = c_row(r, ridx, xk, uk) + si;
         const T zh = (mu_new + zi * r_in) / si;
         if (row_u(r)) {
           Rb[i][i] = Rb[i][i] + sigma;
@@ -331,9 +511,6 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
         }
         ++ridx;
       }
-      const T* Ak = A + k * NX * NX;
-      const T* Bk = Bm + k * NX * NU;
-      const T* ck = rd + k * NX;
       T Pc_p[NX], PA[NX][NX], PB[NX][NU];
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
@@ -345,14 +522,14 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
         for (int j = 0; j < NX; ++j) {
           T e = T(0);
 #pragma unroll
-          for (int l = 0; l < NX; ++l) e = e + Pm[i][l] * Ak[l * NX + j];
+          for (int l = 0; l < NX; ++l) e = e + Pm[i][l] * Ak[l][j];
           PA[i][j] = e;
         }
 #pragma unroll
         for (int j = 0; j < NU; ++j) {
           T e = T(0);
 #pragma unroll
-          for (int l = 0; l < NX; ++l) e = e + Pm[i][l] * Bk[l * NU + j];
+          for (int l = 0; l < NX; ++l) e = e + Pm[i][l] * Bk[l][j];
           PB[i][j] = e;
         }
       }
@@ -363,19 +540,19 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
         for (int j = 0; j < NU; ++j) {
           T e = T(0);
 #pragma unroll
-          for (int l = 0; l < NX; ++l) e = e + Bk[l * NU + i] * PB[l][j];
+          for (int l = 0; l < NX; ++l) e = e + Bk[l][i] * PB[l][j];
           G[i][j] = Rb[i][j] + e;
         }
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
           T e = T(0);
 #pragma unroll
-          for (int l = 0; l < NX; ++l) e = e + Bk[l * NU + i] * PA[l][j];
+          for (int l = 0; l < NX; ++l) e = e + Bk[l][i] * PA[l][j];
           Hux[i][j] = e;
         }
         T e = T(0);
 #pragma unroll
-        for (int l = 0; l < NX; ++l) e = e + Bk[l * NU + i] * Pc_p[l];
+        for (int l = 0; l < NX; ++l) e = e + Bk[l][i] * Pc_p[l];
         g_u[i] = rb[i] + e;
       }
 #pragma unroll
@@ -420,17 +597,18 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
           Kk[i][j] = -Xc[i][j];
-          K[(k * NU + i) * NX + j] = Kk[i][j];
+          V(Lay::K + (k * NU + i) * NX + j) = Kk[i][j];
         }
         kk[i] = -Xc[i][NX];
-        kff[k * NU + i] = kk[i];
+        V(Lay::KF + k * NU + i) = kk[i];
       }
-      // stash (P, p)_{k+1} for the multipliers of the forward pass
+      // stash (P, p)_{k+1} for the multipliers of the accepting pass; P is
+      // symmetric, its upper triangle is kept
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
-        pn[k * NX + i] = pv[i];
+        V(Lay::PV + k * NX + i) = pv[i];
 #pragma unroll
-        for (int j = 0; j < NX; ++j) Pn[(k * NX + i) * NX + j] = Pm[i][j];
+        for (int j = i; j < NX; ++j) V(Lay::PU + k * Lay::NTRI + Lay::tri(i, j)) = Pm[i][j];
       }
       T Pnew[NX][NX];
 #pragma unroll
@@ -439,7 +617,7 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
         for (int j = 0; j < NX; ++j) {
           T e1 = T(0), e2 = T(0);
 #pragma unroll
-          for (int l = 0; l < NX; ++l) e1 = e1 + Ak[l * NX + i] * PA[l][j];
+          for (int l = 0; l < NX; ++l) e1 = e1 + Ak[l][i] * PA[l][j];
 #pragma unroll
           for (int l = 0; l < NU; ++l) e2 = e2 + Hux[l][i] * Kk[l][j];
           Pnew[i][j] = Qb[i][j] + e1 + e2;
@@ -451,7 +629,7 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
         for (int j = 0; j < NX; ++j) Pm[i][j] = T(0.5) * (Pnew[i][j] + Pnew[j][i]);
         T e1 = T(0), e2 = T(0);
 #pragma unroll
-        for (int l = 0; l < NX; ++l) e1 = e1 + Ak[l * NX + i] * Pc_p[l];
+        for (int l = 0; l < NX; ++l) e1 = e1 + Ak[l][i] * Pc_p[l];
 #pragma unroll
         for (int l = 0; l < NU; ++l) e2 = e2 + Hux[l][i] * kk[l];
         pv[i] = qb[i] + e1 + e2;
@@ -464,37 +642,34 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
     auto ratio = [&](T v, T dv) {
       return dv < T(0) ? -tau * v / m_fmin(dv, T(-1e-30)) : T(1);
     };
+    T dx[NX];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) dX[i] = T(0);
+    for (int i = 0; i < NX; ++i) dx[i] = T(0);
 #pragma unroll 1
     for (int k = 0; k < N; ++k) {
-      T dx[NX], du[NU], dxn[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) dx[i] = dX[k * NX + i];
+      T xk[NX], uk[NU];
+      get_x(k, xk);
+      get_u(k, uk);
+      T A[NX][NX], Bm[NX][NU], rd[NX];
+      lin_load(k, &A[0][0], &Bm[0][0], rd);
+      T du[NU], dxn[NX];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         T a = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + K[(k * NU + i) * NX + j] * dx[j];
-        du[i] = a + kff[k * NU + i];
-        dU[k * NU + i] = du[i];
+        for (int j = 0; j < NX; ++j) a = a + V(Lay::K + (k * NU + i) * NX + j) * dx[j];
+        du[i] = a + V(Lay::KF + k * NU + i);
+        V(Lay::DU + k * NU + i) = du[i];
       }
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         T a = T(0), e = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + A[(k * NX + i) * NX + j] * dx[j];
+        for (int j = 0; j < NX; ++j) a = a + A[i][j] * dx[j];
 #pragma unroll
-        for (int j = 0; j < NU; ++j) e = e + Bm[(k * NX + i) * NU + j] * du[j];
-        dxn[i] = a + e + rd[k * NX + i];
-        dX[(k + 1) * NX + i] = dxn[i];
-      }
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T a = T(0);
-#pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + Pn[(k * NX + i) * NX + j] * dxn[j];
-        lamN[k * NX + i] = a + pn[k * NX + i];
+        for (int j = 0; j < NU; ++j) e = e + Bm[i][j] * du[j];
+        dxn[i] = a + e + rd[i];
+        V(Lay::DX + k * NX + i) = dxn[i];
       }
       const unsigned mask = P::row_mask(k);
       int ridx = P::row_off(k);
@@ -502,23 +677,25 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
       for (int r = 0; r < M; ++r) {
         if (!((mask >> r) & 1u)) continue;
         const T dC = row_s(r) * (row_u(r) ? du[row_i(r)] : dx[row_i(r)]);
-        const T si = s[ridx], zi = z[ridx];
-        const T r_in = c_row(k, r, ridx) + si;
+        const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
+        const T r_in = c_row(r, ridx, xk, uk) + si;
         const T ds = -r_in - dC;
         const T dz = (mu_new - si * zi - zi * ds) / si;
         a_s = m_fmin(a_s, ratio(si, ds));
         a_z = m_fmin(a_z, ratio(zi, dz));
         ++ridx;
       }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) dx[i] = dxn[i];
     }
     {
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
         if (!((TM >> t) & 1u)) continue;
-        const T dC = (t < NX ? T(1) : T(-1)) * dX[N * NX + (t < NX ? t : t - NX)];
-        const T si = sN[tidx], zi = zN[tidx];
-        const T r_in = c_term(t, tidx) + si;
+        const T dC = (t < NX ? T(1) : T(-1)) * dx[t < NX ? t : t - NX];
+        const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
+        const T r_in = c_term(t, tidx, xN) + si;
         const T ds = -r_in - dC;
         const T dz = (mu_new - si * zi - zi * ds) / si;
         a_s = m_fmin(a_s, ratio(si, ds));
@@ -528,69 +705,110 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
     }
     const T alpha = a_s;
 
-    // ---- pass 4: the candidate point and the finite guard -------------------
-    bool fin = true;
-    auto dual_cand = [&](T si, T zi, T ds, T dz, T* s_out, T* z_out) {
-      const T sn = m_fmax(si + alpha * ds, T(1e-30));
-      T zn = m_fmax(zi + a_z * dz, T(1e-30));
+    // the candidate slack and dual of one row
+    auto dual_cand = [&](T si, T zi, T ds, T dz, T& sn, T& zn) {
+      sn = m_fmax(si + alpha * ds, T(1e-30));
+      zn = m_fmax(zi + a_z * dz, T(1e-30));
       zn = m_fmin(m_fmax(zn, mu_new / (kap * sn)), kap * mu_new / sn);
-      fin = fin && finite(zn);
-      *s_out = sn;
-      *z_out = zn;
     };
-#pragma unroll 1
-    for (int k = 0; k < N; ++k) {
+    // every active row's candidate slack and dual: checked for finiteness
+    // (pass 4) or written (pass 5); stage k at (xk, uk) with directions
+    // (dxk, duk), the terminal rows at xN with dx_N
+    bool fin = true;
+    auto stage_cands = [&](int k, const T* xk, const T* uk, const T* dxk,
+                           const T* duk, bool write) {
       const unsigned mask = P::row_mask(k);
       int ridx = P::row_off(k);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
         if (!((mask >> r) & 1u)) continue;
-        const T dC = row_s(r) * (row_u(r) ? dU[k * NU + row_i(r)]
-                                          : dX[k * NX + row_i(r)]);
-        const T si = s[ridx], zi = z[ridx];
-        const T ds = -(c_row(k, r, ridx) + si) - dC;
+        const T dC = row_s(r) * (row_u(r) ? duk[row_i(r)] : dxk[row_i(r)]);
+        const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
+        const T ds = -(c_row(r, ridx, xk, uk) + si) - dC;
         const T dz = (mu_new - si * zi - zi * ds) / si;
-        dual_cand(si, zi, ds, dz, &sc[ridx], &zc[ridx]);
+        T sn, zn;
+        dual_cand(si, zi, ds, dz, sn, zn);
+        if (write) {
+          V(Lay::S + ridx) = sn;
+          V(Lay::Z + ridx) = zn;
+        } else {
+          fin = fin && finite(zn);
+        }
         ++ridx;
       }
-    }
-    {
+    };
+    auto term_cands = [&](bool write) {
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
         if (!((TM >> t) & 1u)) continue;
-        const T dC = (t < NX ? T(1) : T(-1)) * dX[N * NX + (t < NX ? t : t - NX)];
-        const T si = sN[tidx], zi = zN[tidx];
-        const T ds = -(c_term(t, tidx) + si) - dC;
+        const T dC = (t < NX ? T(1) : T(-1)) * dx[t < NX ? t : t - NX];
+        const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
+        const T ds = -(c_term(t, tidx, xN) + si) - dC;
         const T dz = (mu_new - si * zi - zi * ds) / si;
-        dual_cand(si, zi, ds, dz, &sNc[tidx], &zNc[tidx]);
+        T sn, zn;
+        dual_cand(si, zi, ds, dz, sn, zn);
+        if (write) {
+          V(Lay::SN + tidx) = sn;
+          V(Lay::ZN + tidx) = zn;
+        } else {
+          fin = fin && finite(zn);
+        }
         ++tidx;
       }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) fin = fin && finite(X[i]);
-    for (int i = NX; i < (N + 1) * NX; ++i) {
-      dX[i] = X[i] + alpha * dX[i];
-      fin = fin && finite(dX[i]);
-    }
-    for (int i = 0; i < N * NU; ++i) {
-      dU[i] = U[i] + alpha * dU[i];
-      fin = fin && finite(dU[i]);
-    }
+    };
 
-    // ---- pass 5: take the step unless converged or non-finite ---------------
+    // ---- pass 4: is the candidate point finite? -----------------------------
+#pragma unroll
+    for (int i = 0; i < NX; ++i) fin = fin && finite(V(Lay::X + i));
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) {
+      T xk[NX], uk[NU], dxk[NX], duk[NU];
+      get_x(k, xk);
+      get_u(k, uk);
+      get_dx(k, dxk);
+      get_du(k, duk);
+      stage_cands(k, xk, uk, dxk, duk, false);
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        fin = fin && finite(V(Lay::X + (k + 1) * NX + i) +
+                            alpha * V(Lay::DX + k * NX + i));
+#pragma unroll
+      for (int j = 0; j < NU; ++j) fin = fin && finite(uk[j] + alpha * duk[j]);
+    }
+    term_cands(false);
+
+    // ---- pass 5: take the step unless converged or non-finite: the
+    // candidate recomputed in place, the multipliers from the stash --------
     if (!(converged || !fin)) {
-      for (int i = NX; i < (N + 1) * NX; ++i) X[i] = dX[i];
-      for (int i = 0; i < N * NU; ++i) U[i] = dU[i];
-      for (int i = 0; i < N * NX; ++i) lam[i] = lamN[i];
-      for (int i = 0; i < P::RS; ++i) {
-        s[i] = sc[i];
-        z[i] = zc[i];
+#pragma unroll 1
+      for (int k = 0; k < N; ++k) {
+        T xk[NX], uk[NU], dxk[NX], duk[NU], dxn[NX];
+        get_x(k, xk);
+        get_u(k, uk);
+        get_dx(k, dxk);
+        get_du(k, duk);
+        get_dx(k + 1, dxn);
+        stage_cands(k, xk, uk, dxk, duk, true);
+#pragma unroll
+        for (int j = 0; j < NU; ++j) V(Lay::U + k * NU + j) = uk[j] + alpha * duk[j];
+        if (k >= 1) {
+#pragma unroll
+          for (int i = 0; i < NX; ++i) V(Lay::X + k * NX + i) = xk[i] + alpha * dxk[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          T a = T(0);
+#pragma unroll
+          for (int j = 0; j < NX; ++j)
+            a = a + V(Lay::PU + k * Lay::NTRI + (i <= j ? Lay::tri(i, j) : Lay::tri(j, i))) *
+                        dxn[j];
+          V(Lay::LAM + k * NX + i) = a + V(Lay::PV + k * NX + i);
+        }
       }
-      for (int i = 0; i < P::RT; ++i) {
-        sN[i] = sNc[i];
-        zN[i] = zNc[i];
-      }
+      term_cands(true);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) V(Lay::X + N * NX + i) = xN[i] + alpha * dx[i];
     }
     mu = mu_new;
     kkt = err0;
@@ -599,30 +817,60 @@ HM_HDN void solve_scenario(const WipIn<T>& in, const WipOut<T>& out, size_t b) {
     div = div || !fin;
   }
 
-  // ---- objective at the final point and the outputs -------------------------
+  // ---- the objective at the final point and the scalar outputs -------------
   T obj = T(0);
 #pragma unroll 1
-  for (int k = 0; k < N; ++k)
-    obj = obj + P::stage_cost(X + k * NX, U + k * NU, th + k * NT, prm);
-  obj = obj + P::term_cost(X + N * NX, th + N * NT, prm);
-
-  for (int i = 0; i < (N + 1) * NX; ++i) out.X[b * (N + 1) * NX + i] = X[i];
-  for (int i = 0; i < N * NU; ++i) out.U[b * N * NU + i] = U[i];
-  for (int i = 0; i < N * NX; ++i) out.lam[b * N * NX + i] = lam[i];
-  for (int i = 0; i < RS; ++i) {
-    out.s[b * RS + i] = P::RS > 0 ? s[i] : T(1);
-    out.z[b * RS + i] = P::RS > 0 ? z[i] : T(1);
+  for (int k = 0; k < N; ++k) {
+    T thk[NT], xk[NX], uk[NU];
+    get_th(k, thk);
+    get_x(k, xk);
+    get_u(k, uk);
+    obj = obj + P::stage_cost(xk, uk, thk, prm);
   }
-  for (int i = 0; i < RT; ++i) {
-    out.sN[b * RT + i] = P::RT > 0 ? sN[i] : T(1);
-    out.zN[b * RT + i] = P::RT > 0 ? zN[i] : T(1);
+  {
+    T thN[NT], xN[NX];
+    get_th(N, thN);
+    get_x(N, xN);
+    obj = obj + P::term_cost(xN, thN, prm);
   }
   out.mu[b] = mu;
   out.kkt[b] = kkt;
   out.obj[b] = obj;
   out.it[b] = it;
   out.conv[b] = conv ? 1 : 0;
-  out.div[b] = div ? 1 : 0;
+  out.status[b] = conv ? 0 : (div ? 2 : 1);
+}
+
+// One block: the tile's inputs into the region, every scenario's solve, the
+// outputs back.
+template <typename T, typename P>
+HM_HDN void wip_block(const WipIn<T>& in, const WipOut<T>& out, T* region, int blk,
+                      int B) {
+  using Lay = WipLay<P>;
+  constexpr int NX = P::NX, NU = P::NU, N = P::N, NT = P::NT, TB = P::TB;
+  const int b0 = blk * TB;
+  const int nb = B - b0 < TB ? B - b0 : TB;
+  each_thread<TB>([&](int t) {
+    load_runs<T, TB>(region + Lay::TH * TB, in.th, (N + 1) * NT, b0, nb, t);
+    load_runs<T, TB>(region + Lay::X * TB, in.X, (N + 1) * NX, b0, nb, t);
+    load_runs<T, TB>(region + Lay::U * TB, in.U, N * NU, b0, nb, t);
+  });
+  block_sync();
+  each_thread<TB>([&](int t) {
+    if (t < nb) solve_lane<T, P, TB>(in, out, region + t, static_cast<size_t>(b0 + t));
+  });
+  block_sync();
+  each_thread<TB>([&](int t) {
+    constexpr int M = 2 * NU + 2 * NX;
+    auto same = [](int w) { return w; };
+    store_runs<T, TB>(out.X, region + Lay::X * TB, (N + 1) * NX, b0, nb, t, same);
+    store_runs<T, TB>(out.U, region + Lay::U * TB, N * NU, b0, nb, t, same);
+    store_runs<T, TB>(out.lam, region + Lay::LAM * TB, N * NX, b0, nb, t, same);
+    store_runs<T, TB>(out.s, region + Lay::S * TB, N * M, b0, nb, t, stage_slot<P>);
+    store_runs<T, TB>(out.z, region + Lay::Z * TB, N * M, b0, nb, t, stage_slot<P>);
+    store_runs<T, TB>(out.sN, region + Lay::SN * TB, 2 * NX, b0, nb, t, term_slot<P>);
+    store_runs<T, TB>(out.zN, region + Lay::ZN * TB, 2 * NX, b0, nb, t, term_slot<P>);
+  });
 }
 
 // F and [A | B] of one stage by the dual pass (for the host-side tests)
@@ -656,71 +904,82 @@ WipIn<T> wip_in(const void* th, const void* x0, const void* X, const void* U,
 template <typename T>
 WipOut<T> wip_out(void* X, void* U, void* lam, void* s, void* z, void* sN,
                   void* zN, void* mu, void* kkt, void* obj, void* it,
-                  void* conv, void* div) {
+                  void* conv, void* status) {
   return WipOut<T>{static_cast<T*>(X), static_cast<T*>(U), static_cast<T*>(lam),
                    static_cast<T*>(s), static_cast<T*>(z), static_cast<T*>(sN),
                    static_cast<T*>(zN), static_cast<T*>(mu), static_cast<T*>(kkt),
                    static_cast<T*>(obj), static_cast<int*>(it),
-                   static_cast<unsigned char*>(conv),
-                   static_cast<unsigned char*>(div)};
+                   static_cast<unsigned char*>(conv), static_cast<int*>(status)};
 }
 
 #ifdef __CUDACC__
 template <typename T, typename P>
-__global__ void __launch_bounds__(128)
-whole_ip_kernel(WipIn<T> in, WipOut<T> out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  solve_scenario<T, P>(in, out, static_cast<size_t>(b));
+__global__ void __launch_bounds__(P::TB, sizeof(T) == 4 ? P::MINB_F32 : P::MINB_F64)
+whole_ip_kernel(WipIn<T> in, WipOut<T> out, T* scratch, int B) {
+  static_assert(WipLay<P>::E == P::E, "region size: ops/codegen_cuda.py vs WipLay");
+  T* region = scratch + static_cast<size_t>(blockIdx.x) * WipLay<P>::E * P::TB;
+  wip_block<T, P>(in, out, region, static_cast<int>(blockIdx.x), B);
 }
 
 template <typename T, typename P>
-int whole_ip_launch(const WipIn<T>& in, const WipOut<T>& out, int B,
+int whole_ip_launch(const WipIn<T>& in, const WipOut<T>& out, void* scratch, int B,
                     void* stream) {
-  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  whole_ip_kernel<T, P><<<(B + threads - 1) / threads, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(in, out, B);
+  static_assert(P::TB % 32 == 0 && P::TB <= 1024, "TB: a multiple of 32");
+  if (B <= 0 || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  whole_ip_kernel<T, P><<<(B + P::TB - 1) / P::TB, P::TB, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      in, out, static_cast<T*>(scratch), B);
   return static_cast<int>(cudaGetLastError());
+}
+#else
+template <typename T, typename P>
+int whole_ip_run_host(const WipIn<T>& in, const WipOut<T>& out, void* scratch, int B) {
+  static_assert(WipLay<P>::E == P::E, "region size: ops/codegen_cuda.py vs WipLay");
+  if (B <= 0 || scratch == nullptr) return 1;
+  for (int blk = 0; static_cast<long long>(blk) * P::TB < B; ++blk)
+    wip_block<T, P>(in, out,
+                    static_cast<T*>(scratch) + static_cast<size_t>(blk) * P::E * P::TB,
+                    blk, B);
+  return 0;
 }
 #endif
 
 }  // namespace hm
 
 // The C entry points of one generated problem (bound with ctypes). On the
-// card: whole_ip_f32 / whole_ip_f64 enqueue the kernel on `stream` and return
-// its cudaError_t. On the host: whole_ip_host_f32 / _f64 run the same
-// per-scenario solve in a loop, dyn_lin_host_f64 the dual pass.
+// card whole_ip_f32 / whole_ip_f64 enqueue the kernel on `stream` and return
+// its cudaError_t; on the host whole_ip_host_f32 / _f64 run the same block
+// schedule in loops, dyn_lin_host_f64 the dual pass. `scratch` holds
+// ceil(B/TB)·TB·E elements of the kernel's type.
 #define HM_WIP_ARGS                                                          \
   const void *th, const void *x0, const void *X, const void *U,              \
       const void *prm, double mu0, void *Xo, void *Uo, void *lamo, void *so, \
       void *zo, void *sNo, void *zNo, void *mu, void *kkt, void *obj,        \
-      void *it, void *conv, void *div, int B
+      void *it, void *conv, void *status, void *scratch, int B
 #define HM_WIP_IN(T) hm::wip_in<T>(th, x0, X, U, prm, mu0)
 #define HM_WIP_OUT(T) \
-  hm::wip_out<T>(Xo, Uo, lamo, so, zo, sNo, zNo, mu, kkt, obj, it, conv, div)
+  hm::wip_out<T>(Xo, Uo, lamo, so, zo, sNo, zNo, mu, kkt, obj, it, conv, status)
 
 #ifdef __CUDACC__
 #define HM_WHOLE_IP_EXPORTS(P)                                               \
   extern "C" int whole_ip_f32(HM_WIP_ARGS, void* stream) {                   \
     return hm::whole_ip_launch<float, P>(HM_WIP_IN(float), HM_WIP_OUT(float), \
-                                         B, stream);                         \
+                                         scratch, B, stream);                \
   }                                                                          \
   extern "C" int whole_ip_f64(HM_WIP_ARGS, void* stream) {                   \
     return hm::whole_ip_launch<double, P>(HM_WIP_IN(double),                 \
-                                          HM_WIP_OUT(double), B, stream);     \
+                                          HM_WIP_OUT(double), scratch, B,    \
+                                          stream);                           \
   }
 #else
 #define HM_WHOLE_IP_EXPORTS(P)                                               \
   extern "C" int whole_ip_host_f32(HM_WIP_ARGS) {                            \
-    for (int b = 0; b < B; ++b)                                              \
-      hm::solve_scenario<float, P>(HM_WIP_IN(float), HM_WIP_OUT(float), b);  \
-    return 0;                                                                \
+    return hm::whole_ip_run_host<float, P>(HM_WIP_IN(float), HM_WIP_OUT(float), \
+                                           scratch, B);                      \
   }                                                                          \
   extern "C" int whole_ip_host_f64(HM_WIP_ARGS) {                            \
-    for (int b = 0; b < B; ++b)                                              \
-      hm::solve_scenario<double, P>(HM_WIP_IN(double), HM_WIP_OUT(double), b); \
-    return 0;                                                                \
+    return hm::whole_ip_run_host<double, P>(HM_WIP_IN(double),               \
+                                            HM_WIP_OUT(double), scratch, B); \
   }                                                                          \
   extern "C" int dyn_lin_host_f64(const double* xs, const double* us,        \
                                   const double* th, const double* prm,       \

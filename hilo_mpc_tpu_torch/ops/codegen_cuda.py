@@ -60,6 +60,14 @@ _FUNCS = {
 _CONSTS = {"pi": math.pi}
 # candidate rows of a stage fit one 32-bit mask
 MAX_ROWS = 32
+# the whole-solve kernel's tiles: TB scenarios per block, and the blocks per
+# SM that __launch_bounds__ asks for in the float32 and the float64 build,
+# which caps a thread's registers near 65536 / (TB · MINB). Float32: 8
+# blocks (16 warps, at most 128 registers), the fastest of the tiles and
+# placements timed on an H100 (PERF.md). Float64 spills at 8 and at 5
+# blocks; at 4 it takes ~190 registers without spills, and 5 blocks fit.
+WIP_TB = 64
+WIP_MIN_BLOCKS = (8, 4)
 # the IP constants at the head of prm, in this order (then max_iter)
 _IP_FIELDS = ("tol", "tol10", "reg", "s_min", "kappa_eps", "kappa_mu",
               "theta_mu", "tau_min", "max_iter")
@@ -90,12 +98,25 @@ class EmittedProblem:
     kernel's type at launch). ``stage_rows`` lists (k, full column) of each
     active stage row in slot order, ``term_rows`` the full column of each
     active terminal row; ``flops`` the operations of one IP iteration of one
-    scenario, counted from the emitted code and the solver template."""
+    scenario (the algorithm's: one linearization per iteration), counted
+    from the emitted code and the solver template; ``region`` the elements
+    of one scenario's state region (csrc/whole_ip.cuh:WipLay::E)."""
     text: str
     prm: np.ndarray
     stage_rows: tuple
     term_rows: tuple
     flops: int
+    region: int
+
+
+def whole_ip_region(nx: int, nu: int, N: int, n_theta: int, RS: int, RT: int) -> int:
+    """Elements of one scenario's region of the whole-solve kernel
+    (csrc/whole_ip.cuh:WipLay): theta, X, U, lam, the active rows' s and z,
+    the stash K, kff, P (upper triangle), p, the direction dX, dU, and every
+    stage's linearization A, B, F - x_{k+1}."""
+    return ((N + 1) * (n_theta + nx) + N * nu + N * nx + 2 * RS + 2 * RT
+            + N * nu * nx + N * nu + N * nx * (nx + 1) // 2 + N * nx + N * nx
+            + N * nu + N * (nx * nx + nx * nu + nx))
 
 
 def _lit(v: float) -> str:
@@ -445,6 +466,7 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
          f"prm[{p_sx + b}]));" for a in range(nx) for b in range(nx)]
         + [f"    Huu[{a * nu + b}] = Huu[{a * nu + b}] * (hs * (prm[{p_su + a}] * "
            f"prm[{p_su + b}]));" for a in range(nu) for b in range(nu)])
+    region = whole_ip_region(nx, nu, N, n_theta, len(offs), len(toffs))
     text = f"""// Generated by hilo_mpc_tpu_torch/ops/codegen_cuda.py: one NMPC problem
 // for the whole-solve interior point of csrc/whole_ip.cuh.
 #include "whole_ip.cuh"
@@ -452,6 +474,8 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
 struct Problem {{
   static constexpr int NX = {nx}, NU = {nu}, N = {N}, NT = {n_theta};
   static constexpr int RS = {len(offs)}, RT = {len(toffs)};
+  static constexpr int TB = {WIP_TB}, MINB_F32 = {WIP_MIN_BLOCKS[0]},
+                       MINB_F64 = {WIP_MIN_BLOCKS[1]}, E = {region};
   static constexpr unsigned TERM_MASK = {tmask}u;
   static constexpr int P_TOL = 0, P_TOL10 = 1, P_REG = 2, P_SMIN = 3,
                        P_KEPS = 4, P_KMU = 5, P_TMU = 6, P_TAUMIN = 7,
@@ -545,13 +569,16 @@ HM_WHOLE_IP_EXPORTS(Problem)
     flops = _iteration_flops(nx, nu, N, len(offs), len(toffs), model_ops,
                              model_calls, n_rhs, n_comb, s_ops)
     return EmittedProblem(text=text, prm=np.asarray(prm.vals, np.float64),
-                          stage_rows=stage_rows, term_rows=term_rows, flops=flops)
+                          stage_rows=stage_rows, term_rows=term_rows, flops=flops,
+                          region=region)
 
 
 def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
                      cost_ops) -> int:
-    """Operations of one IP iteration of one scenario, as the emitted step
-    and csrc/whole_ip.cuh execute them: each dual operation counts its value
+    """Operations of one IP iteration of one scenario, as the algorithm
+    needs them (one linearization and one gradient evaluation per iteration;
+    what csrc/whole_ip.cuh evaluates again instead of storing is left out):
+    each dual operation counts its value
     and its D = nx + nu derivative lanes (a product 1 + 3D, a function call
     2 + 2D), one operation per add, multiply, divide, square root or
     exponential of the solver algebra."""

@@ -12,8 +12,9 @@ kernel or raises.
 
 Sources live in ``hilo_mpc_tpu_torch/csrc/`` and are built by ``nvcc`` at first
 use (ops/_build.py); the Riccati kernel is a template there, instantiated for
-each (nx, nu) a caller needs. The whole-solve interior point is in
-ops/whole_ip.py.
+each (nx, nu) a caller needs: the tiled kernel up to (8, 4), a variant with a
+warp per scenario above (``riccati_lq_wide_cuda``, up to (32, 16)). The
+whole-solve interior point is in ops/whole_ip.py.
 """
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ from .riccati import solve_lq
 # the largest (nx, nu) riccati_lq_cuda instantiates (csrc/riccati_lq.cuh)
 RICCATI_MAX_NX = 8
 RICCATI_MAX_NU = 4
+# the largest (nx, nu) riccati_lq_wide_cuda instantiates
+# (csrc/riccati_lq_wide.cuh: one warp per scenario, lane i on row i), and
+# the warps per block it tries, in order, within RICCATI_SMEM_TARGET
+RICCATI_WIDE_MAX_NX = 32
+RICCATI_WIDE_MAX_NU = 16
+RICCATI_WIDE_WARPS = (8, 4, 2, 1)
 # shared memory of one riccati_lq block: the most Hopper gives a block
 # (227 KB), and the most riccati_lq_tiling aims for, so that five blocks fit
 # on an SM; the tile (scenarios per block) and the chunks (stages per copy)
@@ -37,8 +44,11 @@ RICCATI_SMEM_MAX = 232448
 RICCATI_SMEM_TARGET = 48 * 1024
 RICCATI_TILE = 32
 RICCATI_CHUNKS = (8, 4, 2, 1)
-# largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N)
-FGM_MAX_N = 128
+# largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N), and the largest n of its
+# first design, which keeps Hᵀ resident in shared memory (FGM_NARROW_MAX_N);
+# above it H is staged through shared memory in column blocks
+FGM_MAX_N = 512
+FGM_NARROW_MAX_N = 128
 # what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
 FGM_INF = 1e30
 
@@ -88,11 +98,25 @@ def _check_tiling(nx, nu, dtype, tiling):
     return int(tb), int(kc)
 
 
+def riccati_lq_tiled_fits(nx: int, nu: int) -> bool:
+    """True iff the tiled kernel (``riccati_lq_cuda``) takes (nx, nu);
+    ``ops/riccati.py:make_lq_solver`` sends larger sizes to
+    ``riccati_lq_wide_cuda``."""
+    return 1 <= nx <= RICCATI_MAX_NX and 1 <= nu <= RICCATI_MAX_NU
+
+
 def _check_size(nx, nu):
-    if not (1 <= nx <= RICCATI_MAX_NX and 1 <= nu <= RICCATI_MAX_NU):
+    if not riccati_lq_tiled_fits(nx, nu):
         raise ValueError(f"riccati_lq_cuda takes 1 <= nx <= {RICCATI_MAX_NX} and "
                          f"1 <= nu <= {RICCATI_MAX_NU} (RICCATI_MAX_NX, "
                          f"RICCATI_MAX_NU), got nx={nx}, nu={nu}")
+
+
+def _check_wide_size(nx, nu):
+    if not (1 <= nx <= RICCATI_WIDE_MAX_NX and 1 <= nu <= RICCATI_WIDE_MAX_NU):
+        raise ValueError(f"riccati_lq_wide_cuda takes 1 <= nx <= {RICCATI_WIDE_MAX_NX} "
+                         f"and 1 <= nu <= {RICCATI_WIDE_MAX_NU} (RICCATI_WIDE_MAX_NX, "
+                         f"RICCATI_WIDE_MAX_NU), got nx={nx}, nu={nu}")
 
 
 def riccati_lq_source(nx: int, nu: int, tiling=None) -> str:
@@ -137,7 +161,7 @@ def riccati_lq_layout(lib, dtype) -> tuple:
     return tuple(out)
 
 
-def _check_lq(args, host: bool):
+def _check_lq(args, host: bool, check_size=_check_size):
     """Shapes, dtype, device and contiguity of the inputs; returns
     (Bt, N, nx, nu)."""
     A, B = args[0], args[1]
@@ -145,7 +169,7 @@ def _check_lq(args, host: bool):
         raise ValueError(f"A and B must be (Bt, N, nx, nx) / (Bt, N, nx, nu), "
                          f"got {tuple(A.shape)} and {tuple(B.shape)}")
     Bt, N, nx, nu = A.shape[0], A.shape[1], A.shape[2], B.shape[3]
-    _check_size(nx, nu)
+    check_size(nx, nu)
     if Bt < 1 or N < 1 or Bt >= 2 ** 31:
         raise ValueError(f"need 1 <= Bt < 2**31 and N >= 1, got Bt={Bt}, N={N}")
     expected = {
@@ -230,6 +254,111 @@ def riccati_lq_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     return bufs[:6]
 
 
+def riccati_lq_wide_smem_bytes(nx: int, nu: int, dtype, warps: int) -> int:
+    """Dynamic shared memory of one block of the ``riccati_lq_wide`` kernel:
+    ``warps`` slices of the stage's inputs and the work arrays
+    (csrc/riccati_lq_wide.cuh:WLay::E)."""
+    e = 4 * nx * nx + 5 * nx * nu + 3 * nu * nu + 5 * nx + 4 * nu + 1
+    return warps * e * (torch.finfo(dtype).bits // 8)
+
+
+def riccati_lq_wide_warps(nx: int, nu: int, dtype) -> int:
+    """Warps (scenarios) per block of the ``riccati_lq_wide`` kernel for one
+    (nx, nu, dtype): the most of ``RICCATI_WIDE_WARPS`` whose slices stay
+    within ``RICCATI_SMEM_TARGET``, else one (at the cap, (32, 16) in
+    float64, 61,192 bytes)."""
+    for w in RICCATI_WIDE_WARPS:
+        if riccati_lq_wide_smem_bytes(nx, nu, dtype, w) <= RICCATI_SMEM_TARGET:
+            return w
+    return 1
+
+
+def riccati_lq_wide_source(nx: int, nu: int) -> str:
+    """Source of the ``riccati_lq_wide`` instantiation for one (nx, nu), from
+    the template csrc/riccati_lq_wide.cuh, with the warps per block of each
+    dtype; built at first use."""
+    _check_wide_size(nx, nu)
+    w32, w64 = (riccati_lq_wide_warps(nx, nu, dt) for dt in (torch.float32, torch.float64))
+    return ('#include "riccati_lq_wide.cuh"\n'
+            f"#define RICCATI_LQ_WIDE_WARPS_F32 {w32}\n"
+            f"#define RICCATI_LQ_WIDE_WARPS_F64 {w64}\n"
+            f"RICCATI_LQ_WIDE_EXPORTS({nx}, {nu})\n")
+
+
+@functools.lru_cache(maxsize=None)
+def _lq_wide_entry(nx: int, nu: int, dtype, host: bool):
+    """(entry point bound with ctypes, stash words per stage) of the wide
+    instance for (nx, nu, dtype), built at first use."""
+    text = riccati_lq_wide_source(nx, nu)
+    suffix = _suffix(dtype)
+    if host:
+        fn = getattr(_build.load_host(text), f"riccati_lq_wide_host_{suffix}")
+    else:
+        fn = getattr(_build.load_source(text), f"riccati_lq_wide_{suffix}")
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+                   + ([] if host else [ctypes.c_void_p]))
+    fn.restype = ctypes.c_int
+    return fn, nx * nx + nx + nu * nx + nu
+
+
+def riccati_lq_wide_layout(lib, dtype) -> tuple:
+    """(warps per block, dynamic shared memory bytes, stash words per stage)
+    of a built wide instance, as its ``riccati_lq_wide_layout_*`` entry point
+    reports them."""
+    out = (ctypes.c_int * 3)()
+    getattr(lib, f"riccati_lq_wide_layout_{_suffix(dtype)}")(out)
+    return tuple(out)
+
+
+def _lq_wide_buffers(args, Bt, N, nx, nu, sw):
+    kw = dict(dtype=args[0].dtype, device=args[0].device)
+    return (torch.empty((Bt, N + 1, nx), **kw), torch.empty((Bt, N, nu), **kw),
+            torch.empty((Bt, N, nx), **kw), torch.empty((Bt, N, nu, nx), **kw),
+            torch.empty((Bt, N, nu), **kw), torch.empty((Bt,), **kw),
+            torch.empty((Bt, N, sw), **kw))
+
+
+def riccati_lq_wide_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
+                         reg: float = 1e-8):
+    """The batched stagewise LQ solve of ``riccati_lq_cuda`` for the sizes
+    above its cap, as ONE CUDA kernel with a warp per scenario
+    (csrc/riccati_lq_wide.cuh), replacing
+    ``hilo_mpc_tpu/ops/pallas_kernels.py:riccati_lq_pallas`` there. Same
+    arguments, shapes and returns as ``riccati_lq_cuda``; 1 <= nx <=
+    ``RICCATI_WIDE_MAX_NX`` and 1 <= nu <= ``RICCATI_WIDE_MAX_NU`` (each size
+    is built at its first use). Counts its own launches."""
+    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+    if not any(t.is_cuda for t in args):
+        return riccati_lq_reference(*args, reg=reg)
+    Bt, N, nx, nu = _check_lq(args, host=False, check_size=_check_wide_size)
+    fn, sw = _lq_wide_entry(nx, nu, A.dtype, host=False)
+    bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
+    with torch.cuda.device(A.device):
+        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg),
+                torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"riccati_lq_wide kernel launch failed: cudaError {rc}")
+    riccati_lq_wide_cuda.launches += 1
+    return bufs[:6]
+
+
+riccati_lq_wide_cuda.launches = 0
+
+
+def riccati_lq_wide_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
+                         reg: float = 1e-8):
+    """The wide kernel's own warp schedule (csrc/riccati_lq_wide.cuh),
+    compiled with the host C++ compiler, on CPU tensors: the 32 lanes of each
+    phase in a loop. Same arguments and returns as ``riccati_lq_wide_cuda``."""
+    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+    Bt, N, nx, nu = _check_lq(args, host=True, check_size=_check_wide_size)
+    fn, sw = _lq_wide_entry(nx, nu, A.dtype, host=True)
+    bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
+    if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg)) != 0:
+        raise RuntimeError("riccati_lq_wide_host refused its arguments")
+    return bufs[:6]
+
+
 def fgm_constants(H):
     """(1/L, β) of the fast gradient method from the spectrum of sym(H), in
     float64 on the host: μ floored at 1e-9, κ = √(L/μ), β = (κ−1)/(κ+1)
@@ -295,7 +424,9 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
 
     Shapes: H (n, n), G (n, nx), x0_batch (B, nx), lb and ub (n,) (infinite
     entries allowed), u0_batch (B, n) or None; float32, contiguous, one CUDA
-    device; 1 <= n <= ``FGM_MAX_N``. Returns u (B, n) float32. ``constants``
+    device; 1 <= n <= ``FGM_MAX_N`` (above ``FGM_NARROW_MAX_N`` the kernel
+    stages H through shared memory in column blocks, ``fgm_boxqp_design``).
+    Returns u (B, n) float32. ``constants``
     is (1/L, β) as ``fgm_constants`` gives them; when it is None they are
     taken from H here, and that copy of H to the host waits for the card
     (``LMPC.optimize_batch_fgm`` passes them from its float64 H).
@@ -308,9 +439,7 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
         raise ValueError(f"H, G and x0_batch must be 2-D, got {tuple(H.shape)}, "
                          f"{tuple(G.shape)} and {tuple(x0_batch.shape)}")
     n, nx, Bt = H.shape[0], G.shape[1], x0_batch.shape[0]
-    if not 1 <= n <= FGM_MAX_N:
-        raise ValueError(f"fgm_boxqp_cuda takes 1 <= n <= FGM_MAX_N = {FGM_MAX_N} "
-                         f"QP variables, got n={n}")
+    fgm_boxqp_design(n)
     if nx < 1 or not 1 <= Bt < 2 ** 31 or int(iters) < 0:
         raise ValueError(f"need nx >= 1, 1 <= B < 2**31 and iters >= 0, got "
                          f"nx={nx}, B={Bt}, iters={iters}")
@@ -331,6 +460,19 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
     out = fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, *constants)
     fgm_boxqp_cuda.launches += 1
     return out
+
+
+def fgm_boxqp_design(n: int) -> tuple:
+    """The design of csrc/fgm_boxqp.cu that takes a QP of n variables:
+    ("resident", 0) for n <= ``FGM_NARROW_MAX_N`` (Hᵀ resident in shared
+    memory), ("column_blocks", RB) above it (H staged in column blocks, RB
+    rows per thread). Raises ValueError outside 1 <= n <= ``FGM_MAX_N``."""
+    if not 1 <= n <= FGM_MAX_N:
+        raise ValueError(f"fgm_boxqp_cuda takes 1 <= n <= FGM_MAX_N = {FGM_MAX_N} "
+                         f"QP variables, got n={n}")
+    if n <= FGM_NARROW_MAX_N:
+        return "resident", 0
+    return "column_blocks", 16 if -(-n // 16) <= 16 else 32
 
 
 def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta):

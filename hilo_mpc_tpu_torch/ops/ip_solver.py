@@ -251,26 +251,32 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
               theta: torch.Tensor, x0: torch.Tensor, X_init: torch.Tensor,
               U_init: torch.Tensor, options: IPOptions = IPOptions(),
               fix_x0: bool = True, mu0: Optional[float] = None,
-              lq_solver: Optional[Callable] = None) -> OCPSolution:
+              lq_solver: Callable = make_lq_solver) -> OCPSolution:
     """Solve B OCP instances at once (batch-first, see the module docstring).
 
     ``mu0`` optionally overrides ``options.mu_init`` at call time: cold- and
     warm-start solves differ only in the initial barrier. ``lq_solver(reg)``
-    builds the LQ step of every iteration: ``make_lq_solver`` (the CUDA
-    kernel on CUDA tensors; the default, looked up at call time) or
+    builds the LQ step of every iteration: ``make_lq_solver`` (the default:
+    a hand-written CUDA kernel on CUDA tensors) or
     ``ops/riccati.py:make_plain_lq_solver`` (the plain sweeps on any
     device)."""
-    # the Riccati/Newton arithmetic needs full float32 products: the JAX
-    # solver measured batch convergence falling to 12% with reduced-precision
-    # matmuls, so TF32 stays off for every product the solver issues
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     _check_supported(funcs, dims, options, fix_x0)
     if bounds.lbx.dim() != 2 or bounds.lbu.dim() != 2:
         raise ValueError("bounds are shared by all scenarios: lbx/ubx (N+1, nx), "
                          "lbu/ubu (N, nu)")
-    return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
-                           options, mu0, lq_solver or make_lq_solver)
+    # the Riccati/Newton arithmetic needs full float32 products: the JAX
+    # solver measured batch convergence falling to 12% with reduced-precision
+    # matmuls, so TF32 is off for every product the solver issues, and the
+    # caller's settings come back after it (the reference scopes "highest"
+    # precision to the solve, hilo_mpc_tpu/ops/ip_solver.py:250-255)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
+                               options, mu0, lq_solver)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,

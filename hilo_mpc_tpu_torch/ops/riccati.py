@@ -110,10 +110,12 @@ def make_lq_solver(reg: float = 1e-9):
     """The batched LQ solve used by every interior-point iteration; the
     counterpart of ``hilo_mpc_tpu/ops/riccati.py:make_lq_solver_pallas``.
 
-    CPU tensors go to the plain sweeps above. CUDA tensors ALWAYS go to the
-    hand-written kernel (``ops/cuda_kernels.py:riccati_lq_cuda``), in float32
-    and float64 alike — unlike the JAX dispatcher there is no dtype or shape
-    exit to the plain path; the kernel raises on what it does not take. The
+    CPU tensors go to the plain sweeps above. CUDA tensors ALWAYS go to a
+    hand-written kernel, in float32 and float64 alike: (nx, nu) up to (8, 4)
+    to the tiled ``ops/cuda_kernels.py:riccati_lq_cuda``, larger sizes to
+    ``riccati_lq_wide_cuda`` (a warp per scenario, up to (32, 16)). Unlike
+    the JAX dispatcher there is no dtype or shape exit to the plain path; the
+    kernel raises on what it does not take. The
     blocks are broadcast to one batch shape (flattened to one batch axis)
     and made contiguous first, because the kernel reads dense batch-first
     arrays."""
@@ -127,9 +129,11 @@ def make_lq_solver(reg: float = 1e-9):
         if not A.is_cuda:
             return solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
                             reg=factory_reg)
-        from .cuda_kernels import riccati_lq_cuda
+        from .cuda_kernels import (riccati_lq_cuda, riccati_lq_tiled_fits,
+                                   riccati_lq_wide_cuda)
 
         N, nx, nu = A.shape[-3], A.shape[-1], B.shape[-1]
+        kernel = riccati_lq_cuda if riccati_lq_tiled_fits(nx, nu) else riccati_lq_wide_cuda
         batch = _batch_shape(A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
         Bt = 1
         for d in batch:
@@ -138,7 +142,7 @@ def make_lq_solver(reg: float = 1e-9):
         def dense(x, tail):
             return x.expand(*batch, *tail).reshape(Bt, *tail).contiguous()
 
-        out = riccati_lq_cuda(
+        out = kernel(
             dense(A, (N, nx, nx)), dense(B, (N, nx, nu)), dense(Q, (N, nx, nx)),
             dense(S, (N, nu, nx)), dense(R, (N, nu, nu)), dense(q, (N, nx)),
             dense(r, (N, nu)), dense(c, (N, nx)), dense(P_term, (nx, nx)),

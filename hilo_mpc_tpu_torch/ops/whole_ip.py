@@ -11,7 +11,8 @@ its first use (ops/_build.py, cached by the text's hash under
 thread per scenario, until each has converged, diverged or reached
 ``max_iter``. ``whole_ip_supported`` is the gate (``pallas_full_supported``
 plus an emittable model); ``NMPC.solve_batch_fn`` reads ``pallas_full`` and
-takes this path for eligible problems.
+takes this path for eligible problems, through a ``WholeIPLaunch`` it
+prepares once per controller, dtype and device.
 
 The plain version, ``solve_ocp_full_reference``, is the port's ``solve_ocp``
 with the kernel's options and the plain LQ sweeps, the counterpart of what
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .codegen_cuda import MAX_ROWS, EmittedProblem, emit_problem, model_emit_error
+from .codegen_cuda import (MAX_ROWS, WIP_TB, EmittedProblem, emit_problem,
+                           model_emit_error)
 from .ip_solver import IPOptions, OCPSolution, solve_ocp
 from .riccati import make_plain_lq_solver
 
@@ -98,81 +100,86 @@ def _check(dims, theta_B, x0_B, X_B, U_B):
             raise ValueError(f"{name} is not contiguous")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 13 \
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 14 \
     + [ctypes.c_int]
 
 
-def _bind(fn, stream: bool):
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES + ([ctypes.c_void_p] if stream else [])
-        fn.restype = ctypes.c_int
-    return fn
+class WholeIPLaunch:
+    """The whole-solve launch of one emitted problem for one dtype and
+    device, prepared once: the built and bound entry point (nvcc on a CUDA
+    device, the host C++ compiler on the CPU) and ``prm`` on the device.
+    Each call then allocates the outputs and the kernel's scratch and makes
+    one ctypes call. ``NMPC`` keeps one per controller, dtype and device;
+    ``solve_ocp_full_cuda`` builds one per call."""
 
+    def __init__(self, problem: EmittedProblem, dims, dtype, device):
+        self.problem, self.dims = problem, dims
+        self.dtype, self.device = dtype, torch.device(device)
+        self.host = self.device.type == "cpu"
+        self.prm = torch.as_tensor(problem.prm, dtype=dtype, device=self.device)
+        nx, nu, N = dims.nx, dims.nu, dims.N
+        M = 2 * nu + 2 * nx
+        # the float outputs per scenario, in one allocation: X, U, lam, s, z
+        # (the full row layout, which the kernel writes), sN, zN, mu, kkt,
+        # objective
+        self.shapes = ((N + 1, nx), (N, nu), (N, nx), (N, M), (N, M), (2 * nx,),
+                       (2 * nx,), (), (), ())
+        self.sizes = [int(np.prod(shape)) for shape in self.shapes]
+        self._fn = None
 
-def _run(fn, problem: EmittedProblem, dims, theta_B, x0_B, X_B, U_B, mu0,
-         *stream):
-    """Allocate the outputs, call one entry point of a built problem and
-    return them: (X, U, lam, s rows, z rows, sN rows, zN rows, mu, kkt, obj,
-    it, conv, div)."""
-    nx, nu, N = dims.nx, dims.nu, dims.N
-    Bt = theta_B.shape[0]
-    dtype, device = theta_B.dtype, theta_B.device
-    RS, RT = max(len(problem.stage_rows), 1), max(len(problem.term_rows), 1)
-    prm = torch.as_tensor(problem.prm, dtype=dtype, device=device)
+    def entry(self):
+        """The entry point, built and bound at its first use."""
+        if self._fn is None:
+            suffix = "f32" if self.dtype == torch.float32 else "f64"
+            if self.host:
+                fn = getattr(_build.load_host(self.problem.text), f"whole_ip_host_{suffix}")
+            else:
+                fn = getattr(_build.load_source(self.problem.text), f"whole_ip_{suffix}")
+            fn.argtypes = _ARGTYPES + ([] if self.host else [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
 
-    def empty(*shape, dt=dtype):
-        return torch.empty(shape, dtype=dt, device=device)
+    def launch(self, theta_B, x0_B, X_B, U_B, mu0):
+        """One launch on checked inputs; returns the OCPSolution, the slacks
+        and duals in the full (N, 2nu+2nx) and (2nx,) row layout with the
+        masked rows at 1.0 (hilo_mpc_tpu/ops/pallas_ip.py:864-895), as the
+        kernel writes them. Not counted; ``chip_smoke.py`` times the kernel
+        alone through it."""
+        fn = self.entry()
+        Bt = theta_B.shape[0]
+        kw = dict(dtype=self.dtype, device=self.device)
+        flat = torch.empty(Bt * sum(self.sizes), **kw)
+        outs = [t.view(Bt, *shape) for t, shape in
+                zip(flat.split([Bt * n for n in self.sizes]), self.shapes)]
+        ints = torch.empty((2, Bt), dtype=torch.int32, device=self.device)
+        conv = torch.empty(Bt, dtype=torch.bool, device=self.device)
+        # the tiles' state regions (csrc/whole_ip.cuh:WipLay)
+        scratch = torch.empty(-(-Bt // WIP_TB) * WIP_TB * self.problem.region, **kw)
+        sol = OCPSolution(*outs, iterations=ints[0], converged=conv, status=ints[1])
+        args = [t.data_ptr() for t in (theta_B, x0_B, X_B, U_B, self.prm)]
+        ptrs = [t.data_ptr() for t in sol]
+        if self.host:
+            rc = fn(*args, float(mu0), *ptrs, scratch.data_ptr(), Bt)
+        else:
+            with torch.cuda.device(self.device):
+                rc = fn(*args, float(mu0), *ptrs, scratch.data_ptr(), Bt,
+                        torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"whole_ip kernel launch failed: cudaError {rc}")
+        return sol
 
-    out = (empty(Bt, N + 1, nx), empty(Bt, N, nu), empty(Bt, N, nx),
-           empty(Bt, RS), empty(Bt, RS), empty(Bt, RT), empty(Bt, RT),
-           empty(Bt), empty(Bt), empty(Bt), empty(Bt, dt=torch.int32),
-           empty(Bt, dt=torch.bool), empty(Bt, dt=torch.bool))
-    rc = fn(*[t.data_ptr() for t in (theta_B, x0_B, X_B, U_B, prm)], float(mu0),
-            *[t.data_ptr() for t in out], Bt, *stream)
-    if rc != 0:
-        raise RuntimeError(f"whole_ip kernel launch failed: cudaError {rc}")
-    return out
-
-
-def _assemble(problem: EmittedProblem, dims, raw) -> OCPSolution:
-    """The kernel's outputs as an OCPSolution: the active rows scattered into
-    the full (N, 2nu+2nx) and (2nx,) slack/dual layout, masked rows at 1.0
-    (hilo_mpc_tpu/ops/pallas_ip.py:864-895)."""
-    X, U, lam, s_r, z_r, sN_r, zN_r, mu, kkt, obj, it, conv, div = raw
-    nx, nu, N = dims.nx, dims.nu, dims.N
-    Bt = X.shape[0]
-    kw = dict(dtype=X.dtype, device=X.device)
-    s = torch.ones(Bt, N, 2 * nu + 2 * nx, **kw)
-    z = torch.ones_like(s)
-    sN = torch.ones(Bt, 2 * nx, **kw)
-    zN = torch.ones_like(sN)
-    if problem.stage_rows:
-        k_idx, c_idx = (torch.as_tensor(v, device=X.device)
-                        for v in zip(*problem.stage_rows))
-        R = len(problem.stage_rows)
-        s[:, k_idx, c_idx] = s_r[:, :R]
-        z[:, k_idx, c_idx] = z_r[:, :R]
-    if problem.term_rows:
-        t_idx = torch.as_tensor(problem.term_rows, device=X.device)
-        R = len(problem.term_rows)
-        sN[:, t_idx] = sN_r[:, :R]
-        zN[:, t_idx] = zN_r[:, :R]
-    status = torch.where(conv, 0, torch.where(div, 2, 1)).to(torch.int32)
-    return OCPSolution(X=X, U=U, lam=lam, s=s, z=z, sN=sN, zN=zN, mu=mu,
-                       kkt_error=kkt, objective=obj, iterations=it,
-                       converged=conv, status=status)
-
-
-def whole_ip_launch(problem: EmittedProblem, dims, theta_B, x0_B, X_B, U_B, mu0):
-    """The bare launch behind ``solve_ocp_full_cuda``: inputs already checked,
-    problem emitted; returns the raw outputs (active rows not scattered). Not
-    counted; ``chip_smoke.py`` times the kernel alone through it."""
-    lib = _build.load_source(problem.text)
-    fn = _bind(lib.whole_ip_f32 if theta_B.dtype == torch.float32
-               else lib.whole_ip_f64, stream=True)
-    with torch.cuda.device(theta_B.device):
-        stream = torch.cuda.current_stream(theta_B.device).cuda_stream
-        return _run(fn, problem, dims, theta_B, x0_B, X_B, U_B, mu0, stream)
+    def __call__(self, theta_B, x0_B, X_B, U_B, mu0) -> OCPSolution:
+        """Check the inputs and launch once (counted on the card by
+        ``solve_ocp_full_cuda.launches``)."""
+        _check(self.dims, theta_B, x0_B, X_B, U_B)
+        if theta_B.dtype != self.dtype or theta_B.device != self.device:
+            raise ValueError(f"this launch was prepared for {self.dtype} on "
+                             f"{self.device}, got {theta_B.dtype} on {theta_B.device}")
+        sol = self.launch(theta_B, x0_B, X_B, U_B, mu0)
+        if not self.host:
+            solve_ocp_full_cuda.launches += 1
+        return sol
 
 
 def solve_ocp_full_cuda(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
@@ -188,7 +195,8 @@ def solve_ocp_full_cuda(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
     row layout. The problem must pass ``whole_ip_supported`` and ``funcs``
     carry its source (``NMPC.setup`` attaches it). Launches on the current
     stream without synchronizing; the first call for a problem builds it
-    (seconds, cached by the generated text)."""
+    (seconds, cached by the generated text). Each call gates, emits and
+    prepares the launch anew; ``NMPC`` prepares it once per controller."""
     args = (theta_B, x0_B, X_B, U_B)
     if not any(t.is_cuda for t in args):
         return solve_ocp_full_reference(funcs, dims, bounds, *args, options)
@@ -198,9 +206,8 @@ def solve_ocp_full_cuda(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
         raise ValueError("this problem is not eligible for the whole-solve kernel "
                          "(ops/whole_ip.py:whole_ip_supported)")
     problem = whole_ip_problem(funcs, dims, bounds, theta_B.shape[2], options)
-    raw = whole_ip_launch(problem, dims, *args, options.mu_init)
-    solve_ocp_full_cuda.launches += 1
-    return _assemble(problem, dims, raw)
+    return WholeIPLaunch(problem, dims, theta_B.dtype, theta_B.device)(
+        *args, options.mu_init)
 
 
 solve_ocp_full_cuda.launches = 0
@@ -208,17 +215,16 @@ solve_ocp_full_cuda.launches = 0
 
 def solve_ocp_full_host(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
                         options: IPOptions = IPOptions()) -> OCPSolution:
-    """The kernel's own per-scenario solve, compiled with the host C++
-    compiler, on CPU tensors (float32 or float64): the same code the card
-    runs, in a loop over the batch. Same arguments and return as
+    """The kernel's own block schedule, compiled with the host C++ compiler,
+    on CPU tensors (float32 or float64): the same code the card runs, tile
+    by tile with the threads in a loop. Same arguments and return as
     ``solve_ocp_full_cuda``."""
     _check(dims, theta_B, x0_B, X_B, U_B)
+    if theta_B.device.type != "cpu":
+        raise ValueError(f"solve_ocp_full_host takes CPU tensors, got {theta_B.device}")
     problem = whole_ip_problem(funcs, dims, bounds, theta_B.shape[2], options)
-    lib = _build.load_host(problem.text)
-    fn = _bind(lib.whole_ip_host_f32 if theta_B.dtype == torch.float32
-               else lib.whole_ip_host_f64, stream=False)
-    raw = _run(fn, problem, dims, theta_B, x0_B, X_B, U_B, options.mu_init)
-    return _assemble(problem, dims, raw)
+    return WholeIPLaunch(problem, dims, theta_B.dtype, "cpu")(
+        theta_B, x0_B, X_B, U_B, options.mu_init)
 
 
 def dyn_lin_host(funcs, dims, bounds, xs, us, th):

@@ -203,3 +203,43 @@ def test_helpers_default_to_cuda(fn):
     """default_bounds and to_torch target the card unless the caller passes
     device="cpu", like every entry point of the port."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, False), (True, False)])
+def test_solve_ocp_restores_the_tf32_settings(flags):
+    """solve_ocp turns TF32 off for its own products only: both flags hold
+    the caller's values afterwards (the reference scopes "highest" precision
+    to the solve, hilo_mpc_tpu/ops/ip_solver.py:250-255)."""
+    _, tfuncs, _, tdims, bnd, args = _di_problem(True)
+    bounds = tip.OCPBounds(*to_torch(bnd, device=CPU))
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    try:
+        sol = tip.solve_ocp(tfuncs, tdims, bounds, *to_torch(args, device=CPU))
+        assert bool(sol.converged.all())
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_solve_ocp_restores_tf32_when_it_raises():
+    _, tfuncs, _, tdims, bnd, args = _di_problem(True)
+    bounds = tip.OCPBounds(*to_torch(bnd, device=CPU))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        def broken(reg):
+            raise RuntimeError("no LQ step")
+        with pytest.raises(RuntimeError, match="no LQ step"):
+            tip.solve_ocp(tfuncs, tdims, bounds, *to_torch(args, device=CPU),
+                          lq_solver=broken)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_solve_ocp_default_lq_step_is_make_lq_solver():
+    from hilo_mpc_tpu_torch.ops.riccati import make_lq_solver
+    assert inspect.signature(tip.solve_ocp).parameters["lq_solver"].default \
+        is make_lq_solver

@@ -1,0 +1,168 @@
+"""PyTorch port: the wide Riccati variant (csrc/riccati_lq_wide.cuh, one warp
+per scenario, for the sizes above the tiled kernel's (8, 4)), its warp
+schedule compiled with the host C++ compiler, against the plain sweeps
+(ops/riccati.py:solve_lq) and the vmapped JAX ``solve_lq`` on the CPU.
+
+The host build runs the 32 lanes of every phase in a loop over the warps of
+each block, so it reaches the same arithmetic as the card, ragged batches
+included. float64 agrees to 1e-12 (the plain sweeps use ``torch.linalg`` above
+nu = 6, another order of operations); float32 takes the tolerances of
+tests/test_torch_riccati.py. Skipped where there is no host C++ compiler.
+"""
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hilo_mpc_tpu.ops.riccati import solve_lq as jax_solve_lq
+from hilo_mpc_tpu_torch.ops import _build
+from hilo_mpc_tpu_torch.ops.cuda_kernels import (
+    RICCATI_SMEM_MAX, RICCATI_WIDE_MAX_NU, RICCATI_WIDE_MAX_NX, riccati_lq_cuda,
+    riccati_lq_reference, riccati_lq_tiled_fits, riccati_lq_wide_cuda,
+    riccati_lq_wide_host, riccati_lq_wide_layout, riccati_lq_wide_smem_bytes,
+    riccati_lq_wide_source, riccati_lq_wide_warps)
+from hilo_mpc_tpu_torch.ops.riccati import make_lq_solver, solve_lq
+from hilo_mpc_tpu_torch.utils.interop import to_torch
+
+from test_torch_riccati import NAMES, _tol, lq_problem
+
+torch.set_num_threads(1)
+WIDE_SIZES = [(9, 2), (16, 4), (32, 16)]
+DTYPES = ["float64", "float32"]
+
+
+def _need_cxx():
+    if shutil.which("c++") is None and shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler on PATH")
+
+
+def _wide_tol(name, f32):
+    return _tol(name, True) if f32 else dict(rtol=1e-12, atol=1e-12)
+
+
+def _assert_close(out, ref, f32):
+    for name, a, b in zip(NAMES, out, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), err_msg=name,
+                                   **_wide_tol(name, f32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nx,nu", WIDE_SIZES)
+@pytest.mark.parametrize("Bt,N", [(1, 1), (3, 20), (9, 5)])
+def test_wide_host_matches_plain(Bt, N, nx, nu, dtype):
+    """Batches below, at and past one block's warps (ragged last block)."""
+    _need_cxx()
+    args = to_torch(lq_problem(Bt, N, nx, nu, seed=1), device="cpu",
+                    dtype=getattr(torch, dtype))
+    out = riccati_lq_wide_host(*args, reg=1e-8)
+    assert [tuple(o.shape) for o in out] == [
+        (Bt, N + 1, nx), (Bt, N, nu), (Bt, N, nx), (Bt, N, nu, nx), (Bt, N, nu),
+        (Bt,)]
+    _assert_close(out, solve_lq(*args, reg=1e-8), dtype == "float32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nx,nu", WIDE_SIZES)
+def test_wide_host_matches_jax(nx, nu, dtype):
+    _need_cxx()
+    arrs = lq_problem(5, 12, nx, nu, seed=2)
+    jdt = jnp.float64 if dtype == "float64" else jnp.float32
+    ref = jax.vmap(lambda *a: jax_solve_lq(*a, reg=1e-8))(
+        *[jnp.asarray(a, jdt) for a in arrs])
+    out = riccati_lq_wide_host(*to_torch(arrs, device="cpu",
+                                         dtype=getattr(torch, dtype)), reg=1e-8)
+    _assert_close(out, ref, dtype == "float32")
+
+
+@pytest.mark.parametrize("nx,nu", [(2, 1), (8, 4)])
+def test_wide_matches_tiled_at_small_sizes(nx, nu):
+    """Both kernels run the same recursion in the same order per element:
+    the wide variant's host build gives the tiled one's outputs."""
+    _need_cxx()
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_host
+    args = to_torch(lq_problem(33, 7, nx, nu, seed=3), device="cpu")
+    for a, b in zip(riccati_lq_wide_host(*args, reg=1e-8),
+                    riccati_lq_host(*args, reg=1e-8)):
+        torch.testing.assert_close(a, b, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("nx,nu", [(RICCATI_WIDE_MAX_NX + 1, 1),
+                                   (2, RICCATI_WIDE_MAX_NU + 1), (0, 1)])
+def test_wide_sizes_beyond_the_cap_raise(nx, nu):
+    with pytest.raises(ValueError, match="RICCATI_WIDE_MAX_NX, RICCATI_WIDE_MAX_NU"):
+        riccati_lq_wide_source(nx, nu)
+    args = to_torch(lq_problem(1, 2, max(nx, 1), nu), device="cpu")
+    if nx > 0:
+        with pytest.raises(ValueError, match="RICCATI_WIDE_MAX_NX"):
+            riccati_lq_wide_host(*args)
+
+
+@pytest.mark.parametrize("nx,nu,tiled", [(8, 4, True), (9, 2, False), (2, 5, False),
+                                         (32, 16, False), (1, 1, True)])
+def test_routing_by_size(nx, nu, tiled):
+    """make_lq_solver sends (nx, nu) up to (8, 4) to the tiled kernel and
+    larger sizes to the wide variant; on CPU tensors both give the sweeps."""
+    assert riccati_lq_tiled_fits(nx, nu) is tiled
+    args = to_torch(lq_problem(2, 3, nx, nu), device="cpu")
+    n0, n1 = riccati_lq_cuda.launches, riccati_lq_wide_cuda.launches
+    out = make_lq_solver(1e-8)(*args)
+    assert (riccati_lq_cuda.launches, riccati_lq_wide_cuda.launches) == (n0, n1)
+    for a, b in zip(out, riccati_lq_reference(*args, reg=1e-8)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_warps_fit_shared_memory(dtype):
+    for nx in range(1, RICCATI_WIDE_MAX_NX + 1):
+        for nu in range(1, RICCATI_WIDE_MAX_NU + 1):
+            w = riccati_lq_wide_warps(nx, nu, dtype)
+            assert w >= 1
+            assert riccati_lq_wide_smem_bytes(nx, nu, dtype, w) <= RICCATI_SMEM_MAX
+
+
+@pytest.mark.parametrize("nx,nu", [(9, 2), (32, 16)])
+def test_wide_layout_matches_the_built_instance(nx, nu):
+    _need_cxx()
+    lib = _build.load_host(riccati_lq_wide_source(nx, nu))
+    for dtype in (torch.float32, torch.float64):
+        w = riccati_lq_wide_warps(nx, nu, dtype)
+        assert riccati_lq_wide_layout(lib, dtype) == (
+            w, riccati_lq_wide_smem_bytes(nx, nu, dtype, w),
+            nx * nx + nx + nu * nx + nu)
+
+
+# -- on the card ----------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nx,nu", WIDE_SIZES + [(16, 8)])
+@pytest.mark.parametrize("Bt,N", [(1001, 20), (1, 1), (33, 7)])
+def test_wide_kernel_matches_plain_on_card(nx, nu, dtype, Bt, N):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no CPU mode)")
+    dt = getattr(torch, dtype)
+    arrs = to_torch(lq_problem(Bt, N, nx, nu), device="cuda", dtype=dt)
+    n0 = riccati_lq_wide_cuda.launches
+    out = riccati_lq_wide_cuda(*arrs, reg=1e-8)
+    ref = riccati_lq_reference(*arrs, reg=1e-8)
+    torch.cuda.synchronize()
+    assert riccati_lq_wide_cuda.launches == n0 + 1
+    for name, a, b in zip(NAMES, out, ref):
+        torch.testing.assert_close(a, b, **_wide_tol(name, dt == torch.float32))
+
+
+@pytest.mark.cuda
+def test_lq_solver_routes_wide_sizes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no CPU mode)")
+    args = to_torch(lq_problem(64, 6, 9, 2), device="cuda", dtype=torch.float64)
+    n0, n1 = riccati_lq_cuda.launches, riccati_lq_wide_cuda.launches
+    out = make_lq_solver(1e-8)(*args)
+    ref = riccati_lq_reference(*args, reg=1e-8)
+    torch.cuda.synchronize()
+    assert (riccati_lq_cuda.launches, riccati_lq_wide_cuda.launches) == (n0, n1 + 1)
+    for name, a, b in zip(NAMES, out, ref):
+        torch.testing.assert_close(a, b, **_wide_tol(name, False))

@@ -20,8 +20,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import hilo_mpc_tpu_torch.ops.ip_solver as ips  # noqa: E402
-from chip_smoke import FLAGSHIP, build_cstr_nmpc, plain_lq_factory  # noqa: E402
+from chip_smoke import FLAGSHIP, build_cstr_nmpc  # noqa: E402
+from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp  # noqa: E402
+from hilo_mpc_tpu_torch.ops.riccati import make_lq_solver, make_plain_lq_solver  # noqa: E402
 
 
 def timed_solve(fn, args):
@@ -43,13 +44,15 @@ def main():
     fn = nmpc.solve_batch_fn()
     fn(*args)                                   # warm-up: context, handles, build
 
-    saved = ips.make_lq_solver
+    def solve_with(lq_solver):
+        return lambda *a: solve_ocp(nmpc._funcs, nmpc._dims, nmpc._bounds, *a,
+                                    options=nmpc._ip_opts, mu0=nmpc._ip_opts.mu_init,
+                                    lq_solver=lq_solver)
+
+    solvers = {"plain": solve_with(make_plain_lq_solver),
+               "kernel": solve_with(make_lq_solver)}
     for which in ("plain", "kernel", "kernel", "plain"):
-        ips.make_lq_solver = plain_lq_factory if which == "plain" else saved
-        try:
-            dt, sol = timed_solve(fn, args)
-        finally:
-            ips.make_lq_solver = saved
+        dt, sol = timed_solve(solvers[which], args)
         print(f"cold solve B={B} LQ step={which}: {dt:.4f} s wall, "
               f"{B / dt:.1f} solves/s, iterations max {int(sol.iterations.max())}",
               flush=True)
