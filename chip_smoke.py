@@ -10,16 +10,24 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          FGM kernel, and the whole-solve interior point for the flagship
          problem and phase 1's two other row patterns, generated from the
          model (ops/codegen_cuda.py); its build time, registers, stack and
-         spills, each Riccati instance's tiles (TB, KC) or warps per block
-         and shared memory, and each whole-solve build's tiles (TB, MINB,
-         the region per scenario in a global scratch, no shared memory).
+         spills, each Riccati instance's tiles (TB, KC) or warps per
+         scenario (the wide variant's group, also every group size phase
+         1 times) and shared memory, each whole-solve
+         build's tiles (TB, MINB, the region per scenario in a global
+         scratch, no shared memory), and the FGM kernel's cluster design
+         (blocks per cluster, scenarios per tile, rows and shared memory
+         per block, threads) for each n phase 1 checks above 128.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
-         16-byte aligned; the wide variant at (9, 2), (16, 4) and its cap
-         (32, 16) on a ragged batch; the FGM kernel up to n = 512, through
-         both of its designs), and each timed at the shape of its main path
-         (the FGM kernel's column blocks at phase 4's n = 160),
+         16-byte aligned; the wide variant at (9, 2), (16, 4), (16, 8) and
+         its cap (32, 16) on a ragged batch; the FGM kernel up to n = 512,
+         through both of its designs), and each timed at the shape of its
+         main path (the wide variant at phase 4's (16, 8), B=1024, float64
+         and float32, at B=16384, and in every group size at (9, 2),
+         (16, 8) and the cap in both dtypes; the FGM
+         kernel's cluster design at phase 4's n = 160, B=1024 and
+         B=131072),
          beside the least time the card could take for the same work (the
          Riccati kernel in float32 and float64, with its share of the bound
          and the bytes/s it reaches). Each kernel is timed as one call alone,
@@ -46,9 +54,12 @@ Phase 4  the linear-MPC path at full width: a discrete double integrator
          infinite-horizon LQR of the same model against SciPy's DARE. Then a
          second linear model: eight decoupled double integrators (nx=16,
          nu=8, N=20, |u| <= 1, P = Q), B=1024, whose interior point runs
-         through the wide Riccati variant and whose FGM path (n = 160)
-         through the column-blocked FGM kernel, each against its plain
-         counterpart and the two against each other.
+         through the wide Riccati variant and whose FGM path (n = 160, at
+         B=131072 with the plain comparison on its first 1024 scenarios)
+         through the FGM kernel's cluster design, each against its plain
+         counterpart and the two against each other. For both models the
+         FGM call's wall is split into the copies (x0 in, cast to float32
+         on the host and copied once; u out), the kernel and the rest.
 Phase 5  the golden fixture tests/golden/lmpc_di.npz replayed through
          LMPC.optimize in float64 on the card.
 Phase 6  the whole-solve path at full width: the flagship NMPC with
@@ -80,11 +91,18 @@ GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_column_blocks",
            "whole_ip")
 RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4))
-# the wide variant: phase 1's sizes (its cap last) and phase 4's (16, 8)
-RICCATI_WIDE_SIZES = ((9, 2), (16, 4), (32, 16), (16, 8))
-# phase 4's second model: eight decoupled double integrators
+# the wide variant: phase 1's sizes (phase 4's (16, 8) and the cap among
+# them), phase 4's size, and the sizes timed in every group size
+RICCATI_WIDE_SIZES = ((9, 2), (16, 4), (16, 8), (32, 16))
+RICCATI_WIDE_PHASE4 = (16, 8)
+RICCATI_WIDE_GROUP_SIZES = ((9, 2), (16, 8), (32, 16))
+# phase 4's second model: eight decoupled double integrators; its interior
+# point at B_WIDE, the wide variant also timed at the fleet shape B_FLEET
 N_DI = 8
 B_WIDE = 1024
+B_FLEET = 16384
+# the FGM sizes phase 1 checks above 128 (the cluster design)
+FGM_WIDE_NS = (129, 160, 256, 512)
 # back-to-back timings run this many calls between two events, so the
 # host's time to enqueue a call hides behind the previous one
 INNER = 10
@@ -230,7 +248,7 @@ def phase1(report):
     phase1_riccati(report.setdefault("riccati_lq", {}))
     phase1_riccati_wide(report.setdefault("riccati_lq_wide", {}))
     phase1_fgm(report.setdefault("fgm_boxqp", {}))
-    phase1_fgm_column_blocks(report.setdefault("fgm_boxqp_column_blocks", {}))
+    phase1_fgm_cluster(report.setdefault("fgm_boxqp_column_blocks", {}))
     phase1_whole_ip(report.setdefault("whole_ip", {}))
 
 
@@ -317,46 +335,92 @@ def phase1_riccati(report):
 
 
 def phase1_riccati_wide(report):
-    """The wide variant against the plain sweeps at (9, 2), (16, 4) and its
-    cap (32, 16) on a ragged batch (B=1001 with W scenarios per block),
-    float32 and float64 (1e-12); timed at phase 4's shape (B=1024, N=20,
-    (16, 8), float64)."""
+    """The wide variant against the plain sweeps at (9, 2), (16, 4), (16, 8)
+    and its cap (32, 16) on a ragged batch (B=1001), float32 (lq_tol) and
+    float64 (1e-12); timed at phase 4's shape (B=1024, N=20, (16, 8),
+    float64) and in float32, in every group size at (9, 2), (16, 8) and the
+    cap in both dtypes, then at the fleet shape B=16384 (float64, its first
+    1001 scenarios against the plain sweeps)."""
     import torch
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_reference,
-                                                     riccati_lq_wide_cuda)
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (RICCATI_WIDE_GROUPS,
+                                                     riccati_lq_reference,
+                                                     riccati_lq_wide_cuda,
+                                                     riccati_lq_wide_group)
     names = ("dX", "dU", "lam", "K", "kff", "cost_red")
+    f32, f64 = torch.float32, torch.float64
+
+    def check(out, ref, dt):
+        errs = {}
+        for name, a, b in zip(names, out, ref):
+            tol = lq_tol(name, True) if dt == f32 else dict(rtol=1e-12, atol=1e-12)
+            torch.testing.assert_close(a, b, **tol)
+            errs[name] = float((a - b).abs().max())
+        return errs
+
     max_err = 0.0
-    for nx, nu in RICCATI_WIDE_SIZES[:3]:
-        for dt in (torch.float32, torch.float64):
+    for nx, nu in RICCATI_WIDE_SIZES:
+        for dt in (f32, f64):
             args = lq_problem(1001, N, nx, nu, dt, seed=3)
             out = riccati_lq_wide_cuda(*args, reg=1e-8)
             ref = riccati_lq_reference(*args, reg=1e-8)
             torch.cuda.synchronize()
-            errs = {}
-            for name, a, b in zip(names, out, ref):
-                tol = (lq_tol(name, True) if dt == torch.float32
-                       else dict(rtol=1e-12, atol=1e-12))
-                torch.testing.assert_close(a, b, **tol)
-                errs[name] = float((a - b).abs().max())
-            if dt == torch.float64:
+            errs = check(out, ref, dt)
+            if dt == f64:
                 max_err = max(max_err, max(errs.values()))
-            log(f"phase1 riccati_lq_wide B=1001 N={N} nx={nx} nu={nu} {str(dt)[6:]}: "
-                f"max|kernel-plain| " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
-    nx, nu = RICCATI_WIDE_SIZES[3]
-    args = lq_problem(B_WIDE, N, nx, nu, torch.float64)
-    kernel = lambda: riccati_lq_wide_cuda(*args, reg=1e-8)  # noqa: E731
-    ms = cuda_time_ms(kernel)
-    b2b_ms = cuda_time_ms(kernel, inner=INNER)
-    plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
-    nbytes, flops = riccati_lq_work(B_WIDE, N, nx, nu, itemsize=8)
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_FP64)
-    log(f"phase1 riccati_lq_wide B={B_WIDE} N={N} nx={nx} nu={nu} float64: kernel "
-        f"{ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} calls per "
-        f"run), plain {plain_ms:.4f} ms (median of 10 runs, CUDA events); bound "
-        f"{b_ms:.4f} ms ({b_by}, {flops:.3e} FLOPs, {nbytes / 1e6:.1f} MB): "
-        f"{b_ms / ms:.1%} of the bound one call")
+            log(f"phase1 riccati_lq_wide B=1001 N={N} nx={nx} nu={nu} {str(dt)[6:]} "
+                f"(G={riccati_lq_wide_group(nx, nu, dt)}): max|kernel-plain| "
+                + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+
+    nx, nu = RICCATI_WIDE_PHASE4
+
+    def timed(Bt, dt, plain=True):
+        args = lq_problem(Bt, N, nx, nu, dt)
+        kernel = lambda: riccati_lq_wide_cuda(*args, reg=1e-8)  # noqa: E731
+        ms = cuda_time_ms(kernel)
+        b2b_ms = cuda_time_ms(kernel, inner=INNER)
+        plain_ms = (cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
+                    if plain else None)
+        nbytes, flops = riccati_lq_work(Bt, N, nx, nu, itemsize=8 if dt == f64 else 4)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_FP64 if dt == f64 else PEAK_FP32)
+        log(f"phase1 riccati_lq_wide B={Bt} N={N} nx={nx} nu={nu} {str(dt)[6:]} "
+            f"G={riccati_lq_wide_group(nx, nu, dt)}: kernel {ms:.4f} ms one "
+            f"call, {b2b_ms:.4f} ms back to back ({INNER} calls per run)"
+            + ("" if plain_ms is None else f", plain {plain_ms:.4f} ms")
+            + f" (median of 10 runs, CUDA events); bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops:.3e} FLOPs, {nbytes / 1e6:.1f} MB): {b_ms / ms:.1%} of the bound "
+            f"one call, {b_ms / b2b_ms:.1%} back to back")
+        return args, ms, b2b_ms, plain_ms, b_ms, b_by
+
+    _, ms, b2b_ms, plain_ms, b_ms, b_by = timed(B_WIDE, f64)
     report.update(max_abs_err=max_err, ms=ms, back_to_back_ms=b2b_ms,
                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    timed(B_WIDE, f32)
+    # every group size at (9, 2), phase 4's size and the cap, in both
+    # dtypes, at B=1024: the readings riccati_lq_wide_group's rule rests on
+    for size in RICCATI_WIDE_GROUP_SIZES:
+        for dt in (f32, f64):
+            args = lq_problem(B_WIDE, N, *size, dt)
+            one, b2b = {}, {}
+            for g in RICCATI_WIDE_GROUPS:
+                kernel = lambda g=g: riccati_lq_wide_cuda(*args, reg=1e-8, group=g)  # noqa: E731
+                one[g], b2b[g] = cuda_time_ms(kernel), cuda_time_ms(kernel, inner=INNER)
+            chosen = riccati_lq_wide_group(*size, dt)
+            log(f"phase1 riccati_lq_wide B={B_WIDE} N={N} (nx, nu)={size} "
+                f"{str(dt)[6:]} by warps per scenario G (one call / back to back, "
+                f"ms, median of 10 runs): "
+                + ", ".join(f"G={g} {one[g]:.4f} / {b2b[g]:.4f}" for g in one)
+                + f"; the chooser's G={chosen} ranks "
+                f"{sorted(b2b.values()).index(b2b[chosen]) + 1} of {len(b2b)} back "
+                f"to back")
+            del args
+    args = timed(B_FLEET, f64, plain=False)[0]
+    out = riccati_lq_wide_cuda(*args, reg=1e-8)
+    ref = riccati_lq_reference(*(a[:1001] for a in args), reg=1e-8)
+    torch.cuda.synchronize()
+    errs = check([o[:1001] for o in out], ref, f64)
+    log(f"phase1 riccati_lq_wide B={B_FLEET} float64, first 1001 scenarios: "
+        f"max|kernel-plain| " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    del args, out
 
 
 def random_qp(n, nx=2, seed=0):
@@ -379,8 +443,9 @@ def phase1_fgm(report):
                                device="cuda").contiguous()
 
     max_err = 0.0
-    # n <= 128 keeps Hᵀ resident; 129, 256 and 512 stage it in column blocks
-    for n in sorted({6, 20, 64, 128, 129, 256, FGM_MAX_N}):
+    # n <= 128 keeps Hᵀ in one block; 129, 160, 256 and 512 split it over
+    # the blocks of a cluster
+    for n in sorted({6, 20, 64, 128, *FGM_WIDE_NS, FGM_MAX_N}):
         for with_u0 in (False, True):
             for inf in (False, True):
                 H, G, lb, ub = random_qp(n)
@@ -425,40 +490,52 @@ def phase1_fgm(report):
                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase1_fgm_column_blocks(report):
-    """The FGM kernel's column-blocked design at phase 4's second model
-    (B=1024, n = N·nu = 160, nx=16, 100 iterations), timed as the resident
-    design is at n=20, against its plain version."""
+def phase1_fgm_cluster(report):
+    """The FGM kernel above n = 128 (H resident over a thread-block cluster)
+    at phase 4's second model (n = N·nu = 160, nx=16, 100 iterations),
+    against its plain version: at B=1024, then at B=131072 (the plain
+    comparison on the first 1024 scenarios). Timed as the resident design
+    is at n=20."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
-        fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_launch, fgm_boxqp_reference,
-        fgm_constants)
+        fgm_boxqp_cluster_rows, fgm_boxqp_cluster_smem_bytes, fgm_boxqp_cuda,
+        fgm_boxqp_design, fgm_boxqp_launch, fgm_boxqp_reference, fgm_constants)
 
     H, G, lb, ub = wide_di_lmpc(torch.float32, {}).condensed_qp()
     n, nx = G.shape
     consts = fgm_constants(H)
-    x0 = np.random.default_rng(5).standard_normal((B_WIDE, nx))
-    args = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous()
-                 for a in (H, G, x0, lb, ub)) + (FGM_ITERS,)
-    err = float((fgm_boxqp_cuda(*args, constants=consts)
-                 - fgm_boxqp_reference(*args, constants=consts)).abs().max())
-    torch.cuda.synchronize()
-    assert err <= 1e-4, err
-    kernel = lambda: fgm_boxqp_launch(*args, None, *consts)  # noqa: E731
-    ms = cuda_time_ms(kernel)
-    b2b_ms = cuda_time_ms(kernel, inner=INNER)
-    plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
-    nbytes, flops = fgm_work(B_WIDE, n, nx, FGM_ITERS)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    log(f"phase1 fgm_boxqp B={B_WIDE} n={n} nx={nx} iters={FGM_ITERS} float32 "
-        f"({fgm_boxqp_design(n)}, phase 4's second QP): max|kernel-plain| = "
-        f"{err:.3e}; kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms back to back "
-        f"({INNER} calls per run), plain {plain_ms:.4f} ms (median of 10 runs, CUDA "
-        f"events); bound {b_ms:.4f} ms ({b_by}, {flops:.3e} FLOPs): {b_ms / ms:.1%} "
-        f"of the bound one call, {b_ms / b2b_ms:.1%} back to back")
-    report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms,
-                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    _, c, t = fgm_boxqp_design(n)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous()
+
+    x0_all = np.random.default_rng(5).standard_normal((B_MAIN, nx))
+    for Bt in (B_WIDE, B_MAIN):
+        args = tuple(dev(a) for a in (H, G, x0_all[:Bt], lb, ub)) + (FGM_ITERS,)
+        sub = args[:2] + (args[2][:1024],) + args[3:]
+        err = float((fgm_boxqp_cuda(*args, constants=consts)[:1024]
+                     - fgm_boxqp_reference(*sub, constants=consts)).abs().max())
+        torch.cuda.synchronize()
+        assert err <= 1e-4, err
+        nbytes, flops = fgm_work(Bt, n, nx, FGM_ITERS)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        kernel = lambda: fgm_boxqp_launch(*args, None, *consts)  # noqa: E731
+        ms = cuda_time_ms(kernel)
+        b2b_ms = cuda_time_ms(kernel, inner=INNER)
+        plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
+        log(f"phase1 fgm_boxqp B={Bt} n={n} nx={nx} iters={FGM_ITERS} float32 "
+            f"(clusters of {c} blocks, tiles of {t} scenarios, "
+            f"{fgm_boxqp_cluster_rows(n, c)} rows and "
+            f"{fgm_boxqp_cluster_smem_bytes(n, c, t)} B per block, "
+            f"{c * -(-Bt // t)} blocks): max|kernel-plain| on the first 1024 "
+            f"= {err:.3e}; kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms back to "
+            f"back ({INNER} calls per run), plain {plain_ms:.4f} ms (median of 10 "
+            f"runs, CUDA events); bound {b_ms:.4f} ms ({b_by}, {flops:.3e} FLOPs): "
+            f"{b_ms / ms:.1%} of the bound one call, {b_ms / b2b_ms:.1%} back to back")
+        if Bt == B_WIDE:
+            report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase1_whole_ip(report):
@@ -690,6 +767,43 @@ def build_di_lmpc(dtype, options, setup=True):
     return lmpc
 
 
+def fgm_wall_split(label, lmpc, x0s, reps=5):
+    """The wall of LMPC.optimize_batch_fgm (median of `reps` calls, host
+    clock) split into x0 to the card (the cast to float32 on the host and
+    one copy), the kernel alone (CUDA events), the copy of u back and the
+    rest."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import _fgm_bounds, fgm_boxqp_launch
+
+    def host_ms(fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts)), min(ts), max(ts)
+
+    wall = host_ms(lambda: lmpc.optimize_batch_fgm(x0s, iters=FGM_ITERS))
+    H, G, lb, ub, consts = lmpc._fgm_problem()
+    x0 = lmpc._fgm_x0(x0s)
+    copy_in = host_ms(lambda: lmpc._fgm_x0(x0s))
+    lbf, ubf = _fgm_bounds(lb, ub)
+    U = fgm_boxqp_launch(H, G, x0, lbf, ubf, FGM_ITERS, None, *consts)
+    k_ms = cuda_time_ms(lambda: fgm_boxqp_launch(H, G, x0, lbf, ubf, FGM_ITERS, None,
+                                                 *consts), reps=5)
+    nu = lmpc._model.n_u
+    copy_out = host_ms(lambda: U[:, :nu].cpu().numpy())
+    rest = wall[0] - copy_in[0] - k_ms - copy_out[0]
+    log(f"{label} optimize_batch_fgm wall split (B={x0s.shape[0]}, medians of "
+        f"{reps}; host clock, kernel by CUDA events): wall {wall[0]:.4f} ms "
+        f"(min {wall[1]:.4f}, max {wall[2]:.4f}) = x0 to the card {copy_in[0]:.4f} ms "
+        f"(cast and copy; min {copy_in[1]:.4f}, max {copy_in[2]:.4f}) + kernel "
+        f"{k_ms:.4f} ms + u to the host {copy_out[0]:.4f} ms + rest {rest:.4f} ms")
+
+
 def phase4(report):
     """The linear-MPC path at full width, its interior point and LQR."""
     import numpy as np
@@ -701,8 +815,10 @@ def phase4(report):
 
     lmpc = build_di_lmpc(torch.float32, {})
     x0s = np.random.default_rng(0).standard_normal((B_MAIN, 2))
+    t0 = time.perf_counter()
     lmpc.optimize_batch_fgm(x0s, iters=FGM_ITERS)      # untimed, full-size warm-up
     torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
 
     fgm_boxqp_cuda.launches = 0
     t0 = time.perf_counter()
@@ -719,15 +835,13 @@ def phase4(report):
     t0 = time.perf_counter()
     fgm_constants(H)                  # as optimize_batch_fgm takes it: on the host
     t_spec = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    torch.as_tensor(x0s, dtype=torch.float32, device="cuda")
-    torch.cuda.synchronize()
-    t_x0 = time.perf_counter() - t0
     log(f"phase4 LMPC.optimize_batch_fgm B={B_MAIN} N={N} iters={FGM_ITERS} "
         f"float32: {B_MAIN / t_fgm:.1f} solves/s ({t_fgm:.4f} s wall, x0 from "
-        f"and u to the host included); fgm_boxqp launches {launches}; parts "
-        f"timed alone: condensing {t_cond * 1e3:.3f} ms, spectrum of H "
-        f"{t_spec * 1e3:.3f} ms, x0 to the card {t_x0 * 1e3:.3f} ms")
+        f"and u to the host included); fgm_boxqp launches {launches}; the first "
+        f"call {t_first * 1e3:.3f} ms (condensing {t_cond * 1e3:.3f} ms and the "
+        f"spectrum of H {t_spec * 1e3:.3f} ms when timed alone: once per "
+        f"configuration)")
+    fgm_wall_split("phase4 first model", lmpc, x0s)
     report["fgm_boxqp"]["launches"] = launches
 
     # the first 1024 scenarios through the interior point, float64 at
@@ -784,8 +898,10 @@ def wide_di_lmpc(dtype, options):
 
 def phase4_wide(report):
     """The second linear model: the interior point through the wide Riccati
-    variant and the FGM path (n = 160) through the column-blocked FGM
-    kernel, each against its plain counterpart, then the two paths."""
+    variant (B=1024) and the FGM path (n = 160, B=131072) through the FGM
+    kernel's cluster design, each against its plain counterpart (the FGM
+    path on its first 1024 scenarios, which are the interior point's),
+    then the two paths."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (fgm_boxqp_cuda,
@@ -813,25 +929,30 @@ def phase4_wide(report):
     eq = float((plain.iterations == sol.iterations).float().mean())
     dev_ip = float((sol.U - plain.U).abs().max())
     log(f"phase4 second model (nx={nx}, nu={N_DI}) B={B_WIDE} N={N} interior point "
-        f"float64: {t_ip:.3f} s, iterations max {int(sol.iterations.max())}, "
+        f"float64: t_ip {t_ip:.4f} s, iterations max {int(sol.iterations.max())}, "
         f"riccati_lq_wide launches {launches}; against the plain LQ step: equal "
         f"iterations {eq:.4f}, max|U_kernel - U_plain| = {dev_ip:.3e}")
     assert dev_ip <= 1e-8, dev_ip
 
     fgm = wide_di_lmpc(torch.float32, {})
     n = N * N_DI
-    fgm.optimize_batch_fgm(x0s[:4], iters=10)     # untimed warm-up
+    x0_fleet = np.random.default_rng(6).standard_normal((B_MAIN, nx))
+    x0_fleet[:B_WIDE] = x0s
+    fgm.optimize_batch_fgm(x0_fleet, iters=FGM_ITERS)     # untimed warm-up
     torch.cuda.synchronize()
     fgm_boxqp_cuda.launches = 0
     t0 = time.perf_counter()
-    u_fgm = fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS)
+    u_fleet = fgm.optimize_batch_fgm(x0_fleet, iters=FGM_ITERS)
     t_fgm = time.perf_counter() - t0
     ran = fgm_boxqp_cuda.launches
+    assert u_fleet.shape == (B_MAIN, N_DI) and np.isfinite(u_fleet).all()
+    assert np.abs(u_fleet).max() <= 1.0 + 1e-6
     u_ref = fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS, backend="xla")
-    dev_fgm = float(np.abs(u_fgm - u_ref).max())
-    log(f"phase4 second model optimize_batch_fgm n={n} ({fgm_boxqp_design(n)[0]}) "
-        f"B={B_WIDE} iters={FGM_ITERS} float32: {t_fgm * 1e3:.3f} ms wall, "
-        f"fgm_boxqp launches {ran}; max|u_kernel - u_plain| = {dev_fgm:.3e}")
+    dev_fgm = float(np.abs(u_fleet[:B_WIDE] - u_ref).max())
+    log(f"phase4 second model optimize_batch_fgm n={n} {fgm_boxqp_design(n)} "
+        f"B={B_MAIN} iters={FGM_ITERS} float32: {B_MAIN / t_fgm:.1f} solves/s "
+        f"({t_fgm * 1e3:.3f} ms wall), fgm_boxqp launches {ran}; first {B_WIDE} "
+        f"scenarios: max|u_kernel - u_plain| = {dev_fgm:.3e}")
     assert ran == 1 and dev_fgm <= 1e-4, (ran, dev_fgm)
     for iters in (FGM_ITERS, 2 * FGM_ITERS, 4 * FGM_ITERS, 8 * FGM_ITERS):
         dev = float(np.abs(fgm.optimize_batch_fgm(x0s, iters=iters) - u_ip).max())
@@ -840,6 +961,8 @@ def phase4_wide(report):
     log(f"phase4 second model: FGM at {iters} iterations against the interior "
         f"point: max|u_fgm - u_ip| = {dev:.3e}")
     assert dev <= 5e-4, dev
+    fgm_wall_split("phase4 second model", fgm, x0s)
+    fgm_wall_split("phase4 second model", fgm, x0_fleet)
     report["riccati_lq_wide"]["launches"] = launches
     report["fgm_boxqp_column_blocks"]["launches"] = ran
 
@@ -944,7 +1067,8 @@ def build_jobs():
     launch."""
     import torch
     from hilo_mpc_tpu_torch.ops import _build
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_source,
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (RICCATI_WIDE_GROUPS,
+                                                     riccati_lq_source,
                                                      riccati_lq_wide_source)
     from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
 
@@ -952,6 +1076,10 @@ def build_jobs():
              riccati_lq_source(nx, nu)) for nx, nu in RICCATI_SIZES]
     jobs += [(f"riccati_lq_wide nx={nx} nu={nu}", _build.source_library_path,
               riccati_lq_wide_source(nx, nu)) for nx, nu in RICCATI_WIDE_SIZES]
+    # every group size phase 1 times
+    jobs += [(f"riccati_lq_wide nx={nx} nu={nu} G={g}", _build.source_library_path,
+              riccati_lq_wide_source(nx, nu, g))
+             for nx, nu in RICCATI_WIDE_GROUP_SIZES for g in RICCATI_WIDE_GROUPS]
     jobs.append(("fgm_boxqp", _build.library_path, "fgm_boxqp"))
     for name, bounds in WHOLE_IP_BOUNDS.items():
         nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32, bounds)
@@ -969,8 +1097,9 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from hilo_mpc_tpu_torch.ops.codegen_cuda import WIP_MIN_BLOCKS, WIP_TB
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_layout,
-                                                     riccati_lq_wide_layout)
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (
+        fgm_boxqp_cluster_rows, fgm_boxqp_cluster_smem_bytes, fgm_boxqp_design,
+        riccati_lq_layout, riccati_lq_wide_layout)
     device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -996,13 +1125,27 @@ def main():
             for line in fh:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("    " + line.strip())
+                # the wide Riccati and FGM kernels are built to spill nothing
+                if (label.startswith(("riccati_lq_wide", "fgm_boxqp"))
+                        and "spill stores" in line):
+                    assert line.split("bytes spill stores")[0].split(",")[-1].strip() == "0", \
+                        (label, line)
         dts = (torch.float32, torch.float64)
         if label.startswith("riccati_lq_wide"):
             handle = ctypes.CDLL(lib)
             log("    " + ", ".join(
-                f"{str(dt)[6:]}: {lay[0]} warps (scenarios) per block, {lay[1]} "
+                f"{str(dt)[6:]}: a block of {lay[0]} warps per scenario, {lay[1]} "
                 f"bytes of dynamic shared memory" for dt in dts
                 for lay in [riccati_lq_wide_layout(handle, dt)]))
+        elif label == "fgm_boxqp":
+            for n in FGM_WIDE_NS:
+                _, c, t = fgm_boxqp_design(n)
+                rows = fgm_boxqp_cluster_rows(n, c)
+                log(f"    n={n}: clusters of {c} blocks, tiles of {t} scenarios, "
+                    f"{rows} rows of H and {fgm_boxqp_cluster_smem_bytes(n, c, t)} "
+                    f"bytes of dynamic shared memory per block, "
+                    f"{(rows // 4) * (t // 2)} threads per block, "
+                    f"{c * -(-B_WIDE // t)} blocks at B={B_WIDE}")
         elif label.startswith("riccati_lq"):
             handle = ctypes.CDLL(lib)
             log("    " + ", ".join(
@@ -1040,6 +1183,8 @@ def main():
                         "back_to_back_ms": r["back_to_back_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
+                        # ("fgm_boxqp_column_blocks" is the FGM kernel above
+                        # n = 128, its name kept from its first design)
                         # no single PyTorch call computes any of them:
                         # a batched LQ solve, a projected gradient method, a
                         # batched NLP

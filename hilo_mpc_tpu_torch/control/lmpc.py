@@ -6,8 +6,9 @@ interior point solves the linear-quadratic problem exactly in a handful of
 iterations (``optimize``, ``optimize_batch``; the Riccati step is the CUDA
 kernel on CUDA tensors). ``optimize_batch_fgm`` is the condensed fast path:
 the problem is condensed onto the input sequence on the host
-(``condense_lmpc``) and B box-QPs are solved by the projected fast gradient
-method, one CUDA kernel (``ops/cuda_kernels.py:fgm_boxqp_cuda``).
+(``condense_lmpc``, once per configuration) and B box-QPs are solved by the
+projected fast gradient method, one CUDA kernel
+(``ops/cuda_kernels.py:fgm_boxqp_cuda``).
 """
 from __future__ import annotations
 
@@ -81,6 +82,9 @@ class LMPC(NMPC):
         self._P_mat: Optional[np.ndarray] = None
         self._x_ref: Optional[np.ndarray] = None
         self._u_ref: Optional[np.ndarray] = None
+        # the FGM path's problem on the device, with the key it was built for
+        self._fgm_key = None
+        self._fgm_qp = None
 
     @property
     def Q(self):
@@ -155,12 +159,42 @@ class LMPC(NMPC):
         ub = np.tile(self._u_ub, N)
         return H, G, lb, ub
 
+    def _fgm_problem(self):
+        """(H, G, lb, ub) of ``condensed_qp`` as float32 tensors on this
+        controller's device, and (1/L, β) from the float64 H, built once per
+        configuration: the key holds everything they depend on (Q, R, P, the
+        horizon, the input bounds, the model's matrices, the device and the
+        dtype), so a change of any of them builds them anew."""
+        model = self._model
+        key = tuple(None if a is None else np.asarray(a, dtype=float).tobytes()
+                    for a in (self._Q_mat, self._R_mat, self._P_mat, self._u_lb,
+                              self._u_ub, model.A, model.B))
+        key += (self.horizon, model.discrete, str(self._device), self._dtype)
+        if key != self._fgm_key:
+            qp = self.condensed_qp()
+            # 1/L and β from the float64 H, as the JAX twin takes them; the
+            # kernel then never waits for a copy of H back from the card
+            constants = fgm_constants(qp[0])
+            kw = dict(dtype=torch.float32, device=self._device)
+            self._fgm_qp = tuple(torch.as_tensor(a, **kw) for a in qp) + (constants,)
+            self._fgm_key = key
+        return self._fgm_qp
+
+    def _fgm_x0(self, x0_batch):
+        """x0 as a (B, n_x) float32 tensor on this controller's device: one
+        cast to float32 on the host (torch's, which uses every core; numpy's
+        ``astype`` is single-threaded), then one copy."""
+        x = np.ascontiguousarray(np.atleast_2d(x0_batch), dtype=np.float64)
+        return torch.tensor(x, dtype=torch.float32).to(self._device)
+
     def optimize_batch_fgm(self, x0_batch, iters: int = 100, backend: str = "auto"):
         """First control moves (B, n_u) of B regulation problems, by ``iters``
         fast-gradient steps on the condensed QP in float32 on this
         controller's device: the CUDA kernel on the card, its plain version
         on the CPU. ``backend="xla"`` (the JAX API's switch to the plain
-        twin) asks for the plain PyTorch version on any device."""
+        twin) asks for the plain PyTorch version on any device. The
+        condensed QP, its constants and their copies on the device are built
+        once per configuration (``_fgm_problem``)."""
         if backend not in ("auto", "xla"):
             raise ValueError(f"backend must be 'auto' or 'xla', got {backend!r}")
         if not self._setup_done:
@@ -168,13 +202,8 @@ class LMPC(NMPC):
         if self._x_ref is not None or self._u_ref is not None:
             raise NotImplementedError("fgm fast path currently solves the "
                                       "regulation problem (no references)")
-        qp = self.condensed_qp()
-        # 1/L and β from the float64 H, as the JAX twin takes them; the
-        # kernel then never waits for a copy of H back from the card
-        constants = fgm_constants(qp[0])
-        kw = dict(dtype=torch.float32, device=self._device)
-        H, G, lb, ub = (torch.as_tensor(a, **kw) for a in qp)
-        x0 = torch.as_tensor(np.atleast_2d(np.asarray(x0_batch, dtype=float)), **kw)
+        H, G, lb, ub, constants = self._fgm_problem()
+        x0 = self._fgm_x0(x0_batch)
         solve = fgm_boxqp_reference if backend == "xla" else fgm_boxqp_cuda
         U = solve(H, G, x0, lb, ub, iters, constants=constants)
         return U[:, :self._model.n_u].cpu().numpy()

@@ -34,27 +34,35 @@
 // lanes, no bank conflict), then does 8 FMAs. Its own limit is shared-memory
 // bandwidth: 3 shared wavefronts per 8 FMA instructions of a warp.
 //
-// 128 < n <= FGM_MAX_N (fgm_boxqp_wide_kernel). Hᵀ no longer fits, so it is
-// staged through shared memory in column blocks of WIDE_JB columns: per
-// iteration the block walks the column blocks, all 512 threads copy one block
-// of H (row-major rows of WIDE_JB words: coalesced; it stays in the 50 MB L2,
-// being shared by every block) into a column-major buffer with an odd row
-// stride (no bank conflicts), and every thread adds that block's share of
-// H y to its rows. A block owns WIDE_TILE = 32 scenarios (lane = scenario) and
-// WIDE_WARPS = 16 warps; warp w owns rows w, w + 16, ... (RB rows per thread,
-// RB = 16 up to n = 256 and 32 up to 512, a template parameter so that u and
-// the products stay in registers). y (single buffer: a barrier separates the
-// last product from the update) and g live in shared memory scenario-minor
-// with row stride WIDE_TILE + 1; u0 is loaded and u stored through the y
-// buffer, so every global access of the batch coalesces. Its limits: two
-// shared loads per FMA for a warp (the Hᵀ word is a broadcast, y one word per
-// lane) and 2·ceil(n/WIDE_JB) + 1 barriers per iteration.
+// 128 < n <= FGM_MAX_N (fgm_boxqp_cluster_kernel). Hᵀ no longer fits one
+// block, so it is split by rows over the C blocks (CTAs) of a thread-block
+// cluster and stays resident for the whole solve: block q of a cluster
+// keeps rows q·R .. q·R + R - 1 (R = ceil(n / C) rounded up to 4) as a
+// column-major slice Ht[j*R + i] in its shared memory, loaded once. A
+// cluster owns a tile of TB scenarios (32, or 16 where the slice and y's two
+// buffers would pass 227 KB); every block of it keeps the tile's whole y,
+// double-buffered. Thread (tx, ty) owns 4 rows (4ty..4ty+3 of the slice)
+// of 2 scenarios (2tx, 2tx+1) and keeps their u, g and bounds in registers;
+// its product reads per column j one float4 of the slice (a broadcast: the
+// lanes of a warp share few ty) and one float2 of y, for 8 FMAs, as the
+// n <= 128 design does. Each iteration a block updates its rows of u and
+// writes its rows of the next y into the next buffer of EVERY block of the
+// cluster through distributed shared memory (map_shared_rank), then one
+// cluster barrier (barrier.cluster arrive/wait: it also makes those writes
+// visible) ends the iteration. ops/cuda_kernels.py:fgm_boxqp_design picks
+// (C, TB) per n, the first of (4, 32), (8, 32), (8, 16) whose block fits
+// (portable cluster sizes; each puts at least 128 blocks on the card at
+// B = 1024); the entry point builds those three. The products are
+// plain float32 FMAs in the order of the n <= 128 design (no tensor cores,
+// no TF32: FGM's accuracy after a fixed iteration count is its result).
 //
 // Rows past n are never stored; scenarios past B compute on zeros and are
 // never stored: no padding reaches device memory. Limits: 1 <= n <= FGM_MAX_N
-// (= 512; the wide path's shared memory at n = 512 is 205 KB), nx >= 1. The
+// (= 512; at n = 512 a cluster of 8 keeps 64 rows, 128 KB, and a tile of 16
+// scenarios, 192 KB per block in all), nx >= 1. The
 // launcher takes PyTorch's current stream, allocates nothing and never
 // synchronizes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 
@@ -161,130 +169,154 @@ fgm_boxqp_kernel(const float* __restrict__ H, const float* __restrict__ G,
   }
 }
 
-constexpr int WIDE_TILE = 32;   // scenarios per block of the wide path
-constexpr int WIDE_WARPS = 16;  // warps per block
-constexpr int WIDE_JB = 32;     // columns of H per staged block
-constexpr int WIDE_LDY = WIDE_TILE + 1;
+constexpr int CL_ROWS = 4;   // rows per thread of the cluster design
+constexpr int CL_SCEN = 2;   // scenarios per thread
 
-template <int RB>
-__global__ void __launch_bounds__(WIDE_TILE * WIDE_WARPS, 1)
-fgm_boxqp_wide_kernel(const float* __restrict__ H, const float* __restrict__ G,
-                      const float* __restrict__ x0, const float* __restrict__ lb,
-                      const float* __restrict__ ub, const float* __restrict__ u0,
-                      float* __restrict__ out, int B, int n, int nx, int iters,
-                      float inv_L, float beta) {
+template <int C, int TB>
+__global__ void __launch_bounds__(1024)
+fgm_boxqp_cluster_kernel(const float* __restrict__ H, const float* __restrict__ G,
+                         const float* __restrict__ x0, const float* __restrict__ lb,
+                         const float* __restrict__ ub, const float* __restrict__ u0,
+                         float* __restrict__ out, int B, int n, int nx, int iters,
+                         float inv_L, float beta, int R) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  const int ldh = n | 1;                        // odd row stride of the Hᵀ block
-  float* Ht = smem;                             // (WIDE_JB, ldh): Ht[jj*ldh + i] = H[i][j0+jj]
-  float* ys = Ht + WIDE_JB * ldh;               // (n, WIDE_LDY)
-  float* gs = ys + n * WIDE_LDY;                // (n, WIDE_LDY)
-  float* lbs = gs + n * WIDE_LDY;
-  float* ubs = lbs + n;
+  float* Ht = smem;                                  // (n, R): Ht[j*R + i] = H[r0+i][j]
+  float* ys = Ht + static_cast<size_t>(n) * R;       // 2 x (n, TB)
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r0 = rank * R;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const long long b0 = static_cast<long long>(blockIdx.x / C) * TB;
 
-  const int lane = threadIdx.x, w = threadIdx.y;
-  const int tid = w * WIDE_TILE + lane;
-  constexpr int NT = WIDE_TILE * WIDE_WARPS;
-  const long long b0 = static_cast<long long>(blockIdx.x) * WIDE_TILE;
-  const int nb = B - b0 < WIDE_TILE ? static_cast<int>(B - b0) : WIDE_TILE;
-
-  // u0 (or zero) of the tile, coalesced, into ys; the bounds
-  for (int idx = tid; idx < WIDE_TILE * n; idx += NT) {
+  // the block's rows of H (coalesced along each row), the tile's y0
+  for (int idx = tid; idx < R * n; idx += nthreads) {
+    const int i = idx / n, j = idx - i * n;
+    Ht[static_cast<size_t>(j) * R + i] =
+        r0 + i < n ? H[static_cast<size_t>(r0 + i) * n + j] : 0.0f;
+  }
+  for (int idx = tid; idx < TB * n; idx += nthreads) {
     const int s = idx / n, i = idx - s * n;
-    ys[i * WIDE_LDY + s] = (u0 != nullptr && s < nb)
+    ys[i * TB + s] = (u0 != nullptr && b0 + s < B)
         ? u0[static_cast<size_t>(b0 + s) * n + i] : 0.0f;
   }
-  for (int i = tid; i < n; i += NT) {
-    lbs[i] = lb[i];
-    ubs[i] = ub[i];
-  }
-  __syncthreads();
 
-  const long long b = b0 + lane;
-  float u[RB], acc[RB];
+  const int row0 = CL_ROWS * threadIdx.y;
+  const int s0 = CL_SCEN * threadIdx.x;
+  float u[CL_ROWS][CL_SCEN], g[CL_ROWS][CL_SCEN], lo[CL_ROWS], hi[CL_ROWS];
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int i = w + WIDE_WARPS * r;
-    u[r] = 0.0f;
-    if (i < n) {
+  for (int k = 0; k < CL_ROWS; ++k) {
+    const int i = r0 + row0 + k;
+    lo[k] = i < n ? lb[i] : 0.0f;
+    hi[k] = i < n ? ub[i] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < CL_SCEN; ++c) {
+      const long long b = b0 + s0 + c;
       float gv = 0.0f;
-      if (b < B)
+      if (i < n && b < B)
         for (int m = 0; m < nx; ++m)
           gv = fmaf(G[static_cast<size_t>(i) * nx + m],
                     x0[static_cast<size_t>(b) * nx + m], gv);
-      gs[i * WIDE_LDY + lane] = gv;
-      u[r] = ys[i * WIDE_LDY + lane];
+      g[k][c] = gv;
     }
+  }
+  // every block of the cluster has started and holds its y0
+  cluster.sync();
+#pragma unroll
+  for (int k = 0; k < CL_ROWS; ++k) {
+    const int i = r0 + row0 + k;
+#pragma unroll
+    for (int c = 0; c < CL_SCEN; ++c) u[k][c] = i < n ? ys[i * TB + s0 + c] : 0.0f;
   }
 
   for (int it = 0; it < iters; ++it) {
+    const float* cur = ys + (it & 1) * n * TB;
+    float* nxt = ys + ((it & 1) ^ 1) * n * TB;
+    float acc[CL_ROWS][CL_SCEN];
 #pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
-    for (int j0 = 0; j0 < n; j0 += WIDE_JB) {
-      const int jb = n - j0 < WIDE_JB ? n - j0 : WIDE_JB;
-      __syncthreads();                          // the previous block is consumed
-      for (int idx = tid; idx < jb * n; idx += NT) {
-        const int i = idx / jb, jj = idx - i * jb;
-        Ht[jj * ldh + i] = H[static_cast<size_t>(i) * n + j0 + jj];
-      }
-      __syncthreads();
-      for (int jj = 0; jj < jb; ++jj) {
-        const float yv = ys[(j0 + jj) * WIDE_LDY + lane];
-        const float* hcol = Ht + jj * ldh;
+    for (int k = 0; k < CL_ROWS; ++k)
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int i = w + WIDE_WARPS * r;
-          if (i < n) acc[r] = fmaf(hcol[i], yv, acc[r]);
-        }
-      }
+      for (int c = 0; c < CL_SCEN; ++c) acc[k][c] = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      const float4 h = *reinterpret_cast<const float4*>(Ht + j * R + row0);
+      const float2 y = *reinterpret_cast<const float2*>(cur + j * TB + s0);
+      const float hk[CL_ROWS] = {h.x, h.y, h.z, h.w};
+      const float yc[CL_SCEN] = {y.x, y.y};
+#pragma unroll
+      for (int k = 0; k < CL_ROWS; ++k)
+#pragma unroll
+        for (int c = 0; c < CL_SCEN; ++c) acc[k][c] = fmaf(hk[k], yc[c], acc[k][c]);
     }
-    __syncthreads();                            // every product has read y
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int i = w + WIDE_WARPS * r;
+    for (int k = 0; k < CL_ROWS; ++k) {
+      const int i = r0 + row0 + k;
       if (i < n) {
-        const float yv = ys[i * WIDE_LDY + lane];
-        const float grad = acc[r] + gs[i * WIDE_LDY + lane];
-        const float un = fminf(fmaxf(yv - inv_L * grad, lbs[i]), ubs[i]);
-        ys[i * WIDE_LDY + lane] = un + beta * (un - u[r]);
-        u[r] = un;
+        float yn[CL_SCEN];
+#pragma unroll
+        for (int c = 0; c < CL_SCEN; ++c) {
+          const float yv = cur[i * TB + s0 + c];
+          const float grad = acc[k][c] + g[k][c];
+          const float un = fminf(fmaxf(yv - inv_L * grad, lo[k]), hi[k]);
+          yn[c] = un + beta * (un - u[k][c]);
+          u[k][c] = un;
+        }
+        const float2 v = make_float2(yn[0], yn[1]);
+#pragma unroll
+        for (int q = 0; q < C; ++q)
+          *reinterpret_cast<float2*>(cluster.map_shared_rank(nxt, q) + i * TB + s0) = v;
       }
     }
+    cluster.sync();
   }
 
-  // u of the tile through ys, stored coalesced
-  __syncthreads();
+  // u of the block's rows through ys (no peer writes after the last
+  // barrier), stored as runs of R words per scenario
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int i = w + WIDE_WARPS * r;
-    if (i < n) ys[i * WIDE_LDY + lane] = u[r];
+  for (int k = 0; k < CL_ROWS; ++k) {
+    const int i = r0 + row0 + k;
+#pragma unroll
+    for (int c = 0; c < CL_SCEN; ++c)
+      if (i < n) ys[i * TB + s0 + c] = u[k][c];
   }
   __syncthreads();
-  for (int idx = tid; idx < nb * n; idx += NT) {
-    const int s = idx / n, i = idx - s * n;
-    out[static_cast<size_t>(b0 + s) * n + i] = ys[i * WIDE_LDY + s];
+  for (int idx = tid; idx < TB * R; idx += nthreads) {
+    const int s = idx / R, i = r0 + (idx - s * R);
+    if (i < n && b0 + s < B) out[static_cast<size_t>(b0 + s) * n + i] = ys[i * TB + s];
   }
 }
 
-size_t wide_smem_bytes(int n) {
-  return sizeof(float) * (static_cast<size_t>(WIDE_JB) * (n | 1) +
-                          2 * static_cast<size_t>(n) * WIDE_LDY + 2 * n);
+size_t cluster_smem_bytes(int n, int R, int TB) {
+  return sizeof(float) * (static_cast<size_t>(n) * R + 2 * static_cast<size_t>(n) * TB);
 }
 
-template <int RB>
-cudaError_t launch_wide(const float* H, const float* G, const float* x0,
-                        const float* lb, const float* ub, const float* u0,
-                        float* out, int B, int n, int nx, int iters, float inv_L,
-                        float beta, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes(n);
+template <int C, int TB>
+cudaError_t launch_cluster(const float* H, const float* G, const float* x0,
+                           const float* lb, const float* ub, const float* u0,
+                           float* out, int B, int n, int nx, int iters,
+                           float inv_L, float beta, cudaStream_t stream) {
+  const int R = ((n + C - 1) / C + CL_ROWS - 1) / CL_ROWS * CL_ROWS;
+  const size_t smem = cluster_smem_bytes(n, R, TB);
   cudaError_t err = cudaFuncSetAttribute(
-      fgm_boxqp_wide_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fgm_boxqp_cluster_kernel<C, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 block(WIDE_TILE, WIDE_WARPS);
-  const dim3 grid(static_cast<unsigned>((static_cast<long long>(B) + WIDE_TILE - 1) /
-                                        WIDE_TILE));
-  fgm_boxqp_wide_kernel<RB><<<grid, block, smem, stream>>>(
-      H, G, x0, lb, ub, u0, out, B, n, nx, iters, inv_L, beta);
+  const long long clusters = (static_cast<long long>(B) + TB - 1) / TB;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * C));
+  cfg.blockDim = dim3(TB / CL_SCEN, R / CL_ROWS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fgm_boxqp_cluster_kernel<C, TB>, H, G, x0, lb, ub,
+                           u0, out, B, n, nx, iters, inv_L, beta, R);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -292,13 +324,16 @@ cudaError_t launch_wide(const float* H, const float* G, const float* x0,
 
 // Plain C entry point (bound with ctypes). Returns the cudaError_t of the
 // launch; 0 means the kernel was enqueued on `stream`. u0 may be null (start
-// from zero). n <= FGM_NARROW_MAX_N takes fgm_boxqp_kernel, larger n the
-// column-blocked fgm_boxqp_wide_kernel. FGM_MAX_N and FGM_NARROW_MAX_N are
-// mirrored by ops/cuda_kernels.py.
+// from zero). n <= FGM_NARROW_MAX_N takes fgm_boxqp_kernel (cluster and tile
+// are ignored), larger n fgm_boxqp_cluster_kernel with `cluster` blocks per
+// tile of `tile` scenarios, (4, 32), (8, 32) or (8, 16) as
+// ops/cuda_kernels.py:fgm_boxqp_design chooses them (any other pair is
+// refused). FGM_MAX_N and FGM_NARROW_MAX_N are mirrored there.
 extern "C" int fgm_boxqp_f32(const void* H, const void* G, const void* x0,
                              const void* lb, const void* ub, const void* u0,
                              void* out, int B, int n, int nx, int iters,
-                             double inv_L, double beta, void* stream) {
+                             double inv_L, double beta, int cluster, int tile,
+                             void* stream) {
   if (B <= 0 || n <= 0 || n > FGM_MAX_N || nx <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* Hf = static_cast<const float*>(H);
@@ -309,15 +344,18 @@ extern "C" int fgm_boxqp_f32(const void* H, const void* G, const void* x0,
   const float* u0f = static_cast<const float*>(u0);
   float* of = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float il = static_cast<float>(inv_L), bt = static_cast<float>(beta);
   if (n > FGM_NARROW_MAX_N) {
-    const int rows = (n + WIDE_WARPS - 1) / WIDE_WARPS;
-    return static_cast<int>(
-        rows <= 16 ? launch_wide<16>(Hf, Gf, xf, lbf, ubf, u0f, of, B, n, nx, iters,
-                                     static_cast<float>(inv_L),
-                                     static_cast<float>(beta), st)
-                   : launch_wide<32>(Hf, Gf, xf, lbf, ubf, u0f, of, B, n, nx, iters,
-                                     static_cast<float>(inv_L),
-                                     static_cast<float>(beta), st));
+    if (cluster == 4 && tile == 32)
+      return static_cast<int>(launch_cluster<4, 32>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
+                                                    n, nx, iters, il, bt, st));
+    if (cluster == 8 && tile == 32)
+      return static_cast<int>(launch_cluster<8, 32>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
+                                                    n, nx, iters, il, bt, st));
+    if (cluster == 8 && tile == 16)
+      return static_cast<int>(launch_cluster<8, 16>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
+                                                    n, nx, iters, il, bt, st));
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows_threads = (n + ROWS - 1) / ROWS;
   const dim3 block(TILE_B / SCEN, rows_threads);

@@ -13,8 +13,8 @@ kernel or raises.
 Sources live in ``hilo_mpc_tpu_torch/csrc/`` and are built by ``nvcc`` at first
 use (ops/_build.py); the Riccati kernel is a template there, instantiated for
 each (nx, nu) a caller needs: the tiled kernel up to (8, 4), a variant with a
-warp per scenario above (``riccati_lq_wide_cuda``, up to (32, 16)). The
-whole-solve interior point is in ops/whole_ip.py.
+group of warps per scenario above (``riccati_lq_wide_cuda``, up to
+(32, 16)). The whole-solve interior point is in ops/whole_ip.py.
 """
 from __future__ import annotations
 
@@ -31,11 +31,15 @@ from .riccati import solve_lq
 RICCATI_MAX_NX = 8
 RICCATI_MAX_NU = 4
 # the largest (nx, nu) riccati_lq_wide_cuda instantiates
-# (csrc/riccati_lq_wide.cuh: one warp per scenario, lane i on row i), and
-# the warps per block it tries, in order, within RICCATI_SMEM_TARGET
+# (csrc/riccati_lq_wide.cuh: a group of G warps per scenario), the group
+# sizes G a build takes, and per dtype (float32, float64) what
+# riccati_lq_wide_group allows: the most tiles per thread of the largest
+# phase before it takes more warps, and the most warps
 RICCATI_WIDE_MAX_NX = 32
 RICCATI_WIDE_MAX_NU = 16
-RICCATI_WIDE_WARPS = (8, 4, 2, 1)
+RICCATI_WIDE_GROUPS = (1, 2, 4)
+RICCATI_WIDE_ROUNDS = (2, 4)
+RICCATI_WIDE_MAX_GROUP = (2, 4)
 # shared memory of one riccati_lq block: the most Hopper gives a block
 # (227 KB), and the most riccati_lq_tiling aims for, so that five blocks fit
 # on an SM; the tile (scenarios per block) and the chunks (stages per copy)
@@ -45,10 +49,14 @@ RICCATI_SMEM_TARGET = 48 * 1024
 RICCATI_TILE = 32
 RICCATI_CHUNKS = (8, 4, 2, 1)
 # largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N), and the largest n of its
-# first design, which keeps Hᵀ resident in shared memory (FGM_NARROW_MAX_N);
-# above it H is staged through shared memory in column blocks
+# first design, which keeps Hᵀ resident in one block's shared memory
+# (FGM_NARROW_MAX_N); above it H is split by rows over the blocks of a
+# thread-block cluster, resident too: the (blocks per cluster, scenarios per
+# tile) designs csrc/fgm_boxqp.cu builds, in the order fgm_boxqp_design
+# tries them
 FGM_MAX_N = 512
 FGM_NARROW_MAX_N = 128
+FGM_CLUSTER_DESIGNS = ((4, 32), (8, 32), (8, 16))
 # what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
 FGM_INF = 1e30
 
@@ -254,42 +262,79 @@ def riccati_lq_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     return bufs[:6]
 
 
-def riccati_lq_wide_smem_bytes(nx: int, nu: int, dtype, warps: int) -> int:
-    """Dynamic shared memory of one block of the ``riccati_lq_wide`` kernel:
-    ``warps`` slices of the stage's inputs and the work arrays
-    (csrc/riccati_lq_wide.cuh:WLay::E)."""
-    e = 4 * nx * nx + 5 * nx * nu + 3 * nu * nu + 5 * nx + 4 * nu + 1
-    return warps * e * (torch.finfo(dtype).bits // 8)
+def _even(v: int) -> int:
+    return (v + 1) & ~1
 
 
-def riccati_lq_wide_warps(nx: int, nu: int, dtype) -> int:
-    """Warps (scenarios) per block of the ``riccati_lq_wide`` kernel for one
-    (nx, nu, dtype): the most of ``RICCATI_WIDE_WARPS`` whose slices stay
-    within ``RICCATI_SMEM_TARGET``, else one (at the cap, (32, 16) in
-    float64, 61,192 bytes)."""
-    for w in RICCATI_WIDE_WARPS:
-        if riccati_lq_wide_smem_bytes(nx, nu, dtype, w) <= RICCATI_SMEM_TARGET:
-            return w
-    return 1
+def riccati_lq_wide_words(nx: int, nu: int) -> int:
+    """Shared-memory words of one scenario of the ``riccati_lq_wide`` kernel:
+    two stage buffers (X = [B | A | c] and C0 = [[R | S | r]; [· | Q | q]]
+    in one padded column space), then P transposed, p, P X, K, kff, dx, dx',
+    du and cost_red (csrc/riccati_lq_wide.cuh:GLay::E)."""
+    nup, nxp = _even(nu), _even(nx)
+    xw = nup + nxp + 2
+    buf = nx * xw + (nup + nxp) * xw
+    return (2 * buf + nx * nxp + nxp + nx * xw + nu * nxp + nup + 2 * nxp + nup
+            + 2)
 
 
-def riccati_lq_wide_source(nx: int, nu: int) -> str:
+def riccati_lq_wide_smem_bytes(nx: int, nu: int, dtype) -> int:
+    """Dynamic shared memory of one block (one scenario) of the
+    ``riccati_lq_wide`` kernel; the same for every group size."""
+    return riccati_lq_wide_words(nx, nu) * (torch.finfo(dtype).bits // 8)
+
+
+def riccati_lq_wide_tiles(nx: int, nu: int) -> int:
+    """The most 2 x 2 register tiles of one phase of the wide kernel: P X,
+    Xᵀ(P X) (the u rows and the x block of the x rows) or the mirrored
+    update of P with p's pairs (csrc/riccati_lq_wide.cuh:GLay::T_*)."""
+    nup, nxp = _even(nu), _even(nx)
+    xw, h = nup + nxp + 2, nxp // 2
+    return max(h * (xw // 2), (nup // 2) * (xw // 2) + h * (h + 1),
+               h * (h + 1) // 2 + h)
+
+
+def riccati_lq_wide_group(nx: int, nu: int, dtype) -> int:
+    """Warps G per scenario of the ``riccati_lq_wide`` kernel for one
+    (nx, nu, dtype): the fewest of ``RICCATI_WIDE_GROUPS`` whose threads
+    deal the largest product phase in at most ``RICCATI_WIDE_ROUNDS`` tiles
+    each (2 in float32, 4 in float64), at most ``RICCATI_WIDE_MAX_GROUP``
+    warps (2 in float32, 4 in float64). More warps shorten each phase;
+    fewer put more scenarios on an SM, and a thread takes ~115-180
+    registers, so a larger block soon fits an SM fewer times than its
+    shared memory would allow. On an H100 at B=1024 the fastest G back to
+    back was 1 (float64) and 2 (float32) at phase 4's (16, 8), 4 and 2 at
+    the cap (32, 16), which this rule gives; 8 warps ranked no better than
+    third in any of the four (PERF.md §6)."""
+    f64 = dtype == torch.float64
+    tiles = riccati_lq_wide_tiles(nx, nu)
+    return next(g for g in RICCATI_WIDE_GROUPS
+                if 32 * g * RICCATI_WIDE_ROUNDS[f64] >= tiles
+                or g == RICCATI_WIDE_MAX_GROUP[f64])
+
+
+def riccati_lq_wide_source(nx: int, nu: int, group=None) -> str:
     """Source of the ``riccati_lq_wide`` instantiation for one (nx, nu), from
-    the template csrc/riccati_lq_wide.cuh, with the warps per block of each
-    dtype; built at first use."""
+    the template csrc/riccati_lq_wide.cuh, with the warps per scenario of
+    each dtype (``group`` for both, else ``riccati_lq_wide_group``); built
+    at first use."""
     _check_wide_size(nx, nu)
-    w32, w64 = (riccati_lq_wide_warps(nx, nu, dt) for dt in (torch.float32, torch.float64))
+    if group is not None and group not in RICCATI_WIDE_GROUPS:
+        raise ValueError(f"riccati_lq_wide groups are {RICCATI_WIDE_GROUPS} warps, "
+                         f"got {group}")
+    g32, g64 = (group or riccati_lq_wide_group(nx, nu, dt)
+                for dt in (torch.float32, torch.float64))
     return ('#include "riccati_lq_wide.cuh"\n'
-            f"#define RICCATI_LQ_WIDE_WARPS_F32 {w32}\n"
-            f"#define RICCATI_LQ_WIDE_WARPS_F64 {w64}\n"
+            f"#define RICCATI_LQ_WIDE_GROUP_F32 {g32}\n"
+            f"#define RICCATI_LQ_WIDE_GROUP_F64 {g64}\n"
             f"RICCATI_LQ_WIDE_EXPORTS({nx}, {nu})\n")
 
 
 @functools.lru_cache(maxsize=None)
-def _lq_wide_entry(nx: int, nu: int, dtype, host: bool):
+def _lq_wide_entry(nx: int, nu: int, dtype, host: bool, group=None):
     """(entry point bound with ctypes, stash words per stage) of the wide
     instance for (nx, nu, dtype), built at first use."""
-    text = riccati_lq_wide_source(nx, nu)
+    text = riccati_lq_wide_source(nx, nu, group)
     suffix = _suffix(dtype)
     if host:
         fn = getattr(_build.load_host(text), f"riccati_lq_wide_host_{suffix}")
@@ -302,9 +347,9 @@ def _lq_wide_entry(nx: int, nu: int, dtype, host: bool):
 
 
 def riccati_lq_wide_layout(lib, dtype) -> tuple:
-    """(warps per block, dynamic shared memory bytes, stash words per stage)
-    of a built wide instance, as its ``riccati_lq_wide_layout_*`` entry point
-    reports them."""
+    """(warps per scenario, dynamic shared memory bytes, stash words per
+    stage) of a built wide instance, as its ``riccati_lq_wide_layout_*``
+    entry point reports them."""
     out = (ctypes.c_int * 3)()
     getattr(lib, f"riccati_lq_wide_layout_{_suffix(dtype)}")(out)
     return tuple(out)
@@ -319,19 +364,20 @@ def _lq_wide_buffers(args, Bt, N, nx, nu, sw):
 
 
 def riccati_lq_wide_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
-                         reg: float = 1e-8):
+                         reg: float = 1e-8, group=None):
     """The batched stagewise LQ solve of ``riccati_lq_cuda`` for the sizes
-    above its cap, as ONE CUDA kernel with a warp per scenario
+    above its cap, as ONE CUDA kernel with a group of warps per scenario
     (csrc/riccati_lq_wide.cuh), replacing
     ``hilo_mpc_tpu/ops/pallas_kernels.py:riccati_lq_pallas`` there. Same
     arguments, shapes and returns as ``riccati_lq_cuda``; 1 <= nx <=
     ``RICCATI_WIDE_MAX_NX`` and 1 <= nu <= ``RICCATI_WIDE_MAX_NU`` (each size
-    is built at its first use). Counts its own launches."""
+    is built at its first use). ``group`` (warps per scenario) overrides
+    ``riccati_lq_wide_group``. Counts its own launches."""
     args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
     if not any(t.is_cuda for t in args):
         return riccati_lq_reference(*args, reg=reg)
     Bt, N, nx, nu = _check_lq(args, host=False, check_size=_check_wide_size)
-    fn, sw = _lq_wide_entry(nx, nu, A.dtype, host=False)
+    fn, sw = _lq_wide_entry(nx, nu, A.dtype, False, group)
     bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
     with torch.cuda.device(A.device):
         rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg),
@@ -346,13 +392,14 @@ riccati_lq_wide_cuda.launches = 0
 
 
 def riccati_lq_wide_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
-                         reg: float = 1e-8):
-    """The wide kernel's own warp schedule (csrc/riccati_lq_wide.cuh),
-    compiled with the host C++ compiler, on CPU tensors: the 32 lanes of each
-    phase in a loop. Same arguments and returns as ``riccati_lq_wide_cuda``."""
+                         reg: float = 1e-8, group=None):
+    """The wide kernel's own group schedule (csrc/riccati_lq_wide.cuh),
+    compiled with the host C++ compiler, on CPU tensors: the threads of the
+    group in a loop in each phase, the 32 lanes of warp 0 in the gain. Same
+    arguments and returns as ``riccati_lq_wide_cuda``."""
     args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
     Bt, N, nx, nu = _check_lq(args, host=True, check_size=_check_wide_size)
-    fn, sw = _lq_wide_entry(nx, nu, A.dtype, host=True)
+    fn, sw = _lq_wide_entry(nx, nu, A.dtype, True, group)
     bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
     if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg)) != 0:
         raise RuntimeError("riccati_lq_wide_host refused its arguments")
@@ -410,7 +457,8 @@ def _fgm_fn():
     fn = lib.fgm_boxqp_f32
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
+                       + [ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -424,8 +472,8 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
 
     Shapes: H (n, n), G (n, nx), x0_batch (B, nx), lb and ub (n,) (infinite
     entries allowed), u0_batch (B, n) or None; float32, contiguous, one CUDA
-    device; 1 <= n <= ``FGM_MAX_N`` (above ``FGM_NARROW_MAX_N`` the kernel
-    stages H through shared memory in column blocks, ``fgm_boxqp_design``).
+    device; 1 <= n <= ``FGM_MAX_N`` (above ``FGM_NARROW_MAX_N`` H is split
+    over the blocks of a thread-block cluster, ``fgm_boxqp_design``).
     Returns u (B, n) float32. ``constants``
     is (1/L, β) as ``fgm_constants`` gives them; when it is None they are
     taken from H here, and that copy of H to the host waits for the card
@@ -462,24 +510,45 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
     return out
 
 
+def fgm_boxqp_cluster_rows(n: int, cluster: int) -> int:
+    """Rows of H one block of a cluster keeps: ceil(n / cluster) rounded up
+    to the 4 rows of a thread (csrc/fgm_boxqp.cu:launch_cluster)."""
+    return -(-(-(-n // cluster)) // 4) * 4
+
+
+def fgm_boxqp_cluster_smem_bytes(n: int, cluster: int, tile: int) -> int:
+    """Dynamic shared memory of one block of the cluster design: its rows of
+    H and the tile's y, double-buffered."""
+    return 4 * (n * fgm_boxqp_cluster_rows(n, cluster) + 2 * n * tile)
+
+
 def fgm_boxqp_design(n: int) -> tuple:
-    """The design of csrc/fgm_boxqp.cu that takes a QP of n variables:
-    ("resident", 0) for n <= ``FGM_NARROW_MAX_N`` (Hᵀ resident in shared
-    memory), ("column_blocks", RB) above it (H staged in column blocks, RB
-    rows per thread). Raises ValueError outside 1 <= n <= ``FGM_MAX_N``."""
+    """The design of csrc/fgm_boxqp.cu that takes a QP of n variables, as
+    (name, blocks per tile, scenarios per tile): ("resident", 1, 64) for
+    n <= ``FGM_NARROW_MAX_N`` (Hᵀ in one block's shared memory), else
+    ("cluster", C, TB): H split by rows over a cluster of C blocks, the
+    first of ``FGM_CLUSTER_DESIGNS`` whose block fits ``RICCATI_SMEM_MAX``
+    (227 KB): (4, 32) up to n = 368, (8, 32) up to 468, (8, 16) above.
+    Each puts at least 128 blocks on the card at B = 1024. Raises
+    ValueError outside 1 <= n <= ``FGM_MAX_N``."""
     if not 1 <= n <= FGM_MAX_N:
         raise ValueError(f"fgm_boxqp_cuda takes 1 <= n <= FGM_MAX_N = {FGM_MAX_N} "
                          f"QP variables, got n={n}")
     if n <= FGM_NARROW_MAX_N:
-        return "resident", 0
-    return "column_blocks", 16 if -(-n // 16) <= 16 else 32
+        return "resident", 1, 64
+    for cluster, tile in FGM_CLUSTER_DESIGNS:
+        if fgm_boxqp_cluster_smem_bytes(n, cluster, tile) <= RICCATI_SMEM_MAX:
+            return "cluster", cluster, tile
+    raise AssertionError(f"no cluster design fits n={n}")
 
 
 def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta):
-    """The bare launch behind ``fgm_boxqp_cuda``: inputs already checked,
-    finite bounds, constants given. Not counted; ``chip_smoke.py`` times the
-    kernel alone through it."""
+    """The bare launch behind ``fgm_boxqp_cuda``, in the design
+    ``fgm_boxqp_design`` picks: inputs already checked, finite bounds,
+    constants given. Not counted; ``chip_smoke.py`` times the kernel alone
+    through it."""
     Bt, n = x0_batch.shape[0], H.shape[0]
+    _, cluster, tile = fgm_boxqp_design(n)
     out = torch.empty((Bt, n), dtype=torch.float32, device=x0_batch.device)
     with torch.cuda.device(x0_batch.device):
         stream = torch.cuda.current_stream(x0_batch.device).cuda_stream
@@ -487,7 +556,7 @@ def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta):
                        lb.data_ptr(), ub.data_ptr(),
                        None if u0_batch is None else u0_batch.data_ptr(),
                        out.data_ptr(), Bt, n, G.shape[1], int(iters), inv_L, beta,
-                       stream)
+                       cluster, tile, stream)
     if rc != 0:
         raise RuntimeError(f"fgm_boxqp kernel launch failed: cudaError {rc}")
     return out

@@ -113,9 +113,9 @@ def make_lq_solver(reg: float = 1e-9):
     CPU tensors go to the plain sweeps above. CUDA tensors ALWAYS go to a
     hand-written kernel, in float32 and float64 alike: (nx, nu) up to (8, 4)
     to the tiled ``ops/cuda_kernels.py:riccati_lq_cuda``, larger sizes to
-    ``riccati_lq_wide_cuda`` (a warp per scenario, up to (32, 16)). Unlike
-    the JAX dispatcher there is no dtype or shape exit to the plain path; the
-    kernel raises on what it does not take. The
+    ``riccati_lq_wide_cuda`` (a group of warps per scenario, up to
+    (32, 16)). Unlike the JAX dispatcher there is no dtype or shape exit to
+    the plain path; the kernel raises on what it does not take. The
     blocks are broadcast to one batch shape (flattened to one batch axis)
     and made contiguous first, because the kernel reads dense batch-first
     arrays."""

@@ -178,6 +178,79 @@ def _fgm_pair(horizon=10, P=None, state_bounds=False):
 X0S = np.array([[1.0, 0.0], [2.0, -1.0], [-1.5, 0.5], [0.3, 0.3]])
 
 
+def _count_condensing(monkeypatch):
+    """Count the calls of condense_lmpc and fgm_constants made by LMPC."""
+    from hilo_mpc_tpu_torch.control import lmpc as lmpc_module
+    calls = {"condense": 0, "spectrum": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(lmpc_module, "condense_lmpc",
+                        counted("condense", lmpc_module.condense_lmpc))
+    monkeypatch.setattr(lmpc_module, "fgm_constants",
+                        counted("spectrum", lmpc_module.fgm_constants))
+    return calls
+
+
+def test_fgm_path_condenses_once(monkeypatch):
+    """A second call with the same configuration condenses nothing and takes
+    no spectrum; its result is bit-equal to the first."""
+    calls = _count_condensing(monkeypatch)
+    _, tl = _fgm_pair()
+    first = tl.optimize_batch_fgm(X0S, iters=50)
+    second = tl.optimize_batch_fgm(X0S[::-1].copy(), iters=50)
+    third = tl.optimize_batch_fgm(X0S, iters=50, backend="xla")
+    assert calls == {"condense": 1, "spectrum": 1}
+    np.testing.assert_array_equal(second, first[::-1])
+    np.testing.assert_array_equal(third, first)
+
+
+FGM_CHANGES = {
+    "Q": lambda c: setattr(c, "Q", np.diag([4.0, 1.0])),
+    "R": lambda c: setattr(c, "R", np.array([[0.3]])),
+    "P": lambda c: setattr(c, "P", np.diag([8.0, 2.0])),
+    "horizon": lambda c: setattr(c, "horizon", 7),
+    "u_bounds": lambda c: c.set_box_constraints(u_lb=-0.05, u_ub=0.04),
+}
+
+
+@pytest.mark.parametrize("change", sorted(FGM_CHANGES))
+def test_fgm_cache_follows_the_configuration(change, monkeypatch):
+    """Changing Q, R, P, the horizon or the input bounds after a call builds
+    the condensed QP anew: the next call gives what a controller set up with
+    the new configuration from the start gives, bit for bit."""
+    calls = _count_condensing(monkeypatch)
+    x0s = 0.2 * X0S                   # first moves inside the bounds
+    _, tl = _fgm_pair()
+    before = tl.optimize_batch_fgm(x0s, iters=60)
+    FGM_CHANGES[change](tl)
+    after = tl.optimize_batch_fgm(x0s, iters=60)
+    assert calls == {"condense": 2, "spectrum": 2}
+    _, fresh = _fgm_pair()
+    FGM_CHANGES[change](fresh)
+    np.testing.assert_array_equal(after, fresh.optimize_batch_fgm(x0s, iters=60))
+    assert not np.array_equal(after, before)
+
+
+def test_fgm_cached_equals_uncached():
+    """The cached path against the uncached computation it replaces: the
+    condensed QP cast to float32 tensors, x0 cast from float64, the
+    constants of the float64 H; bit-equal on the CPU, call after call."""
+    _, tl = _fgm_pair(P=np.diag([8.0, 2.0]))
+    x0s = np.random.default_rng(11).normal(size=(37, 2))
+    H, G, lb, ub = tl.condensed_qp()
+    kw = dict(dtype=F32)
+    ref = fgm_boxqp_reference(*(torch.as_tensor(a, **kw) for a in (H, G, x0s, lb, ub)),
+                              80, constants=fgm_constants(H))
+    for _ in range(2):
+        np.testing.assert_array_equal(tl.optimize_batch_fgm(x0s, iters=80),
+                                      ref[:, :1].numpy())
+
+
 @pytest.mark.parametrize("backend", ["auto", "xla"])
 @pytest.mark.parametrize("state_bounds", [False, True])
 def test_optimize_batch_fgm_matches_jax(state_bounds, backend):
