@@ -16,18 +16,25 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          build's tiles (TB, MINB, the region per scenario in a global
          scratch, no shared memory), and the FGM kernel's cluster design
          (blocks per cluster, scenarios per tile, rows and shared memory
-         per block, threads) for each n phase 1 checks above 128.
+         per block, threads) for each n phase 1 checks above 128; the FGM
+         register design (csrc/fgm_boxqp_reg.cuh) for each n up to 64 that
+         phases 1 and 4 run or time, with its registers, spills (none where
+         the router takes it) and blocks per SM.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
          16-byte aligned; the wide variant at (9, 2), (16, 4), (16, 8) and
-         its cap (32, 16) on a ragged batch; the FGM kernel up to n = 512,
-         through both of its designs), and each timed at the shape of its
+         its cap (32, 16) on a ragged batch; the FGM kernels up to n = 512,
+         through all three designs, with and without u0 and with infinite
+         bounds; at the flagship FGM shape the register design against the
+         resident kernel too), and each timed at the shape of its
          main path (the wide variant at phase 4's (16, 8), B=1024, float64
          and float32, at B=16384, and in every group size at (9, 2),
          (16, 8) and the cap in both dtypes; the FGM
          kernel's cluster design at phase 4's n = 160, B=1024 and
-         B=131072),
+         B=131072; the register design and the resident kernel against each
+         other at n in FGM_CROSSOVER_NS, B=131072, which sets FGM_REG_MAX_N,
+         the resident kernel's own row at n = 64),
          beside the least time the card could take for the same work (the
          Riccati kernel in float32 and float64, with its share of the bound
          and the bytes/s it reaches). Each kernel is timed as one call alone,
@@ -57,9 +64,13 @@ Phase 4  the linear-MPC path at full width: a discrete double integrator
          through the wide Riccati variant and whose FGM path (n = 160, at
          B=131072 with the plain comparison on its first 1024 scenarios)
          through the FGM kernel's cluster design, each against its plain
-         counterpart and the two against each other. For both models the
+         counterpart and the two against each other. A third: four
+         double integrators over 16 stages, whose FGM path (n = 64,
+         B=131072) runs the resident kernel. For the first two models the
          FGM call's wall is split into the copies (x0 in, cast to float32
-         on the host and copied once; u out), the kernel and the rest.
+         on the host and copied once; u out), the kernel and the rest, the
+         rest by part (configuration key, checks, allocation, device
+         context, the ctypes launch).
 Phase 5  the golden fixture tests/golden/lmpc_di.npz replayed through
          LMPC.optimize in float64 on the card.
 Phase 6  the whole-solve path at full width: the flagship NMPC with
@@ -88,8 +99,8 @@ B_MAIN = 131072
 N = 20
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
-KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_column_blocks",
-           "whole_ip")
+KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
+           "fgm_boxqp_column_blocks", "whole_ip")
 RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4))
 # the wide variant: phase 1's sizes (phase 4's (16, 8) and the cap among
 # them), phase 4's size, and the sizes timed in every group size
@@ -101,8 +112,17 @@ RICCATI_WIDE_GROUP_SIZES = ((9, 2), (16, 8), (32, 16))
 N_DI = 8
 B_WIDE = 1024
 B_FLEET = 16384
-# the FGM sizes phase 1 checks above 128 (the cluster design)
+# the FGM sizes phase 1 checks above 128 (the cluster design) and up to 128
+# (the register design up to FGM_REG_MAX_N, the resident kernel above), the
+# sizes at which it times the two n <= 128 designs against each other, and
+# the size of the resident kernel's own row in the kernels line, which
+# phase 4's third model reaches (four double integrators, N=16)
 FGM_WIDE_NS = (129, 160, 256, 512)
+FGM_NARROW_NS = (1, 6, 20, 24, 32, 64, 128)
+FGM_CROSSOVER_NS = tuple(range(1, 29)) + (32, 48, 64, 96, 128)
+FGM_RESIDENT_N = 64
+N_DI_RESIDENT = 4
+N_RESIDENT = 16
 # back-to-back timings run this many calls between two events, so the
 # host's time to enqueue a call hides behind the previous one
 INNER = 10
@@ -247,7 +267,9 @@ def phase1(report):
     """Each kernel vs its plain version on the card."""
     phase1_riccati(report.setdefault("riccati_lq", {}))
     phase1_riccati_wide(report.setdefault("riccati_lq_wide", {}))
-    phase1_fgm(report.setdefault("fgm_boxqp", {}))
+    report.setdefault("fgm_boxqp", {})
+    report.setdefault("fgm_boxqp_resident", {})
+    phase1_fgm(report)
     phase1_fgm_cluster(report.setdefault("fgm_boxqp_column_blocks", {}))
     phase1_whole_ip(report.setdefault("whole_ip", {}))
 
@@ -431,21 +453,29 @@ def random_qp(n, nx=2, seed=0):
     return M @ M.T + np.eye(n), rng.normal(size=(n, nx)), -np.ones(n), np.ones(n)
 
 
+def fgm_dev(a):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.asarray(a, dtype=float), dtype=torch.float32,
+                           device="cuda").contiguous()
+
+
 def phase1_fgm(report):
+    """The FGM kernels against the plain version at n in FGM_NARROW_NS (the
+    register design and the resident kernel), FGM_WIDE_NS and FGM_MAX_N (the
+    cluster kernel), with and without u0 and infinite bounds, to 1e-4; the
+    flagship (phase 4's QP, n=20, B=131072) timed; the two n <= 128 designs
+    timed against each other (fgm_crossover); the resident kernel's own row
+    at n = FGM_RESIDENT_N, B=131072. Fills report["fgm_boxqp"] and
+    report["fgm_boxqp_resident"]."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
         FGM_MAX_N, fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_launch,
         fgm_boxqp_reference, fgm_constants)
 
-    def dev(a):
-        return torch.as_tensor(np.asarray(a, dtype=float), dtype=torch.float32,
-                               device="cuda").contiguous()
-
-    max_err = 0.0
-    # n <= 128 keeps Hᵀ in one block; 129, 160, 256 and 512 split it over
-    # the blocks of a cluster
-    for n in sorted({6, 20, 64, 128, *FGM_WIDE_NS, FGM_MAX_N}):
+    max_err = {"registers": 0.0, "resident": 0.0, "cluster": 0.0}
+    for n in sorted({*FGM_NARROW_NS, *FGM_WIDE_NS, FGM_MAX_N}):
         for with_u0 in (False, True):
             for inf in (False, True):
                 H, G, lb, ub = random_qp(n)
@@ -453,8 +483,9 @@ def phase1_fgm(report):
                     lb[::2], ub[1::3] = -np.inf, np.inf
                 rng = np.random.default_rng(1)
                 x0 = rng.normal(size=(1000, 2))
-                u0 = dev(0.1 * rng.normal(size=(1000, n))) if with_u0 else None
-                args = (dev(H), dev(G), dev(x0), dev(lb), dev(ub), 200, u0)
+                u0 = fgm_dev(0.1 * rng.normal(size=(1000, n))) if with_u0 else None
+                args = (fgm_dev(H), fgm_dev(G), fgm_dev(x0), fgm_dev(lb), fgm_dev(ub),
+                        200, u0)
                 err = float((fgm_boxqp_cuda(*args)
                              - fgm_boxqp_reference(*args)).abs().max())
                 torch.cuda.synchronize()
@@ -462,32 +493,93 @@ def phase1_fgm(report):
                     f"iters=200 u0={with_u0} inf_bounds={inf}: max|kernel-plain| "
                     f"= {err:.3e}")
                 assert err <= 1e-4, err
-                max_err = max(max_err, err)
+                design = fgm_boxqp_design(n)[0]
+                max_err[design] = max(max_err[design], err)
     # the flagship shape: phase 4's condensed QP (n = N·nu = 20, nx = 2),
     # with the constants from its float64 H as LMPC.optimize_batch_fgm takes them
     H, G, lb, ub = build_di_lmpc(torch.float32, {}, setup=False).condensed_qp()
+    n = H.shape[0]
     consts = fgm_constants(H)
     x0 = np.random.default_rng(0).standard_normal((B_MAIN, 2))
-    args = (dev(H), dev(G), dev(x0), dev(lb), dev(ub), FGM_ITERS)
-    err = float((fgm_boxqp_cuda(*args, constants=consts)
-                 - fgm_boxqp_reference(*args, constants=consts)).abs().max())
+    args = (fgm_dev(H), fgm_dev(G), fgm_dev(x0), fgm_dev(lb), fgm_dev(ub), FGM_ITERS)
+    out = fgm_boxqp_cuda(*args, constants=consts)
+    err = float((out - fgm_boxqp_reference(*args, constants=consts)).abs().max())
+    resident = fgm_boxqp_launch(*args, None, *consts, design="resident")
     torch.cuda.synchronize()
-    log(f"phase1 fgm_boxqp B={B_MAIN} n={H.shape[0]} iters={FGM_ITERS} (phase 4's "
-        f"QP): max|kernel-plain| = {err:.3e}")
+    same = float((out - resident).abs().max())
+    log(f"phase1 fgm_boxqp B={B_MAIN} n={n} iters={FGM_ITERS} (phase 4's QP, "
+        f"{fgm_boxqp_design(n)[0]}): max|kernel-plain| = {err:.3e}, "
+        f"max|registers - resident| = {same:.3e}")
     assert err <= 1e-4, err
-    max_err = max(max_err, err)
     kernel = lambda: fgm_boxqp_launch(*args, None, *consts)  # noqa: E731
     ms = cuda_time_ms(kernel)
     b2b_ms = cuda_time_ms(kernel, inner=INNER)
     wrapper_ms = cuda_time_ms(lambda: fgm_boxqp_cuda(*args, constants=consts))
     plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
-    b_ms, b_by = bound_ms(*fgm_work(B_MAIN, H.shape[0], 2, FGM_ITERS))
-    log(f"phase1 fgm_boxqp B={B_MAIN} n={H.shape[0]} nx=2 iters={FGM_ITERS} float32: "
-        f"kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} "
-        f"calls per run), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(median of 10 runs, CUDA events); bound {b_ms:.4f} ms ({b_by})")
-    report.update(max_abs_err=max_err, ms=ms, back_to_back_ms=b2b_ms,
-                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound_ms(*fgm_work(B_MAIN, n, 2, FGM_ITERS))
+    log(f"phase1 fgm_boxqp B={B_MAIN} n={n} nx=2 iters={FGM_ITERS} float32 "
+        f"({fgm_boxqp_design(n)[0]}): kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms "
+        f"back to back ({INNER} calls per run), wrapper {wrapper_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (median of 10 runs, CUDA events); bound {b_ms:.4f} ms "
+        f"({b_by}): {b_ms / ms:.1%} of the bound one call, {b_ms / b2b_ms:.1%} back "
+        f"to back")
+    report["fgm_boxqp"].update(max_abs_err=max(max_err["registers"], err), ms=ms,
+                               back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+    report["fgm_boxqp_resident"]["max_abs_err"] = max_err["resident"]
+    fgm_crossover(report)
+
+
+def fgm_crossover(report=None):
+    """The two designs for n <= 128 (the register design up to
+    FGM_REG_BUILD_MAX_N, and the resident kernel) at each n of
+    FGM_CROSSOVER_NS, B=131072, 100
+    iterations, on random_qp(n): each against the plain version on the first
+    1024 scenarios (1e-4), timed one call (median of 5) and back to back
+    (median of 3 runs of INNER calls), beside the bound; the router's pick
+    must be the faster back to back. With a report, the resident kernel's
+    row at FGM_RESIDENT_N."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (
+        FGM_REG_BUILD_MAX_N, FGM_REG_MAX_N, fgm_boxqp_design, fgm_boxqp_launch,
+        fgm_boxqp_reference, fgm_constants)
+
+    for n in FGM_CROSSOVER_NS:
+        # the register design builds up to FGM_REG_BUILD_MAX_N only
+        designs = (["registers"] if n <= FGM_REG_BUILD_MAX_N else []) + ["resident"]
+        H, G, lb, ub = random_qp(n, seed=n)
+        consts = fgm_constants(H)
+        x0 = np.random.default_rng(n).standard_normal((B_MAIN, 2))
+        args = (fgm_dev(H), fgm_dev(G), fgm_dev(x0), fgm_dev(lb), fgm_dev(ub), FGM_ITERS)
+        sub = args[:2] + (args[2][:1024],) + args[3:]
+        ref = fgm_boxqp_reference(*sub, constants=consts)
+        b_ms, b_by = bound_ms(*fgm_work(B_MAIN, n, 2, FGM_ITERS))
+        times = {}
+        for design in designs:
+            kernel = lambda d=design: fgm_boxqp_launch(  # noqa: E731
+                *args, None, *consts, design=d)
+            err = float((kernel()[:1024] - ref).abs().max())
+            torch.cuda.synchronize()
+            assert err <= 1e-4, (n, design, err)
+            one = cuda_time_ms(kernel, reps=5, warmup=1)
+            b2b = cuda_time_ms(kernel, reps=3, warmup=1, inner=INNER)
+            times[design] = (one, b2b)
+            log(f"phase1 fgm_boxqp crossover B={B_MAIN} n={n} {design}: "
+                f"max|kernel-plain| on the first 1024 = {err:.3e}; {one:.4f} ms one "
+                f"call, {b2b:.4f} ms back to back; bound {b_ms:.4f} ms ({b_by}): "
+                f"{b_ms / one:.1%} one call, {b_ms / b2b:.1%} back to back")
+            if report is not None and design == "resident" and n == FGM_RESIDENT_N:
+                plain_ms = cuda_time_ms(
+                    lambda: fgm_boxqp_reference(*args, constants=consts), reps=3)
+                row = report["fgm_boxqp_resident"]
+                row.update(max_abs_err=max(row.get("max_abs_err", 0.0), err), ms=one,
+                           back_to_back_ms=b2b, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+        fastest = min(times, key=lambda k: times[k][1])
+        picked = fgm_boxqp_design(n)[0]
+        log(f"phase1 fgm_boxqp crossover n={n}: fastest back to back {fastest}; "
+            f"the router takes {picked} (FGM_REG_MAX_N = {FGM_REG_MAX_N})")
 
 
 def phase1_fgm_cluster(report):
@@ -767,41 +859,93 @@ def build_di_lmpc(dtype, options, setup=True):
     return lmpc
 
 
-def fgm_wall_split(label, lmpc, x0s, reps=5):
-    """The wall of LMPC.optimize_batch_fgm (median of `reps` calls, host
-    clock) split into x0 to the card (the cast to float32 on the host and
-    one copy), the kernel alone (CUDA events), the copy of u back and the
-    rest."""
+def fgm_wall_split(label, lmpc, x0s, reps=20, host_reps=200):
+    """The wall of LMPC.optimize_batch_fgm split by part, host clock. `reps`
+    calls timed whole (median, min, max), then `reps` calls taken step by
+    step in the call's own order (medians): the configuration key
+    (LMPC._fgm_problem), x0 to the card (the cast to float32 on the host and
+    one copy), the wrapper until the launch returns, the wait for the
+    kernel with the copy of u back, numpy. The kernel alone by CUDA events;
+    u out is that wait less the kernel, and the rest is the wall less x0
+    in, kernel and u out. The wrapper's host parts alone on an idle card
+    (medians of `host_reps`): its checks, torch.empty of u, the device
+    context with the current stream, and the ctypes call that enqueues the
+    kernel."""
     import numpy as np
     import torch
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import _fgm_bounds, fgm_boxqp_launch
+    from hilo_mpc_tpu_torch.ops import cuda_kernels as ck
 
-    def host_ms(fn):
+    def host_ms(fn, n, sync=True):
         ts = []
-        for _ in range(reps):
+        for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             ts.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ts)), min(ts), max(ts)
+        torch.cuda.synchronize()
+        return ts
 
-    wall = host_ms(lambda: lmpc.optimize_batch_fgm(x0s, iters=FGM_ITERS))
-    H, G, lb, ub, consts = lmpc._fgm_problem()
-    x0 = lmpc._fgm_x0(x0s)
-    copy_in = host_ms(lambda: lmpc._fgm_x0(x0s))
-    lbf, ubf = _fgm_bounds(lb, ub)
-    U = fgm_boxqp_launch(H, G, x0, lbf, ubf, FGM_ITERS, None, *consts)
-    k_ms = cuda_time_ms(lambda: fgm_boxqp_launch(H, G, x0, lbf, ubf, FGM_ITERS, None,
-                                                 *consts), reps=5)
+    wall = host_ms(lambda: lmpc.optimize_batch_fgm(x0s, iters=FGM_ITERS), reps)
     nu = lmpc._model.n_u
-    copy_out = host_ms(lambda: U[:, :nu].cpu().numpy())
-    rest = wall[0] - copy_in[0] - k_ms - copy_out[0]
-    log(f"{label} optimize_batch_fgm wall split (B={x0s.shape[0]}, medians of "
-        f"{reps}; host clock, kernel by CUDA events): wall {wall[0]:.4f} ms "
-        f"(min {wall[1]:.4f}, max {wall[2]:.4f}) = x0 to the card {copy_in[0]:.4f} ms "
-        f"(cast and copy; min {copy_in[1]:.4f}, max {copy_in[2]:.4f}) + kernel "
-        f"{k_ms:.4f} ms + u to the host {copy_out[0]:.4f} ms + rest {rest:.4f} ms")
+    steps = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        H, G, lb, ub, consts = lmpc._fgm_problem()
+        t.append(time.perf_counter())
+        x0 = lmpc._fgm_x0(x0s)
+        t.append(time.perf_counter())
+        U = ck.fgm_boxqp_cuda(H, G, x0, lb, ub, FGM_ITERS, constants=consts)
+        t.append(time.perf_counter())
+        u = U[:, :nu].cpu()
+        t.append(time.perf_counter())
+        u.numpy()
+        t.append(time.perf_counter())
+        steps.append(np.diff(t) * 1e3)
+    key, x0_in, wrapper, wait_out, to_numpy = np.median(steps, axis=0)
+    k_ms = cuda_time_ms(lambda: ck.fgm_boxqp_launch(H, G, x0, lb, ub, FGM_ITERS, None,
+                                                    *consts), reps=5)
+    w = float(np.median(wall))
+    u_out = wait_out - k_ms
+    rest = w - x0_in - k_ms - u_out
+
+    Bt, n, nx = x0.shape[0], H.shape[0], G.shape[1]
+    name, cluster, tile = ck.fgm_boxqp_design(n)
+    dev = x0.device
+    ptrs = (H.data_ptr(), G.data_ptr(), x0.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+            None, U.data_ptr())
+
+    def context():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    stream = context()
+    if name == "registers":
+        fn = ck._fgm_reg_entry(n, False)
+        call = lambda: fn(*ptrs, Bt, nx, FGM_ITERS, consts[0], consts[1],  # noqa: E731
+                          stream)
+    else:
+        fn = ck._fgm_fn()
+        call = lambda: fn(*ptrs, Bt, n, nx, FGM_ITERS, consts[0], consts[1],  # noqa: E731
+                          cluster, tile, stream)
+    alone = {
+        "checks": lambda: ck._check_fgm(H, G, x0, lb, ub, FGM_ITERS, None, dev,
+                                        ck.fgm_boxqp_design),
+        "empty": lambda: torch.empty((Bt, n), dtype=torch.float32, device=dev),
+        "context": context,
+        "ctypes launch": call,
+    }
+    parts = {k: float(np.median(host_ms(f, host_reps, False))) for k, f in alone.items()}
+    log(f"{label} optimize_batch_fgm wall split (B={x0s.shape[0]}, n={n}, {name}; "
+        f"{reps} calls; host clock, kernel by CUDA events): wall {w:.4f} ms (min "
+        f"{min(wall):.4f}, max {max(wall):.4f}) = x0 to the card {x0_in:.4f} ms (cast "
+        f"and copy) + kernel {k_ms:.4f} ms + u to the host {u_out:.4f} ms + rest "
+        f"{rest:.4f} ms; the rest step by step: configuration key {key:.4f}, wrapper "
+        f"until the launch returns {wrapper:.4f}, numpy {to_numpy:.4f}, between steps "
+        f"{rest - key - wrapper - to_numpy:.4f} ms; the wrapper's parts alone (medians "
+        f"of {host_reps}, ms): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
 
 
 def phase4(report):
@@ -865,6 +1009,7 @@ def phase4(report):
     assert dev <= 5e-4, dev
 
     phase4_wide(report)
+    phase4_resident(report)
 
     lqr = LQR(di_model())
     lqr.horizon = None
@@ -878,22 +1023,8 @@ def phase4(report):
 
 
 def wide_di_lmpc(dtype, options):
-    """N_DI decoupled double integrators (the model of build_di_lmpc, block
-    diagonal: nx=16, nu=8), N=20, Q, R and P = Q block diagonal, |u| <= 1."""
-    import numpy as np
-    import scipy.linalg
-    from hilo_mpc_tpu_torch import LMPC, Model
-    m = Model(name="lin8", discrete=True)
-    m.set_state_space(A=scipy.linalg.block_diag(*[np.array(DI_A)] * N_DI),
-                      B=scipy.linalg.block_diag(*[np.array(DI_B)] * N_DI))
-    lmpc = LMPC(m)
-    lmpc.horizon = N
-    lmpc.Q = scipy.linalg.block_diag(*[np.array(DI_Q)] * N_DI)
-    lmpc.R = scipy.linalg.block_diag(*[np.array(DI_R)] * N_DI)
-    lmpc.P = lmpc.Q
-    lmpc.set_box_constraints(u_lb=[-1.0] * N_DI, u_ub=[1.0] * N_DI)
-    lmpc.setup(options={"dt": 0.1, **options}, device="cuda", dtype=dtype)
-    return lmpc
+    """N_DI decoupled double integrators (nx=16, nu=8), N=20."""
+    return decoupled_di_lmpc(N_DI, N, dtype, options)
 
 
 def phase4_wide(report):
@@ -965,6 +1096,57 @@ def phase4_wide(report):
     fgm_wall_split("phase4 second model", fgm, x0_fleet)
     report["riccati_lq_wide"]["launches"] = launches
     report["fgm_boxqp_column_blocks"]["launches"] = ran
+
+
+def decoupled_di_lmpc(copies, horizon, dtype, options):
+    """`copies` decoupled double integrators (the model of build_di_lmpc,
+    block diagonal), Q, R and P = Q block diagonal, |u| <= 1."""
+    import numpy as np
+    import scipy.linalg
+    from hilo_mpc_tpu_torch import LMPC, Model
+    m = Model(name=f"lin{copies}", discrete=True)
+    m.set_state_space(A=scipy.linalg.block_diag(*[np.array(DI_A)] * copies),
+                      B=scipy.linalg.block_diag(*[np.array(DI_B)] * copies))
+    lmpc = LMPC(m)
+    lmpc.horizon = horizon
+    lmpc.Q = scipy.linalg.block_diag(*[np.array(DI_Q)] * copies)
+    lmpc.R = scipy.linalg.block_diag(*[np.array(DI_R)] * copies)
+    lmpc.P = lmpc.Q
+    lmpc.set_box_constraints(u_lb=[-1.0] * copies, u_ub=[1.0] * copies)
+    lmpc.setup(options={"dt": 0.1, **options}, device="cuda", dtype=dtype)
+    return lmpc
+
+
+def phase4_resident(report):
+    """The third linear model: N_DI_RESIDENT decoupled double integrators
+    over N_RESIDENT stages, so n = FGM_RESIDENT_N lies above the register
+    design's range and the FGM path runs the resident kernel, at B=131072,
+    against the plain version on its first 1024 scenarios."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import fgm_boxqp_cuda, fgm_boxqp_design
+
+    fgm = decoupled_di_lmpc(N_DI_RESIDENT, N_RESIDENT, torch.float32, {})
+    n = N_RESIDENT * N_DI_RESIDENT
+    assert n == FGM_RESIDENT_N and fgm_boxqp_design(n)[0] == "resident"
+    x0s = np.random.default_rng(7).standard_normal((B_MAIN, 2 * N_DI_RESIDENT))
+    fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS)     # untimed warm-up
+    torch.cuda.synchronize()
+    fgm_boxqp_cuda.launches = 0
+    t0 = time.perf_counter()
+    u = fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS)
+    t_fgm = time.perf_counter() - t0
+    ran = fgm_boxqp_cuda.launches
+    assert u.shape == (B_MAIN, N_DI_RESIDENT) and np.isfinite(u).all()
+    assert np.abs(u).max() <= 1.0 + 1e-6
+    ref = fgm.optimize_batch_fgm(x0s[:1024], iters=FGM_ITERS, backend="xla")
+    dev = float(np.abs(u[:1024] - ref).max())
+    log(f"phase4 third model optimize_batch_fgm n={n} {fgm_boxqp_design(n)} "
+        f"B={B_MAIN} iters={FGM_ITERS} float32: {B_MAIN / t_fgm:.1f} solves/s "
+        f"({t_fgm * 1e3:.3f} ms wall), fgm_boxqp launches {ran}; first 1024 "
+        f"scenarios: max|u_kernel - u_plain| = {dev:.3e}")
+    assert ran == 1 and dev <= 1e-4, (ran, dev)
+    report["fgm_boxqp_resident"]["launches"] = ran
 
 
 def phase5():
@@ -1067,7 +1249,9 @@ def build_jobs():
     launch."""
     import torch
     from hilo_mpc_tpu_torch.ops import _build
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import (RICCATI_WIDE_GROUPS,
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (FGM_REG_BUILD_MAX_N,
+                                                     RICCATI_WIDE_GROUPS,
+                                                     fgm_boxqp_source,
                                                      riccati_lq_source,
                                                      riccati_lq_wide_source)
     from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
@@ -1081,6 +1265,10 @@ def build_jobs():
               riccati_lq_wide_source(nx, nu, g))
              for nx, nu in RICCATI_WIDE_GROUP_SIZES for g in RICCATI_WIDE_GROUPS]
     jobs.append(("fgm_boxqp", _build.library_path, "fgm_boxqp"))
+    # the register design at every n phases 1 and 4 run or time
+    jobs += [(f"fgm_boxqp_reg n={n}", _build.source_library_path, fgm_boxqp_source(n))
+             for n in sorted({*FGM_NARROW_NS, *FGM_CROSSOVER_NS})
+             if n <= FGM_REG_BUILD_MAX_N]
     for name, bounds in WHOLE_IP_BOUNDS.items():
         nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32, bounds)
         nt = nmpc.prepare_batch(flagship_x0s(1))[0].shape[2]
@@ -1098,7 +1286,8 @@ def main():
         return 2
     from hilo_mpc_tpu_torch.ops.codegen_cuda import WIP_MIN_BLOCKS, WIP_TB
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
-        fgm_boxqp_cluster_rows, fgm_boxqp_cluster_smem_bytes, fgm_boxqp_design,
+        FGM_REG_MAX_N, fgm_boxqp_cluster_rows,
+        fgm_boxqp_cluster_smem_bytes, fgm_boxqp_design, fgm_boxqp_reg_layout,
         riccati_lq_layout, riccati_lq_wide_layout)
     device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1125,9 +1314,12 @@ def main():
             for line in fh:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("    " + line.strip())
-                # the wide Riccati and FGM kernels are built to spill nothing
+                # the wide Riccati and FGM kernels are built to spill
+                # nothing (the register design where the router takes it)
+                reg_n = (int(label.split("n=")[1]) if label.startswith("fgm_boxqp_reg")
+                         else 0)
                 if (label.startswith(("riccati_lq_wide", "fgm_boxqp"))
-                        and "spill stores" in line):
+                        and reg_n <= FGM_REG_MAX_N and "spill stores" in line):
                     assert line.split("bytes spill stores")[0].split(",")[-1].strip() == "0", \
                         (label, line)
         dts = (torch.float32, torch.float64)
@@ -1137,6 +1329,13 @@ def main():
                 f"{str(dt)[6:]}: a block of {lay[0]} warps per scenario, {lay[1]} "
                 f"bytes of dynamic shared memory" for dt in dts
                 for lay in [riccati_lq_wide_layout(handle, dt)]))
+        elif label.startswith("fgm_boxqp_reg"):
+            tpb, spb, per_sm, _ = fgm_boxqp_reg_layout(ctypes.CDLL(lib))
+            blocks = -(-B_MAIN // spb)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            log(f"    {tpb} threads and {spb} scenarios per block, {per_sm} blocks "
+                f"resident per SM; at B={B_MAIN} {blocks} blocks, "
+                f"{blocks / sms:.2f} per SM ({blocks / (sms * per_sm):.2f} rounds)")
         elif label == "fgm_boxqp":
             for n in FGM_WIDE_NS:
                 _, c, t = fgm_boxqp_design(n)
@@ -1168,10 +1367,12 @@ def main():
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
                 "riccati_lq_wide": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
                 "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
+                "fgm_boxqp_resident": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_column_blocks": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143"}
     sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
-               "fgm_boxqp": "fgm_boxqp.cu", "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
+               "fgm_boxqp": "fgm_boxqp_reg.cuh", "fgm_boxqp_resident": "fgm_boxqp.cu",
+               "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
                "whole_ip": "whole_ip.cuh"}
     kernels = []
     for name in KERNELS:

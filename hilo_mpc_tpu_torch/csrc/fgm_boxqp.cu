@@ -56,8 +56,12 @@
 // plain float32 FMAs in the order of the n <= 128 design (no tensor cores,
 // no TF32: FGM's accuracy after a fixed iteration count is its result).
 //
-// Rows past n are never stored; scenarios past B compute on zeros and are
-// never stored: no padding reaches device memory. Limits: 1 <= n <= FGM_MAX_N
+// Non-finite bounds become ∓FGM_INF (1e30) as a kernel loads them (the JAX
+// kernel's padding, pallas_kernels.py:67-68). For n <= FGM_REG_MAX_N the
+// router sends the QP to the register design of csrc/fgm_boxqp_reg.cuh in
+// place of fgm_boxqp_kernel. Rows past n are never stored; scenarios past
+// B compute on zeros and are never stored: no padding reaches device
+// memory. Limits: 1 <= n <= FGM_MAX_N
 // (= 512; at n = 512 a cluster of 8 keeps 64 rows, 128 KB, and a tile of 16
 // scenarios, 192 KB per block in all), nx >= 1. The
 // launcher takes PyTorch's current stream, allocates nothing and never
@@ -68,8 +72,13 @@
 
 #define FGM_MAX_N 512
 #define FGM_NARROW_MAX_N 128
+// what a non-finite bound becomes (ops/cuda_kernels.py:FGM_INF)
+#define FGM_INF 1e30f
 
 namespace {
+
+__device__ __forceinline__ float lower_bound(float v) { return isfinite(v) ? v : -FGM_INF; }
+__device__ __forceinline__ float upper_bound(float v) { return isfinite(v) ? v : FGM_INF; }
 
 constexpr int TILE_B = 64;   // scenarios per block
 constexpr int SCEN = 2;      // scenarios per thread
@@ -95,8 +104,8 @@ fgm_boxqp_kernel(const float* __restrict__ H, const float* __restrict__ G,
     Ht[idx] = i < n ? H[static_cast<size_t>(i) * n + j] : 0.0f;
   }
   for (int i = tid; i < n; i += nthreads) {
-    lbs[i] = lb[i];
-    ubs[i] = ub[i];
+    lbs[i] = lower_bound(lb[i]);
+    ubs[i] = upper_bound(ub[i]);
   }
 
   const int row0 = ROWS * threadIdx.y;
@@ -208,8 +217,8 @@ fgm_boxqp_cluster_kernel(const float* __restrict__ H, const float* __restrict__ 
 #pragma unroll
   for (int k = 0; k < CL_ROWS; ++k) {
     const int i = r0 + row0 + k;
-    lo[k] = i < n ? lb[i] : 0.0f;
-    hi[k] = i < n ? ub[i] : 0.0f;
+    lo[k] = i < n ? lower_bound(lb[i]) : 0.0f;
+    hi[k] = i < n ? upper_bound(ub[i]) : 0.0f;
 #pragma unroll
     for (int c = 0; c < CL_SCEN; ++c) {
       const long long b = b0 + s0 + c;

@@ -53,10 +53,17 @@ RICCATI_CHUNKS = (8, 4, 2, 1)
 # (FGM_NARROW_MAX_N); above it H is split by rows over the blocks of a
 # thread-block cluster, resident too: the (blocks per cluster, scenarios per
 # tile) designs csrc/fgm_boxqp.cu builds, in the order fgm_boxqp_design
-# tries them
+# tries them. Up to FGM_REG_MAX_N the register design of
+# csrc/fgm_boxqp_reg.cuh (one scenario per thread, its iterate in
+# registers, H in the constant bank) takes the place of the resident one;
+# that header builds for n up to FGM_REG_BUILD_MAX_N (chip_smoke.py times
+# the two designs there), with FGM_REG_TPB threads per block
 FGM_MAX_N = 512
 FGM_NARROW_MAX_N = 128
 FGM_CLUSTER_DESIGNS = ((4, 32), (8, 32), (8, 16))
+FGM_REG_MAX_N = 24
+FGM_REG_BUILD_MAX_N = 64
+FGM_REG_TPB = 64
 # what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
 FGM_INF = 1e30
 
@@ -421,7 +428,8 @@ def fgm_constants(H):
 
 
 def _fgm_bounds(lb, ub):
-    """Bounds with every non-finite entry replaced by ∓FGM_INF."""
+    """Bounds with every non-finite entry replaced by ∓FGM_INF (the plain
+    version's; every FGM kernel does the same as it loads the bounds)."""
     return (torch.where(torch.isfinite(lb), lb, torch.full_like(lb, -FGM_INF)),
             torch.where(torch.isfinite(ub), ub, torch.full_like(ub, FGM_INF)))
 
@@ -463,37 +471,20 @@ def _fgm_fn():
     return fn
 
 
-def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
-                   constants=None):
-    """B box-QPs  min ½uᵀHu + (G x0_b)ᵀu,  lb <= u <= ub,  with H and G shared,
-    by ``iters`` projected fast-gradient steps from u0 (or zero), as ONE CUDA
-    kernel (csrc/fgm_boxqp.cu), replacing
-    ``hilo_mpc_tpu/ops/pallas_kernels.py:fgm_boxqp_batch``.
-
-    Shapes: H (n, n), G (n, nx), x0_batch (B, nx), lb and ub (n,) (infinite
-    entries allowed), u0_batch (B, n) or None; float32, contiguous, one CUDA
-    device; 1 <= n <= ``FGM_MAX_N`` (above ``FGM_NARROW_MAX_N`` H is split
-    over the blocks of a thread-block cluster, ``fgm_boxqp_design``).
-    Returns u (B, n) float32. ``constants``
-    is (1/L, β) as ``fgm_constants`` gives them; when it is None they are
-    taken from H here, and that copy of H to the host waits for the card
-    (``LMPC.optimize_batch_fgm`` passes them from its float64 H).
-    """
-    args = [H, G, x0_batch, lb, ub] + ([] if u0_batch is None else [u0_batch])
-    if not any(t.is_cuda for t in args):
-        return fgm_boxqp_reference(H, G, x0_batch, lb, ub, iters, u0_batch,
-                                   constants)
+def _check_fgm(H, G, x0_batch, lb, ub, iters, u0_batch, device, check_size):
+    """Shapes, dtype, device and contiguity of the FGM inputs; returns
+    (B, n, nx)."""
     if H.dim() != 2 or G.dim() != 2 or x0_batch.dim() != 2:
         raise ValueError(f"H, G and x0_batch must be 2-D, got {tuple(H.shape)}, "
                          f"{tuple(G.shape)} and {tuple(x0_batch.shape)}")
     n, nx, Bt = H.shape[0], G.shape[1], x0_batch.shape[0]
-    fgm_boxqp_design(n)
+    check_size(n)
     if nx < 1 or not 1 <= Bt < 2 ** 31 or int(iters) < 0:
         raise ValueError(f"need nx >= 1, 1 <= B < 2**31 and iters >= 0, got "
                          f"nx={nx}, B={Bt}, iters={iters}")
+    args = [H, G, x0_batch, lb, ub] + ([] if u0_batch is None else [u0_batch])
     expected = {"H": (n, n), "G": (n, nx), "x0_batch": (Bt, nx), "lb": (n,),
                 "ub": (n,), "u0_batch": (Bt, n)}
-    device = x0_batch.device
     for (name, shape), t in zip(expected.items(), args):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -502,7 +493,32 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
                              f"be torch.float32 on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    lb, ub = _fgm_bounds(lb, ub)
+    return Bt, n, nx
+
+
+def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
+                   constants=None):
+    """B box-QPs  min ½uᵀHu + (G x0_b)ᵀu,  lb <= u <= ub,  with H and G shared,
+    by ``iters`` projected fast-gradient steps from u0 (or zero), as ONE CUDA
+    kernel, replacing ``hilo_mpc_tpu/ops/pallas_kernels.py:fgm_boxqp_batch``:
+    for n <= ``FGM_REG_MAX_N`` the register design (csrc/fgm_boxqp_reg.cuh,
+    built per n at first use), above it csrc/fgm_boxqp.cu
+    (``fgm_boxqp_design``).
+
+    Shapes: H (n, n), G (n, nx), x0_batch (B, nx), lb and ub (n,) (infinite
+    entries allowed: the kernel takes them as ∓``FGM_INF``), u0_batch (B, n)
+    or None; float32, contiguous, one CUDA device; 1 <= n <= ``FGM_MAX_N``.
+    Returns u (B, n) float32. ``constants`` is (1/L, β) as ``fgm_constants``
+    gives them; when it is None they are taken from H here, and that copy
+    of H to the host waits for the card (``LMPC.optimize_batch_fgm`` passes
+    them from its float64 H).
+    """
+    args = [H, G, x0_batch, lb, ub] + ([] if u0_batch is None else [u0_batch])
+    if not any(t.is_cuda for t in args):
+        return fgm_boxqp_reference(H, G, x0_batch, lb, ub, iters, u0_batch,
+                                   constants)
+    _check_fgm(H, G, x0_batch, lb, ub, iters, u0_batch, x0_batch.device,
+               fgm_boxqp_design)
     if constants is None:
         constants = fgm_constants(H)
     out = fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, *constants)
@@ -523,17 +539,21 @@ def fgm_boxqp_cluster_smem_bytes(n: int, cluster: int, tile: int) -> int:
 
 
 def fgm_boxqp_design(n: int) -> tuple:
-    """The design of csrc/fgm_boxqp.cu that takes a QP of n variables, as
-    (name, blocks per tile, scenarios per tile): ("resident", 1, 64) for
-    n <= ``FGM_NARROW_MAX_N`` (Hᵀ in one block's shared memory), else
-    ("cluster", C, TB): H split by rows over a cluster of C blocks, the
-    first of ``FGM_CLUSTER_DESIGNS`` whose block fits ``RICCATI_SMEM_MAX``
-    (227 KB): (4, 32) up to n = 368, (8, 32) up to 468, (8, 16) above.
-    Each puts at least 128 blocks on the card at B = 1024. Raises
-    ValueError outside 1 <= n <= ``FGM_MAX_N``."""
+    """The design that takes a QP of n variables, as (name, blocks per
+    tile, scenarios per tile): ("registers", 1, ``FGM_REG_TPB``) for
+    n <= ``FGM_REG_MAX_N`` (csrc/fgm_boxqp_reg.cuh: a scenario per thread,
+    its iterate in registers); ("resident", 1, 64) up to
+    ``FGM_NARROW_MAX_N`` (csrc/fgm_boxqp.cu, Hᵀ in one block's shared
+    memory); else ("cluster", C, TB): H split by rows over a cluster of C
+    blocks, the first of ``FGM_CLUSTER_DESIGNS`` whose block fits
+    ``RICCATI_SMEM_MAX`` (227 KB): (4, 32) up to n = 368, (8, 32) up to 468,
+    (8, 16) above. Each puts at least 128 blocks on the card at B = 1024.
+    Raises ValueError outside 1 <= n <= ``FGM_MAX_N``."""
     if not 1 <= n <= FGM_MAX_N:
         raise ValueError(f"fgm_boxqp_cuda takes 1 <= n <= FGM_MAX_N = {FGM_MAX_N} "
                          f"QP variables, got n={n}")
+    if n <= FGM_REG_MAX_N:
+        return "registers", 1, FGM_REG_TPB
     if n <= FGM_NARROW_MAX_N:
         return "resident", 1, 64
     for cluster, tile in FGM_CLUSTER_DESIGNS:
@@ -542,23 +562,91 @@ def fgm_boxqp_design(n: int) -> tuple:
     raise AssertionError(f"no cluster design fits n={n}")
 
 
-def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta):
+def _check_reg_size(n: int):
+    if not 1 <= n <= FGM_REG_BUILD_MAX_N:
+        raise ValueError(f"the FGM register design builds for 1 <= n <= "
+                         f"FGM_REG_BUILD_MAX_N = {FGM_REG_BUILD_MAX_N}, got n={n}")
+
+
+def fgm_boxqp_source(n: int) -> str:
+    """Source of the register design (csrc/fgm_boxqp_reg.cuh) for QPs of n
+    variables; built at first use, one library per n."""
+    _check_reg_size(n)
+    return f'#define FGM_REG_N {int(n)}\n#include "fgm_boxqp_reg.cuh"\n'
+
+
+@functools.lru_cache(maxsize=None)
+def _fgm_reg_entry(n: int, host: bool):
+    """The entry point of the register design for n, bound with ctypes and
+    built at first use: ``fgm_reg_f32`` on the card (last argument the
+    stream), ``fgm_reg_host_f32`` on the host."""
+    text = fgm_boxqp_source(n)
+    if host:
+        fn = _build.load_host(text).fgm_reg_host_f32
+    else:
+        fn = _build.load_source(text).fgm_reg_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_double, ctypes.c_double]
+                   + ([] if host else [ctypes.c_void_p]))
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fgm_boxqp_reg_layout(lib) -> tuple:
+    """(threads per block, scenarios per block, resident blocks per SM (0
+    on the host), FGM_REG_MAX_N) of a built register-design library, as its
+    ``fgm_reg_layout_f32`` reports them."""
+    out = (ctypes.c_int * 4)()
+    lib.fgm_reg_layout_f32(out)
+    return tuple(out)
+
+
+def fgm_boxqp_host(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
+                   constants=None):
+    """The register design's own per-scenario code (csrc/fgm_boxqp_reg.cuh),
+    compiled with the host C++ compiler, on CPU tensors: a loop over
+    scenarios. Same arguments and return as ``fgm_boxqp_cuda``, for
+    1 <= n <= ``FGM_REG_BUILD_MAX_N``."""
+    _check_fgm(H, G, x0_batch, lb, ub, iters, u0_batch, torch.device("cpu"),
+               _check_reg_size)
+    Bt, n, nx = x0_batch.shape[0], H.shape[0], G.shape[1]
+    inv_L, beta = fgm_constants(H) if constants is None else constants
+    out = torch.empty((Bt, n), dtype=torch.float32)
+    rc = _fgm_reg_entry(n, True)(
+        H.data_ptr(), G.data_ptr(), x0_batch.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+        None if u0_batch is None else u0_batch.data_ptr(), out.data_ptr(),
+        Bt, nx, int(iters), float(inv_L), float(beta))
+    if rc != 0:
+        raise RuntimeError("fgm_boxqp_host refused its arguments")
+    return out
+
+
+def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta,
+                     design=None):
     """The bare launch behind ``fgm_boxqp_cuda``, in the design
-    ``fgm_boxqp_design`` picks: inputs already checked, finite bounds,
-    constants given. Not counted; ``chip_smoke.py`` times the kernel alone
-    through it."""
-    Bt, n = x0_batch.shape[0], H.shape[0]
-    _, cluster, tile = fgm_boxqp_design(n)
+    ``fgm_boxqp_design`` picks (``design`` = "registers" or "resident"
+    overrides it for n <= 128): inputs already checked, constants given.
+    Not counted; ``chip_smoke.py`` times the kernels alone through it."""
+    Bt, n, nx = x0_batch.shape[0], H.shape[0], G.shape[1]
+    name, cluster, tile = fgm_boxqp_design(n)
+    if design is not None:
+        if n > FGM_NARROW_MAX_N or design not in ("registers", "resident"):
+            raise ValueError(f"design {design!r} does not take n={n}")
+        name = design
     out = torch.empty((Bt, n), dtype=torch.float32, device=x0_batch.device)
+    ptrs = (H.data_ptr(), G.data_ptr(), x0_batch.data_ptr(), lb.data_ptr(),
+            ub.data_ptr(), None if u0_batch is None else u0_batch.data_ptr(),
+            out.data_ptr())
     with torch.cuda.device(x0_batch.device):
         stream = torch.cuda.current_stream(x0_batch.device).cuda_stream
-        rc = _fgm_fn()(H.data_ptr(), G.data_ptr(), x0_batch.data_ptr(),
-                       lb.data_ptr(), ub.data_ptr(),
-                       None if u0_batch is None else u0_batch.data_ptr(),
-                       out.data_ptr(), Bt, n, G.shape[1], int(iters), inv_L, beta,
-                       cluster, tile, stream)
+        if name == "registers":
+            rc = _fgm_reg_entry(n, False)(*ptrs, Bt, nx, int(iters), inv_L, beta,
+                                          stream)
+        else:
+            rc = _fgm_fn()(*ptrs, Bt, n, nx, int(iters), inv_L, beta, cluster, tile,
+                           stream)
     if rc != 0:
-        raise RuntimeError(f"fgm_boxqp kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"fgm_boxqp {name} kernel launch failed: cudaError {rc}")
     return out
 
 

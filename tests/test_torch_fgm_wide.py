@@ -30,7 +30,7 @@ from test_torch_lmpc import _t, make_qp, report
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("n,design", [(1, ("resident", 1, 64)),
+@pytest.mark.parametrize("n,design", [(1, ("registers", 1, 64)),
                                       (128, ("resident", 1, 64)),
                                       (129, ("cluster", 4, 32)),
                                       (256, ("cluster", 4, 32)),
