@@ -10,7 +10,8 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          FGM kernel, and the whole-solve interior point for the flagship
          problem and phase 1's two other row patterns, generated from the
          model (ops/codegen_cuda.py); its build time, registers, stack and
-         spills, each Riccati instance's tiles (TB, KC) or warps per
+         spills (none in the Riccati builds but the tiled cap (8, 4), which
+         only phase 1 runs), each Riccati instance's tiles (TB, KC) or warps per
          scenario (the wide variant's group, also every group size phase
          1 times) and shared memory, each whole-solve
          build's tiles (TB, MINB, the region per scenario in a global
@@ -81,6 +82,27 @@ Phase 6  the whole-solve path at full width: the flagship NMPC with
          share of the cold and the warm solve, and the kernel's share of
          the cold call.
 
+Phase 7  the MHE path at full width: the CSTR with the weights of the repo's
+         own MHE check (tools/tpu_validation.py:165-180: horizon 10,
+         Q = 1e-4, R = 1e-3, P0 = 0.1·I, p = ones(6), dt 0.1, default
+         options, so the fast path) through
+         MovingHorizonEstimator.setup(device="cuda") -> estimate_batch on
+         B=131072 windows made from numpy RK4 plant runs (x_2 measured with
+         noise, 11 rows), float32: one warm-up, the best of 3; windows/s,
+         converged fraction, iterations, the RMS of x_est against the
+         simulated state. Every Newton step is one launch of the Riccati
+         kernel in its free-x0 mode (launches = iterations, read around one
+         run), and the plain backward sweep runs 0 times; the first 1024
+         windows again with the plain LQ step, compared. Then eight decoupled
+         double integrators measured in position (nx = nu = 16), B=1024,
+         float64: the wide variant's free-x0 mode, counted the same way.
+Phase 8  the golden fixture tests/golden/mhe_cstr.npz replayed through
+         MovingHorizonEstimator.estimate in float64 on the card.
+Phase 9  the filters on the card, float64: EKF and UKF on the CSTR over the
+         golden fixture's measurements, x and P at every step against the
+         same filter on the CPU; the particle filter (4096 particles), its
+         draw-explicit step fed draws made on the CPU, against the CPU.
+
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result. The second-to-last line is the kernels JSON object, the last line
@@ -99,9 +121,17 @@ B_MAIN = 131072
 N = 20
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
+GOLDEN_MHE = os.path.join(ROOT, "tests", "golden", "mhe_cstr.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
-           "fgm_boxqp_column_blocks", "whole_ip")
+           "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
+           "riccati_lq_wide_free_x0")
 RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4))
+# the free-x0 mode (MHE's nu = nx): the CSTR's (2, 2), with two estimated
+# parameters (4, 2), the tiled cap (8, 4); the wide variant at (9, 9) and
+# phase 7's (16, 16); phase 7's horizon and batches
+RICCATI_FREE_SIZES = ((2, 2), (4, 2))
+RICCATI_WIDE_FREE_SIZES = ((9, 9), (16, 16))
+N_MHE = 10
 # the wide variant: phase 1's sizes (phase 4's (16, 8) and the cap among
 # them), phase 4's size, and the sizes timed in every group size
 RICCATI_WIDE_SIZES = ((9, 2), (16, 4), (16, 8), (32, 16))
@@ -168,18 +198,20 @@ def bound_ms(nbytes, flops, peak=PEAK_FP32):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def riccati_lq_work(Bt, n, nx, nu, itemsize=4):
+def riccati_lq_work(Bt, n, nx, nu, itemsize=4, free_x0=False):
     """(bytes, FLOPs) of one batched LQ solve: each input read once, each
     output written once; FLOPs of the backward sweep and the forward pass
-    per stage, as the kernel computes them."""
+    per stage, as the kernel computes them. With ``free_x0`` dx0 is not
+    read, and each scenario factors P0 and solves for dx0 once."""
     per_stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
-    inputs = n * per_stage_in + nx * nx + 2 * nx
+    inputs = n * per_stage_in + nx * nx + (1 if free_x0 else 2) * nx
     outputs = (n + 1) * nx + n * (2 * nu + nx + nu * nx) + 1
     back = (2 * nx * nx + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nu * nu * nx
             + 2 * nu * nx * nx + 2 * nu * nx + nu ** 3 // 3 + 2 * nu * nu * (nx + 1)
             + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nx * nx + 2 * nx * nu + 2 * nu)
     fwd = 2 * nu * nx + 2 * nx * nx + 2 * nx * nu + 2 * nx * nx
-    return Bt * (inputs + outputs) * itemsize, Bt * n * (back + fwd)
+    arrival = nx ** 3 // 3 + 2 * nx * nx if free_x0 else 0
+    return Bt * (inputs + outputs) * itemsize, Bt * (n * (back + fwd) + arrival)
 
 
 def fgm_work(Bt, n, nx, iters, with_u0=False):
@@ -205,8 +237,11 @@ def whole_ip_work(problem, dims, Bt, nt, iterations, itemsize=4):
     return nbytes, problem.flops * iterations
 
 
-def lq_problem(Bt, n, nx, nu, dtype, seed=0):
-    """Random stagewise LQ problem (the generator of tests/test_pallas_kernels.py)."""
+def lq_problem(Bt, n, nx, nu, dtype, seed=0, convex=False):
+    """Random stagewise LQ problem (the generator of tests/test_pallas_kernels.py).
+    ``convex`` scales each stage's S to spectral norm <= 0.5, so every stage
+    cost (Q = I, R = 0.5·I) and P0 are positive definite, as the free-x0
+    mode needs (tests/test_torch_riccati_free_x0.py:free_x0_problem)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -214,6 +249,9 @@ def lq_problem(Bt, n, nx, nu, dtype, seed=0):
     B = 0.3 * rng.standard_normal((Bt, n, nx, nu))
     Q = np.tile(np.eye(nx), (Bt, n, 1, 1))
     S = 0.1 * rng.standard_normal((Bt, n, nu, nx))
+    if convex:
+        norm = np.linalg.norm(S, ord=2, axis=(-2, -1))
+        S = S * np.minimum(1.0, 0.5 / norm)[..., None, None]
     R = np.tile(0.5 * np.eye(nu), (Bt, n, 1, 1))
     q = rng.standard_normal((Bt, n, nx))
     r = rng.standard_normal((Bt, n, nu))
@@ -267,6 +305,7 @@ def phase1(report):
     """Each kernel vs its plain version on the card."""
     phase1_riccati(report.setdefault("riccati_lq", {}))
     phase1_riccati_wide(report.setdefault("riccati_lq_wide", {}))
+    phase1_riccati_free_x0(report)
     report.setdefault("fgm_boxqp", {})
     report.setdefault("fgm_boxqp_resident", {})
     phase1_fgm(report)
@@ -1244,6 +1283,385 @@ def phase6(report):
     report["whole_ip"]["launches"] = launches
 
 
+def free_args(args):
+    """The blocks of an LQ problem with dx0 taken out (the free-x0 mode)."""
+    return tuple(args[:10]) + (None,)
+
+
+def phase1_riccati_free_x0(report):
+    """The free-x0 mode of both Riccati kernels (dx0=None) against the plain
+    solve (ops/riccati.py:solve_lq, dx0 by torch.linalg.solve) on the card:
+    the tiled kernel at MHE's (2, 2) on B=131072 and on a ragged last tile
+    and chunk (B=131071, N=10 over chunks of 4), at (4, 2) and at the cap
+    (8, 4) on a ragged tile; the wide variant at (9, 9) and (16, 16) on
+    B=1001; both dtypes, lq_tol's tolerances. Timed at MHE's shape ((2, 2),
+    B=131072, N=10, float32) and the wide variant at (16, 16), B=1024,
+    float64, beside the bound without the dx0 read."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_cuda,
+                                                     riccati_lq_reference,
+                                                     riccati_lq_wide_cuda)
+    names = ("dX", "dU", "lam", "K", "kff", "cost_red")
+    f32, f64 = torch.float32, torch.float64
+    cases = [(riccati_lq_cuda, B_MAIN, 2, 2), (riccati_lq_cuda, 131071, 2, 2),
+             (riccati_lq_cuda, 1000, 4, 2), (riccati_lq_cuda, 1001, 8, 4)]
+    cases += [(riccati_lq_wide_cuda, 1001, nx, nu) for nx, nu in RICCATI_WIDE_FREE_SIZES]
+    max_err = {riccati_lq_cuda: 0.0, riccati_lq_wide_cuda: 0.0}
+    for kernel, Bt, nx, nu in cases:
+        for dt in (f32, f64):
+            args = free_args(lq_problem(Bt, N_MHE, nx, nu, dt, seed=9, convex=True))
+            out = kernel(*args, reg=1e-8)
+            ref = riccati_lq_reference(*args, reg=1e-8)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b in zip(names, out, ref):
+                torch.testing.assert_close(a, b, **lq_tol(name, dt == f32))
+                errs[name] = float((a - b).abs().max())
+            max_err[kernel] = max(max_err[kernel], max(errs.values()))
+            log(f"phase1 {kernel.__name__[:-5]} free x0 B={Bt} N={N_MHE} nx={nx} "
+                f"nu={nu} {str(dt)[6:]}: max|kernel-plain| "
+                + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+            del args, out, ref
+
+    def timed(kernel, name, Bt, nx, nu, dt):
+        args = free_args(lq_problem(Bt, N_MHE, nx, nu, dt, convex=True))
+        run = lambda: kernel(*args, reg=1e-8)  # noqa: E731
+        ms, b2b_ms = cuda_time_ms(run), cuda_time_ms(run, inner=INNER)
+        plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*args, reg=1e-8))
+        nbytes, flops = riccati_lq_work(Bt, N_MHE, nx, nu, itemsize=8 if dt == f64 else 4,
+                                        free_x0=True)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_FP64 if dt == f64 else PEAK_FP32)
+        log(f"phase1 {name} B={Bt} N={N_MHE} nx={nx} nu={nu} {str(dt)[6:]}: kernel "
+            f"{ms:.4f} ms one call, {b2b_ms:.4f} ms back to back ({INNER} calls per "
+            f"run), plain {plain_ms:.4f} ms (median of 10 runs, CUDA events); bound "
+            f"{b_ms:.4f} ms ({b_by}, {nbytes / Bt:.0f} bytes per scenario, "
+            f"{nbytes / 1e6:.1f} MB, no dx0 read): {b_ms / ms:.1%} of the bound one "
+            f"call, {b_ms / b2b_ms:.1%} back to back")
+        return dict(ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by)
+
+    report["riccati_lq_free_x0"] = dict(
+        max_abs_err=max_err[riccati_lq_cuda],
+        **timed(riccati_lq_cuda, "riccati_lq free x0", B_MAIN, 2, 2, f32))
+    report["riccati_lq_wide_free_x0"] = dict(
+        max_abs_err=max_err[riccati_lq_wide_cuda],
+        **timed(riccati_lq_wide_cuda, "riccati_lq_wide free x0", B_WIDE, 16, 16, f64))
+
+
+def cstr_rk4_np(X, U, dt=0.1):
+    """One RK4 step of the CSTR (p = ones(6)) for a batch of states (B, 2)
+    and inputs (B, 1), in numpy."""
+    import numpy as np
+
+    def ode(X):
+        r = (1.0 - X[:, 0]) * np.exp(-1.0 / (1.0 + X[:, 1]))
+        return np.stack([-X[:, 0] + r, -X[:, 1] + r + U[:, 0]], axis=1)
+    k1 = ode(X)
+    k2 = ode(X + 0.5 * dt * k1)
+    k3 = ode(X + 0.5 * dt * k2)
+    k4 = ode(X + dt * k3)
+    return X + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def mhe_cstr_windows(B, rows=N_MHE + 1, seed=0):
+    """B realistic CSTR windows, the way __graft_entry__.py:136-152 makes
+    them: plant runs by vectorised numpy RK4 from x0 = [0.2, 0.1] +
+    0.03·N(0,1), inputs 0.2·sin + 0.05·N(0,1), x_2 measured with noise
+    0.005·N(0,1), all from default_rng(seed). Row k pairs y_k with the input
+    that produced x_k (the estimators' convention). Returns (Ys, Us, the
+    arrival means: the true x0, the true state at the last row)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    X = np.array([0.2, 0.1]) + 0.03 * rng.standard_normal((B, 2))
+    x0 = X.copy()
+    Us = (0.2 * np.sin(np.linspace(0, 3, rows))[None, :, None]
+          + 0.05 * rng.standard_normal((B, rows, 1)))
+    Ys = np.zeros((B, rows, 1))
+    for k in range(rows):
+        if k:
+            X = cstr_rk4_np(X, Us[:, k])
+        Ys[:, k, 0] = X[:, 1] + 0.005 * rng.standard_normal(B)
+    return Ys, Us, x0, X
+
+
+def build_mhe(model, dtype, Q, R, P0, p=None, horizon=N_MHE, options=None):
+    from hilo_mpc_tpu_torch import MHE
+    mhe = MHE(model)
+    mhe.horizon = horizon
+    mhe.Q, mhe.R, mhe.P0 = Q, R, P0
+    if p is not None:
+        mhe.set_initial_parameter_values(p)
+    mhe.setup(dt=0.1, options=options, device="cuda", dtype=dtype)
+    return mhe
+
+
+class count_calls:
+    """Counts the calls of a module function for the length of a with block
+    (the function is wrapped in the module and put back after)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def mhe_first_windows_plain(mhe, Ys, Us, x_arr, n):
+    """The first n windows solved again with the plain LQ step."""
+    import numpy as np
+    from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp
+    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
+    theta = mhe._theta_batch(Ys[:n], Us[:n], x_arr[:n], mhe._p_vector(None))
+    X_init = np.tile(x_arr[:n, None, :], (1, mhe.horizon + 1, 1))
+    U_init = np.zeros((n, mhe.horizon, mhe.n_x))
+    sol = solve_ocp(mhe._funcs, mhe._dims, mhe._bounds,
+                    *(mhe._tensor(a) for a in (theta, x_arr[:n], X_init, U_init)),
+                    options=mhe._ip_opts, fix_x0=False,
+                    lq_solver=make_plain_lq_solver)
+    return sol.X[:, -1, :mhe.n_x].cpu().numpy()
+
+
+def mhe_wall_split(mhe, Ys, Us, x_arr):
+    """One more estimate_batch call taken apart, host clock: the windows'
+    theta in numpy, the four copies to the card (cast to the solver dtype),
+    solve_ocp, x_est back to the host."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp
+    B, n1 = Ys.shape[:2]
+    t0 = time.perf_counter()
+    theta = mhe._theta_batch(Ys, Us, x_arr, mhe._p_vector(None))
+    X_init = np.tile(x_arr[:, None, :], (1, n1, 1))
+    U_init = np.zeros((B, n1 - 1, mhe.n_x))
+    t1 = time.perf_counter()
+    dev = [mhe._tensor(a) for a in (theta, x_arr, X_init, U_init)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sol = solve_ocp(mhe._funcs, mhe._dims, mhe._bounds, *dev, options=mhe._ip_opts,
+                    fix_x0=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sol.X[:, -1, :mhe.n_x].cpu().numpy()
+    t4 = time.perf_counter()
+    log(f"phase7 one call taken apart (host clock): theta in numpy {t1 - t0:.4f} s, "
+        f"copies to the card {t2 - t1:.4f} s, solve_ocp {t3 - t2:.4f} s "
+        f"({int(sol.iterations.max())} iterations), x_est back {t4 - t3:.4f} s")
+    # the solve once more under torch.profiler (as tools/profile_torch_port.py
+    # profiles NMPC): device time by kernel name, busy time, idle share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_ocp(mhe._funcs, mhe._dims, mhe._bounds, *dev, options=mhe._ip_opts,
+                  fix_x0=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((getattr(e, "self_device_time_total", None) or e.self_cuda_time_total,
+                    e.count, e.key) for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type)), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    log(f"phase7 profiled solve_ocp: wall {wall * 1e3:.2f} ms (profiler on), device "
+        f"busy {busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+        f"{sum(r[1] for r in rows)} kernel launches; by device time: "
+        + "; ".join(f"{t / 1e3:.3f} ms x{n} {k[:60]}" for t, n, k in rows[:6]))
+
+
+def phase7(report):
+    """The MHE path at full width (module docstring)."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+    from hilo_mpc_tpu_torch import Model
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    from hilo_mpc_tpu_torch.ops import riccati
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_cuda,
+                                                     riccati_lq_wide_cuda)
+
+    mhe = build_mhe(cstr_schaffner_and_zeitz(), torch.float32, 1e-4, 1e-3,
+                    0.1 * np.eye(2), p=[1.0] * 6)
+    assert mhe.fast_path, "the CSTR measures x_2: the fast path"
+    t0 = time.perf_counter()
+    Ys, Us, x_arr, X_true = mhe_cstr_windows(B_MAIN)
+    t_data = time.perf_counter() - t0
+    mhe.estimate_batch(Ys, Us, x_arrivals=x_arr)            # untimed warm-up
+    torch.cuda.synchronize()
+    walls, runs = [], []
+    for _ in range(3):
+        riccati_lq_cuda.launches = riccati_lq_wide_cuda.launches = 0
+        with count_calls(riccati, "backward_sweep") as sweeps:
+            t0 = time.perf_counter()
+            x_est, sol = mhe.estimate_batch(Ys, Us, x_arrivals=x_arr)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        iters = int(sol.iterations.max())
+        runs.append((riccati_lq_cuda.launches, riccati_lq_wide_cuda.launches,
+                     sweeps.calls, iters))
+        assert runs[-1] == (iters, 0, 0, iters), (
+            "launches, wide launches, plain backward sweeps, loop iterations", runs[-1])
+    best = min(walls)
+    conv = float(sol.converged.float().mean())
+    assert x_est.shape == (B_MAIN, 2) and np.isfinite(x_est).all()
+    rms = float(np.sqrt(np.mean((x_est - X_true) ** 2)))
+    log(f"phase7 MHE CSTR B={B_MAIN} N={N_MHE} float32 (fast path, windows "
+        f"made in {t_data:.2f} s): {B_MAIN / best:.1f} windows/s (best of 3: "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s wall), converged {conv:.4f}, "
+        f"iterations p50 {float(sol.iterations.float().median()):g} max {iters}, "
+        f"RMS(x_est - x_true) {rms:.3e}")
+    log(f"phase7 riccati_lq launches per run {[r[0] for r in runs]} = loop "
+        f"iterations {[r[3] for r in runs]}; plain backward sweeps "
+        f"{[r[2] for r in runs]}")
+    assert conv >= 0.97, f"converged fraction {conv}"
+    mhe_wall_split(mhe, Ys, Us, x_arr)
+    x_plain = mhe_first_windows_plain(mhe, Ys, Us, x_arr, 1024)
+    dev = float(np.abs(x_est[:1024] - x_plain).max())
+    log(f"phase7 first 1024 windows: max|x_est_kernel - x_est_plain| = {dev:.3e}")
+    assert dev <= 5e-4, dev
+    report["riccati_lq_free_x0"]["launches"] = runs[-1][0]
+
+    # eight decoupled double integrators measured in position: nx = nu = 16,
+    # the wide variant's free-x0 mode, float64 at B=1024
+    A = scipy.linalg.block_diag(*[np.array(DI_A)] * N_DI)
+    Bm = scipy.linalg.block_diag(*[np.array(DI_B)] * N_DI)
+    C = np.kron(np.eye(N_DI), [[1.0, 0.0]])
+    m = Model(name="di8", discrete=True).set_state_space(A=A, B=Bm, C=C)
+    wide = build_mhe(m, torch.float64, 1e-4 * np.eye(2 * N_DI), 1e-3 * np.eye(N_DI),
+                     0.1 * np.eye(2 * N_DI))
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((B_WIDE, 2 * N_DI))
+    x0w = X.copy()
+    Uw = 0.1 * rng.standard_normal((B_WIDE, N_MHE + 1, N_DI))
+    Yw = np.zeros((B_WIDE, N_MHE + 1, N_DI))
+    for k in range(N_MHE + 1):
+        if k:
+            X = X @ A.T + Uw[:, k] @ Bm.T + 1e-2 * rng.standard_normal(X.shape)
+        Yw[:, k] = X @ C.T + 0.03 * rng.standard_normal((B_WIDE, N_DI))
+    wide.estimate_batch(Yw, Uw, x_arrivals=x0w)              # untimed warm-up
+    torch.cuda.synchronize()
+    riccati_lq_cuda.launches = riccati_lq_wide_cuda.launches = 0
+    with count_calls(riccati, "backward_sweep") as sweeps:
+        t0 = time.perf_counter()
+        xw, solw = wide.estimate_batch(Yw, Uw, x_arrivals=x0w)
+        torch.cuda.synchronize()
+        t_wide = time.perf_counter() - t0
+    iters = int(solw.iterations.max())
+    got = (riccati_lq_wide_cuda.launches, riccati_lq_cuda.launches, sweeps.calls)
+    conv = float(solw.converged.float().mean())
+    dev = float(np.abs(xw - mhe_first_windows_plain(wide, Yw, Uw, x0w, B_WIDE)).max())
+    log(f"phase7 MHE eight double integrators (nx = nu = 16) B={B_WIDE} "
+        f"N={N_MHE} float64: {B_WIDE / t_wide:.1f} windows/s ({t_wide:.4f} s "
+        f"wall), converged {conv:.4f}, iterations max {iters}, RMS(x_est - "
+        f"x_true) {float(np.sqrt(np.mean((xw - X) ** 2))):.3e}; riccati_lq_wide "
+        f"launches {got[0]}, riccati_lq {got[1]}, plain backward sweeps "
+        f"{got[2]}; max|x_est_kernel - x_est_plain| = {dev:.3e}")
+    assert got == (iters, 0, 0), got
+    assert conv >= 0.97 and dev <= 5e-4, (conv, dev)
+    report["riccati_lq_wide_free_x0"]["launches"] = got[0]
+
+
+def golden_mhe(device, dtype):
+    """The port's twin of tests/golden_configs.py:build_mhe_cstr."""
+    import numpy as np
+    from hilo_mpc_tpu_torch import MHE
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    mhe = MHE(cstr_schaffner_and_zeitz())
+    mhe.horizon = 8
+    mhe.Q, mhe.R, mhe.P0 = 1e-3 * np.eye(2), np.array([[1e-4]]), 0.05 * np.eye(2)
+    mhe.set_initial_parameter_values([1.0] * 6)
+    mhe.setup(dt=0.1, options={"integration_method": "rk4", "tol": 1e-9,
+                               "max_iter": 80}, device=device, dtype=dtype)
+    mhe.set_initial_guess([0.25, 0.08])
+    return mhe
+
+
+def phase8():
+    """Golden MHE replay in float64 on the card."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    data = np.load(GOLDEN_MHE)
+    gold = {int(k): data["Xest_gold"][i] for i, k in enumerate(data["est_steps"])}
+    mhe = golden_mhe("cuda", torch.float64)
+    n0 = riccati_lq_cuda.launches
+    t0 = time.perf_counter()
+    devs = []
+    for k, (y, u) in enumerate(zip(data["Ys"], data["Us"])):
+        est = mhe.estimate(y=y, u=u)
+        if est is None:
+            assert k not in gold
+            continue
+        assert mhe.stats["converged"], (k, mhe.stats)
+        devs.append(float(np.abs(est - gold[k]).max()))
+    dt = time.perf_counter() - t0
+    assert len(devs) == len(gold) and riccati_lq_cuda.launches > n0
+    log(f"phase8 golden mhe_cstr float64: {len(devs)} estimates in {dt:.2f} s, "
+        f"max|x_est - x_gold| = {max(devs):.3e}, riccati_lq launches "
+        f"{riccati_lq_cuda.launches - n0}")
+    assert max(devs) < 1e-4, devs
+
+
+def phase9():
+    """The filters on the card against the CPU, float64."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import EKF, PF, UKF
+    from hilo_mpc_tpu_torch.estimation.pf import lhsnorm
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    f64 = torch.float64
+    data = np.load(GOLDEN_MHE)
+    Ys, Us = data["Ys"], data["Us"]
+    # the UKF's default alpha = 1e-3 weights its means by ~1e6 that cancel
+    # to one: another summation order on the card moves them by ~1e6 ulps,
+    # so it takes 1e-8 where the EKF takes 1e-9
+    for cls, tol in ((EKF, 1e-9), (UKF, 1e-8)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            f = cls(cstr_schaffner_and_zeitz())
+            f.Q, f.R = 1e-3 * np.eye(2), np.array([[1e-4]])
+            f.set_initial_parameter_values([1.0] * 6)
+            f.setup(dt=0.1, device=device, dtype=f64)
+            f.set_initial_guess([0.25, 0.08], P0=0.05 * np.eye(2))
+            t0 = time.perf_counter()
+            f.estimate(Ys, u=Us)
+            runs.append((f, time.perf_counter() - t0))
+        dev = {k: float(np.abs(runs[1][0].solution[k] - runs[0][0].solution[k]).max())
+               for k in ("x", "P")}
+        log(f"phase9 {cls.__name__} CSTR float64, {Ys.shape[0]} steps: card "
+            f"{runs[1][1]:.3f} s, CPU {runs[0][1]:.3f} s; max|card - CPU| x "
+            f"{dev['x']:.3e}, P {dev['P']:.3e}")
+        assert max(dev.values()) <= tol, dev
+
+    M = 4096
+    out = []
+    for device in ("cpu", "cuda"):
+        kw = dict(dtype=f64, device=device)
+        pf = PF(cstr_schaffner_and_zeitz(), n_particles=M, roughening=True)
+        pf.Q, pf.R = 1e-4 * np.eye(2), np.array([[1e-4]])
+        pf.setup(dt=0.1, device=device, dtype=f64)
+        parts = torch.as_tensor(lhsnorm([0.25, 0.08], 0.05 * np.eye(2), M), **kw)
+        draws = np.random.default_rng(9)          # the draws, made on the CPU
+        p = torch.ones(6, **kw)
+        for k in range(Ys.shape[0]):
+            parts, x, _ = pf.step_draws(
+                parts, torch.as_tensor(Us[k], **kw), p, torch.as_tensor(Ys[k], **kw),
+                0.1 * k, torch.as_tensor(draws.standard_normal((M, 2)), **kw),
+                torch.as_tensor(draws.random(), **kw),
+                torch.as_tensor(draws.standard_normal((M, 2)), **kw))
+        out.append((parts.cpu().numpy(), x.cpu().numpy()))
+    dev_p = float(np.abs(out[1][0] - out[0][0]).max())
+    dev_x = float(np.abs(out[1][1] - out[0][1]).max())
+    log(f"phase9 PF CSTR float64, {M} particles, {Ys.shape[0]} steps with draws "
+        f"made on the CPU: max|card - CPU| particles {dev_p:.3e}, x_est {dev_x:.3e}")
+    assert max(dev_p, dev_x) <= 1e-9, (dev_p, dev_x)
+
+
 def build_jobs():
     """(label, build function, its argument) for every kernel the phases
     launch."""
@@ -1257,9 +1675,11 @@ def build_jobs():
     from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
 
     jobs = [(f"riccati_lq nx={nx} nu={nu}", _build.source_library_path,
-             riccati_lq_source(nx, nu)) for nx, nu in RICCATI_SIZES]
+             riccati_lq_source(nx, nu))
+            for nx, nu in RICCATI_SIZES + RICCATI_FREE_SIZES]
     jobs += [(f"riccati_lq_wide nx={nx} nu={nu}", _build.source_library_path,
-              riccati_lq_wide_source(nx, nu)) for nx, nu in RICCATI_WIDE_SIZES]
+              riccati_lq_wide_source(nx, nu))
+             for nx, nu in RICCATI_WIDE_SIZES + RICCATI_WIDE_FREE_SIZES]
     # every group size phase 1 times
     jobs += [(f"riccati_lq_wide nx={nx} nu={nu} G={g}", _build.source_library_path,
               riccati_lq_wide_source(nx, nu, g))
@@ -1314,11 +1734,14 @@ def main():
             for line in fh:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("    " + line.strip())
-                # the wide Riccati and FGM kernels are built to spill
-                # nothing (the register design where the router takes it)
+                # the Riccati and FGM kernels are built to spill nothing
+                # (the register design where the router takes it; the tiled
+                # Riccati kernel but at its cap (8, 4), which only phase 1
+                # runs and which spills in both dtypes)
                 reg_n = (int(label.split("n=")[1]) if label.startswith("fgm_boxqp_reg")
                          else 0)
-                if (label.startswith(("riccati_lq_wide", "fgm_boxqp"))
+                if (label.startswith(("riccati_lq", "fgm_boxqp"))
+                        and label != "riccati_lq nx=8 nu=4"
                         and reg_n <= FGM_REG_MAX_N and "spill stores" in line):
                     assert line.split("bytes spill stores")[0].split(",")[-1].strip() == "0", \
                         (label, line)
@@ -1364,13 +1787,21 @@ def main():
     phase4(report)
     phase5()
     phase6(report)
+    phase7(report)
+    phase8()
+    phase9()
+    free_x0 = ("hilo_mpc_tpu/ops/pallas_kernels.py:169 with the free-x0 solve at "
+               "hilo_mpc_tpu/ops/ip_solver.py:633-642")
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
                 "riccati_lq_wide": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
+                "riccati_lq_free_x0": free_x0, "riccati_lq_wide_free_x0": free_x0,
                 "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_resident": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_column_blocks": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143"}
     sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
+               "riccati_lq_free_x0": "riccati_lq.cuh",
+               "riccati_lq_wide_free_x0": "riccati_lq_wide.cuh",
                "fgm_boxqp": "fgm_boxqp_reg.cuh", "fgm_boxqp_resident": "fgm_boxqp.cu",
                "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
                "whole_ip": "whole_ip.cuh"}

@@ -2,10 +2,12 @@
 
 Same flat names as the JAX package for the ported slices (the batched NMPC
 solve, with the whole-solve interior point behind ``pallas_full``; linear
-models, LMPC with its condensed fast-gradient path, LQR); every Pallas kernel
+models, LMPC with its condensed fast-gradient path, LQR; moving-horizon
+estimation, the Kalman filters and the particle filter); every Pallas kernel
 of the JAX package is a CUDA kernel written by hand for Hopper
 (ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
-``Model.setup``, ``NMPC.setup``, ``LMPC.setup`` and ``LQR.setup``; the device
+``Model.setup``, ``NMPC.setup``, ``LMPC.setup``, ``LQR.setup`` and each
+estimator's ``setup``; the device
 is ``"cuda"`` unless the caller passes ``device="cpu"``, and a missing card is
 an error. Importing the package needs neither a GPU nor ``nvcc``. See
 README.md, "PyTorch / H100 port".
@@ -16,13 +18,24 @@ from .control.lqr import LinearQuadraticRegulator
 from .control.nmpc import NMPC
 from .core.model import Model
 from .core.series import TimeSeries
+from .estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
+                            UnscentedKalmanFilter)
+from .estimation.mhe import MovingHorizonEstimator
+from .estimation.pf import ParticleFilter
 from .ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                             OCPSolution)
 
 LQR = LinearQuadraticRegulator
+MHE = MovingHorizonEstimator
+KF = KalmanFilter
+EKF = ExtendedKalmanFilter
+UKF = UnscentedKalmanFilter
+PF = ParticleFilter
 
 __version__ = "0.8.3"
 
 __all__ = ["Model", "NMPC", "LMPC", "LQR", "LinearQuadraticRegulator",
-           "TimeSeries", "library", "IPOptions", "OCPBounds", "OCPDims",
-           "OCPFunctions", "OCPSolution"]
+           "MHE", "MovingHorizonEstimator", "KF", "KalmanFilter", "EKF",
+           "ExtendedKalmanFilter", "UKF", "UnscentedKalmanFilter", "PF",
+           "ParticleFilter", "TimeSeries", "library", "IPOptions", "OCPBounds",
+           "OCPDims", "OCPFunctions", "OCPSolution"]

@@ -342,7 +342,7 @@ class NMPC:
             const_cost_hessian=options.get("const_cost_hessian", True),
             lin_storage_dtype=options.get("lin_storage_dtype", None),
         )
-        _check_supported(funcs, dims, ip_opts, fix_x0=True)
+        _check_supported(funcs, dims, ip_opts)
         self._ip_opts = ip_opts
         self._warm_start = options.get("warm_start", True)
         guess_mode = options.get("initial_guess", "auto")

@@ -46,14 +46,21 @@ def resolve_device(device) -> torch.device:
 def _device_matrix(M: np.ndarray):
     """``M`` as a tensor of the dtype and device of the argument, one copy per
     (dtype, device): a state-space closure does not copy its matrix to the
-    device on every call."""
+    device on every call. A tensor made inside a ``torch.func`` transform
+    belongs to that transform's level and must not outlive it, so only one
+    made outside every transform is kept."""
+    from torch._C._functorch import peek_interpreter_stack
+
     cache = {}
 
     def get(like):
         key = (like.dtype, like.device)
-        if key not in cache:
-            cache[key] = torch.as_tensor(M, dtype=like.dtype, device=like.device)
-        return cache[key]
+        if key in cache:
+            return cache[key]
+        t = torch.as_tensor(M, dtype=like.dtype, device=like.device)
+        if peek_interpreter_stack() is None:
+            cache[key] = t
+        return t
 
     return get
 

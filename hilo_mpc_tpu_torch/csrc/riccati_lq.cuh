@@ -54,6 +54,17 @@
 //  - store: K, kff (backward) and dX, dU, lam (forward) are collected per
 //    chunk in shared memory and written batch-first with the copy's
 //    coalesced pattern; rows past Bt of the last tile are never written.
+// Free initial state (the run-time flag free_x0 of the C entry, dx0 then
+// null): the function is the JAX composite of a free-x0 Newton step
+// (hilo_mpc_tpu/ops/ip_solver.py:633-642: a backward sweep, dx0 =
+// −(P0 + reg·I)⁻¹ p0 by linalg.solve, then the LQ solve). When the backward
+// pass ends, each thread holds its scenario's P0 and p0 in registers (S.P,
+// S.p); it factors P0 + reg·I by the same unrolled Cholesky as the gain
+// (chol_solve, on NX here), solves for dx0, writes it to dX[:, 0] and starts
+// the forward pass from it: no second sweep and no dx0 read. Cholesky, not
+// LU: in the interior point's free-x0 solves (MHE windows) P0 ⪰ the arrival
+// weight ≻ 0. A non-positive pivot makes dx0 NaN, and the interior point
+// marks that scenario diverged (the JAX LU solve would return a step).
 // The chunk functions are __host__ __device__: compiled with the host C++
 // compiler (ops/_build.py:host_library_path) the same block schedule runs
 // in loops over blocks and threads, plain assignments standing in for the
@@ -117,6 +128,7 @@ struct LqPtrs {
   T* kff;
   T* cost_red;
   T* stash;  // (ceil(Bt/TB), N, SW, TB)
+  int free_x0;  // dx0 = −(P0 + reg·I)⁻¹ p0, dx0 unread (null)
 };
 
 template <typename T, int NX, int NU>
@@ -246,6 +258,62 @@ RLQ_HD void copy_chunk(T* buf, const LqPtrs<T>& a, int b0, int nb, int N, int k0
                       e[f], b0, nb, N, k0, kc, t);
 }
 
+// X = M⁻¹ Rhs for a symmetric positive definite M (M x M; NR right-hand
+// sides): the unrolled Cholesky factor M = L Lᵀ, then L Y = Rhs and Lᵀ X = Y.
+// Every index is a compile-time constant, so the factor stays in registers.
+// A non-positive pivot makes the factor, and so X, NaN.
+template <typename T, int M, int NR>
+RLQ_HD void chol_solve(const T (&G)[M][M], const T (&Rhs)[M][NR], T (&X)[M][NR]) {
+  T Lc[M][M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      if (m > i) continue;
+      T v = G[i][m];
+#pragma unroll
+      for (int l = 0; l < M; ++l)
+        if (l < m) v -= Lc[i][l] * Lc[m][l];
+      Lc[i][m] = (i == m) ? dsqrt(v > T(0) ? v : T(-1)) : v / Lc[m][m];
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NR; ++m) {
+    T Y[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      T acc = Rhs[i][m];
+#pragma unroll
+      for (int l = 0; l < M; ++l)
+        if (l < i) acc -= Lc[i][l] * Y[l];
+      Y[i] = acc / Lc[i][i];
+    }
+#pragma unroll
+    for (int i = M - 1; i >= 0; --i) {
+      T acc = Y[i];
+#pragma unroll
+      for (int l = 0; l < M; ++l)
+        if (l > i) acc -= Lc[l][i] * X[l][m];
+      X[i][m] = acc / Lc[i][i];
+    }
+  }
+}
+
+// dx0 = −(P0 + reg·I)⁻¹ p0 from the State the backward pass leaves
+template <typename T, int NX, int NU>
+RLQ_HD void free_dx0(State<T, NX, NU>& S, T reg) {
+  T M[NX][NX], rhs[NX][1], x[NX][1];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int m = 0; m < NX; ++m) M[i][m] = S.P[i][m] + (i == m ? reg : T(0));
+    rhs[i][0] = S.p[i];
+  }
+  chol_solve<T, NX, 1>(M, rhs, x);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) S.dx[i] = -x[i][0];
+}
+
 // ---- the arithmetic of one chunk, for the thread of tile row s ----
 template <typename T, int NX, int NU, int TB, int KC>
 RLQ_HD void bwd_chunk(State<T, NX, NU>& st, const T* in, T* out, T* stash, int k0,
@@ -324,41 +392,14 @@ RLQ_HD void bwd_chunk(State<T, NX, NU>& st, const T* in, T* out, T* stash, int k
       for (int m = 0; m < NU; ++m)
         Gs[i][m] = T(0.5) * (G[i][m] + G[m][i]) + (i == m ? reg : T(0));
 
-    // G X = [H_ux | g_u] by Cholesky G = L Lᵀ, then L Y = rhs, Lᵀ X = Y
-    T Lc[NU][NU];
+    T rhs[NU][NX + 1], Xc[NU][NX + 1];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
 #pragma unroll
-      for (int m = 0; m < NU; ++m) {
-        if (m > i) continue;
-        T v = Gs[i][m];
-#pragma unroll
-        for (int l = 0; l < NU; ++l)
-          if (l < m) v -= Lc[i][l] * Lc[m][l];
-        Lc[i][m] = (i == m) ? dsqrt(v) : v / Lc[m][m];
-      }
+      for (int m = 0; m < NX; ++m) rhs[i][m] = Hux[i][m];
+      rhs[i][NX] = gu[i];
     }
-    T Xc[NU][NX + 1];
-#pragma unroll
-    for (int m = 0; m <= NX; ++m) {
-      T Y[NU];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        T acc = (m < NX) ? Hux[i][m] : gu[i];
-#pragma unroll
-        for (int l = 0; l < NU; ++l)
-          if (l < i) acc -= Lc[i][l] * Y[l];
-        Y[i] = acc / Lc[i][i];
-      }
-#pragma unroll
-      for (int i = NU - 1; i >= 0; --i) {
-        T acc = Y[i];
-#pragma unroll
-        for (int l = 0; l < NU; ++l)
-          if (l > i) acc -= Lc[l][i] * Xc[l][m];
-        Xc[i][m] = acc / Lc[i][i];
-      }
-    }
+    chol_solve<T, NU, NX + 1>(Gs, rhs, Xc);
     T K[NU][NX], kff[NU];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
@@ -525,10 +566,11 @@ RLQ_HD void lq_block(const LqPtrs<T>& a, T* smem, State<T, NX, NU>* st, int blk,
     State<T, NX, NU>& S = st[slot(t)];
     const size_t b = static_cast<size_t>(b0 + t);
     a.cost_red[b] = S.dec;
-    for (int i = 0; i < NX; ++i) {
-      S.dx[i] = a.dx0[b * NX + i];
-      a.dX[b * (n + 1) * NX + i] = S.dx[i];
-    }
+    if (a.free_x0)
+      free_dx0<T, NX, NU>(S, reg);
+    else
+      for (int i = 0; i < NX; ++i) S.dx[i] = a.dx0[b * NX + i];
+    for (int i = 0; i < NX; ++i) a.dX[b * (n + 1) * NX + i] = S.dx[i];
   });
 
   // forward pass: chunk 0's inputs are still in buf(cur ^ 1)
@@ -569,7 +611,7 @@ LqPtrs<T> ptrs(const void* A, const void* B, const void* Q, const void* S,
                const void* R, const void* q, const void* r, const void* c,
                const void* P_term, const void* p_term, const void* dx0, void* dX,
                void* dU, void* lam, void* K, void* kff, void* cost_red,
-               void* stash) {
+               void* stash, int free_x0) {
   LqPtrs<T> a;
   const void* in[8] = {A, B, c, Q, S, R, q, r};
   for (int f = 0; f < 8; ++f) a.in[f] = static_cast<const T*>(in[f]);
@@ -583,6 +625,7 @@ LqPtrs<T> ptrs(const void* A, const void* B, const void* Q, const void* S,
   a.kff = static_cast<T*>(kff);
   a.cost_red = static_cast<T*>(cost_red);
   a.stash = static_cast<T*>(stash);
+  a.free_x0 = free_x0;
   return a;
 }
 
@@ -632,7 +675,8 @@ cudaError_t set_attributes() {
 template <typename T, int NX, int NU, int TB, int KC>
 int launch(const LqPtrs<T>& a, int Bt, int N, double reg, void* stream) {
   static_assert(TB % 32 == 0 && TB <= 1024 && KC >= 1, "TB: a multiple of 32");
-  if (Bt <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Bt <= 0 || N <= 0 || (!a.free_x0 && a.dx0 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_elems<T, NX, NU, TB, KC>() * sizeof(T);
   cudaError_t e = set_attributes<T, NX, NU, TB, KC>();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -644,7 +688,7 @@ int launch(const LqPtrs<T>& a, int Bt, int N, double reg, void* stream) {
 #else
 template <typename T, int NX, int NU, int TB, int KC>
 int run_host(const LqPtrs<T>& a, int Bt, int N, double reg) {
-  if (Bt <= 0 || N <= 0) return 1;
+  if (Bt <= 0 || N <= 0 || (!a.free_x0 && a.dx0 == nullptr)) return 1;
   std::vector<T> smem(smem_elems<T, NX, NU, TB, KC>());
   std::vector<State<T, NX, NU>> st(TB);
   for (int blk = 0; blk * static_cast<long long>(TB) < Bt; ++blk)
@@ -662,16 +706,17 @@ int run_host(const LqPtrs<T>& a, int Bt, int N, double reg) {
 // / _f64 enqueue the kernel on `stream` and return its cudaError_t (0: the
 // kernel was enqueued); on the host riccati_lq_host_f32 / _f64 run the same
 // block schedule in loops. riccati_lq_layout_f32 / _f64 write (TB, KC,
-// dynamic shared memory bytes) in both builds.
+// dynamic shared memory bytes) in both builds. free_x0 != 0 solves for dx0
+// (dx0 may then be null).
 #define RLQ_ARGS                                                              \
   const void *A, const void *B, const void *Q, const void *S, const void *R,  \
       const void *q, const void *r, const void *c, const void *P_term,        \
       const void *p_term, const void *dx0, void *dX, void *dU, void *lam,     \
       void *K, void *kff, void *cost_red, void *stash, int Bt, int N,         \
-      double reg
+      double reg, int free_x0
 #define RLQ_PTRS(T)                                                           \
   rlq::ptrs<T>(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, dX, dU, lam, K,   \
-               kff, cost_red, stash)
+               kff, cost_red, stash, free_x0)
 #define RLQ_LAYOUTS(NX, NU)                                                   \
   extern "C" int riccati_lq_layout_f32(int* out) {                            \
     return rlq::layout<float, NX, NU, RICCATI_LQ_TILES_F32>(out);             \

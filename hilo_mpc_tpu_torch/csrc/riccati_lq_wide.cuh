@@ -61,6 +61,15 @@
 //    cp.async.wait_group and one barrier open each stage.
 //  - Barriers: four per backward stage (open, after P X, after Xᵀ(P X),
 //    after the gain), three per forward stage (open, after du, after dx').
+//  - Free initial state (the C entry's run-time flag free_x0, as in
+//    riccati_lq.cuh): when the backward pass ends, P0 and p0 are in the
+//    group's shared memory (PT, p). Warp 0 gathers P0 + reg·I row by row,
+//    one row per lane as for G, factors it by the same shuffle Cholesky
+//    (nx <= 32 lanes: the variant's cap), solves for dx0 = −(P0 + reg·I)⁻¹ p0
+//    with the right-hand side spread one entry per lane (a register each;
+//    a column per lane, as the gain's solves hold, spilled at nx = 32 in
+//    float64) and leaves it in the forward pass's dx, which one barrier
+//    hands to the group. A non-positive pivot makes dx0 NaN.
 //  - The (P, p, K, kff) stash of the forward pass stays in a global scratch
 //    (Bt, N, SW) the wrapper allocates; a block writes its run per stage
 //    with neighbouring threads on neighbouring words.
@@ -169,6 +178,7 @@ struct WPtrs {
   T* kff;
   T* cost_red;
   T* stash;  // (Bt, N, SW)
+  int free_x0;  // dx0 = −(P0 + reg·I)⁻¹ p0, dx0 unread (null)
 };
 
 // ---- what differs between the card and the host ----
@@ -403,6 +413,90 @@ RLW_HD void phase_xpx(T* w, T* buf, int t) {
   }
 }
 
+// The Cholesky factor of the M x M matrix whose row l lane l holds in f
+// (entries j <= l), in place: below the diagonal the factor, and 1 / L_ii
+// in dinv (the diagonal itself is never needed: every step that divides by
+// it multiplies by its reciprocal). Per column one reciprocal square root;
+// a non-positive pivot makes it NaN.
+template <typename T, int M>
+RLW_HD void lanes_cholesky(LaneVal<T> (&f)[M], LaneVal<T>& dinv) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const T piv = bcast(f[j], j);
+    const T di = wrsqrt(piv > T(0) ? piv : T(-1));
+    RLW_FOR_LANES(l) {
+      if (l == j)
+        dinv.at(l) = di;
+      else if (l > j)
+        f[j].at(l) = f[j].at(l) * di;
+    }
+#pragma unroll
+    for (int m = j + 1; m < M; ++m) {
+      const T lmj = bcast(f[j], m);
+      RLW_FOR_LANES(l) {
+        if (l >= m) f[m].at(l) -= f[j].at(l) * lmj;
+      }
+    }
+  }
+}
+
+// L Lᵀ x = y with the factor of lanes_cholesky, lane l solving its own
+// right-hand side y[·].at(l), in place
+template <typename T, int M>
+RLW_HD void lanes_solve(LaneVal<T> (&f)[M], LaneVal<T>& dinv, LaneVal<T> (&y)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      const T lij = bcast(f[j], i);
+      RLW_FOR_LANES(l) { y[i].at(l) -= lij * y[j].at(l); }
+    }
+    const T dii = bcast(dinv, i);
+    RLW_FOR_LANES(l) { y[i].at(l) = y[i].at(l) * dii; }
+  }
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = i + 1; j < M; ++j) {
+      const T lji = bcast(f[i], j);
+      RLW_FOR_LANES(l) { y[i].at(l) -= lji * y[j].at(l); }
+    }
+    const T dii = bcast(dinv, i);
+    RLW_FOR_LANES(l) { y[i].at(l) = y[i].at(l) * dii; }
+  }
+}
+
+// L Lᵀ x = y for one right-hand side spread over the lanes (lane i holds y_i,
+// then x_i), with the factor of lanes_cholesky: one register per lane where
+// lanes_solve takes M
+template <typename T, int M>
+RLW_HD void lanes_solve_spread(LaneVal<T> (&f)[M], LaneVal<T>& dinv, LaneVal<T>& y) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const T yj = bcast(y, j) * bcast(dinv, j);
+    RLW_FOR_LANES(l) {
+      if (l == j)
+        y.at(l) = yj;
+      else if (l > j)
+        y.at(l) -= f[j].at(l) * yj;
+    }
+  }
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    const T xi = bcast(y, i) * bcast(dinv, i);
+    RLW_FOR_LANES(l) {
+      if (l == i) y.at(l) = xi;
+    }
+#pragma unroll
+    for (int k = 0; k < i; ++k) {
+      const T lik = bcast(f[k], i);
+      RLW_FOR_LANES(l) {
+        if (l == k) y.at(l) -= lik * xi;
+      }
+    }
+  }
+}
+
 // [K | kff] = -G⁻¹ [H_ux | g_u] in warp 0 (G = sym(C0's u block) + reg·I);
 // K and kff into shared memory, the outputs and the stash; cost_red
 template <typename T, int NX, int NU>
@@ -411,9 +505,7 @@ RLW_HD void phase_gain(const WPtrs<T>& a, T* w, const T* buf, T* sk, size_t s, T
   const T* C0 = buf + L::OC0;
   T* K = w + L::WK;
   T* kf = w + L::Wkf;
-  // lane i holds row i of G, then of its Cholesky factor below the diagonal,
-  // and 1 / L_ii (the diagonal itself is never needed: every step that
-  // divides by it multiplies by its reciprocal)
+  // lane i holds row i of G, then of its Cholesky factor
   LaneVal<T> f[NU], dinv;
   RLW_FOR_LANES(l) {
 #pragma unroll
@@ -424,23 +516,7 @@ RLW_HD void phase_gain(const WPtrs<T>& a, T* w, const T* buf, T* sk, size_t s, T
       f[j].at(l) = v;
     }
   }
-#pragma unroll
-  for (int j = 0; j < NU; ++j) {
-    const T di = wrsqrt(bcast(f[j], j));
-    RLW_FOR_LANES(l) {
-      if (l == j)
-        dinv.at(l) = di;
-      else if (l > j)
-        f[j].at(l) = f[j].at(l) * di;
-    }
-#pragma unroll
-    for (int m = j + 1; m < NU; ++m) {
-      const T lmj = bcast(f[j], m);
-      RLW_FOR_LANES(l) {
-        if (l >= m) f[m].at(l) -= f[j].at(l) * lmj;
-      }
-    }
-  }
+  lanes_cholesky<T, NU>(f, dinv);
   // lane l solves right-hand side base + l: column m of H_ux (m < NX) or g_u
   for (int base = 0; base <= NX; base += 32) {
     LaneVal<T> y[NU];
@@ -451,26 +527,7 @@ RLW_HD void phase_gain(const WPtrs<T>& a, T* w, const T* buf, T* sk, size_t s, T
         y[i].at(l) = m < NX ? C0[i * L::XW + L::CA + m]
                             : (m == NX ? C0[i * L::XW + L::CC] : T(0));
     }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-#pragma unroll
-      for (int j = 0; j < i; ++j) {
-        const T lij = bcast(f[j], i);
-        RLW_FOR_LANES(l) { y[i].at(l) -= lij * y[j].at(l); }
-      }
-      const T dii = bcast(dinv, i);
-      RLW_FOR_LANES(l) { y[i].at(l) = y[i].at(l) * dii; }
-    }
-#pragma unroll
-    for (int i = NU - 1; i >= 0; --i) {
-#pragma unroll
-      for (int j = i + 1; j < NU; ++j) {
-        const T lji = bcast(f[i], j);
-        RLW_FOR_LANES(l) { y[i].at(l) -= lji * y[j].at(l); }
-      }
-      const T dii = bcast(dinv, i);
-      RLW_FOR_LANES(l) { y[i].at(l) = y[i].at(l) * dii; }
-    }
+    lanes_solve<T, NU>(f, dinv, y);
     RLW_FOR_LANES(l) {
       const int m = base + l;
       if (m < NX) {
@@ -494,6 +551,28 @@ RLW_HD void phase_gain(const WPtrs<T>& a, T* w, const T* buf, T* sk, size_t s, T
         w[L::WDEC] -= T(0.5) * dec;
       }
     }
+  }
+}
+
+// dx0 = −(P0 + reg·I)⁻¹ p0 in warp 0, from P0 (PT, symmetric) and p0 as the
+// backward pass leaves them; lane i solves for and writes dx0_i into the
+// forward pass's dx
+template <typename T, int NX, int NU>
+RLW_HD void phase_free_dx0(T* w, T reg) {
+  using L = GLay<NX, NU>;
+  const T* PT = w + L::WPT;
+  LaneVal<T> f[NX], dinv, y;
+  RLW_FOR_LANES(l) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+      f[j].at(l) = (l < NX && j <= l) ? PT[l * L::NXP + j] + (j == l ? reg : T(0))
+                                      : T(0);
+    y.at(l) = l < NX ? w[L::Wp + l] : T(0);
+  }
+  lanes_cholesky<T, NX>(f, dinv);
+  lanes_solve_spread<T, NX>(f, dinv, y);
+  RLW_FOR_LANES(l) {
+    if (l < NX) w[L::WDX + l] = -y.at(l);
   }
 }
 
@@ -603,6 +682,13 @@ RLW_HD void lq_group(const WPtrs<T>& a, T* w, size_t b, int N, T reg) {
     RLW_FOR_THREADS(t, NT) { phase_update<T, NX, NU, NT>(w, buf, t); }
   }
   group_sync();
+  if (a.free_x0) {
+#ifdef __CUDA_ARCH__
+    if (threadIdx.x < 32)
+#endif
+      phase_free_dx0<T, NX, NU>(w, reg);
+    group_sync();
+  }
 
   T* const dx = w + L::WDX;
   T* const dxn = w + L::WDXN;
@@ -610,7 +696,7 @@ RLW_HD void lq_group(const WPtrs<T>& a, T* w, size_t b, int N, T reg) {
   RLW_FOR_THREADS(t, NT) {
     if (t == 0) a.cost_red[b] = w[L::WDEC];
     for (int e = t; e < NX; e += NT) {
-      dx[e] = a.dx0[b * NX + e];
+      if (!a.free_x0) dx[e] = a.dx0[b * NX + e];
       a.dX[b * (n + 1) * NX + e] = dx[e];
     }
     load_fwd<T, NX, NU, NT>(a, w, b, n, 0, t);
@@ -661,7 +747,7 @@ WPtrs<T> wptrs(const void* A, const void* B, const void* Q, const void* S,
                const void* R, const void* q, const void* r, const void* c,
                const void* P_term, const void* p_term, const void* dx0, void* dX,
                void* dU, void* lam, void* K, void* kff, void* cost_red,
-               void* stash) {
+               void* stash, int free_x0) {
   WPtrs<T> a;
   const void* in[8] = {A, B, c, Q, S, R, q, r};
   for (int f = 0; f < 8; ++f) a.in[f] = static_cast<const T*>(in[f]);
@@ -675,6 +761,7 @@ WPtrs<T> wptrs(const void* A, const void* B, const void* Q, const void* S,
   a.kff = static_cast<T*>(kff);
   a.cost_red = static_cast<T*>(cost_red);
   a.stash = static_cast<T*>(stash);
+  a.free_x0 = free_x0;
   return a;
 }
 
@@ -724,7 +811,8 @@ template <typename T, int NX, int NU, int G>
 int wide_launch(const WPtrs<T>& a, int Bt, int N, double reg, void* stream) {
   static_assert(NX >= 1 && NX <= 32 && NU >= 1 && NU <= 16 && G >= 1 && G <= 32,
                 "sizes");
-  if (Bt <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Bt <= 0 || N <= 0 || (!a.free_x0 && a.dx0 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = set_wide_attributes<T, NX, NU, G>();
   if (e != cudaSuccess) return static_cast<int>(e);
   riccati_lq_wide_kernel<T, NX, NU, G>
@@ -735,7 +823,7 @@ int wide_launch(const WPtrs<T>& a, int Bt, int N, double reg, void* stream) {
 #else
 template <typename T, int NX, int NU, int G>
 int wide_run_host(const WPtrs<T>& a, int Bt, int N, double reg) {
-  if (Bt <= 0 || N <= 0) return 1;
+  if (Bt <= 0 || N <= 0 || (!a.free_x0 && a.dx0 == nullptr)) return 1;
   std::vector<T> smem(GLay<NX, NU>::E);
   for (long long b = 0; b < Bt; ++b)
     lq_group<T, NX, NU, 32 * G>(a, smem.data(), static_cast<size_t>(b), N,
@@ -759,10 +847,10 @@ int wide_run_host(const WPtrs<T>& a, int Bt, int N, double reg) {
       const void *q, const void *r, const void *c, const void *P_term,        \
       const void *p_term, const void *dx0, void *dX, void *dU, void *lam,     \
       void *K, void *kff, void *cost_red, void *stash, int Bt, int N,         \
-      double reg
+      double reg, int free_x0
 #define RLW_PTRS(T)                                                           \
   rlw::wptrs<T>(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, dX, dU, lam, K,  \
-                kff, cost_red, stash)
+                kff, cost_red, stash, free_x0)
 #define RLW_LAYOUTS(NX, NU)                                                   \
   extern "C" int riccati_lq_wide_layout_f32(int* out) {                       \
     return rlw::wide_layout<float, NX, NU, RICCATI_LQ_WIDE_GROUP_F32>(out);   \

@@ -71,7 +71,8 @@ FGM_INF = 1e30
 def riccati_lq_reference(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
                          reg: float = 1e-8):
     """Plain PyTorch version of ``riccati_lq_cuda``: the batch-first Riccati
-    sweeps of ops/riccati.py. Same arguments and returns."""
+    sweeps of ops/riccati.py (``dx0=None``: the free initial state by
+    ``torch.linalg.solve``). Same arguments and returns."""
     return tuple(solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=reg))
 
 
@@ -152,6 +153,12 @@ def _suffix(dtype):
     return "f32" if dtype == torch.float32 else "f64"
 
 
+# the 18 pointers, Bt, N, reg and the free-x0 flag of both Riccati entries
+# (csrc/riccati_lq.cuh:RLQ_ARGS, csrc/riccati_lq_wide.cuh:RLW_ARGS)
+_LQ_ARGTYPES = ([ctypes.c_void_p] * 18
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int])
+
+
 @functools.lru_cache(maxsize=None)
 def _lq_entry(nx: int, nu: int, dtype, host: bool, tiling=None):
     """(entry point bound with ctypes, TB) of the instance for (nx, nu,
@@ -162,8 +169,7 @@ def _lq_entry(nx: int, nu: int, dtype, host: bool, tiling=None):
         fn = getattr(_build.load_host(text), f"riccati_lq_host_{_suffix(dtype)}")
     else:
         fn = getattr(_build.load_source(text), f"riccati_lq_{_suffix(dtype)}")
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_int, ctypes.c_double]
-                   + ([] if host else [ctypes.c_void_p]))
+    fn.argtypes = _LQ_ARGTYPES + ([] if host else [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, (tiling or riccati_lq_tiling(nx, nu, dtype))[0]
 
@@ -177,8 +183,8 @@ def riccati_lq_layout(lib, dtype) -> tuple:
 
 
 def _check_lq(args, host: bool, check_size=_check_size):
-    """Shapes, dtype, device and contiguity of the inputs; returns
-    (Bt, N, nx, nu)."""
+    """Shapes, dtype, device and contiguity of the inputs (dx0 may be None:
+    a free initial state); returns (Bt, N, nx, nu)."""
     A, B = args[0], args[1]
     if A.dim() != 4 or B.dim() != 4:
         raise ValueError(f"A and B must be (Bt, N, nx, nx) / (Bt, N, nx, nu), "
@@ -198,6 +204,8 @@ def _check_lq(args, host: bool, check_size=_check_size):
     if host and device.type != "cpu":
         raise ValueError(f"riccati_lq_host takes CPU tensors, got {device}")
     for (name, shape), t in zip(expected.items(), args):
+        if t is None and name == "dx0":
+            continue
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.device != device or t.dtype != dtype:
@@ -219,7 +227,11 @@ def _lq_buffers(args, Bt, N, nx, nu, tb):
 
 
 def _ptrs(tensors):
-    return [t.data_ptr() for t in tensors]
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _on_card(args) -> bool:
+    return any(t is not None and t.is_cuda for t in args)
 
 
 def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
@@ -229,20 +241,24 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
 
     Shapes (Bt = batch): A (Bt,N,nx,nx), B (Bt,N,nx,nu), Q (Bt,N,nx,nx),
     S (Bt,N,nu,nx), R (Bt,N,nu,nu), q (Bt,N,nx), r (Bt,N,nu), c (Bt,N,nx),
-    P_term (Bt,nx,nx), p_term (Bt,nx), dx0 (Bt,nx); float32 or float64, one
-    dtype, contiguous, one CUDA device; nx <= ``RICCATI_MAX_NX`` and
-    nu <= ``RICCATI_MAX_NU`` (each size is built at its first use).
+    P_term (Bt,nx,nx), p_term (Bt,nx), dx0 (Bt,nx) or None; float32 or
+    float64, one dtype, contiguous, one CUDA device; nx <= ``RICCATI_MAX_NX``
+    and nu <= ``RICCATI_MAX_NU`` (each size is built at its first use).
+    ``dx0=None`` runs the free-x0 mode: the kernel solves dx0 =
+    −(P0 + reg·I)⁻¹ p0 from its own backward pass (a Cholesky factor; NaN
+    where P0 + reg·I is not positive definite), the free-x0 step of
+    ``hilo_mpc_tpu/ops/ip_solver.py:633-642``.
     Returns (dX (Bt,N+1,nx), dU (Bt,N,nu), lam (Bt,N,nx), K (Bt,N,nu,nx),
     kff (Bt,N,nu), cost_red (Bt,)).
     """
     args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
-    if not any(t.is_cuda for t in args):
+    if not _on_card(args):
         return riccati_lq_reference(*args, reg=reg)
     Bt, N, nx, nu = _check_lq(args, host=False)
     fn, tb = _lq_entry(nx, nu, A.dtype, host=False)
     bufs = _lq_buffers(args, Bt, N, nx, nu, tb)
     with torch.cuda.device(A.device):
-        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg),
+        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None),
                 torch.cuda.current_stream(A.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"riccati_lq kernel launch failed: cudaError {rc}")
@@ -264,7 +280,7 @@ def riccati_lq_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     Bt, N, nx, nu = _check_lq(args, host=True)
     fn, tb = _lq_entry(nx, nu, A.dtype, True, None if tiling is None else tuple(tiling))
     bufs = _lq_buffers(args, Bt, N, nx, nu, tb)
-    if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg)) != 0:
+    if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None)) != 0:
         raise RuntimeError("riccati_lq_host refused its arguments")
     return bufs[:6]
 
@@ -347,8 +363,7 @@ def _lq_wide_entry(nx: int, nu: int, dtype, host: bool, group=None):
         fn = getattr(_build.load_host(text), f"riccati_lq_wide_host_{suffix}")
     else:
         fn = getattr(_build.load_source(text), f"riccati_lq_wide_{suffix}")
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_int, ctypes.c_double]
-                   + ([] if host else [ctypes.c_void_p]))
+    fn.argtypes = _LQ_ARGTYPES + ([] if host else [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, nx * nx + nx + nu * nx + nu
 
@@ -376,18 +391,19 @@ def riccati_lq_wide_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     above its cap, as ONE CUDA kernel with a group of warps per scenario
     (csrc/riccati_lq_wide.cuh), replacing
     ``hilo_mpc_tpu/ops/pallas_kernels.py:riccati_lq_pallas`` there. Same
-    arguments, shapes and returns as ``riccati_lq_cuda``; 1 <= nx <=
+    arguments, shapes and returns as ``riccati_lq_cuda``, the free-x0 mode
+    (``dx0=None``) included; 1 <= nx <=
     ``RICCATI_WIDE_MAX_NX`` and 1 <= nu <= ``RICCATI_WIDE_MAX_NU`` (each size
     is built at its first use). ``group`` (warps per scenario) overrides
     ``riccati_lq_wide_group``. Counts its own launches."""
     args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
-    if not any(t.is_cuda for t in args):
+    if not _on_card(args):
         return riccati_lq_reference(*args, reg=reg)
     Bt, N, nx, nu = _check_lq(args, host=False, check_size=_check_wide_size)
     fn, sw = _lq_wide_entry(nx, nu, A.dtype, False, group)
     bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
     with torch.cuda.device(A.device):
-        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg),
+        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None),
                 torch.cuda.current_stream(A.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"riccati_lq_wide kernel launch failed: cudaError {rc}")
@@ -408,7 +424,7 @@ def riccati_lq_wide_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     Bt, N, nx, nu = _check_lq(args, host=True, check_size=_check_wide_size)
     fn, sw = _lq_wide_entry(nx, nu, A.dtype, True, group)
     bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
-    if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg)) != 0:
+    if fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None)) != 0:
         raise RuntimeError("riccati_lq_wide_host refused its arguments")
     return bufs[:6]
 

@@ -5,7 +5,8 @@ structure is kept stagewise: each IP iteration linearizes dynamics and costs
 along the horizon, condenses the barrier terms into the stage Hessians and
 solves the block-banded KKT system with a Riccati sweep — on CUDA tensors
 always the hand-written kernel ``ops/cuda_kernels.py:riccati_lq_cuda``
-(ops/riccati.py:make_lq_solver).
+(ops/riccati.py:make_lq_solver), one launch per Newton step, a free initial
+state included (the kernel's free-x0 mode solves for dx_0 itself).
 
 Batch-first instead of ``vmap``: every array carries a leading scenario axis B
 (theta (B, N+1, n_theta), x0 (B, nx), X (B, N+1, nx), U (B, N, nu)); scalars of
@@ -24,16 +25,16 @@ Problem form (per scenario):
     min   Σ_{k=0}^{N-1} l(x_k, u_k, θ_k)  +  lN(x_N, θ_N)
     s.t.  x_{k+1} = F(x_k, u_k, θ_k)                    k = 0..N-1
           lbu ≤ u_k ≤ ubu,  lbx ≤ x_k ≤ ubx             (±inf allowed)
-          x_0 = x̂
+          x_0 = x̂  (fix_x0=True)  or  x_0 free (MHE arrival)
 
 Not ported yet (raise NotImplementedError): generic inequality rows and
 equality constraints, ``record_iterates``, ``parallel_riccati`` and
-``lin_storage_dtype`` (ROADMAP.md §A item 7) and a free initial state
-(``fix_x0=False``, item 8). As in the JAX package, ``solve_ocp`` ignores
-``pallas_full``: only ``NMPC.solve_batch_fn`` reads it and routes eligible
-problems to the whole-solve kernel (ops/whole_ip.py). ``riccati_unroll``,
-``pallas_riccati``, ``pallas_pack``, ``pallas_tile``, ``pallas_full_pack`` and
-``pallas_vmem_mb`` are TPU layout knobs: accepted, and without effect here.
+``lin_storage_dtype`` (ROADMAP.md §A item 7). As in the JAX package,
+``solve_ocp`` ignores ``pallas_full``: only ``NMPC.solve_batch_fn`` reads it
+and routes eligible problems to the whole-solve kernel (ops/whole_ip.py).
+``riccati_unroll``, ``pallas_riccati``, ``pallas_pack``, ``pallas_tile``,
+``pallas_full_pack`` and ``pallas_vmem_mb`` are TPU layout knobs: accepted,
+and without effect here.
 """
 from __future__ import annotations
 
@@ -161,8 +162,7 @@ _NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
                "ROADMAP.md {item}")
 
 
-def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions,
-                     fix_x0: bool):
+def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions):
     item7 = "§A item 7"
     todo = [
         (funcs.stage_ineq is not None or funcs.term_ineq is not None
@@ -173,7 +173,6 @@ def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions,
         (opt.record_iterates, "record_iterates", item7),
         (opt.parallel_riccati, "parallel_riccati", item7),
         (opt.lin_storage_dtype is not None, "lin_storage_dtype", item7),
-        (not fix_x0, "a free initial state (fix_x0=False)", "§A item 8"),
     ]
     for cond, what, item in todo:
         if cond:
@@ -259,8 +258,10 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
     builds the LQ step of every iteration: ``make_lq_solver`` (the default:
     a hand-written CUDA kernel on CUDA tensors) or
     ``ops/riccati.py:make_plain_lq_solver`` (the plain sweeps on any
-    device)."""
-    _check_supported(funcs, dims, options, fix_x0)
+    device). ``fix_x0=False`` frees x_0 (``x0`` is then unused: X_init[:, 0]
+    is its start, as in the JAX solver): its bound rows stay, its
+    stationarity row joins the KKT test and each LQ step gets dx0=None."""
+    _check_supported(funcs, dims, options)
     if bounds.lbx.dim() != 2 or bounds.lbu.dim() != 2:
         raise ValueError("bounds are shared by all scenarios: lbx/ubx (N+1, nx), "
                          "lbu/ubu (N, nu)")
@@ -274,13 +275,13 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
     torch.backends.cudnn.allow_tf32 = False
     try:
         return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
-                               options, mu0, lq_solver)
+                               options, fix_x0, mu0, lq_solver)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
-                    mu0_dyn, make_lq) -> OCPSolution:
+                    fix_x0, mu0_dyn, make_lq) -> OCPSolution:
     nx, nu, N = dims.nx, dims.nu, dims.N
     m = 2 * nu + 2 * nx
     mN = 2 * nx
@@ -306,11 +307,13 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     w_pin = 1e7 if dtype == torch.float64 else 1e5
 
     # validity masks of the rows [u-ubu; lbu-u; x-ubx; lbx-x] (stage) and
-    # [x-ubx; lbx-x] (terminal); x_0 is not a decision variable
+    # [x-ubx; lbx-x] (terminal); a fixed x_0 is not a decision variable, so
+    # its bound rows are meaningless
     m_x = torch.isfinite(bounds.ubx[:-1]).clone()
     m_lx = torch.isfinite(bounds.lbx[:-1]).clone()
-    m_x[0] = False
-    m_lx[0] = False
+    if fix_x0:
+        m_x[0] = False
+        m_lx[0] = False
     mask = torch.cat([torch.isfinite(bounds.ubu) & ~pin,
                       torch.isfinite(bounds.lbu) & ~pin, m_x, m_lx], dim=1)
     maskN = torch.cat([torch.isfinite(bounds.ubx[-1]),
@@ -359,7 +362,7 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
 
     # -- init ---------------------------------------------------------------
     X = X_init.clone()
-    if x0 is not None:
+    if fix_x0:
         X[:, 0] = x0
     U = torch.where(pin, pin_val, U_init)
     mu0 = torch.full((Bn,), opt.mu_init if mu0_dyn is None else float(mu0_dyn), **kw)
@@ -410,6 +413,8 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         sz = s * z * mask_f
         szN = sN * zN * maskN_f
         stat_terms = [_maxabs(r_u), _maxabs(r_xN)]
+        if not fix_x0:
+            stat_terms.append(_maxabs(r_x[:, 0]))
         if N > 1:
             stat_terms.append(_maxabs(r_x[:, 1:] - lam[:, :-1]))
         # scale stationarity like IPOPT's s_d to tolerate large multipliers
@@ -438,7 +443,8 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         return f + bar + nu_p * viol
 
     lq_solver = make_lq(reg=opt.reg)
-    dx0 = torch.zeros(Bn, nx, **kw)
+    # a free x_0: the LQ solve picks dx_0 from its own stage-0 value function
+    dx0 = torch.zeros(Bn, nx, **kw) if fix_x0 else None
 
     def iteration(cr: _Carry) -> _Carry:
         X, U, lam, s, z, sN, zN, mu, nu_p = cr[:9]

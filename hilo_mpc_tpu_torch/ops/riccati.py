@@ -12,11 +12,14 @@ Equality-constrained LQ problem solved here (per scenario):
 
     min  Σ_{k=0}^{N-1} [ ½ dxᵀQ_k dx + duᵀS_k dx + ½ duᵀR_k du + q_kᵀdx + r_kᵀdu ]
          + ½ dx_Nᵀ P_term dx_N + p_termᵀ dx_N
-    s.t. dx_{k+1} = A_k dx_k + B_k du_k + c_k,   dx_0 given.
+    s.t. dx_{k+1} = A_k dx_k + B_k du_k + c_k,   dx_0 given (or free).
 
 Stage blocks: Q (..., N, nx, nx), R (..., N, nu, nu), S (..., N, nu, nx),
 q (..., N, nx), r (..., N, nu), A (..., N, nx, nx), B (..., N, nx, nu),
-c (..., N, nx); terminal P_term (..., nx, nx), p_term (..., nx); dx0 (..., nx).
+c (..., N, nx); terminal P_term (..., nx, nx), p_term (..., nx); dx0 (..., nx),
+or None for a free initial state: dx_0 then minimizes the stage-0 value
+function, dx_0 = −(P_0 + reg·I)⁻¹ p_0 (the free-x0 step of
+hilo_mpc_tpu/ops/ip_solver.py:633-642).
 """
 from __future__ import annotations
 
@@ -99,9 +102,14 @@ def forward_sweep(A, B, c, K, kff, dx0, Ps_next, ps_next):
 
 def solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
              reg: float = 1e-9) -> LQSolution:
-    """Solve the stagewise equality-constrained LQ problem by Riccati elimination."""
-    K, kff, _, _, Ps_next, ps_next, dec = backward_sweep(
+    """Solve the stagewise equality-constrained LQ problem by Riccati
+    elimination; ``dx0=None`` frees the initial state (the JAX composite
+    backward sweep → ``linalg.solve`` → LQ solve, in one sweep pair)."""
+    K, kff, P0, p0, Ps_next, ps_next, dec = backward_sweep(
         A, B, Q, S, R, q, r, c, P_term, p_term, reg)
+    if dx0 is None:
+        eye = torch.eye(P0.shape[-1], dtype=P0.dtype, device=P0.device)
+        dx0 = -torch.linalg.solve(P0 + reg * eye, p0[..., None])[..., 0]
     dX, dU, lam = forward_sweep(A, B, c, K, kff, dx0, Ps_next, ps_next)
     return LQSolution(dX=dX, dU=dU, lam=lam, K=K, kff=kff, cost_red=dec)
 
@@ -115,7 +123,9 @@ def make_lq_solver(reg: float = 1e-9):
     to the tiled ``ops/cuda_kernels.py:riccati_lq_cuda``, larger sizes to
     ``riccati_lq_wide_cuda`` (a group of warps per scenario, up to
     (32, 16)). Unlike the JAX dispatcher there is no dtype or shape exit to
-    the plain path; the kernel raises on what it does not take. The
+    the plain path; the kernel raises on what it does not take.
+    ``dx0=None`` (a free initial state) goes to the kernels' free-x0 mode,
+    which solves for dx_0 from its own P_0 and p_0. The
     blocks are broadcast to one batch shape (flattened to one batch axis)
     and made contiguous first, because the kernel reads dense batch-first
     arrays."""
@@ -146,7 +156,8 @@ def make_lq_solver(reg: float = 1e-9):
             dense(A, (N, nx, nx)), dense(B, (N, nx, nu)), dense(Q, (N, nx, nx)),
             dense(S, (N, nu, nx)), dense(R, (N, nu, nu)), dense(q, (N, nx)),
             dense(r, (N, nu)), dense(c, (N, nx)), dense(P_term, (nx, nx)),
-            dense(p_term, (nx,)), dense(dx0, (nx,)), reg=factory_reg)
+            dense(p_term, (nx,)), None if dx0 is None else dense(dx0, (nx,)),
+            reg=factory_reg)
         return LQSolution(*[o.reshape(*batch, *o.shape[1:]) for o in out])
 
     return solve

@@ -10,7 +10,9 @@ this module needs no JAX: a test hands both solvers identical inputs.
 ``linear_model_from``, ``lmpc_from`` and ``lqr_from`` rebuild a JAX-side
 state-space model, LMPC or LQR in the port from its numpy matrices, names,
 weights and bounds (read by attribute, again without importing JAX), so both
-sides of a test start from the same numbers.
+sides of a test start from the same numbers; ``model_from`` a model declared
+by equation text or matrices, and ``estimator_from`` an MHE, KF, EKF, UKF or
+PF.
 """
 from __future__ import annotations
 
@@ -20,6 +22,10 @@ import torch
 from ..control.lmpc import LMPC
 from ..control.lqr import LinearQuadraticRegulator
 from ..core.model import Model
+from ..estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
+                             UnscentedKalmanFilter)
+from ..estimation.mhe import MovingHorizonEstimator
+from ..estimation.pf import ParticleFilter
 from ..ops.ip_solver import OCPBounds, OCPSolution
 from ..ops.riccati import LQSolution
 
@@ -93,4 +99,77 @@ def lqr_from(src) -> LinearQuadraticRegulator:
     if src.R is not None:
         dst.R = src.R
     dst._dt = src._dt
+    return dst
+
+
+def model_from(src) -> Model:
+    """The port's twin of a JAX-side model declared by the equation DSL (its
+    text) or by state-space matrices. A model given as Python callables
+    cannot be carried across: build the port's twin by hand."""
+    text = getattr(src, "_equations_src", None)
+    if text is None:
+        if src.A is None:
+            raise ValueError(f"{src!r} was given as callables; pass the port's "
+                             f"twin of the model instead")
+        return linear_model_from(src)
+    m = Model(name=src.name, discrete=src.discrete, time_unit=src.time_unit)
+    return m.set_equations(text)
+
+
+_ESTIMATORS = {cls.__name__: cls for cls in (
+    MovingHorizonEstimator, KalmanFilter, ExtendedKalmanFilter,
+    UnscentedKalmanFilter, ParticleFilter)}
+# the IPOptions fields MovingHorizonEstimator.setup reads from its options
+_MHE_OPTIONS = ("max_iter", "tol", "mu_init", "n_linesearch", "mehrotra",
+                "convexify", "early_exit", "const_cost_hessian")
+
+
+def estimator_from(src, device="cuda", dtype=torch.float64, model=None):
+    """The port's twin of a JAX-side MHE, KF, EKF, UKF or PF: its Q, R, P0,
+    parameter values and initial guess; for an MHE also the horizon, the
+    weights, the bounds and the estimated parameters with their guess and
+    arrival weight; for a UKF alpha, beta, kappa; for a Kalman filter its
+    current covariance; for a PF its settings and particles. A set-up ``src`` gives a twin set up on ``device`` in
+    ``dtype`` with the same sampling time (an MHE also with the solver
+    options and the fast-path decision of ``src``). ``model`` is the port's
+    model, by default ``model_from(src._model)``."""
+    cls = _ESTIMATORS.get(type(src).__name__)
+    if cls is None:
+        raise TypeError(f"no estimator of the port mirrors {type(src).__name__}")
+    model = model_from(src._model) if model is None else model
+    if cls is UnscentedKalmanFilter:
+        dst = cls(model, alpha=src.alpha, beta=src.beta, kappa=src.kappa)
+    elif cls is ParticleFilter:
+        dst = cls(model, n_particles=src.n_particles, roughening=src.roughening,
+                  roughening_tuning=src.roughening_tuning, seed=int(src._seed))
+    else:
+        dst = cls(model)
+    dst.Q, dst.R, dst.P0 = src._Q, src._R, src._P0
+    if src._p_values is not None:
+        dst.set_initial_parameter_values(src._p_values)
+    if cls is MovingHorizonEstimator:
+        dst.horizon = src.horizon
+        for cost in ("quad_stage_cost", "quad_arrival_cost"):
+            for name in ("W_meas", "W_noise", "W_arrival_x", "W_arrival_p"):
+                W = getattr(getattr(src, cost), name)
+                setattr(getattr(dst, cost), name, None if W is None else np.array(W))
+        dst._est_params = list(src._est_params)
+        if src._p_guess is not None:
+            dst._p_guess = np.array(src._p_guess)
+        dst.set_box_constraints(x_lb=src._x_lb, x_ub=src._x_ub, p_lb=src._p_lb,
+                                p_ub=src._p_ub, w_bound=src._w_bound)
+        if src._setup_done:
+            opts = {k: getattr(src._ip_opts, k) for k in _MHE_OPTIONS}
+            opts["fast_path"] = src.fast_path
+            dst.setup(dt=src._dt, options=opts, device=device, dtype=dtype)
+    elif src._setup_done:
+        dst.setup(dt=src._dt, device=device, dtype=dtype)
+    if src._x0 is not None:
+        dst.set_initial_guess(src._x0)
+    if cls is ParticleFilter and src._particles is not None:
+        dst._particles = np.array(src._particles)
+    if getattr(src, "_P", None) is not None:
+        # a Kalman filter's current covariance (setup takes it from P0, and a
+        # later set_initial_guess(P0=...) leaves it)
+        dst._P = np.array(src._P)
     return dst

@@ -12,7 +12,9 @@ import sys
 import hilo_mpc_tpu_torch
 import hilo_mpc_tpu_torch.ops.cuda_kernels
 import hilo_mpc_tpu_torch.utils.interop
+import hilo_mpc_tpu_torch.estimation
 from hilo_mpc_tpu_torch import NMPC, Model, TimeSeries, library
+from hilo_mpc_tpu_torch import EKF, KF, MHE, PF, UKF
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hilo_mpc_tpu", "triton"))
 print("LOADED=" + ",".join(loaded))

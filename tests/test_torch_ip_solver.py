@@ -171,7 +171,6 @@ _NOT_PORTED = {
     "record_iterates": dict(opts=dict(record_iterates=True)),
     "parallel_riccati": dict(opts=dict(parallel_riccati=True)),
     "lin_storage_dtype": dict(opts=dict(lin_storage_dtype="bfloat16")),
-    "fix_x0": dict(fix_x0=False),
 }
 
 
@@ -183,8 +182,7 @@ def test_out_of_slice_options_raise(feature):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tip.solve_ocp(funcs, tdims, tip.OCPBounds(*to_torch(bnd, device=CPU)),
                       *to_torch(args, device=CPU),
-                      tip.IPOptions(**spec.get("opts", {})),
-                      fix_x0=spec.get("fix_x0", True))
+                      tip.IPOptions(**spec.get("opts", {})))
 
 
 def test_solve_ocp_ignores_pallas_full():
