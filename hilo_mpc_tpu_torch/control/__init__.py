@@ -1,2 +1,2 @@
 from .nmpc import NMPC
-from .costs import QuadraticCost
+from .costs import GenericConstraint, GenericCost, QuadraticCost

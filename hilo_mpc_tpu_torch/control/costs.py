@@ -1,23 +1,25 @@
-"""Quadratic cost terms for MPC.
+"""Cost and constraint building blocks for MPC.
 
-PyTorch port of the quadratic part of ``hilo_mpc_tpu/control/costs.py``:
-stage/terminal costs accumulate named state/input terms with weights and
+PyTorch port of ``hilo_mpc_tpu/control/costs.py``: quadratic stage/terminal
+costs accumulate named state, input and measurement terms with weights and
 references (constant, or supplied per solve through the per-stage parameter
-vector theta). The terms are plain numpy descriptions; ``control/nmpc.py``
-lowers them to batch-first torch functions.
+vector theta); generic costs and constraints are callables over
+(x, u, p, t). The quadratic terms are plain numpy descriptions;
+``control/nmpc.py`` lowers everything to batch-first torch functions, so a
+user callable takes x (..., n_x), u (..., n_u), p (..., n_p), t (...).
 
-Not ported yet: Δu and path-following terms (ROADMAP.md §A item 9),
-measurement terms, generic costs and constraints (item 7).
+Not ported yet: Δu and path-following terms (ROADMAP.md §A.5).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
-               "ROADMAP.md §A item {item}")
+               "ROADMAP.md §A.5")
 
 
 def _as_weight_matrix(weights, n: int) -> np.ndarray:
@@ -35,7 +37,7 @@ def _as_weight_matrix(weights, n: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class QuadTerm:
-    kind: str                      # 'states' | 'inputs'
+    kind: str                      # 'states' | 'inputs' | 'measurements'
     names: List[str]
     idx: np.ndarray                # indices into the relevant vector
     W: np.ndarray                  # (n, n) weights
@@ -80,8 +82,7 @@ class QuadraticCost:
     def _add(self, kind, pool, names, weights, ref, trajectory_tracking,
              path_following):
         if path_following or callable(ref):
-            raise NotImplementedError(
-                _NOT_PORTED.format(what="path following", item=9))
+            raise NotImplementedError(_NOT_PORTED.format(what="path following"))
         names, idx = self._resolve(names, pool, kind)
         W = _as_weight_matrix(weights if weights is not None else 1.0, len(idx))
         ref_arr = None
@@ -112,13 +113,12 @@ class QuadraticCost:
                          trajectory_tracking, path_following)
 
     def add_inputs_change(self, names=None, weights=None):
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="Δu (inputs_change) costs", item=9))
+        raise NotImplementedError(_NOT_PORTED.format(what="Δu (inputs_change) costs"))
 
     def add_measurements(self, names=None, weights=None, ref=None,
                          trajectory_tracking=False, path_following=False):
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="measurement costs", item=7))
+        return self._add("measurements", self._model.measurements, names, weights,
+                         ref, trajectory_tracking, path_following)
 
     def _kind_matrix(self, kind, n):
         M = np.zeros((n, n))
@@ -139,3 +139,141 @@ class QuadraticCost:
     def n_runtime_refs(self) -> int:
         """Number of reference entries supplied per solve (through theta)."""
         return sum(t.n for t in self.terms if t.runtime_ref)
+
+
+def one_row_last(v, x, n: int):
+    """A user function's value in (..., n) form: a function of one row may
+    return the batch shape (...) of ``x`` (..., n_x) itself; a value without
+    the batch dims is broadcast to them."""
+    if n == 1 and v.dim() == x.dim() - 1:
+        v = v[..., None]
+    return torch.broadcast_to(v, x.shape[:-1] + (n,))
+
+
+class GenericCost:
+    """Arbitrary stage/terminal cost as a batch-first callable over
+    (x, u, p, t) returning (...) or (..., 1) (reference: GenericCost,
+    util/modeling.py:38)."""
+
+    def __init__(self, model):
+        self._model = model
+        self._fn: Optional[Callable] = None
+
+    @property
+    def is_empty(self) -> bool:
+        return self._fn is None
+
+    @property
+    def cost(self):
+        return self._fn
+
+    @cost.setter
+    def cost(self, fn: Callable):
+        from ..core.model import wrap_rhs
+
+        wrapped = wrap_rhs(fn, "cost")
+        self._fn = lambda x, u, p, t: one_row_last(
+            wrapped(x, x[..., :0], u, p, t), x, 1)[..., 0]
+
+    def __call__(self, x, u, p, t):
+        return self._fn(x, u, p, t)
+
+
+@dataclasses.dataclass
+class GenericConstraint:
+    """Nonlinear stage or terminal constraint lb <= g(x, u, p, t) <= ub,
+    optionally softened (reference: GenericConstraint,
+    util/modeling.py:820-1005). ``fn`` is batch-first: (..., n).
+
+    Soft constraints use the exact quadratic/linear penalty reformulation: the
+    NLP ``min f + w·eps² s.t. g <= ub + eps, eps >= 0`` has the closed-form
+    minimizer eps* = relu(g - ub), so the slack never becomes a decision
+    variable; with ``max_violation`` a hard constraint at ub + max_violation
+    remains.
+    """
+
+    fn: Callable                       # canonical g(x, u, p, t) -> (..., m)
+    n: int
+    lb: np.ndarray
+    ub: np.ndarray
+    is_soft: bool = False
+    weight: float = 1e4                # quadratic penalty weight when soft
+    linear_weight: float = 0.0         # optional l1-ish penalty (smoothed by relu)
+    max_violation: Optional[np.ndarray] = None
+    name: str = "constraint"
+
+    def __post_init__(self):
+        self.lb = np.broadcast_to(np.asarray(self.lb, dtype=float), (self.n,)).copy()
+        self.ub = np.broadcast_to(np.asarray(self.ub, dtype=float), (self.n,)).copy()
+        if self.max_violation is not None:
+            self.max_violation = np.broadcast_to(
+                np.asarray(self.max_violation, dtype=float), (self.n,)).copy()
+
+    def equality_rows(self) -> np.ndarray:
+        """Rows with lb == ub (handled as true equalities by the solver's
+        augmented-Lagrangian path, not as tight inequality bands)."""
+        if self.is_soft:
+            return np.zeros(self.n, bool)
+        both = np.isfinite(self.lb) & np.isfinite(self.ub)
+        return both & (np.abs(self.ub - self.lb) < 1e-9)
+
+    def hard_rows(self):
+        """Static description of the hard inequality rows this constraint adds."""
+        if not self.is_soft:
+            eq = self.equality_rows()
+            ub_rows = np.isfinite(self.ub) & ~eq
+            lb_rows = np.isfinite(self.lb) & ~eq
+            return ub_rows, lb_rows, self.ub, self.lb
+        if self.max_violation is not None:
+            ub_rows = np.isfinite(self.ub)
+            lb_rows = np.isfinite(self.lb)
+            return (ub_rows, lb_rows, self.ub + self.max_violation,
+                    self.lb - self.max_violation)
+        return (np.zeros(self.n, bool), np.zeros(self.n, bool), self.ub, self.lb)
+
+    def penalty(self, g):
+        """Soft-constraint penalty (...) for constraint values g (..., n).
+        ``torch.maximum``, as the reference's ``jnp.maximum``, splits the
+        derivative in half where g sits on a bound."""
+        if not self.is_soft:
+            return 0.0
+        kw = dict(dtype=g.dtype, device=g.device)
+        ub = torch.as_tensor(np.where(np.isfinite(self.ub), self.ub, 1e20), **kw)
+        lb = torch.as_tensor(np.where(np.isfinite(self.lb), self.lb, -1e20), **kw)
+        zero = torch.zeros((), **kw)
+        viol = torch.maximum(g - ub, zero) + torch.maximum(lb - g, zero)
+        pen = self.weight * (viol ** 2).sum(dim=-1)
+        if self.linear_weight:
+            pen = pen + self.linear_weight * viol.sum(dim=-1)
+        return pen
+
+
+def make_constraint(fn: Callable, lb=None, ub=None, n: Optional[int] = None,
+                    is_soft: bool = False, weight: float = 1e4,
+                    max_violation=None, name: str = "constraint",
+                    probe_dims=None) -> GenericConstraint:
+    """Build a GenericConstraint from a batch-first user callable with flexible
+    signature. Without ``n`` the rows are counted on a probe batch of two
+    scenarios (``probe_dims`` = (n_x, n_u, n_p)): a value of the batch shape
+    itself is one row."""
+    from ..core.model import wrap_rhs
+
+    wrapped = wrap_rhs(fn, "constraint")
+    if n is None:
+        if probe_dims is None:
+            raise ValueError("pass n= (number of constraint rows)")
+        nx, nu, np_ = probe_dims
+        x = torch.zeros(2, nx, dtype=torch.float64)
+        out = wrapped(x, x[..., :0], torch.zeros(2, nu, dtype=torch.float64),
+                      torch.zeros(2, np_, dtype=torch.float64),
+                      torch.zeros(2, dtype=torch.float64))
+        n = 1 if out.dim() == 1 else out.shape[-1]
+    n = int(n)
+
+    def canon(x, u, p, t):
+        return one_row_last(wrapped(x, x[..., :0], u, p, t), x, n)
+
+    lb = -np.inf if lb is None else lb
+    ub = np.inf if ub is None else ub
+    return GenericConstraint(fn=canon, n=n, lb=lb, ub=ub, is_soft=is_soft,
+                             weight=weight, max_violation=max_violation, name=name)

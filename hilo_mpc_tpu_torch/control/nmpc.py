@@ -1,9 +1,12 @@
 """Nonlinear model predictive control.
 
 PyTorch port of the standard formulation of ``hilo_mpc_tpu/control/nmpc.py``:
-quadratic tracking costs on states and inputs (constant or runtime
-references), box bounds on states and inputs, scaling, time-invariant
-parameters, warm starts and multi-start. The multiple-shooting structure is
+quadratic tracking costs on states, inputs and measurements (constant or
+runtime references), generic (callable) stage and terminal costs, box bounds
+on states and inputs (the state bounds optionally soft), generic stage and
+terminal constraints (hard, soft, or equalities through the solver's
+augmented Lagrangian), scaling, time-invariant parameters, warm starts and
+multi-start. The multiple-shooting structure is
 kept stagewise and solved by the batched interior point of ops/ip_solver.py,
 whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors. With
 the ``pallas_full`` option, ``solve_batch_fn`` sends eligible problems to the
@@ -19,8 +22,7 @@ u (..., n_u), theta (..., n_theta).
 
 Not ported yet (NotImplementedError at the setter or at setup): Δu costs and
 bounds, control horizon < horizon, path following, minimum time, discrete
-inputs, time-varying parameters and RTI (ROADMAP.md §A item 9); soft
-constraints, generic costs and constraints (item 7). There is no trace
+inputs, time-varying parameters and RTI (ROADMAP.md §A.5). There is no trace
 registry: PyTorch runs eagerly, so there is nothing to trace or share.
 """
 from __future__ import annotations
@@ -41,7 +43,7 @@ from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
 from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_problem,
                             whole_ip_supported)
-from .costs import QuadraticCost
+from .costs import GenericCost, QuadraticCost, make_constraint
 
 _NLP_OPTION_KEYS = {
     "integration_method", "degree", "collocation_scheme", "substeps",
@@ -56,9 +58,9 @@ _NLP_OPTION_KEYS = {
 }
 
 
-def _not_ported(what: str, item: int = 9):
+def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"— ROADMAP.md §A item {item}")
+                               f"— ROADMAP.md §A.5")
 
 
 class NMPC:
@@ -72,6 +74,10 @@ class NMPC:
         self.name = name or f"nmpc_{self._model.name}"
         self.quad_stage_cost = QuadraticCost(self._model)
         self.quad_terminal_cost = QuadraticCost(self._model)
+        self.stage_cost = GenericCost(self._model)
+        self.terminal_cost = GenericCost(self._model)
+        self._stage_constraints = []
+        self._terminal_constraints = []
 
         self._horizon: Optional[int] = None
         self._control_horizon: Optional[int] = None
@@ -79,6 +85,8 @@ class NMPC:
         self._x_lb = np.full(nx, -np.inf); self._x_ub = np.full(nx, np.inf)
         self._u_lb = np.full(nu, -np.inf); self._u_ub = np.full(nu, np.inf)
         self._du_lb = np.full(nu, -np.inf); self._du_ub = np.full(nu, np.inf)
+        self._x_soft = False
+        self._soft_weight = 1e4
         self._x_scaling = np.ones(nx)
         self._u_scaling = np.ones(nu)
         self._x_guess: Optional[np.ndarray] = None
@@ -135,9 +143,9 @@ class NMPC:
     def set_box_constraints(self, x_lb=None, x_ub=None, u_lb=None, u_ub=None,
                             du_lb=None, du_ub=None, x_soft: bool = False,
                             soft_weight: float = 1e4):
-        if x_soft:
-            raise _not_ported("soft state bounds (x_soft=True)", item=7)
-
+        """Box bounds; with ``x_soft`` every finite state bound becomes the
+        penalty soft_weight·Σ relu(x − ub)² + relu(lb − x)² in the stage and
+        terminal costs instead of a barrier row."""
         def setv(cur, val, n):
             if val is None:
                 return cur
@@ -150,6 +158,8 @@ class NMPC:
         self._u_ub = setv(self._u_ub, u_ub, nu)
         self._du_lb = setv(self._du_lb, du_lb, nu)
         self._du_ub = setv(self._du_ub, du_ub, nu)
+        self._x_soft = bool(x_soft)
+        self._soft_weight = float(soft_weight)
         return self
 
     def set_initial_guess(self, x_guess=None, u_guess=None):
@@ -173,21 +183,29 @@ class NMPC:
         self._p_defaults = np.asarray(p, dtype=float).ravel()
         return self
 
+    def add_stage_constraint(self, fn=None, lb=None, ub=None, n=None,
+                             is_soft=False, weight=1e4, max_violation=None,
+                             name="stage_constraint"):
+        """lb <= fn(x, u, p, t) <= ub at every stage; fn is batch-first and
+        returns (..., n), or (...) for one row."""
+        con = make_constraint(fn, lb=lb, ub=ub, n=n, is_soft=is_soft, weight=weight,
+                              max_violation=max_violation, name=name,
+                              probe_dims=(self._model.n_x, self._model.n_u,
+                                          self._model.n_p))
+        self._stage_constraints.append(con)
+        return self
+
+    def add_terminal_constraint(self, fn=None, lb=None, ub=None, n=None,
+                                is_soft=False, weight=1e4, max_violation=None,
+                                name="terminal_constraint"):
+        """lb <= fn(x, u, p, t) <= ub at the last state (u = 0)."""
+        con = make_constraint(fn, lb=lb, ub=ub, n=n, is_soft=is_soft, weight=weight,
+                              max_violation=max_violation, name=name,
+                              probe_dims=(self._model.n_x, 0, self._model.n_p))
+        self._terminal_constraints.append(con)
+        return self
+
     # -- features of later slices ---------------------------------------------
-    @property
-    def stage_cost(self):
-        raise _not_ported("generic stage costs", item=7)
-
-    @property
-    def terminal_cost(self):
-        raise _not_ported("generic terminal costs", item=7)
-
-    def add_stage_constraint(self, *args, **kwargs):
-        raise _not_ported("generic stage constraints", item=7)
-
-    def add_terminal_constraint(self, *args, **kwargs):
-        raise _not_ported("generic terminal constraints", item=7)
-
     def set_discrete_inputs(self, *args, **kwargs):
         raise _not_ported("discrete (mixed-integer) inputs")
 
@@ -270,11 +288,23 @@ class NMPC:
             x_next, _ = core_step(x, x[..., :0], u, p, t, h)
             return x_next / sx
 
-        def quad_terms_cost(terms, ref_offset, x, u, theta):
+        meas_fn = model.meas_fn()
+
+        def measurements(x, u, p, t):
+            y = meas_fn(x, x[..., :0], u, p, t)
+            # a model of one measurement may give the batch shape itself
+            return y[..., None] if y.dim() == x.dim() - 1 else y
+
+        def quad_terms_cost(terms, ref_offset, x, u, p, t, theta):
             cost = torch.zeros_like(x[..., 0])
             off = ref_offset
             for term in terms:
-                src = x if term.kind == "states" else u
+                if term.kind == "states":
+                    src = x
+                elif term.kind == "inputs":
+                    src = u
+                else:
+                    src = measurements(x, u, p, t)
                 v = torch.stack([src[..., int(i)] for i in term.idx], dim=-1)
                 if term.runtime_ref:
                     ref = theta[..., off:off + term.n]
@@ -291,30 +321,134 @@ class NMPC:
                             cost = cost + float(term.W[i, j]) * e[..., i] * e[..., j]
             return cost
 
+        # soft state bounds: every finite state bound becomes a relu² penalty
+        x_pen_ub = np.where(self._x_soft, self._x_ub, np.inf)
+        x_pen_lb = np.where(self._x_soft, self._x_lb, -np.inf)
+        soft_w = self._soft_weight
+        x_soft = self._x_soft
+        soft_cons_s = [c for c in self._stage_constraints if c.is_soft]
+        soft_cons_t = [c for c in self._terminal_constraints if c.is_soft]
+        pen_ub = torch.as_tensor(np.where(np.isfinite(x_pen_ub), x_pen_ub, 1e20), **kw)
+        pen_lb = torch.as_tensor(np.where(np.isfinite(x_pen_lb), x_pen_lb, -1e20), **kw)
+
+        def soft_box_penalty(x):
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            viol = torch.maximum(x - pen_ub, zero) + torch.maximum(pen_lb - x, zero)
+            return soft_w * (viol ** 2).sum(dim=-1)
+
+        gen_stage, gen_term = self.stage_cost, self.terminal_cost
+
         def stage_cost(xs, us, theta):
             x, u, p, t, h = unpack(xs, us, theta)
-            c = quad_terms_cost(stage_terms, off_rs, x, u, theta)
+            c = quad_terms_cost(stage_terms, off_rs, x, u, p, t, theta)
+            if not gen_stage.is_empty:
+                c = c + gen_stage(x, u, p, t)
+            if x_soft:
+                c = c + soft_box_penalty(x)
+            for con in soft_cons_s:
+                c = c + con.penalty(con.fn(x, u, p, t))
             # integrate stage cost over the sample interval: multiply by dt
             return c * h / step_dt
 
-        def term_cost(xs, theta):
+        def term_args(xs, theta):
+            """(x, u = 0, p, t) of the terminal functions."""
             x = xs[..., :nx] * sx
             u0 = torch.zeros(x.shape[:-1] + (nu,), dtype=x.dtype, device=x.device)
-            return quad_terms_cost(term_terms, off_rt, x, u0, theta)
+            return x, u0, theta[..., off_p:off_p + n_p], theta[..., 0]
 
-        dims = OCPDims(nx=nx, nu=nu, N=N)
+        def term_cost(xs, theta):
+            x, u0, p, t = term_args(xs, theta)
+            c = quad_terms_cost(term_terms, off_rt, x, u0, p, t, theta)
+            if not gen_term.is_empty:
+                c = c + gen_term(x, u0, p, t)
+            if x_soft:
+                c = c + soft_box_penalty(x)
+            for con in soft_cons_t:
+                c = c + con.penalty(con.fn(x, u0, p, t))
+            return c
+
+        # --- generic rows: hard inequalities (static row selection) and
+        # equalities (lb == ub, the solver's augmented Lagrangian) ---
+        hard_s = [(c,) + c.hard_rows() for c in self._stage_constraints]
+        hard_t = [(c,) + c.hard_rows() for c in self._terminal_constraints]
+        n_h = sum(int(ub_r.sum() + lb_r.sum()) for _, ub_r, lb_r, _, _ in hard_s)
+        n_hN = sum(int(ub_r.sum() + lb_r.sum()) for _, ub_r, lb_r, _, _ in hard_t)
+        eq_s = [(c, c.equality_rows()) for c in self._stage_constraints
+                if c.equality_rows().any()]
+        eq_t = [(c, c.equality_rows()) for c in self._terminal_constraints
+                if c.equality_rows().any()]
+        n_e = sum(int(r.sum()) for _, r in eq_s)
+        n_eN = sum(int(r.sum()) for _, r in eq_t)
+
+        def ineq_rows(hard, x, u, p, t):
+            rows = []
+            for con, ub_r, lb_r, ub, lb in hard:
+                g = con.fn(x, u, p, t)
+                if ub_r.any():
+                    rows.append(g[..., np.where(ub_r)[0]]
+                                - torch.as_tensor(ub[ub_r], dtype=x.dtype,
+                                                  device=x.device))
+                if lb_r.any():
+                    rows.append(torch.as_tensor(lb[lb_r], dtype=x.dtype, device=x.device)
+                                - g[..., np.where(lb_r)[0]])
+            return torch.cat(rows, dim=-1)
+
+        def eq_rows(eqs, x, u, p, t):
+            return torch.cat([con.fn(x, u, p, t)[..., np.where(r)[0]]
+                              - torch.as_tensor(con.ub[r], dtype=x.dtype, device=x.device)
+                              for con, r in eqs], dim=-1)
+
+        def stage_ineq(xs, us, theta):
+            x, u, p, t, _ = unpack(xs, us, theta)
+            return ineq_rows(hard_s, x, u, p, t)
+
+        def term_ineq(xs, theta):
+            return ineq_rows(hard_t, *term_args(xs, theta))
+
+        def stage_eq(xs, us, theta):
+            x, u, p, t, _ = unpack(xs, us, theta)
+            return eq_rows(eq_s, x, u, p, t)
+
+        def term_eq(xs, theta):
+            return eq_rows(eq_t, *term_args(xs, theta))
+
+        # the cost Hessian is point-independent iff every term is a true
+        # quadratic in the decision variables: no generic costs, no soft
+        # penalties (piecewise), no nonlinear measurement maps
+        quad_cost_only = (gen_stage.is_empty and gen_term.is_empty and not x_soft
+                          and not soft_cons_s and not soft_cons_t
+                          and all(t.kind != "measurements"
+                                  for t in stage_terms + term_terms))
+        # what the whole-solve emitter cannot write as C++ (ops/codegen_cuda.py)
+        cost_error = None
+        if not gen_stage.is_empty or not gen_term.is_empty:
+            cost_error = "a generic (callable) cost"
+        elif any(t.kind == "measurements" for t in stage_terms + term_terms):
+            cost_error = "a measurement cost term"
+        elif soft_cons_s or soft_cons_t:
+            cost_error = "a soft generic (callable) constraint"
+
+        dims = OCPDims(nx=nx, nu=nu, N=N, n_h=n_h, n_hN=n_hN, n_e=n_e, n_eN=n_eN)
         source = OCPSource(
             model=model, spec=spec, off_rs=off_rs, off_rt=off_rt,
             stage_terms=tuple(stage_terms), term_terms=tuple(term_terms),
             x_scaling=tuple(self._x_scaling), u_scaling=tuple(self._u_scaling),
-            dt=step_dt)
+            dt=step_dt, soft_lb=tuple(x_pen_lb), soft_ub=tuple(x_pen_ub),
+            soft_weight=soft_w, cost_error=cost_error)
         funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost,
-                             source=source)
+                             stage_ineq=stage_ineq if n_h else None,
+                             term_ineq=term_ineq if n_hN else None,
+                             stage_eq=stage_eq if n_e else None,
+                             term_eq=term_eq if n_eN else None, source=source)
 
-        # --- bounds in solver (scaled) coordinates ---
+        # --- bounds in solver (scaled) coordinates; soft state bounds leave
+        # the barrier rows ---
+        x_lb_s, x_ub_s = self._x_lb / self._x_scaling, self._x_ub / self._x_scaling
+        if x_soft:
+            x_lb_s, x_ub_s = np.full(nx, -np.inf), np.full(nx, np.inf)
         self._bounds = OCPBounds(
-            lbx=torch.as_tensor(np.tile(self._x_lb / self._x_scaling, (N + 1, 1)), **kw),
-            ubx=torch.as_tensor(np.tile(self._x_ub / self._x_scaling, (N + 1, 1)), **kw),
+            lbx=torch.as_tensor(np.tile(x_lb_s, (N + 1, 1)), **kw),
+            ubx=torch.as_tensor(np.tile(x_ub_s, (N + 1, 1)), **kw),
             lbu=torch.as_tensor(np.tile(self._u_lb / self._u_scaling, (N, 1)), **kw),
             ubu=torch.as_tensor(np.tile(self._u_ub / self._u_scaling, (N, 1)), **kw))
         self._dims = dims
@@ -337,9 +471,7 @@ class NMPC:
             pallas_vmem_mb=options.get("pallas_vmem_mb", None),
             mehrotra=options.get("mehrotra", True),
             riccati_unroll=options.get("riccati_unroll", 1),
-            # every cost term of this slice is a true quadratic, so the cost
-            # Hessian is point-independent
-            const_cost_hessian=options.get("const_cost_hessian", True),
+            const_cost_hessian=options.get("const_cost_hessian", quad_cost_only),
             lin_storage_dtype=options.get("lin_storage_dtype", None),
         )
         _check_supported(funcs, dims, ip_opts)
@@ -609,21 +741,26 @@ class NMPC:
             cache = self._whole_ip_cache()
             if cache["eligible"]:
                 return self._whole_ip_fn(cache, mu_val)
+            why = self._funcs.source.cost_error
             warnings.warn("pallas_full requested but the problem shape is not "
-                          "kernel-eligible (needs box-only constraints, pure "
-                          "Newton steps, fix_x0 and a model in the equation "
-                          "DSL or by state-space matrices); using the general "
-                          "path")
+                          "kernel-eligible (needs box-only constraints, soft "
+                          "state bounds at most, pure Newton steps, fix_x0, "
+                          "quadratic cost terms on states and inputs and a model "
+                          "in the equation DSL or by state-space matrices"
+                          + (f"; this problem has {why}" if why else "")
+                          + "); using the general path")
         return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)
 
     def _weights_key(self):
         """The numbers of the cost terms that the emitted problem bakes into
-        prm, as bytes: a term edited in place after setup() changes it."""
+        prm, as bytes: a term edited in place after setup() changes it; and
+        the soft state bounds and their weight."""
         src = self._funcs.source
         return tuple((t.kind, np.asarray(t.idx).tobytes(), np.asarray(t.W).tobytes(),
                       None if t.ref is None else np.asarray(t.ref).tobytes(),
                       t.runtime_ref)
-                     for t in (*src.stage_terms, *src.term_terms))
+                     for t in (*src.stage_terms, *src.term_terms)) + (
+            (src.soft_lb, src.soft_ub, src.soft_weight),)
 
     def _whole_ip_cache(self) -> dict:
         """The whole-solve path prepared for the current problem: the gate's
@@ -638,8 +775,9 @@ class NMPC:
         weights = self._weights_key()
         if (c is None or c["funcs"] is not self._funcs or c["bounds"] is not self._bounds
                 or c["opts"] != self._ip_opts or c["weights"] != weights):
-            eligible = whole_ip_supported(self._dims, self._bounds, self._ip_opts,
-                                          True, self._model)
+            eligible = (self._funcs.source.cost_error is None
+                        and whole_ip_supported(self._dims, self._bounds,
+                                               self._ip_opts, True, self._model))
             c = self._wip = dict(funcs=self._funcs, bounds=self._bounds,
                                  opts=self._ip_opts, weights=weights,
                                  eligible=eligible, launch={})

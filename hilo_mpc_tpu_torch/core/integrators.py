@@ -11,7 +11,7 @@ Conventions:
   - ``step(x, z, u, p, t, dt) -> (x_next, z_next)``
 
 Implicit integrators (collocation, Newton-solved DAE stages) are not ported
-yet: ROADMAP.md §A item 7.
+yet: ROADMAP.md §A.3.4.
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ _ERK_TABLEAUS = {
 ERK_METHODS = tuple(sorted(_ERK_TABLEAUS))
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
-                  "ROADMAP.md §A item 7")
+                  "ROADMAP.md §A.3.4")
 
 
 def erk_tableau(method: str):

@@ -13,7 +13,7 @@ rolls the step out with a Python loop over time, every scenario at once.
 ``linearize``, ``discretize`` and ``jacobians`` derive linear and discrete
 models by ``torch.func`` forward-mode Jacobians.
 
-Not ported yet: quadratures and DAE algebraic states (ROADMAP.md §A item 7).
+Not ported yet: quadratures and DAE algebraic states (ROADMAP.md §A.3.4).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from .series import TimeSeries
 from .variables import VarSpec
 
 _CANONICAL_ARGS = ("x", "z", "u", "p", "t")
-_NOT_PORTED = "{what} is not ported to the PyTorch package yet — ROADMAP.md §A item 7"
+_NOT_PORTED = "{what} is not ported to the PyTorch package yet — ROADMAP.md §A.3.4"
 
 
 def resolve_device(device) -> torch.device:

@@ -3,7 +3,7 @@
 PyTorch port of ``hilo_mpc_tpu/core/series.py``. Storage is host numpy (device
 tensors are brought to the host before appending); per-variable access
 supports ``'x'``, a state name, ``'x:f'`` (final) and ``'x:0'`` (initial).
-Plotting is not ported yet (ROADMAP.md §A item 14).
+Plotting is not ported yet (ROADMAP.md §A.10).
 """
 from __future__ import annotations
 

@@ -23,11 +23,14 @@
 // the sizes NX, NU, N, NT, the active box rows (row_mask(k) over the 2NU+2NX
 // candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, row_off(k) their
 // first slot, TERM_MASK over [x-ub; lb-x] of the terminal stage), the
-// integrator step `dyn` over a scalar or dual type, and the quadratic cost in
-// closed form. Every number (bound offsets, weights, references, scalings,
+// integrator step `dyn` over a scalar or dual type, and the cost in closed
+// form: the quadratic terms and the soft state bounds' relu² penalty, whose
+// Hessian depends on the point, so stage_hess and term_hess take it (a
+// problem without soft bounds ignores it). Every number (bound offsets, weights, references, scalings,
 // dt, the IP constants) comes from the device array `prm`, so controllers
 // that differ only in numbers share one build. The quadratic cost has no
-// x-u cross term, so the Riccati step carries no Hux block.
+// x-u cross term (the penalty is on x alone), so the Riccati step carries
+// no Hux block.
 //
 // Bound. Per scenario-iteration the algorithm does ~21,000 operations at the
 // flagship (N=20, nx=2, nu=1, RK4; EmittedProblem.flops) on a few hundred
@@ -422,13 +425,10 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
 #pragma unroll
       for (int i = 0; i < NX; ++i) lam_prev[i] = lamk[i];
     }
-    T xN[NX], gN[NX];
-    {
-      T thN[NT];
-      get_th(N, thN);
-      get_x(N, xN);
-      P::term_grad(xN, thN, prm, gN);
-    }
+    T xN[NX], gN[NX], thN[NT];
+    get_th(N, thN);
+    get_x(N, xN);
+    P::term_grad(xN, thN, prm, gN);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       T r = gN[i] - lam_prev[i];
@@ -465,7 +465,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
 
     // ---- pass 2: condensation and the backward Riccati sweep ----------------
     T Pm[NX][NX], pv[NX];
-    P::term_hess(prm, &Pm[0][0]);
+    P::term_hess(xN, thN, prm, &Pm[0][0]);
 #pragma unroll
     for (int i = 0; i < NX; ++i) pv[i] = gN[i];
     {
@@ -491,7 +491,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       lin_load(k, &Ak[0][0], &Bk[0][0], ck);
       P::stage_grad(xk, uk, thk, prm, qb, rb);
       T Qb[NX][NX], Rb[NU][NU];
-      P::stage_hess(thk, prm, &Qb[0][0], &Rb[0][0]);
+      P::stage_hess(xk, uk, thk, prm, &Qb[0][0], &Rb[0][0]);
       const unsigned mask = P::row_mask(k);
       int ridx = P::row_off(k);
 #pragma unroll

@@ -16,9 +16,14 @@ in-kernel AD, so this module writes the model as C++ instead:
   t = theta[0], h = theta[1]);
 - the quadratic cost gets its gradient and Hessian in closed form:
   g = (h/dt)·sx∘(W+Wᵀ)e and H = (h/dt)·diag(sx)(W+Wᵀ)diag(sx), scattered by
-  the term's indices (no h factor and u = 0 in the terminal cost). These are
-  exact for the only cost form the port has (ROADMAP.md §A item 7 brings
-  generic costs);
+  the term's indices (no h factor and u = 0 in the terminal cost);
+- soft state bounds, the penalty w·Σ relu(x − ub)² + relu(lb − x)² on the
+  unscaled x, likewise: g = 2w·(relu(x − ub) − relu(lb − x)) and a diagonal
+  Hessian, 2w where a bound is violated, with the stage's h/dt factor and
+  the solver scaling as above (none of h/dt in the terminal cost). The
+  Hessian functions take the point for it; a problem without soft bounds
+  emits no such code. Generic (callable) costs, measurement terms and soft
+  generic constraints have no emitter (``OCPSource.cost_error``);
 - the box rows become bit masks over the candidate rows
   ``[u-ub; lb-u; x-ub; lb-x]`` of each stage (no x rows at k = 0), then the
   terminal rows ``[x-ub; lb-x]``.
@@ -79,7 +84,9 @@ class OCPSource:
     to its ``OCPFunctions``): the model and integrator, the theta layout
     [t, h, p (n_p), stage refs, terminal refs], the quadratic cost terms
     (control/costs.py:QuadTerm), the solver scalings and the sampling time
-    that divides the stage cost's h."""
+    that divides the stage cost's h; the soft state bounds (unscaled, ±inf
+    where a state has none) and their weight; and, where the cost holds a
+    part that has no emitter, what that part is (``cost_error``)."""
     model: object
     spec: IntegratorSpec
     off_rs: int
@@ -89,6 +96,10 @@ class OCPSource:
     x_scaling: tuple
     u_scaling: tuple
     dt: float
+    soft_lb: tuple = ()
+    soft_ub: tuple = ()
+    soft_weight: float = 0.0
+    cost_error: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -416,6 +427,38 @@ def _emit_cost(terms, ref_off: int, prm: _Prm, nx: int, nu: int,
     return val, grad, hess, ops
 
 
+def _emit_soft(src: OCPSource, prm: _Prm) -> tuple:
+    """(value, gradient, Hessian) C++ lines of the soft state bounds'
+    penalty on the unscaled x, and the gradient's and Hessian's operation
+    count. Only states with a finite soft bound get code; the numbers (the
+    weight, 2·weight, the bounds) go into prm."""
+    lbs = [(i, v) for i, v in enumerate(src.soft_lb) if math.isfinite(v)]
+    ubs = [(i, v) for i, v in enumerate(src.soft_ub) if math.isfinite(v)]
+    states = sorted({i for i, _ in lbs + ubs})
+    if not states:
+        return [], [], [], 0
+    nx = len(src.soft_lb)
+    w, w2 = prm.add(src.soft_weight), prm.add(2.0 * src.soft_weight)
+    ub = {i: prm.add(v) for i, v in ubs}
+    lb = {i: prm.add(v) for i, v in lbs}
+    val, grad, hess = ["    T sp = T(0);"], [], []
+    ops = 0
+    for i in states:
+        hi = f"hm::m_fmax(x[{i}] - prm[{ub[i]}], T(0))" if i in ub else None
+        lo = f"hm::m_fmax(prm[{lb[i]}] - x[{i}], T(0))" if i in lb else None
+        v = " + ".join(e for e in (hi, lo) if e)
+        val.append(f"    {{ const T v = {v}; sp = sp + v * v; }}")
+        g = " - ".join(e for e in (hi, lo) if e) if hi else f"-{lo}"
+        grad.append(f"    gx[{i}] = gx[{i}] + prm[{w2}] * ({g});")
+        out = ([f"x[{i}] > prm[{ub[i]}]"] if i in ub else []) \
+            + ([f"x[{i}] < prm[{lb[i]}]"] if i in lb else [])
+        hess.append(f"    if ({' || '.join(out)}) Hxx[{i * nx + i}] = "
+                    f"Hxx[{i * nx + i}] + prm[{w2}];")
+        ops += 6
+    val.append(f"    c = c + prm[{w}] * sp;")
+    return val, grad, hess, ops
+
+
 def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> EmittedProblem:
     """The C++ problem struct for csrc/whole_ip.cuh and its numbers.
     ``bounds`` are numpy arrays (lbx, ubx, lbu, ubu) in solver coordinates;
@@ -425,6 +468,10 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
         raise NotImplementedError(
             f"2·nu + 2·nx = {2 * nu + 2 * nx} candidate box rows per stage; the "
             f"whole-solve kernel takes at most {MAX_ROWS}")
+    if src.cost_error is not None:
+        raise NotImplementedError(
+            f"the whole-solve kernel's emitter cannot write {src.cost_error} as "
+            f"C++ (a torch.fx emitter is the later extension, ROADMAP.md §C)")
     rhs, model_ops, model_calls = emit_model(src.model)
     prm = _Prm()
     tol = float(options.tol)
@@ -439,6 +486,10 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
         prm.add(v)
     sv, sg, sh, s_ops = _emit_cost(src.stage_terms, src.off_rs, prm, nx, nu, False)
     tv, tg, th_, t_ops = _emit_cost(src.term_terms, src.off_rt, prm, nx, nu, True)
+    # the soft state bounds' penalty: one set of numbers, in both costs
+    pv, pg, ph, p_ops = _emit_soft(src, prm)
+    sv, sg, sh, s_ops = sv + pv, sg + pg, sh + ph, s_ops + p_ops
+    tv, tg, th_ = tv + pv, tg + pg, th_ + ph
     masks, offs, tmask, toffs = _rows(bounds, N, nx, nu)
     p_row = len(prm.vals)
     for v in offs:
@@ -460,6 +511,8 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
         [f"    T x[{nx}], u[{nu}];"]
         + [f"    x[{i}] = xs[{i}] * prm[{p_sx + i}];" for i in range(nx)]
         + [f"    u[{j}] = us[{j}] * prm[{p_su + j}];" for j in range(nu)])
+    scale_x = (f"    T x[{nx}];\n"
+               f"    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];")
     zero = lambda name, n: f"    for (int i = 0; i < {n}; ++i) {name}[i] = T(0);"  # noqa: E731
     scale_h = "\n".join(
         [f"    Hxx[{a * nx + b}] = Hxx[{a * nx + b}] * (hs * (prm[{p_sx + a}] * "
@@ -526,8 +579,9 @@ struct Problem {{
     for (int j = 0; j < {nu}; ++j) gu[j] = hs * (prm[{p_su} + j] * gu[j]);
   }}
   template <typename T>
-  HM_HD static void stage_hess(const T* th, const T* prm, T* Hxx, T* Huu) {{
-{zero("Hxx", nx * nx)}
+  HM_HD static void stage_hess(const T* xs, const T* us, const T* th,
+                               const T* prm, T* Hxx, T* Huu) {{
+{scale_in + chr(10) if ph else ""}{zero("Hxx", nx * nx)}
 {zero("Huu", nu * nu)}
 {chr(10).join(sh)}
     const T hs = th[1] / prm[{p_dt}];
@@ -535,8 +589,7 @@ struct Problem {{
   }}
   template <typename T>
   HM_HD static T term_cost(const T* xs, const T* th, const T* prm) {{
-    T x[{nx}];
-    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+{scale_x}
     (void)x;
     T c = T(0);
 {chr(10).join(tv)}
@@ -544,16 +597,15 @@ struct Problem {{
   }}
   template <typename T>
   HM_HD static void term_grad(const T* xs, const T* th, const T* prm, T* gx) {{
-    T x[{nx}];
-    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+{scale_x}
     (void)x;
 {zero("gx", nx)}
 {chr(10).join(tg)}
     for (int i = 0; i < {nx}; ++i) gx[i] = prm[{p_sx} + i] * gx[i];
   }}
   template <typename T>
-  HM_HD static void term_hess(const T* prm, T* Hxx) {{
-{zero("Hxx", nx * nx)}
+  HM_HD static void term_hess(const T* xs, const T* th, const T* prm, T* Hxx) {{
+{scale_x + chr(10) if ph else ""}{zero("Hxx", nx * nx)}
 {chr(10).join(th_)}
     for (int a = 0; a < {nx}; ++a)
       for (int b = 0; b < {nx}; ++b)

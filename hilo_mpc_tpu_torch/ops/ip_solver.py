@@ -25,11 +25,19 @@ Problem form (per scenario):
     min   Σ_{k=0}^{N-1} l(x_k, u_k, θ_k)  +  lN(x_N, θ_N)
     s.t.  x_{k+1} = F(x_k, u_k, θ_k)                    k = 0..N-1
           lbu ≤ u_k ≤ ubu,  lbx ≤ x_k ≤ ubx             (±inf allowed)
+          h(x_k, u_k, θ_k) ≤ 0,   hN(x_N, θ_N) ≤ 0
+          e(x_k, u_k, θ_k) = 0,   eN(x_N, θ_N) = 0
           x_0 = x̂  (fix_x0=True)  or  x_0 free (MHE arrival)
 
-Not ported yet (raise NotImplementedError): generic inequality rows and
-equality constraints, ``record_iterates``, ``parallel_riccati`` and
-``lin_storage_dtype`` (ROADMAP.md §A item 7). As in the JAX package,
+The generic rows h, hN follow the box rows, always valid; their Jacobians
+(B, N, n_h, nx|nu) come by ``_jacobian`` each iteration and enter the
+condensation as terms of their own beside the box rows' constant selectors,
+so a problem without them runs no extra operation. Equalities enter through
+an augmented Lagrangian on the costs, with multipliers Y, yN and penalty rho
+per scenario, updated at barrier-subproblem solves (the LANCELOT rule).
+
+Not ported yet (raise NotImplementedError): ``record_iterates``,
+``parallel_riccati`` and ``lin_storage_dtype`` (ROADMAP.md §A.3.3). As in the JAX package,
 ``solve_ocp`` ignores ``pallas_full``: only ``NMPC.solve_batch_fn`` reads it
 and routes eligible problems to the whole-solve kernel (ops/whole_ip.py).
 ``riccati_unroll``, ``pallas_riccati``, ``pallas_pack``, ``pallas_tile``,
@@ -156,27 +164,31 @@ class _Carry(NamedTuple):
     it: torch.Tensor
     converged: torch.Tensor
     diverged: torch.Tensor
+    # the augmented Lagrangian's state, None without equality rows
+    Y: Optional[torch.Tensor] = None     # (B, N, n_e) stage multipliers
+    yN: Optional[torch.Tensor] = None    # (B, n_eN) terminal multipliers
+    rho: Optional[torch.Tensor] = None   # (B,) penalty
+    eqv: Optional[torch.Tensor] = None   # (B,) last accepted max violation
 
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
-               "ROADMAP.md {item}")
+               "ROADMAP.md §A.3.3")
 
 
 def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions):
-    item7 = "§A item 7"
-    todo = [
-        (funcs.stage_ineq is not None or funcs.term_ineq is not None
-         or dims.n_h or dims.n_hN, "generic inequality constraints", item7),
-        (funcs.stage_eq is not None or funcs.term_eq is not None
-         or dims.n_e or dims.n_eN, "equality constraints (augmented Lagrangian)",
-         item7),
-        (opt.record_iterates, "record_iterates", item7),
-        (opt.parallel_riccati, "parallel_riccati", item7),
-        (opt.lin_storage_dtype is not None, "lin_storage_dtype", item7),
-    ]
-    for cond, what, item in todo:
+    todo = [(opt.record_iterates, "record_iterates"),
+            (opt.parallel_riccati, "parallel_riccati"),
+            (opt.lin_storage_dtype is not None, "lin_storage_dtype")]
+    for cond, what in todo:
         if cond:
-            raise NotImplementedError(_NOT_PORTED.format(what=what, item=item))
+            raise NotImplementedError(_NOT_PORTED.format(what=what))
+    for n, fn, what in ((dims.n_h, funcs.stage_ineq, "stage_ineq"),
+                        (dims.n_hN, funcs.term_ineq, "term_ineq"),
+                        (dims.n_e, funcs.stage_eq, "stage_eq"),
+                        (dims.n_eN, funcs.term_eq, "term_eq")):
+        if n and fn is None:
+            raise ValueError(f"OCPDims counts {n} rows of {what}, but "
+                             f"OCPFunctions.{what} is None")
 
 
 # ---------------------------------------------------------------------------
@@ -217,10 +229,27 @@ def _grad_and_hessian(f, args):
     return g, H
 
 
+# cuSOLVER's batched eigh (torch 2.11, CUDA 12.8, H100) refuses a batch of
+# 32768 or more 3 x 3 matrices with CUSOLVER_STATUS_INVALID_VALUE, in float32
+# and float64 alike (16384 pass), so CUDA batches go in chunks of this size
+EIGH_CHUNK = 1 << 14
+
+
+def _eigh(M, chunk=EIGH_CHUNK):
+    """torch.linalg.eigh of (..., n, n), at most ``chunk`` matrices per call."""
+    batch = M.shape[:-2]
+    flat = M.reshape(-1, *M.shape[-2:])
+    if flat.shape[0] <= chunk:
+        return torch.linalg.eigh(M)
+    parts = [torch.linalg.eigh(c) for c in flat.split(chunk)]
+    return (torch.cat([w for w, _ in parts]).reshape(*batch, M.shape[-1]),
+            torch.cat([V for _, V in parts]).reshape(M.shape))
+
+
 def _convexify(M, min_eig):
     """Eigenvalue-clip symmetric matrices (..., n, n) to be positive definite."""
     M = 0.5 * (M + M.transpose(-1, -2))
-    w, V = torch.linalg.eigh(M)
+    w, V = _eigh(M) if M.is_cuda else torch.linalg.eigh(M)
     w = torch.clamp(w, min=min_eig)
     return (V * w[..., None, :]) @ V.transpose(-1, -2)
 
@@ -283,11 +312,16 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
 def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
                     fix_x0, mu0_dyn, make_lq) -> OCPSolution:
     nx, nu, N = dims.nx, dims.nu, dims.N
-    m = 2 * nu + 2 * nx
-    mN = 2 * nx
+    n_h, n_hN = dims.n_h, dims.n_hN
+    m_box, mN_box = 2 * nu + 2 * nx, 2 * nx
+    m = m_box + n_h
+    mN = mN_box + n_hN
     dtype, device = X_init.dtype, X_init.device
     Bn = X_init.shape[0]
     kw = dict(dtype=dtype, device=device)
+    # equality rows enter through augmented-Lagrangian terms on the costs
+    has_eq, has_eqN = dims.n_e > 0, dims.n_eN > 0
+    has_al = has_eq or has_eqN
 
     def safe_b(b):
         return torch.clamp(torch.nan_to_num(b, posinf=1e20, neginf=-1e20),
@@ -306,38 +340,52 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     pin_val = 0.5 * (lbu_c + ubu_c) * pin_f
     w_pin = 1e7 if dtype == torch.float64 else 1e5
 
-    # validity masks of the rows [u-ubu; lbu-u; x-ubx; lbx-x] (stage) and
-    # [x-ubx; lbx-x] (terminal); a fixed x_0 is not a decision variable, so
-    # its bound rows are meaningless
+    # validity masks of the rows [u-ubu; lbu-u; x-ubx; lbx-x; h] (stage) and
+    # [x-ubx; lbx-x; hN] (terminal); a fixed x_0 is not a decision variable,
+    # so its bound rows are meaningless; the generic rows are always valid
     m_x = torch.isfinite(bounds.ubx[:-1]).clone()
     m_lx = torch.isfinite(bounds.lbx[:-1]).clone()
     if fix_x0:
         m_x[0] = False
         m_lx[0] = False
     mask = torch.cat([torch.isfinite(bounds.ubu) & ~pin,
-                      torch.isfinite(bounds.lbu) & ~pin, m_x, m_lx], dim=1)
-    maskN = torch.cat([torch.isfinite(bounds.ubx[-1]),
-                       torch.isfinite(bounds.lbx[-1])])
+                      torch.isfinite(bounds.lbu) & ~pin, m_x, m_lx]
+                     + ([torch.ones(N, n_h, dtype=torch.bool, device=device)]
+                        if n_h else []), dim=1)
+    maskN = torch.cat([torch.isfinite(bounds.ubx[-1]), torch.isfinite(bounds.lbx[-1])]
+                      + ([torch.ones(n_hN, dtype=torch.bool, device=device)]
+                         if n_hN else []))
     mask_f = mask.to(dtype)
     maskN_f = maskN.to(dtype)
 
     # the box rows have constant ±selector jacobians; masked rows are zeroed
     eye_x = torch.eye(nx, **kw)
     eye_u = torch.eye(nu, **kw)
-    Cx = torch.cat([torch.zeros(2 * nu, nx, **kw), eye_x, -eye_x]) * mask_f[..., None]
-    Cu = torch.cat([eye_u, -eye_u, torch.zeros(2 * nx, nu, **kw)]) * mask_f[..., None]
-    CxN = torch.cat([eye_x, -eye_x]) * maskN_f[:, None]
+    Cx = (torch.cat([torch.zeros(2 * nu, nx, **kw), eye_x, -eye_x])
+          * mask_f[:, :m_box, None])
+    Cu = (torch.cat([eye_u, -eye_u, torch.zeros(2 * nx, nu, **kw)])
+          * mask_f[:, :m_box, None])
+    CxN = torch.cat([eye_x, -eye_x]) * maskN_f[:mN_box, None]
 
     th_s, th_N = theta[:, :-1], theta[:, -1]
 
-    def stage_c(X, U):
+    def stage_c(X, U, th):
         Xs = X[..., :-1, :]
-        c = torch.cat([U - ubu_c, lbu_c - U, Xs - ubx_c, lbx_c - Xs], dim=-1)
-        return torch.where(mask, c, -1.0)
+        rows = [U - ubu_c, lbu_c - U, Xs - ubx_c, lbx_c - Xs]
+        if n_h:
+            rows.append(funcs.stage_ineq(Xs, U, th[..., :-1, :]))
+        return torch.where(mask, torch.cat(rows, dim=-1), -1.0)
 
-    def term_c(X):
+    def term_c(X, th):
         xN = X[..., -1, :]
-        return torch.where(maskN, torch.cat([xN - ubxN_c, lbxN_c - xN], dim=-1), -1.0)
+        rows = [xN - ubxN_c, lbxN_c - xN]
+        if n_hN:
+            rows.append(funcs.term_ineq(xN, th[..., -1, :]))
+        return torch.where(maskN, torch.cat(rows, dim=-1), -1.0)
+
+    def box_h(t, n_box):
+        """(box rows, generic rows) of a row tensor (..., n_box + n)."""
+        return t[..., :n_box], t[..., n_box:]
 
     def objective(X, U, th):
         stage = funcs.stage_cost(X[..., :-1, :], U, th[..., :-1, :])
@@ -346,16 +394,39 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     def dyn_defect(X, U, th):
         return funcs.dyn(X[..., :-1, :], U, th[..., :-1, :]) - X[..., 1:, :]
 
-    def cost_terms(Xs, U):
+    # the costs with the augmented-Lagrangian terms of the equality rows
+    def stage_cost_aug(xx, uu, al):
+        c = funcs.stage_cost(xx, uu, th_s)
+        if has_eq:
+            Y, rho = al[0], al[2]
+            h = funcs.stage_eq(xx, uu, th_s)
+            c = c + (Y * h).sum(dim=-1) + 0.5 * rho[:, None] * (h * h).sum(dim=-1)
+        return c
+
+    def term_cost_aug(xx, al):
+        c = funcs.term_cost(xx, th_N)
+        if has_eqN:
+            yN, rho = al[1], al[2]
+            h = funcs.term_eq(xx, th_N)
+            c = c + (yN * h).sum(dim=-1) + 0.5 * rho * (h * h).sum(dim=-1)
+        return c
+
+    def eq_rows(X, U, th):
+        """(stage equality rows (..., N, n_e) or None, terminal (..., n_eN) or None)."""
+        h = funcs.stage_eq(X[..., :-1, :], U, th[..., :-1, :]) if has_eq else None
+        hN = funcs.term_eq(X[..., -1, :], th[..., -1, :]) if has_eqN else None
+        return h, hN
+
+    def cost_terms(Xs, U, al):
         """Stage gradients and (optionally convexified) Hessian blocks."""
-        (gx, gu), H = _grad_and_hessian(
-            lambda xx, uu: funcs.stage_cost(xx, uu, th_s), (Xs, U))
+        (gx, gu), H = _grad_and_hessian(lambda xx, uu: stage_cost_aug(xx, uu, al),
+                                        (Xs, U))
         if opt.convexify:
             H = _convexify(H, opt.min_eig)
         return gx, gu, H[..., :nx, :nx], H[..., nx:, :nx], H[..., nx:, nx:]
 
-    def term_terms(xN):
-        (g,), H = _grad_and_hessian(lambda xx: funcs.term_cost(xx, th_N), (xN,))
+    def term_terms(xN, al):
+        (g,), H = _grad_and_hessian(lambda xx: term_cost_aug(xx, al), (xN,))
         if opt.convexify:
             H = _convexify(H, opt.min_eig)
         return g, H
@@ -368,18 +439,23 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     mu0 = torch.full((Bn,), opt.mu_init if mu0_dyn is None else float(mu0_dyn), **kw)
     # |c| (not -c): a constraint VIOLATED at the initial point still gets a
     # slack at its own scale
-    s = torch.clamp(stage_c(X, U).abs(), min=opt.s_min)
-    sN = torch.clamp(term_c(X).abs(), min=opt.s_min)
+    s = torch.clamp(stage_c(X, U, theta).abs(), min=opt.s_min)
+    sN = torch.clamp(term_c(X, theta).abs(), min=opt.s_min)
     z = mu0[:, None, None] / s * mask_f + (1.0 - mask_f)
     zN = mu0[:, None] / sN * maskN_f + (1.0 - maskN_f)
+    al0 = None
+    if has_al:
+        al0 = (torch.zeros(Bn, N, dims.n_e, **kw), torch.zeros(Bn, dims.n_eN, **kw),
+               torch.full((Bn,), opt.rho_eq, **kw))
 
-    const_H = opt.const_cost_hessian
+    # the AL terms change the Hessian with rho: never constant with equalities
+    const_H = opt.const_cost_hessian and not has_al
     if const_H:
         # quadratic costs: Hessian blocks are point-independent — evaluate once
-        _, _, Hxx_c, Hux_c, Huu_c = cost_terms(X_init[:, :-1], U_init)
-        _, HN_c = term_terms(X_init[:, -1])
+        _, _, Hxx_c, Hux_c, Huu_c = cost_terms(X_init[:, :-1], U_init, al0)
+        _, HN_c = term_terms(X_init[:, -1], al0)
 
-    def linearize(X, U):
+    def linearize(X, U, al):
         """One full linearization of dynamics/costs/constraints along the horizon."""
         Xs = X[:, :-1]
         f = lambda xx, uu: funcs.dyn(xx, uu, th_s)
@@ -387,26 +463,51 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         J = _jacobian(f, (Xs, U))
         A, Bm = J[..., :nx], J[..., nx:]
         if const_H:
-            gx, gu = _batch_grad(lambda xx, uu: funcs.stage_cost(xx, uu, th_s),
-                                 (Xs, U))
+            gx, gu = _batch_grad(lambda xx, uu: stage_cost_aug(xx, uu, al), (Xs, U))
             Hxx, Hux, Huu = Hxx_c, Hux_c, Huu_c
-            (gN,) = _batch_grad(lambda xx: funcs.term_cost(xx, th_N), (X[:, -1],))
+            (gN,) = _batch_grad(lambda xx: term_cost_aug(xx, al), (X[:, -1],))
             HN = HN_c
         else:
-            gx, gu, Hxx, Hux, Huu = cost_terms(Xs, U)
-            gN, HN = term_terms(X[:, -1])
-        return F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, stage_c(X, U), term_c(X)
+            gx, gu, Hxx, Hux, Huu = cost_terms(Xs, U, al)
+            gN, HN = term_terms(X[:, -1], al)
+        # the generic rows' jacobians (B, N, n_h, nx|nu) and (B, n_hN, nx)
+        Hj = HjN = None
+        if n_h:
+            Jh = _jacobian(lambda xx, uu: funcs.stage_ineq(xx, uu, th_s), (Xs, U))
+            Hj = (Jh[..., :nx], Jh[..., nx:])
+        if n_hN:
+            HjN = _jacobian(lambda xx: funcs.term_ineq(xx, th_N), (X[:, -1],))
+        return (F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, stage_c(X, U, theta),
+                term_c(X, theta), Hj, HjN)
+
+    def rows_T(v, vN, Hj, HjN):
+        """Cᵀv for the stage rows (x and u parts) and CNᵀvN for the terminal ones."""
+        if n_h:
+            vb, vh = box_h(v, m_box)
+        else:
+            vb = v
+        tx = torch.einsum("kmi,bkm->bki", Cx, vb)
+        tu = torch.einsum("kmi,bkm->bki", Cu, vb)
+        if n_h:
+            tx = tx + torch.einsum("bkmi,bkm->bki", Hj[0], vh)
+            tu = tu + torch.einsum("bkmi,bkm->bki", Hj[1], vh)
+        if n_hN:
+            vNb, vNh = box_h(vN, mN_box)
+            tN = (torch.einsum("mi,bm->bi", CxN, vNb)
+                  + torch.einsum("bmi,bm->bi", HjN, vNh))
+        else:
+            tN = torch.einsum("mi,bm->bi", CxN, vN)
+        return tx, tu, tN
 
     def kkt_errors(lin, X, lam, s, z, sN, zN, mu):
         """(err at mu=0, err at current mu) from an existing linearization."""
-        F, A, Bm, gx, gu, _, _, _, gN, _, c, cN = lin
+        F, A, Bm, gx, gu, _, _, _, gN, _, c, cN, Hj, HjN = lin
         zm = z * mask_f
         zNm = zN * maskN_f
-        r_x = (gx + torch.einsum("bkij,bki->bkj", A, lam)
-               + torch.einsum("kmi,bkm->bki", Cx, zm))
-        r_xN = gN - lam[:, -1] + torch.einsum("mi,bm->bi", CxN, zNm)
-        r_u = (gu + torch.einsum("bkij,bki->bkj", Bm, lam)
-               + torch.einsum("kmi,bkm->bki", Cu, zm)) * free_u_f
+        tx, tu, tN = rows_T(zm, zNm, Hj, HjN)
+        r_x = gx + torch.einsum("bkij,bki->bkj", A, lam) + tx
+        r_xN = gN - lam[:, -1] + tN
+        r_u = (gu + torch.einsum("bkij,bki->bkj", Bm, lam) + tu) * free_u_f
         r_dyn = F - X[:, 1:]
         r_ineq = (c + s) * mask_f
         r_ineqN = (cN + sN) * maskN_f
@@ -432,14 +533,22 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         return (torch.maximum(base, comp_err(torch.zeros_like(mu))),
                 torch.maximum(base, comp_err(mu)))
 
-    def merit(X, U, s, sN, mu, nu_p, th):
+    def merit(X, U, s, sN, mu, nu_p, th, al):
         """l1 barrier merit; inputs may carry extra leading dims before B."""
         f = objective(X, U, th)
+        if has_al:
+            Y, yN, rho = al
+            h, hN = eq_rows(X, U, th)
+            if has_eq:
+                f = (f + (Y * h).sum(dim=(-2, -1))
+                     + 0.5 * rho * (h * h).sum(dim=(-2, -1)))
+            if has_eqN:
+                f = f + (yN * hN).sum(dim=-1) + 0.5 * rho * (hN * hN).sum(dim=-1)
         bar = -mu * ((torch.log(torch.clamp(s, min=1e-30)) * mask_f).sum(dim=(-2, -1))
                      + (torch.log(torch.clamp(sN, min=1e-30)) * maskN_f).sum(dim=-1))
         viol = (dyn_defect(X, U, th).abs().sum(dim=(-2, -1))
-                + ((stage_c(X, U) + s) * mask_f).abs().sum(dim=(-2, -1))
-                + ((term_c(X) + sN) * maskN_f).abs().sum(dim=-1))
+                + ((stage_c(X, U, th) + s) * mask_f).abs().sum(dim=(-2, -1))
+                + ((term_c(X, th) + sN) * maskN_f).abs().sum(dim=-1))
         return f + bar + nu_p * viol
 
     lq_solver = make_lq(reg=opt.reg)
@@ -448,18 +557,43 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
 
     def iteration(cr: _Carry) -> _Carry:
         X, U, lam, s, z, sN, zN, mu, nu_p = cr[:9]
-        lin = linearize(X, U)
-        F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, c, cN = lin
+        al = (cr.Y, cr.yN, cr.rho) if has_al else None
+        lin = linearize(X, U, al)
+        F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, c, cN, Hj, HjN = lin
 
         # convergence / barrier bookkeeping on the CURRENT iterate
         err0, err_mu = kkt_errors(lin, X, lam, s, z, sN, zN, mu)
         converged = err0 <= opt.tol
+        if has_al:
+            h_cur, hN_cur = eq_rows(X, U, theta)
+            zero = torch.zeros(Bn, **kw)
+            eq_v = torch.maximum(_maxabs(h_cur) if has_eq else zero,
+                                 _maxabs(hN_cur) if has_eqN else zero)
+            converged = converged & (eq_v <= opt.tol)
         subproblem_done = err_mu <= opt.kappa_eps * mu
         mu = torch.where(
             subproblem_done,
             torch.clamp(torch.minimum(opt.kappa_mu * mu, mu ** opt.theta_mu),
                         min=opt.tol / 10.0),
             mu)
+        eqv_new = cr.eqv
+        if has_al:
+            # augmented-Lagrangian outer update at barrier-subproblem solves.
+            # LANCELOT rule: a first-order multiplier step only when the
+            # violation dropped enough, else escalate rho; multipliers bounded
+            Y, yN, rho = al
+            good = subproblem_done & (eq_v <= 0.25 * cr.eqv)
+            bad_up = subproblem_done & ~good & (eq_v > opt.tol)
+            y_max = 1e5
+            if has_eq:
+                Y = _select(good, torch.clamp(Y + rho[:, None, None] * h_cur,
+                                              -y_max, y_max), Y)
+            if has_eqN:
+                yN = _select(good, torch.clamp(yN + rho[:, None] * hN_cur,
+                                               -y_max, y_max), yN)
+            rho = torch.where(bad_up, torch.clamp(rho * 10.0, max=opt.rho_eq_max), rho)
+            eqv_new = torch.where(good, eq_v, cr.eqv)
+            al = (Y, yN, rho)
 
         sigma = torch.where(mask, z / s, 0.0)
         sigmaN = torch.where(maskN, zN / sN, 0.0)
@@ -467,11 +601,23 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         r_ineqN = (cN + sN) * maskN_f
 
         # barrier-condensed Hessian blocks (shared by predictor and corrector)
-        Qb = Hxx + torch.einsum("kmi,bkm,kmj->bkij", Cx, sigma, Cx)
-        Rb = (Huu + torch.einsum("kmi,bkm,kmj->bkij", Cu, sigma, Cu)
+        sg = box_h(sigma, m_box)[0] if n_h else sigma
+        Qb = Hxx + torch.einsum("kmi,bkm,kmj->bkij", Cx, sg, Cx)
+        Rb = (Huu + torch.einsum("kmi,bkm,kmj->bkij", Cu, sg, Cu)
               + torch.einsum("km,mn->kmn", w_pin * pin_f, eye_u))
-        Sb = Hux + torch.einsum("kmi,bkm,kmj->bkij", Cu, sigma, Cx)
-        P_term = HN + torch.einsum("mi,bm,mj->bij", CxN, sigmaN, CxN)
+        Sb = Hux + torch.einsum("kmi,bkm,kmj->bkij", Cu, sg, Cx)
+        if n_h:
+            Hx, Hu = Hj
+            sh = box_h(sigma, m_box)[1]
+            Qb = Qb + torch.einsum("bkmi,bkm,bkmj->bkij", Hx, sh, Hx)
+            Rb = Rb + torch.einsum("bkmi,bkm,bkmj->bkij", Hu, sh, Hu)
+            Sb = Sb + torch.einsum("bkmi,bkm,bkmj->bkij", Hu, sh, Hx)
+        if n_hN:
+            sNb, sNh = box_h(sigmaN, mN_box)
+            P_term = (HN + torch.einsum("mi,bm,mj->bij", CxN, sNb, CxN)
+                      + torch.einsum("bmi,bm,bmj->bij", HjN, sNh, HjN))
+        else:
+            P_term = HN + torch.einsum("mi,bm,mj->bij", CxN, sigmaN, CxN)
         r_dyn = F - X[:, 1:]
 
         def newton_step(mu_t, corr, corrN):
@@ -480,21 +626,30 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
             mu3, mu2 = mu_t[:, None, None], mu_t[:, None]
             zh = torch.where(mask, (mu3 + z * r_ineq - corr) / s, 0.0)
             zhN = torch.where(maskN, (mu2 + zN * r_ineqN - corrN) / sN, 0.0)
-            qb = gx + torch.einsum("kmi,bkm->bki", Cx, zh)
-            rb = (gu + torch.einsum("kmi,bkm->bki", Cu, zh)
-                  + w_pin * pin_f * (U - pin_val))
-            p_term = gN + torch.einsum("mi,bm->bi", CxN, zhN)
+            tx, tu, tN = rows_T(zh, zhN, Hj, HjN)
+            qb = gx + tx
+            rb = gu + tu + w_pin * pin_f * (U - pin_val)
+            p_term = gN + tN
             sol = lq_solver(A, Bm, Qb, Sb, Rb, qb, rb, r_dyn, P_term, p_term, dx0)
             dC = (torch.einsum("kmi,bki->bkm", Cx, sol.dX[:, :-1])
                   + torch.einsum("kmi,bki->bkm", Cu, sol.dU))
             dCN = torch.einsum("mi,bi->bm", CxN, sol.dX[:, -1])
+            if n_h:
+                dC = torch.cat([dC, torch.einsum("bkmi,bki->bkm", Hj[0], sol.dX[:, :-1])
+                                + torch.einsum("bkmi,bki->bkm", Hj[1], sol.dU)], dim=-1)
+            if n_hN:
+                dCN = torch.cat([dCN, torch.einsum("bmi,bi->bm", HjN, sol.dX[:, -1])],
+                                dim=-1)
             ds_ = torch.where(mask, -r_ineq - dC, 0.0)
             dsN_ = torch.where(maskN, -r_ineqN - dCN, 0.0)
             dz_ = torch.where(mask, (mu3 - s * z - z * ds_ - corr) / s, 0.0)
             dzN_ = torch.where(maskN, (mu2 - sN * zN - zN * dsN_ - corrN) / sN, 0.0)
             return sol, ds_, dz_, dsN_, dzN_
 
-        if opt.mehrotra:
+        # Mehrotra's fast gap collapse fights the augmented-Lagrangian outer
+        # loop (its multiplier updates key off the monotone barrier schedule):
+        # the predictor-corrector runs only without equality rows
+        if opt.mehrotra and not has_al:
             # affine predictor (target 0 complementarity)
             _, ds_a, dz_a, dsN_a, dzN_a = newton_step(torch.zeros_like(mu), 0.0, 0.0)
             a_p = torch.minimum(_step_cap(s, ds_a, mask), _step_cap(sN, dsN_a, maskN))
@@ -537,8 +692,8 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
             a4, a3 = alphas[..., None, None], alphas[..., None]
             th_c = theta.expand((opt.n_linesearch,) + tuple(theta.shape))
             phis = merit(X + a4 * dX, U + a4 * dU, s + a4 * ds, sN + a3 * dsN,
-                         mu, nu_new, th_c)
-            phi0 = merit(X, U, s, sN, mu, nu_new, theta)
+                         mu, nu_new, th_c, al)
+            phi0 = merit(X, U, s, sN, mu, nu_new, theta, al)
             # accept the largest step that does not increase the merit (up to
             # roundoff); otherwise take the best trial
             ok = (phis <= phi0 + 1e-12 * (1.0 + phi0.abs())) & torch.isfinite(phis)
@@ -573,14 +728,19 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         old = (X, U, lam, s, z, sN, zN)
         return _Carry(*[_select(keep, a, b) for a, b in zip(old, new)],
                       mu=mu, nu_pen=nu_new, kkt=err0, it=cr.it + 1,
-                      converged=converged, diverged=cr.diverged | bad)
+                      converged=converged, diverged=cr.diverged | bad,
+                      **(dict(Y=al[0], yN=al[1], rho=al[2], eqv=eqv_new)
+                         if has_al else {}))
 
     carry = _Carry(X=X, U=U, lam=torch.zeros(Bn, N, nx, **kw), s=s, z=z, sN=sN,
                    zN=zN, mu=mu0, nu_pen=torch.full((Bn,), 10.0, **kw),
                    kkt=torch.full((Bn,), float("inf"), **kw),
                    it=torch.zeros(Bn, dtype=torch.int32, device=device),
                    converged=torch.zeros(Bn, dtype=torch.bool, device=device),
-                   diverged=torch.zeros(Bn, dtype=torch.bool, device=device))
+                   diverged=torch.zeros(Bn, dtype=torch.bool, device=device),
+                   **(dict(Y=al0[0], yN=al0[1], rho=al0[2],
+                           eqv=torch.full((Bn,), float("inf"), **kw))
+                      if has_al else {}))
 
     for _ in range(opt.max_iter):
         # finished scenarios freeze themselves, as in the JAX while_loop
@@ -588,7 +748,8 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         if opt.early_exit and bool(done.all()):
             break
         new = iteration(carry)
-        carry = _Carry(*[_select(done, a, b) for a, b in zip(carry, new)])
+        carry = _Carry(*[None if a is None else _select(done, a, b)
+                         for a, b in zip(carry, new)])
 
     obj = objective(carry.X, carry.U, theta)
     status = torch.where(carry.converged, 0, torch.where(carry.diverged, 2, 1))

@@ -166,8 +166,6 @@ def test_ip_options_mirror_jax():
 
 
 _NOT_PORTED = {
-    "stage_ineq": dict(funcs=dict(stage_ineq=lambda x, u, th: x)),
-    "stage_eq": dict(funcs=dict(stage_eq=lambda x, u, th: x)),
     "record_iterates": dict(opts=dict(record_iterates=True)),
     "parallel_riccati": dict(opts=dict(parallel_riccati=True)),
     "lin_storage_dtype": dict(opts=dict(lin_storage_dtype="bfloat16")),

@@ -119,13 +119,9 @@ def _control_horizon(n):
 
 OUT_OF_SLICE = {
     "inputs_change": lambda n: n.quad_stage_cost.add_inputs_change(weights=1.0),
-    "measurements": lambda n: n.quad_stage_cost.add_measurements(weights=1.0),
     "path_following": lambda n: n.quad_stage_cost.add_states(path_following=True),
     "du_bounds": _du_bounds,
     "control_horizon": _control_horizon,
-    "x_soft": lambda n: n.set_box_constraints(x_ub=[1.0, 1.0], x_soft=True),
-    "stage_cost": lambda n: n.stage_cost,
-    "stage_constraint": lambda n: n.add_stage_constraint(lambda x: x, ub=1.0),
     "discrete_inputs": lambda n: n.set_discrete_inputs("u"),
     "tvp": lambda n: n.set_time_varying_parameters(["E"]),
     "path_variable": lambda n: n.create_path_variable(),
