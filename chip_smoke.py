@@ -5,12 +5,15 @@
 
 Phase 0  card name and power limit; build every CUDA kernel from the
          sources in csrc/ (one nvcc per source, all started together): the
-         tiled Riccati template for each (nx, nu) that phase 1 checks, the
+         tiled Riccati template for each (nx, nu) that phase 1 checks (phase
+         11's (3, 1), (3, 3) and (3, 2) among them), the
          wide Riccati variant for phase 1's and phase 4's larger sizes, the
          FGM kernel, and the whole-solve interior point for the flagship
          problem and phase 1's three other row patterns (the soft-box problem
          of golden softcon_active among them, also phase 6's second
-         controller), generated from the model (ops/codegen_cuda.py); its
+         controller) and for phase 11(a)'s Δu problem, whose cost has an
+         x-u cross block (the CROSS build, its registers and spills
+         printed), generated from the model (ops/codegen_cuda.py); its
          build time, registers, stack and spills (none in the Riccati builds
          but the tiled cap (8, 4), which only phase 1 runs; the flagship
          whole-solve builds held to the registers per thread they had before
@@ -33,7 +36,11 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          through all three designs, with and without u0 and with infinite
          bounds; at the flagship FGM shape the register design against the
          resident kernel too; the whole-solve kernel in four row patterns,
-         soft state bounds among them), and each timed at the shape of its
+         soft state bounds among them, and its CROSS build on phase 11(a)'s
+         problem: on 1024 scenarios float64 with equal iterations and U to
+         1e-12 and float32 to 5e-4; at B=131072 float32 within the float32
+         plain version's stray from float64 plus 5e-4, both dtypes timed
+         there beside the operations bound), and each timed at the shape of its
          main path (the wide variant at phase 4's (16, 8), B=1024, float64
          and float32, at B=16384, and in every group size at (9, 2),
          (16, 8) and the cap in both dtypes; the FGM
@@ -123,6 +130,27 @@ Phase 10 the constrained general path: (a) the repo's own check
          CPU, and float32 reported; (c) the golden fixture
          tests/golden/softcon_active.npz replayed through NMPC.optimize in
          float64 on the card.
+Phase 11 the augmented formulations: (a) phase 2's controller with golden
+         du_tracking's input-change term (0.5) and Δu bounds ±0.5, the
+         solver state (x, u_prev), u_prev = 0.5·N(0,1) clipped to ±5 from
+         default_rng(2) through prepare_batch(u_prev=), B=131072, float32,
+         cold and warm through the general path (the Riccati kernel at
+         (3, 1)) and through pallas_full (the whole-solve kernel's CROSS
+         build, 2 launches, no Riccati launch); solves/s, converged
+         fraction, iterations, launches; max|U_whole − U_general| on the
+         jointly converged, held to the general path's stray from its
+         float64 answer plus 5e-4 (float32's stopping rule, phase 1); the
+         first 1024 against the plain LQ step (float64 to 1e-9). (b) golden pathfollow_soft's controller (torch callables,
+         max_iter 80) at B=131072, float32, x0 = 0.1·N(0,1) from
+         default_rng(3): the Riccati kernel at (3, 3) under Mehrotra and
+         convexify (launches = Newton steps, no plain sweep), the first 1024
+         in float64 against the plain LQ step, and pallas_full declined
+         with the reason named. (c) golden mintime's controller at
+         B=16384, float64, x0 = [-1, 0] + [0.25, 0.15]·N(0,1) from
+         default_rng(11): the converged fraction and the optimal dt range,
+         the first 1024 against the CPU (equal iterations, <= 1e-9).
+         (d) goldens du_tracking, pathfollow_soft and mintime replayed in
+         float64 on the card (< 1e-4).
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -144,10 +172,15 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
 GOLDEN_MHE = os.path.join(ROOT, "tests", "golden", "mhe_cstr.npz")
 GOLDEN_SOFTCON = os.path.join(ROOT, "tests", "golden", "softcon_active.npz")
+GOLDEN_DU = os.path.join(ROOT, "tests", "golden", "du_tracking.npz")
+GOLDEN_PF = os.path.join(ROOT, "tests", "golden", "pathfollow_soft.npz")
+GOLDEN_MT = os.path.join(ROOT, "tests", "golden", "mintime.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
-           "riccati_lq_wide_free_x0")
-RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4))
+           "riccati_lq_wide_free_x0", "whole_ip_cross")
+# the tiled Riccati instances phase 1 checks; phase 11 runs (3, 1) (the
+# Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time)
+RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3))
 # the free-x0 mode (MHE's nu = nx): the CSTR's (2, 2), with two estimated
 # parameters (4, 2), the tiled cap (8, 4); the wide variant at (9, 9) and
 # phase 7's (16, 16); phase 7's horizon and batches
@@ -330,6 +363,78 @@ def build_cstr_nmpc(options, dtype, bounds=None, horizon=N):
     return nmpc
 
 
+def build_du_nmpc(options, dtype, horizon=N, device="cuda"):
+    """Phase 2's controller with golden du_tracking's input-change term
+    (weight 0.5) and Δu bounds ±0.5: the Δu-augmented CSTR (solver state
+    (x, u_prev), control Δu; nx, nu = 3, 1)."""
+    import torch  # noqa: F401
+    from hilo_mpc_tpu_torch import NMPC
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = horizon
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=[0.3, 0.18055])
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.quad_stage_cost.add_inputs_change(weights=0.5)
+    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0], du_lb=[-0.5], du_ub=[0.5])
+    nmpc.set_parameters([1.0] * 6)
+    nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **options},
+               device=device, dtype=dtype)
+    return nmpc
+
+
+def du_u_prev(B=B_MAIN):
+    """Phase 11(a)'s previous inputs: 0.5·N(0,1) clipped to ±5 from
+    default_rng(2), (B, 1)."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return np.clip(0.5 * rng.standard_normal((B_MAIN, 1)), -5.0, 5.0)[:B]
+
+
+def pathfollow_nmpc(options, dtype, device="cuda"):
+    """Golden pathfollow_soft's controller (tests/golden_configs.py:118-150)
+    with torch callables: a kinematic point on the path (th, sin th), a soft
+    band py <= 0.7 (w = 50), path velocity in [0, 2] with speed reference 1."""
+    import torch
+    from hilo_mpc_tpu_torch import NMPC, Model
+    m = Model(name="pt")
+    m.set_dynamical_states(["px", "py"])
+    m.set_inputs(["vx", "vy"])
+    m.set_dynamical_equations(lambda x, u: u)
+    nmpc = NMPC(m)
+    nmpc.horizon = 12
+    nmpc.quad_stage_cost.add_states(
+        names=["px", "py"], weights=[20.0, 20.0], path_following=True,
+        path_fn=lambda th: torch.stack([th, torch.sin(th)], dim=-1))
+    nmpc.quad_stage_cost.add_inputs(weights=[0.05, 0.05])
+    nmpc.set_box_constraints(u_lb=[-2.0, -2.0], u_ub=[2.0, 2.0])
+    nmpc.add_stage_constraint(lambda x, u: x[..., 1] - 0.7, ub=0.0, n=1,
+                              is_soft=True, weight=50.0)
+    nmpc.create_path_variable(u_pf_lb=0.0, u_pf_ub=2.0, speed_ref=1.0,
+                              speed_weight=1.0)
+    nmpc.setup(options=options, device=device, dtype=dtype)
+    return nmpc
+
+
+def mintime_nmpc(dtype, device="cuda"):
+    """Golden mintime's controller (tests/golden_configs.py:244-273): a
+    rest-to-rest double-integrator transfer, N=16, |u| <= 1, the terminal
+    equality x_N = 0, dt in [0.02, 0.6], RK4, tol 1e-9, max_iter 120."""
+    import torch
+    from hilo_mpc_tpu_torch import NMPC, Model
+    m = Model(name="di")
+    m.set_dynamical_states(["p", "v"])
+    m.set_inputs("a")
+    m.set_dynamical_equations(lambda x, u: torch.stack([x[..., 1], u[..., 0]], dim=-1))
+    nmpc = NMPC(m)
+    nmpc.horizon = 16
+    nmpc.set_box_constraints(u_lb=-1.0, u_ub=1.0)
+    nmpc.add_terminal_constraint(lambda x: x, lb=[0.0, 0.0], ub=[0.0, 0.0], n=2)
+    nmpc.minimize_final_time(weight=1.0, dt_min=0.02, dt_max=0.6)
+    nmpc.setup(options={"dt": 0.2, "integration_method": "rk4", "tol": 1e-9,
+                        "max_iter": 120}, device=device, dtype=dtype)
+    return nmpc
+
+
 def phase1(report):
     """Each kernel vs its plain version on the card."""
     phase1_riccati(report.setdefault("riccati_lq", {}))
@@ -340,6 +445,7 @@ def phase1(report):
     phase1_fgm(report)
     phase1_fgm_cluster(report.setdefault("fgm_boxqp_column_blocks", {}))
     phase1_whole_ip(report.setdefault("whole_ip", {}))
+    phase1_whole_ip_cross(report.setdefault("whole_ip_cross", {}))
 
 
 def idle_lane_share(iterations):
@@ -845,6 +951,96 @@ def phase1_whole_ip(report):
     report.update(soft_box_max_abs_err=s_err, soft_box_ms=s_ms,
                   soft_box_back_to_back_ms=s_b2b, soft_box_plain_ms=s_plain,
                   soft_box_bound_ms=sb_ms, soft_box_bound_by=sb_by)
+
+
+def phase1_whole_ip_cross(report):
+    """The whole-solve kernel with the cost's cross block (CROSS: phase
+    11(a)'s Δu problem, nx, nu = 3, 1) against its plain version on the
+    first 1024 scenarios: float64 (equal iterations, U to 1e-12) and float32
+    (U to 5e-4 on the jointly converged). Then timed at B=131072 in both
+    dtypes beside its operations bound. At that width float32's stopping
+    rule (KKT error <= 1e-4) ends a few scenarios one iteration apart in the
+    two routes, on an objective so flat along U that the two points lie
+    ~2e-3 apart, each as far from the float64 plain answer: there the
+    kernel is held to the float32 plain version's stray from the float64
+    one plus 5e-4, as the state-bound pattern of phase1_whole_ip is."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import (WholeIPLaunch,
+                                                 solve_ocp_full_reference,
+                                                 whole_ip_problem)
+    f32, f64 = torch.float32, torch.float64
+    x0s, u_prev = flagship_x0s(), du_u_prev()
+    ctl = {dt: build_du_nmpc(FLAGSHIP, dt) for dt in (f64, f32)}
+    nmpc = ctl[f32]
+    f, opts = (nmpc._funcs, nmpc._dims, nmpc._bounds), nmpc._ip_opts
+    f_64 = (ctl[f64]._funcs, ctl[f64]._dims, ctl[f64]._bounds)
+    args = nmpc.prepare_batch(x0s, u_prev=u_prev)
+    args64 = [a.double() for a in args]
+    problem = whole_ip_problem(*f, args[0].shape[2], opts)
+    assert "static constexpr bool CROSS = true;" in problem.text
+    launch = {dt: WholeIPLaunch(problem, nmpc._dims, dt, args[0].device)
+              for dt in (f32, f64)}
+    errs = {}
+    for dt, a_dt, f_dt in ((f64, args64, f_64), (f32, args, f)):
+        sub = [a[:1024] for a in a_dt]
+        k = launch[dt](*sub, opts.mu_init)
+        r = solve_ocp_full_reference(*f_dt, *sub, opts)
+        torch.cuda.synchronize()
+        both = k.converged & r.converged
+        errs[dt] = float((k.U - r.U).abs()[both].max())
+        log(f"phase1 whole_ip_cross (Δu CSTR, nx=3 nu=1, {problem.region} values per "
+            f"scenario) B=1024 N={N} {str(dt)[6:]}: converged kernel "
+            f"{float(k.converged.float().mean()):.4f} plain "
+            f"{float(r.converged.float().mean()):.4f}, equal iterations "
+            f"{float((k.iterations == r.iterations).float().mean()):.4f}, "
+            f"max|U_kernel - U_plain| on the jointly converged {errs[dt]:.3e}")
+        assert float(both.float().mean()) >= 0.97, dt
+        if dt == f64:
+            assert torch.equal(k.iterations, r.iterations)
+            assert float((k.U - r.U).abs().max()) <= 1e-12, errs[dt]
+    assert errs[f32] <= 5e-4, errs[f32]
+
+    # B=131072, float32: timed, and held to the plain version's stray
+    kernel = lambda: launch[f32].launch(*args, opts.mu_init)  # noqa: E731
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
+    plain_ms = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args, opts), reps=3)
+    k = launch[f32].launch(*args, opts.mu_init)
+    r = solve_ocp_full_reference(*f, *args, opts)
+    r64 = solve_ocp_full_reference(*f_64, *args64, opts)
+    torch.cuda.synchronize()
+    both = k.converged & r.converged
+    gap = (k.U - r.U).abs().amax(dim=(1, 2))[both]
+    j = both & r64.converged
+    stray = float((r.U.double() - r64.U).abs()[j].max())
+    off = float((k.U.double() - r64.U).abs()[j].max())
+    its = int(k.iterations.sum())
+    b_ms, b_by = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN,
+                                         args[0].shape[2], its))
+    log(f"phase1 whole_ip_cross B={B_MAIN} N={N} float32: max|U_kernel - U_plain| on "
+        f"the jointly converged {float(gap.max()):.3e} (above 5e-4 in "
+        f"{int((gap > 5e-4).sum())} scenarios, equal iterations "
+        f"{float((k.iterations == r.iterations).float().mean()):.4f}); against the "
+        f"float64 plain version: plain {stray:.3e}, kernel {off:.3e}; kernel "
+        f"{ms:.4f} ms one call, {b2b_ms:.4f} ms back to back, plain {plain_ms:.4f} ms "
+        f"(median of 3 runs); bound {b_ms:.4f} ms ({b_by}; {problem.flops} operations "
+        f"per scenario-iteration, {its} scenario-iterations): {b_ms / ms:.1%} of the "
+        f"bound one call; idle-lane share {idle_lane_share(k.iterations):.4f} "
+        f"(iterations p50 {float(k.iterations.float().median()):g} max "
+        f"{int(k.iterations.max())})")
+    assert off <= stray + 5e-4, (off, stray)
+    report.update(max_abs_err=errs[f32], ms=ms, back_to_back_ms=b2b_ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  float64_max_abs_err=errs[f64])
+    # the float64 instance at the same shape
+    ms64 = cuda_time_ms(lambda: launch[f64].launch(*args64, opts.mu_init))
+    k64 = launch[f64].launch(*args64, opts.mu_init)
+    b64, by64 = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN, args[0].shape[2],
+                                        int(k64.iterations.sum()), itemsize=8),
+                         PEAK_FP64)
+    log(f"phase1 whole_ip_cross B={B_MAIN} N={N} float64: kernel {ms64:.4f} ms one "
+        f"call; bound {b64:.4f} ms ({by64}): {b64 / ms64:.1%} of the bound")
+    report.update(float64_ms=ms64, float64_bound_ms=b64)
 
 
 def phase2(report):
@@ -1951,6 +2147,248 @@ def phase10(report):
     report["phase10"] = dict(converged=conv, solves_per_s=B_MAIN / t_cold)
 
 
+def phase11(report):
+    """The augmented formulations (module docstring)."""
+    phase11_du(report)
+    phase11_pathfollow(report)
+    phase11_mintime(report)
+    phase11_goldens()
+
+
+def shifted(sol, xs0_B):
+    """The warm start of phase 2: the solution shifted by one stage."""
+    import torch
+    X_w = torch.cat([sol.X[:, 1:], sol.X[:, -1:]], dim=1)
+    X_w[:, 0] = xs0_B
+    return X_w, torch.cat([sol.U[:, 1:], sol.U[:, -1:]], dim=1)
+
+
+def phase11_du(report):
+    """(a) Phase 2's flagship with the Δu term and bounds, each scenario's
+    u_prev through prepare_batch(u_prev=), through the general path (the
+    Riccati kernel at (3, 1)) and the whole-solve kernel (its CROSS build),
+    cold and warm."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp
+    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
+
+    f32 = torch.float32
+    general = build_du_nmpc(FLAGSHIP, f32)
+    whole = build_du_nmpc({**FLAGSHIP, "pallas_full": True}, f32)
+    assert general._augment_du and (general._dims.nx, general._dims.nu) == (3, 1)
+    x0s, u_prev = flagship_x0s(), du_u_prev()
+    for ctl in (general, whole):                              # untimed warm-up
+        ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256], u_prev=u_prev[:256]))
+    torch.cuda.synchronize()
+    runs = {}
+    for name, ctl in (("general path", general), ("whole-solve kernel", whole)):
+        riccati_lq_cuda.launches = solve_ocp_full_cuda.launches = 0
+        t0 = time.perf_counter()
+        args = ctl.prepare_batch(x0s, u_prev=u_prev)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sol = ctl.solve_batch_fn()(*args)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        X_w, U_w = shifted(sol, args[1])
+        t0 = time.perf_counter()
+        sol_w = ctl.solve_batch_fn(warm=True)(args[0], args[1], X_w, U_w)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        counts = (riccati_lq_cuda.launches, solve_ocp_full_cuda.launches)
+        runs[name] = (args, sol, counts)
+        for kind, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
+            assert s_.U.shape == (B_MAIN, N, 1) and s_.X.shape == (B_MAIN, N + 1, 3)
+            assert bool(torch.isfinite(s_.U).all()) and bool(torch.isfinite(s_.X).all())
+            conv = float(s_.converged.float().mean())
+            log(f"phase11(a) Δu CSTR {name} B={B_MAIN} N={N} float32 {kind}: "
+                f"{B_MAIN / t:.1f} solves/s ({t:.4f} s wall), converged {conv:.4f}, "
+                f"iterations p50 {float(s_.iterations.float().median()):g} max "
+                f"{int(s_.iterations.max())}")
+            assert conv >= 0.97, (name, kind, conv)
+        log(f"phase11(a) {name}: prepare_batch {t_prep:.4f} s; riccati_lq launches "
+            f"{counts[0]}, whole_ip launches {counts[1]}")
+        # u_prev rides in the state: the Δu bounds hold against it
+        du0 = (sol.X[:, 1, 2] - args[1][:, 2])[sol.converged]
+        assert float(du0.abs().max()) <= 0.5 + 1e-4
+    (ga, gs, (g_ric, g_full)), (_, ws, (w_ric, w_full)) = runs.values()
+    assert g_ric > 0 and g_full == 0, (g_ric, g_full)
+    assert (w_ric, w_full) == (0, 2), (w_ric, w_full)
+    # the two routes in float32 each stop at a point with KKT error <= 1e-4;
+    # on the scenarios where the general path stops one iteration early the
+    # objective is flat enough along U that the two points lie up to ~1.5e-3
+    # apart (the host build at B=4096), both as far from the float64
+    # answer. So the whole-solve kernel is held to the general path's stray
+    # from the float64 answer plus 5e-4, as phase 10 holds its kernel
+    both = gs.converged & ws.converged
+    gap = (ws.U - gs.U).abs().amax(dim=(1, 2))[both]
+    dev = float(gap.max())
+    n64 = build_du_nmpc(FLAGSHIP, torch.float64)
+    g64 = n64.solve_batch_fn()(*[a.double() for a in ga])
+    j = both & g64.converged
+    stray = float((gs.U.double() - g64.U).abs()[j].max())
+    off = float((ws.U.double() - g64.U).abs()[j].max())
+    log(f"phase11(a): max|U_whole - U_general| on the jointly converged {dev:.3e} "
+        f"({float(both.float().mean()):.4f} of the scenarios; above 5e-4 in "
+        f"{int((gap > 5e-4).sum())}, equal iterations in "
+        f"{float((ws.iterations == gs.iterations).float().mean()):.4f}); against the "
+        f"float64 general path: general {stray:.3e}, whole-solve {off:.3e}")
+    assert off <= stray + 5e-4, (off, stray)
+    # the first 1024 scenarios with the plain LQ step in place of the kernel,
+    # in float64 (equal iterations, 1e-9) and float32 (reported)
+    sub = tuple(a[:1024].double() for a in ga)
+    ref = solve_ocp(n64._funcs, n64._dims, n64._bounds, *sub, options=n64._ip_opts,
+                    mu0=n64._ip_opts.mu_init, lq_solver=make_plain_lq_solver)
+    dev64 = float((g64.U[:1024] - ref.U).abs().max())
+    sub32 = tuple(a[:1024] for a in ga)
+    ref32 = solve_ocp(general._funcs, general._dims, general._bounds, *sub32,
+                      options=general._ip_opts, mu0=general._ip_opts.mu_init,
+                      lq_solver=make_plain_lq_solver)
+    dev32 = float((gs.U[:1024] - ref32.U).abs().max())
+    log(f"phase11(a) first 1024 scenarios: max|U_kernel - U_plain| float64 {dev64:.3e} "
+        f"(equal iterations {bool(torch.equal(g64.iterations[:1024], ref.iterations))}), "
+        f"float32 {dev32:.3e}")
+    assert torch.equal(g64.iterations[:1024], ref.iterations) and dev64 <= 1e-9, dev64
+    report["whole_ip_cross"]["launches"] = w_full
+    report["riccati_lq"].setdefault("phase11_launches", {})["du_general"] = g_ric
+
+
+def phase11_pathfollow(report):
+    """(b) Golden pathfollow_soft's controller at B=131072, float32, NMPC
+    defaults but max_iter 80: the general path through the Riccati kernel
+    at (3, 3), soft rows and convexify; pallas_full declines it."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops import riccati
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.ip_solver import solve_ocp
+    from hilo_mpc_tpu_torch.ops.riccati import make_plain_lq_solver
+
+    opts = {"dt": 0.1, "max_iter": 80}
+    nmpc = pathfollow_nmpc(opts, torch.float32)
+    assert (nmpc._dims.nx, nmpc._dims.nu) == (3, 3) and nmpc._path_following
+    x0s = 0.1 * np.random.default_rng(3).standard_normal((B_MAIN, 2))
+    nmpc.solve_batch_fn()(*nmpc.prepare_batch(x0s[:256]))   # untimed warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = nmpc.prepare_batch(x0s)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    riccati_lq_cuda.launches = 0
+    with count_calls(riccati, "backward_sweep") as sweeps:
+        t0 = time.perf_counter()
+        sol = nmpc.solve_batch_fn()(*args)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+    launches, loops = riccati_lq_cuda.launches, int(sol.iterations.max())
+    conv = float(sol.converged.float().mean())
+    assert sol.U.shape == (B_MAIN, 12, 3) and bool(torch.isfinite(sol.U).all())
+    log(f"phase11(b) pathfollow_soft B={B_MAIN} N=12 float32: prepare_batch "
+        f"{t_prep:.4f} s; cold {B_MAIN / t_cold:.1f} solves/s ({t_cold:.4f} s wall), "
+        f"converged {conv:.4f}, iterations p50 {float(sol.iterations.float().median()):g} "
+        f"max {loops}; riccati_lq launches {launches} = Newton steps {2 * loops} "
+        f"(Mehrotra: 2 per iteration), plain backward sweeps {sweeps.calls}")
+    assert conv >= 0.97, conv
+    assert (launches, sweeps.calls) == (2 * loops, 0), (launches, sweeps.calls)
+    th = sol.X[sol.converged][:, 1:, 2]
+    log(f"phase11(b): path parameter after one step p50 "
+        f"{float(th[:, 0].median()):.4f}, at the horizon's end max {float(th[:, -1].max()):.4f}")
+    # the first 1024 scenarios in float64: the kernel against the plain LQ step
+    n64 = pathfollow_nmpc(opts, torch.float64)
+    sub = tuple(a[:1024].double() for a in args)
+    k64 = n64.solve_batch_fn()(*sub)
+    p64 = solve_ocp(n64._funcs, n64._dims, n64._bounds, *sub, options=n64._ip_opts,
+                    mu0=n64._ip_opts.mu_init, lq_solver=make_plain_lq_solver)
+    dev64 = float((k64.U - p64.U).abs().max())
+    log(f"phase11(b) first 1024 scenarios float64: max|U_kernel - U_plain| {dev64:.3e} "
+        f"(equal iterations {bool(torch.equal(k64.iterations, p64.iterations))})")
+    assert torch.equal(k64.iterations, p64.iterations) and dev64 <= 1e-9, dev64
+    # pallas_full: the gate declines and names the reason
+    pf = pathfollow_nmpc({**opts, "pallas_full": True}, torch.float32)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pf.solve_batch_fn()
+    why = [str(w.message) for w in caught if "pallas_full" in str(w.message)]
+    log(f"phase11(b) pallas_full: {why[0] if why else 'no warning'}")
+    assert why and "path-following reference" in why[0], why
+    report["riccati_lq"].setdefault("phase11_launches", {})["pathfollow"] = launches
+    report["phase11_pathfollow"] = dict(converged=conv, solves_per_s=B_MAIN / t_cold)
+
+
+def phase11_mintime(report):
+    """(c) Golden mintime's controller at B=16384, float64: the card against
+    the CPU on the first 1024 scenarios; the converged fraction and the
+    optimal dt."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+
+    Bt = 16384
+    rng = np.random.default_rng(11)
+    x0s = np.array([-1.0, 0.0]) + np.array([0.25, 0.15]) * rng.standard_normal((Bt, 2))
+    card = mintime_nmpc(torch.float64)
+    assert (card._dims.nx, card._dims.nu, card._dims.n_eN) == (3, 2, 2)
+    riccati_lq_cuda.launches = 0
+    t0 = time.perf_counter()
+    sol = card.solve_batch_fn()(*card.prepare_batch(x0s))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = riccati_lq_cuda.launches
+    conv = float(sol.converged.float().mean())
+    dt = sol.X[:, -1, -1][sol.converged]
+    log(f"phase11(c) mintime B={Bt} N=16 float64: {Bt / wall:.1f} solves/s "
+        f"({wall:.4f} s wall), converged {conv:.4f}, iterations p50 "
+        f"{float(sol.iterations.float().median()):g} max {int(sol.iterations.max())}, "
+        f"riccati_lq launches {launches}; optimal dt {float(dt.min()):.5f} .. "
+        f"{float(dt.max()):.5f} (bounds 0.02 .. 0.6), final time "
+        f"{16 * float(dt.min()):.4f} .. {16 * float(dt.max()):.4f}")
+    assert launches > 0 and conv >= 0.97, (launches, conv)
+    assert float(dt.min()) >= 0.02 - 1e-9 and float(dt.max()) <= 0.6 + 1e-9
+    cpu = mintime_nmpc(torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu.solve_batch_fn()(*cpu.prepare_batch(x0s[:1024]))
+    t_cpu = time.perf_counter() - t0
+    dev = float((sol.U[:1024].cpu() - ref.U).abs().max())
+    eq = bool(torch.equal(sol.iterations[:1024].cpu(), ref.iterations))
+    log(f"phase11(c) first 1024 scenarios: card against CPU max|ΔU| {dev:.3e}, equal "
+        f"iterations {eq} (CPU {t_cpu:.2f} s)")
+    assert eq and dev <= 1e-9, dev
+    report["riccati_lq"].setdefault("phase11_launches", {})["mintime"] = launches
+
+
+def phase11_goldens():
+    """(d) Goldens du_tracking, pathfollow_soft and mintime through
+    NMPC.optimize in float64 on the card."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    f64 = torch.float64
+    cases = (("du_tracking", GOLDEN_DU, lambda: build_du_nmpc(
+                 {"tol": 1e-9, "max_iter": 80}, f64, horizon=15)),
+             ("pathfollow_soft", GOLDEN_PF, lambda: pathfollow_nmpc(
+                 {"dt": 0.1, "tol": 1e-9, "max_iter": 80}, f64)),
+             ("mintime", GOLDEN_MT, lambda: mintime_nmpc(f64)))
+    for name, path, build in cases:
+        data = np.load(path)
+        ctl = build()
+        n0 = riccati_lq_cuda.launches
+        t0 = time.perf_counter()
+        devs = []
+        for k in range(data["U_gold"].shape[0]):
+            u = ctl.optimize(data["X_meas"][k])
+            assert ctl.stats["converged"], (name, k, ctl.stats)
+            devs.append(float(np.abs(u - data["U_gold"][k]).max()))
+        assert riccati_lq_cuda.launches > n0
+        log(f"phase11(d) golden {name} float64: {len(devs)} steps in "
+            f"{time.perf_counter() - t0:.2f} s, max|u - u_gold| = {max(devs):.3e}")
+        assert max(devs) < 1e-4, (name, devs)
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -2001,6 +2439,12 @@ def build_jobs():
                                    nmpc._ip_opts)
         jobs.append((f"whole_ip {name} ({problem.region} values per scenario)",
                      _build.source_library_path, problem.text))
+    # the cross block's build: phase 11(a)'s Δu problem (phases 1 and 11)
+    du = build_du_nmpc(FLAGSHIP, torch.float32)
+    nt = du.prepare_batch(flagship_x0s(1), u_prev=du_u_prev(1))[0].shape[2]
+    problem = whole_ip_problem(du._funcs, du._dims, du._bounds, nt, du._ip_opts)
+    jobs.append((f"whole_ip du_cross, CROSS ({problem.region} values per scenario)",
+                 _build.source_library_path, problem.text))
     return jobs
 
 
@@ -2059,6 +2503,11 @@ def main():
             assert regs["float32"][0] <= WHOLE_IP_FLAGSHIP_REGISTERS[0], regs
             assert regs["float32"][1] == 0, regs
             assert regs["float64"][0] <= WHOLE_IP_FLAGSHIP_REGISTERS[1], regs
+        if label.startswith("whole_ip du_cross"):
+            regs = whole_ip_registers(lib + ".log")
+            log(f"    CROSS build (nx=3, nu=1) registers per thread: float32 "
+                f"{regs['float32'][0]} ({regs['float32'][1]} bytes spilled), float64 "
+                f"{regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
         dts = (torch.float32, torch.float64)
         if label.startswith("riccati_lq_wide"):
             handle = ctypes.CDLL(lib)
@@ -2105,6 +2554,7 @@ def main():
     phase8()
     phase9()
     phase10(report)
+    phase11(report)
     free_x0 = ("hilo_mpc_tpu/ops/pallas_kernels.py:169 with the free-x0 solve at "
                "hilo_mpc_tpu/ops/ip_solver.py:633-642")
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
@@ -2113,13 +2563,15 @@ def main():
                 "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_resident": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_column_blocks": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
-                "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143"}
+                "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143",
+                "whole_ip_cross": "hilo_mpc_tpu/ops/pallas_ip.py:143 with the cost's "
+                                  "cross block at :571"}
     sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
                "riccati_lq_free_x0": "riccati_lq.cuh",
                "riccati_lq_wide_free_x0": "riccati_lq_wide.cuh",
                "fgm_boxqp": "fgm_boxqp_reg.cuh", "fgm_boxqp_resident": "fgm_boxqp.cu",
                "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
-               "whole_ip": "whole_ip.cuh"}
+               "whole_ip": "whole_ip.cuh", "whole_ip_cross": "whole_ip.cuh"}
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -2130,8 +2582,11 @@ def main():
                         "back_to_back_ms": r["back_to_back_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        # the whole-solve kernel's soft-box problem too
-                        **{k: v for k, v in r.items() if k.startswith("soft_box")},
+                        # the whole-solve kernel's soft-box problem, the
+                        # CROSS build's float64 instance, phase 11's
+                        # Riccati launches
+                        **{k: v for k, v in r.items()
+                           if k.startswith(("soft_box", "float64", "phase11"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, its name kept from its first design)
                         # no single PyTorch call computes any of them:

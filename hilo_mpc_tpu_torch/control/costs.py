@@ -7,8 +7,9 @@ vector theta); generic costs and constraints are callables over
 (x, u, p, t). The quadratic terms are plain numpy descriptions;
 ``control/nmpc.py`` lowers everything to batch-first torch functions, so a
 user callable takes x (..., n_x), u (..., n_u), p (..., n_p), t (...).
-
-Not ported yet: Δu and path-following terms (ROADMAP.md §A.5).
+Input-change terms (``add_inputs_change``) weigh Δu of the augmented
+formulation; a path-following term's reference is ``path_fn`` of the path
+parameter, batch-first too: th (...) -> (..., n).
 """
 from __future__ import annotations
 
@@ -17,10 +18,6 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
-               "ROADMAP.md §A.5")
-
 
 def _as_weight_matrix(weights, n: int) -> np.ndarray:
     W = np.asarray(weights, dtype=float)
@@ -37,12 +34,14 @@ def _as_weight_matrix(weights, n: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class QuadTerm:
-    kind: str                      # 'states' | 'inputs' | 'measurements'
+    kind: str                      # 'states' | 'inputs' | 'inputs_change' | 'measurements'
     names: List[str]
     idx: np.ndarray                # indices into the relevant vector
     W: np.ndarray                  # (n, n) weights
     ref: Optional[np.ndarray]      # constant reference, or None for zero/no reference
     trajectory_tracking: bool = False   # reference provided per-step at solve time
+    path_following: bool = False        # reference is a function of the path parameter
+    path_fn: Optional[Callable] = None  # th (...) -> (..., n) reference on the path
 
     @property
     def n(self) -> int:
@@ -52,6 +51,8 @@ class QuadTerm:
     def runtime_ref(self) -> bool:
         """True if the reference values are supplied per solve through theta
         (per-step trajectory windows or refs passed to optimize(ref=...))."""
+        if self.path_following:
+            return False
         return self.trajectory_tracking or (self.ref is not None
                                             and self.ref.ndim == 2)
 
@@ -80,13 +81,11 @@ class QuadraticCost:
         return list(names), np.asarray(idx, dtype=int)
 
     def _add(self, kind, pool, names, weights, ref, trajectory_tracking,
-             path_following):
-        if path_following or callable(ref):
-            raise NotImplementedError(_NOT_PORTED.format(what="path following"))
+             path_following, path_fn=None):
         names, idx = self._resolve(names, pool, kind)
         W = _as_weight_matrix(weights if weights is not None else 1.0, len(idx))
         ref_arr = None
-        if ref is not None:
+        if ref is not None and not callable(ref):
             ref_arr = np.asarray(ref, dtype=float)
             if ref_arr.ndim == 0:
                 ref_arr = np.full(len(idx), float(ref_arr))
@@ -97,15 +96,18 @@ class QuadraticCost:
                 raise ValueError(
                     f"trajectory reference has {ref_arr.shape[1]} columns "
                     f"for {len(idx)} variables")
+        if callable(ref):
+            path_fn, path_following = ref, True
         self.terms.append(QuadTerm(
             kind=kind, names=names, idx=idx, W=W, ref=ref_arr,
-            trajectory_tracking=bool(trajectory_tracking)))
+            trajectory_tracking=bool(trajectory_tracking),
+            path_following=bool(path_following), path_fn=path_fn))
         return self
 
     def add_states(self, names=None, weights=None, ref=None,
                    trajectory_tracking=False, path_following=False, path_fn=None):
         return self._add("states", self._model.dynamical_states, names, weights,
-                         ref, trajectory_tracking, path_following or path_fn)
+                         ref, trajectory_tracking, path_following, path_fn)
 
     def add_inputs(self, names=None, weights=None, ref=None,
                    trajectory_tracking=False, path_following=False):
@@ -113,7 +115,10 @@ class QuadraticCost:
                          trajectory_tracking, path_following)
 
     def add_inputs_change(self, names=None, weights=None):
-        raise NotImplementedError(_NOT_PORTED.format(what="Δu (inputs_change) costs"))
+        """A quadratic penalty on the input increments Δu (the controller
+        then runs the Δu-augmented formulation)."""
+        return self._add("inputs_change", self._model.inputs, names, weights,
+                         None, False, False)
 
     def add_measurements(self, names=None, weights=None, ref=None,
                          trajectory_tracking=False, path_following=False):

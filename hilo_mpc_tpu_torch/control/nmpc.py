@@ -6,7 +6,11 @@ runtime references), generic (callable) stage and terminal costs, box bounds
 on states and inputs (the state bounds optionally soft), generic stage and
 terminal constraints (hard, soft, or equalities through the solver's
 augmented Lagrangian), scaling, time-invariant parameters, warm starts and
-multi-start. The multiple-shooting structure is
+multi-start; and the augmented formulations: Δu costs and bounds and a
+control horizon (the state carries u_prev, the control is Δu), path
+following (a path parameter state and its virtual velocity control) and
+minimum time (a dt-carrying state and a stage-0 dt-adjust control). The
+multiple-shooting structure is
 kept stagewise and solved by the batched interior point of ops/ip_solver.py,
 whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors. With
 the ``pallas_full`` option, ``solve_batch_fn`` sends eligible problems to the
@@ -20,9 +24,8 @@ for B scenarios at once, ``optimize`` for one closed-loop step and
 ``optimize_batch``. Every problem function is batch-first: x (..., n_x),
 u (..., n_u), theta (..., n_theta).
 
-Not ported yet (NotImplementedError at the setter or at setup): Δu costs and
-bounds, control horizon < horizon, path following, minimum time, discrete
-inputs, time-varying parameters and RTI (ROADMAP.md §A.5). There is no trace
+Not ported yet (NotImplementedError at the setter): discrete inputs,
+time-varying parameters and RTI (ROADMAP.md §A.5). There is no trace
 registry: PyTorch runs eagerly, so there is nothing to trace or share.
 """
 from __future__ import annotations
@@ -43,7 +46,7 @@ from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
 from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_problem,
                             whole_ip_supported)
-from .costs import GenericCost, QuadraticCost, make_constraint
+from .costs import GenericCost, QuadraticCost, make_constraint, one_row_last
 
 _NLP_OPTION_KEYS = {
     "integration_method", "degree", "collocation_scheme", "substeps",
@@ -93,6 +96,12 @@ class NMPC:
         self._u_guess = np.zeros(nu)
         self._p_defaults: Optional[np.ndarray] = None
 
+        self._path_following = False
+        self._path_u_bounds = (0.0, np.inf)
+        self._path_speed = None
+        self._min_time = None
+        self._augment_du = False
+
         self._setup_done = False
         self._opts: dict = {}
         self._device = torch.device("cpu")
@@ -100,6 +109,7 @@ class NMPC:
         self._time = 0.0
         self._step_count = 0
         self._u_old = np.zeros(nu)
+        self._theta_path0 = 0.0
         self._warm = None          # previous (X, U) scaled solution for warm start
         self.solution: Optional[TimeSeries] = None
         self.last_prediction = None
@@ -205,18 +215,35 @@ class NMPC:
         self._terminal_constraints.append(con)
         return self
 
+    def create_path_variable(self, u_pf_lb: float = 0.0, u_pf_ub: float = np.inf,
+                             speed_ref: Optional[float] = None,
+                             speed_weight: float = 1.0):
+        """Path-following mode: the state gains a path parameter th and the
+        control its velocity u_pf (u_pf_lb <= u_pf <= u_pf_ub), with
+        th_{k+1} = th_k + h·u_pf; ``speed_ref`` adds the stage penalty
+        speed_weight·(u_pf − speed_ref)², which rewards progress."""
+        self._path_following = True
+        self._path_u_bounds = (float(u_pf_lb), float(u_pf_ub))
+        self._path_speed = (None if speed_ref is None
+                            else (float(speed_ref), float(speed_weight)))
+        return self
+
+    def minimize_final_time(self, weight: float = 1.0, dt_min: float = 1e-3,
+                            dt_max: Optional[float] = None):
+        """Minimum-time mode: the step length is a decision variable. A
+        state tau carries it down the horizon, a control adjusts it at stage
+        0 only (pinned to 0 elsewhere), dt_min <= tau <= dt_max, and the
+        objective gains weight·Σ_k h_k = weight·T."""
+        self._min_time = {"weight": float(weight), "dt_min": float(dt_min),
+                          "dt_max": (np.inf if dt_max is None else float(dt_max))}
+        return self
+
     # -- features of later slices ---------------------------------------------
     def set_discrete_inputs(self, *args, **kwargs):
         raise _not_ported("discrete (mixed-integer) inputs")
 
     def set_time_varying_parameters(self, *args, **kwargs):
         raise _not_ported("time-varying parameters")
-
-    def create_path_variable(self, *args, **kwargs):
-        raise _not_ported("path following")
-
-    def minimize_final_time(self, *args, **kwargs):
-        raise _not_ported("minimum-time NMPC")
 
     def rti_prepare(self, *args, **kwargs):
         raise _not_ported("real-time iteration")
@@ -241,19 +268,35 @@ class NMPC:
         model = self._model
         nx, nu, n_p = model.n_x, model.n_u, model.n_p
         N = self._horizon
+        Nc = self.control_horizon
         dt = options.get("dt", model.dt)
         if dt is None:
             raise ValueError("no sampling time: set model.setup(dt=...) or pass "
                              "options={'dt': ...}")
-        if (self.control_horizon < N or np.any(np.isfinite(self._du_lb))
-                or np.any(np.isfinite(self._du_ub))):
-            raise _not_ported("the Δu formulation (Δu bounds or control_horizon "
-                              "< horizon)")
         self._device = resolve_device(device)
         self._dt = float(dt)
         self._opts = options
         self._dtype = dtype
         kw = dict(dtype=dtype, device=self._device)
+
+        # the augmented formulations: u_prev in the state and Δu as the
+        # control; a path parameter and its velocity; the dt-carrying state
+        # and its stage-0 adjustment
+        stage_terms = list(self.quad_stage_cost.terms)
+        term_terms = list(self.quad_terminal_cost.terms)
+        has_du = (any(t.kind == "inputs_change" for t in stage_terms + term_terms)
+                  or np.any(np.isfinite(self._du_lb))
+                  or np.any(np.isfinite(self._du_ub)) or Nc < N)
+        aug = self._augment_du = bool(has_du and nu > 0)
+        path = self._path_following = self._path_following or any(
+            t.path_following for t in stage_terms + term_terms)
+        mt = self._min_time is not None
+        nxs = nx + (nu if aug else 0) + (1 if path else 0) + (1 if mt else 0)
+        nus = nu + (1 if path else 0) + (1 if mt else 0)
+        idx_path = nx + (nu if aug else 0)  # path parameter state
+        idx_upf = nu                        # its velocity control
+        idx_vtau = nu + (1 if path else 0)  # the dt-adjust control
+        idx_tau = nxs - 1                   # the dt-carrying state
 
         int_method = options.get("integration_method",
                                  "discrete" if model.discrete else "rk4")
@@ -270,8 +313,6 @@ class NMPC:
         su = torch.as_tensor(self._u_scaling, **kw)
 
         # theta layout: [t, dt, p (n_p), stage_refs (n_ref_s), term_refs (n_ref_t)]
-        stage_terms = list(self.quad_stage_cost.terms)
-        term_terms = list(self.quad_terminal_cost.terms)
         n_ref_s = sum(t.n for t in stage_terms if t.runtime_ref)
         off_p = 2
         off_rs = off_p + n_p
@@ -279,14 +320,29 @@ class NMPC:
         step_dt = self._dt
 
         def unpack(xs, us, theta):
+            """(x, u, Δu, p, t, h, th_path) of the solver's (xs, us)."""
             x = xs[..., :nx] * sx
-            u = us[..., :nu] * su
-            return x, u, theta[..., off_p:off_p + n_p], theta[..., 0], theta[..., 1]
+            h = xs[..., idx_tau] + us[..., idx_vtau] if mt else theta[..., 1]
+            if aug:
+                du = us[..., :nu] * su
+                u = xs[..., nx:nx + nu] * su + du
+            else:
+                u = us[..., :nu] * su
+                du = torch.zeros_like(u)
+            th_path = xs[..., idx_path] if path else torch.zeros_like(x[..., 0])
+            return x, u, du, theta[..., off_p:off_p + n_p], theta[..., 0], h, th_path
 
         def dyn(xs, us, theta):
-            x, u, p, t, h = unpack(xs, us, theta)
+            x, u, _, p, t, h, th_path = unpack(xs, us, theta)
             x_next, _ = core_step(x, x[..., :0], u, p, t, h)
-            return x_next / sx
+            parts = [x_next / sx]
+            if aug:
+                parts.append(u / su)
+            if path:
+                parts.append((th_path + h * us[..., idx_upf])[..., None])
+            if mt:
+                parts.append(h[..., None])
+            return torch.cat(parts, dim=-1)
 
         meas_fn = model.meas_fn()
 
@@ -295,7 +351,7 @@ class NMPC:
             # a model of one measurement may give the batch shape itself
             return y[..., None] if y.dim() == x.dim() - 1 else y
 
-        def quad_terms_cost(terms, ref_offset, x, u, p, t, theta):
+        def quad_terms_cost(terms, ref_offset, x, u, du, p, t, th_path, theta):
             cost = torch.zeros_like(x[..., 0])
             off = ref_offset
             for term in terms:
@@ -303,10 +359,14 @@ class NMPC:
                     src = x
                 elif term.kind == "inputs":
                     src = u
+                elif term.kind == "inputs_change":
+                    src = du
                 else:
                     src = measurements(x, u, p, t)
                 v = torch.stack([src[..., int(i)] for i in term.idx], dim=-1)
-                if term.runtime_ref:
+                if term.path_following and term.path_fn is not None:
+                    ref = one_row_last(term.path_fn(th_path), v, term.n)
+                elif term.runtime_ref:
                     ref = theta[..., off:off + term.n]
                     off += term.n
                 elif term.ref is not None:
@@ -337,18 +397,25 @@ class NMPC:
             return soft_w * (viol ** 2).sum(dim=-1)
 
         gen_stage, gen_term = self.stage_cost, self.terminal_cost
+        speed = self._path_speed if path else None
+        mt_weight = self._min_time["weight"] if mt else 0.0
 
         def stage_cost(xs, us, theta):
-            x, u, p, t, h = unpack(xs, us, theta)
-            c = quad_terms_cost(stage_terms, off_rs, x, u, p, t, theta)
+            x, u, du, p, t, h, th_path = unpack(xs, us, theta)
+            c = quad_terms_cost(stage_terms, off_rs, x, u, du, p, t, th_path, theta)
             if not gen_stage.is_empty:
                 c = c + gen_stage(x, u, p, t)
             if x_soft:
                 c = c + soft_box_penalty(x)
             for con in soft_cons_s:
                 c = c + con.penalty(con.fn(x, u, p, t))
+            if speed is not None:
+                c = c + speed[1] * (us[..., idx_upf] - speed[0]) ** 2
             # integrate stage cost over the sample interval: multiply by dt
-            return c * h / step_dt
+            c = c * h / step_dt
+            if mt:
+                c = c + mt_weight * h
+            return c
 
         def term_args(xs, theta):
             """(x, u = 0, p, t) of the terminal functions."""
@@ -358,7 +425,8 @@ class NMPC:
 
         def term_cost(xs, theta):
             x, u0, p, t = term_args(xs, theta)
-            c = quad_terms_cost(term_terms, off_rt, x, u0, p, t, theta)
+            th_path = xs[..., idx_path] if path else torch.zeros_like(x[..., 0])
+            c = quad_terms_cost(term_terms, off_rt, x, u0, u0, p, t, th_path, theta)
             if not gen_term.is_empty:
                 c = c + gen_term(x, u0, p, t)
             if x_soft:
@@ -399,14 +467,14 @@ class NMPC:
                               for con, r in eqs], dim=-1)
 
         def stage_ineq(xs, us, theta):
-            x, u, p, t, _ = unpack(xs, us, theta)
+            x, u, _, p, t, _, _ = unpack(xs, us, theta)
             return ineq_rows(hard_s, x, u, p, t)
 
         def term_ineq(xs, theta):
             return ineq_rows(hard_t, *term_args(xs, theta))
 
         def stage_eq(xs, us, theta):
-            x, u, p, t, _ = unpack(xs, us, theta)
+            x, u, _, p, t, _, _ = unpack(xs, us, theta)
             return eq_rows(eq_s, x, u, p, t)
 
         def term_eq(xs, theta):
@@ -414,43 +482,80 @@ class NMPC:
 
         # the cost Hessian is point-independent iff every term is a true
         # quadratic in the decision variables: no generic costs, no soft
-        # penalties (piecewise), no nonlinear measurement maps
+        # penalties (piecewise), no nonlinear measurement maps, no
+        # path-parameterised references (nonlinear in th_path) and no
+        # minimum-time stage scaling (cost · h is cubic); Δu terms are quadratic
         quad_cost_only = (gen_stage.is_empty and gen_term.is_empty and not x_soft
-                          and not soft_cons_s and not soft_cons_t
-                          and all(t.kind != "measurements"
+                          and not soft_cons_s and not soft_cons_t and not mt
+                          and all(t.kind != "measurements" and not t.path_following
                                   for t in stage_terms + term_terms))
         # what the whole-solve emitter cannot write as C++ (ops/codegen_cuda.py)
         cost_error = None
-        if not gen_stage.is_empty or not gen_term.is_empty:
+        if mt:
+            cost_error = "a free final time"
+        elif any(t.path_following for t in stage_terms + term_terms):
+            cost_error = "a path-following reference (a callable of the path parameter)"
+        elif path:
+            cost_error = "a path parameter (create_path_variable)"
+        elif not gen_stage.is_empty or not gen_term.is_empty:
             cost_error = "a generic (callable) cost"
         elif any(t.kind == "measurements" for t in stage_terms + term_terms):
             cost_error = "a measurement cost term"
         elif soft_cons_s or soft_cons_t:
             cost_error = "a soft generic (callable) constraint"
 
-        dims = OCPDims(nx=nx, nu=nu, N=N, n_h=n_h, n_hN=n_hN, n_e=n_e, n_eN=n_eN)
+        dims = OCPDims(nx=nxs, nu=nus, N=N, n_h=n_h, n_hN=n_hN, n_e=n_e, n_eN=n_eN)
         source = OCPSource(
             model=model, spec=spec, off_rs=off_rs, off_rt=off_rt,
             stage_terms=tuple(stage_terms), term_terms=tuple(term_terms),
             x_scaling=tuple(self._x_scaling), u_scaling=tuple(self._u_scaling),
             dt=step_dt, soft_lb=tuple(x_pen_lb), soft_ub=tuple(x_pen_ub),
-            soft_weight=soft_w, cost_error=cost_error)
+            soft_weight=soft_w, cost_error=cost_error, augment_du=aug)
         funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost,
                              stage_ineq=stage_ineq if n_h else None,
                              term_ineq=term_ineq if n_hN else None,
                              stage_eq=stage_eq if n_e else None,
                              term_eq=term_eq if n_eN else None, source=source)
 
-        # --- bounds in solver (scaled) coordinates; soft state bounds leave
-        # the barrier rows ---
+        # --- bounds in solver (scaled, augmented) coordinates; soft state
+        # bounds leave the barrier rows ---
+        su_np = self._u_scaling
         x_lb_s, x_ub_s = self._x_lb / self._x_scaling, self._x_ub / self._x_scaling
         if x_soft:
             x_lb_s, x_ub_s = np.full(nx, -np.inf), np.full(nx, np.inf)
-        self._bounds = OCPBounds(
-            lbx=torch.as_tensor(np.tile(x_lb_s, (N + 1, 1)), **kw),
-            ubx=torch.as_tensor(np.tile(x_ub_s, (N + 1, 1)), **kw),
-            lbu=torch.as_tensor(np.tile(self._u_lb / self._u_scaling, (N, 1)), **kw),
-            ubu=torch.as_tensor(np.tile(self._u_ub / self._u_scaling, (N, 1)), **kw))
+        lbx, ubx = [np.tile(x_lb_s, (N + 1, 1))], [np.tile(x_ub_s, (N + 1, 1))]
+        if aug:
+            # u bounds on the u_prev component (rows 1..N hold u_0..u_{N-1})
+            u_lb_st = np.tile(self._u_lb / su_np, (N + 1, 1))
+            u_ub_st = np.tile(self._u_ub / su_np, (N + 1, 1))
+            u_lb_st[0], u_ub_st[0] = -np.inf, np.inf
+            lbx.append(u_lb_st)
+            ubx.append(u_ub_st)
+        if path:
+            lbx.append(np.zeros((N + 1, 1)))
+            ubx.append(np.full((N + 1, 1), np.inf))
+        if mt:
+            lbx.append(np.full((N + 1, 1), self._min_time["dt_min"]))
+            ubx.append(np.full((N + 1, 1), self._min_time["dt_max"]))
+        if aug:
+            lbu, ubu = np.tile(self._du_lb / su_np, (N, 1)), np.tile(self._du_ub / su_np, (N, 1))
+            # past the control horizon Δu is pinned to 0
+            lbu[Nc:], ubu[Nc:] = 0.0, 0.0
+        else:
+            lbu, ubu = np.tile(self._u_lb / su_np, (N, 1)), np.tile(self._u_ub / su_np, (N, 1))
+        lbu, ubu = [lbu], [ubu]
+        if path:
+            lbu.append(np.full((N, 1), self._path_u_bounds[0]))
+            ubu.append(np.full((N, 1), self._path_u_bounds[1]))
+        if mt:
+            # dt adjusts only at stage 0; tau carries it down the horizon
+            v_lb, v_ub = np.zeros((N, 1)), np.zeros((N, 1))
+            v_lb[0] = self._min_time["dt_min"] - self._dt
+            v_ub[0] = self._min_time["dt_max"] - self._dt
+            lbu.append(v_lb)
+            ubu.append(v_ub)
+        self._bounds = OCPBounds(*(torch.as_tensor(np.concatenate(b, axis=1), **kw)
+                                   for b in (lbx, ubx, lbu, ubu)))
         self._dims = dims
         self._funcs = funcs
         f64 = dtype == torch.float64
@@ -602,10 +707,38 @@ class NMPC:
 
     # -- initial guesses -------------------------------------------------------
     def _solver_x0(self, x0):
-        return np.asarray(x0, dtype=float) / self._x_scaling
+        parts = [np.asarray(x0, dtype=float).ravel() / self._x_scaling]
+        if self._augment_du:
+            parts.append(self._u_old / self._u_scaling)
+        if self._path_following:
+            parts.append(np.array([self._theta_path0]))
+        if self._min_time is not None:
+            parts.append(np.array([self._dt]))
+        return np.concatenate(parts)
+
+    def _widen(self, U):
+        """A guess of JAX's cold width to the solver's: JAX's cold U has no
+        column for minimum time's dt-adjust control, so its rollout reads
+        that control from the last column present (an out-of-range index
+        clamps) and its solver broadcasts a one-column U over all columns
+        (hilo_mpc_tpu/ops/ip_solver.py:408). The column appended here holds
+        that last column, which gives JAX's values wherever JAX runs."""
+        if U.shape[-1] < self._dims.nu:
+            U = np.concatenate([U, U[..., -1:]], axis=-1)
+        return U
+
+    def _narrow_cold_U(self):
+        """JAX's cold guess (hilo_mpc_tpu/control/nmpc.py:1085-1090): zeros
+        under the Δu augmentation, else u_guess and a zero path velocity."""
+        N = self._horizon
+        if self._augment_du:
+            return np.zeros((N, self._dims.nu))
+        return np.tile(np.concatenate([self._u_guess / self._u_scaling,
+                                       np.zeros(1 if self._path_following else 0)]),
+                       (N, 1))
 
     def _cold_U(self):
-        return np.tile(self._u_guess / self._u_scaling, (self._horizon, 1))
+        return self._widen(self._narrow_cold_U())
 
     def _rollout_guess(self, xs0_B, theta, U):
         """Hold U, roll the dynamics out from every xs0: (B, N+1, nx)."""
@@ -673,8 +806,8 @@ class NMPC:
         theta = self._assemble_theta(cp, ref, ref_sc=ref_sc, ref_tc=ref_tc)
         xs0 = self._solver_x0(x0)
         X_init, U_init = self._initial_trajectory(xs0, theta)
-        mu0 = (self._mu_warm if (self._warm is not None and self._warm_start)
-               else self._mu_cold)
+        warm = self._warm is not None and self._warm_start
+        mu0 = self._mu_warm if warm else self._mu_cold
         th_t, xs0_t = self._tensor(theta)[None], self._tensor(xs0)[None]
         X_t = self._tensor(X_init)[None]
         sol = self._solve(th_t, xs0_t, X_t, self._tensor(U_init)[None], mu0)
@@ -689,8 +822,11 @@ class NMPC:
             # hump of a nonconvex cost
             rng = np.random.default_rng(seed)
             best_obj = scalar(sol.objective) if scalar(sol.converged) else np.inf
+            # the draws have the shape of JAX's guess (narrower when cold
+            # at minimum time), widened as JAX's solver broadcasts them
+            shape = U_init.shape if warm else self._narrow_cold_U().shape
             for _ in range(runs - 1):
-                U_r = U_init + 0.5 * rng.standard_normal(U_init.shape)
+                U_r = U_init + self._widen(0.5 * rng.standard_normal(shape))
                 sol_r = self._solve(th_t, xs0_t, X_t, self._tensor(U_r)[None],
                                     self._mu_cold)
                 if scalar(sol_r.converged) and scalar(sol_r.objective) < best_obj:
@@ -698,12 +834,19 @@ class NMPC:
                     X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
 
         nx, nu = self._model.n_x, self._model.n_u
-        u0 = U[0, :nu] * self._u_scaling
+        # under the Δu augmentation u_k rides in x_{k+1}'s u_prev component
+        U_applied = X[1:, nx:nx + nu] if self._augment_du else U[:, :nu]
+        u0 = U_applied[0] * self._u_scaling
         self._warm = (X, U)
         self._u_old = u0.copy()
+        if self._path_following:
+            self._theta_path0 = float(X[1, nx + (nu if self._augment_du else 0)])
+        if self._min_time is not None:
+            self.optimal_dt = float(X[-1, -1])
+            self.optimal_final_time = self.optimal_dt * self._horizon
         self.last_prediction = {
             "x": X[:, :nx] * self._x_scaling,
-            "u": U[:, :nu] * self._u_scaling,
+            "u": U_applied * self._u_scaling,
             "t": self._time + self._dt * np.arange(self._horizon + 1),
         }
         self._time += self._dt
@@ -816,18 +959,30 @@ class NMPC:
     def prepare_batch(self, x0_batch, cp=None, tvp=None, ref=None, u_prev=None):
         """Solver inputs for B scenarios, cold-started by one batched rollout:
         (theta_B, xs0_B, X_init_B, U_init_B) tensors on this controller's
-        device. ``tvp`` is accepted for API parity and unused (time-varying
-        parameters are not ported)."""
+        device. ``u_prev`` (B, n_u): each scenario's previous input for the
+        Δu-augmented formulation (default: this controller's ``_u_old`` for
+        every scenario). ``tvp`` is accepted for API parity and unused
+        (time-varying parameters are not ported)."""
         if not self._setup_done:
             raise RuntimeError("call setup() first")
-        if u_prev is not None:
+        if u_prev is not None and not self._augment_du:
             raise ValueError("u_prev is only meaningful for the Δu-augmented "
                              "formulation (Δu costs/bounds or Nc < N)")
         x0_batch = np.atleast_2d(np.asarray(x0_batch, dtype=float))
         Bn = x0_batch.shape[0]
         N, nus = self._dims.N, self._dims.nu
         theta = self._tensor(self._assemble_theta(cp, ref))
-        xs0 = self._tensor(x0_batch / self._x_scaling)
+        # the appended components of _solver_x0 are the same for every scenario
+        xs0_np = np.concatenate([x0_batch / self._x_scaling,
+                                 np.tile(self._solver_x0(x0_batch[0])[self._model.n_x:],
+                                         (Bn, 1))], axis=1)
+        if u_prev is not None:
+            u_prev = np.atleast_2d(np.asarray(u_prev, dtype=float))
+            nx, nu = self._model.n_x, self._model.n_u
+            if u_prev.shape != (Bn, nu):
+                raise ValueError(f"u_prev has shape {u_prev.shape}, expected {(Bn, nu)}")
+            xs0_np[:, nx:nx + nu] = u_prev / self._u_scaling
+        xs0 = self._tensor(xs0_np)
         U = self._tensor(self._cold_U())
         X_B = self._rollout_guess(xs0, theta, U)
         U_B = U.expand(Bn, N, nus).contiguous()
@@ -838,8 +993,43 @@ class NMPC:
     def optimize_batch(self, x0_batch, cp=None, tvp=None, ref=None,
                        u_prev=None):
         """Solve B independent MPC problems at once; returns ((B, n_u) first
-        moves as numpy, OCPSolution)."""
+        moves as numpy, OCPSolution). ``u_prev`` (B, n_u): per-scenario
+        previous inputs for the Δu-augmented formulation."""
         sol = self.solve_batch_fn()(*self.prepare_batch(x0_batch, cp, tvp, ref,
                                                         u_prev=u_prev))
-        u0 = sol.U[:, 0, :self._model.n_u].cpu().numpy() * self._u_scaling
+        nx, nu = self._model.n_x, self._model.n_u
+        u0 = (sol.X[:, 1, nx:nx + nu] if self._augment_du
+              else sol.U[:, 0, :nu]).cpu().numpy() * self._u_scaling
         return u0, sol
+
+    def return_prediction(self):
+        """The last solve's predicted {"x", "u", "t"} (unscaled)."""
+        return self.last_prediction
+
+    def __str__(self):
+        feats = []
+        if self._setup_done:
+            feats.append(f"N={self._horizon}")
+            if self.control_horizon != self._horizon:
+                feats.append(f"Nc={self.control_horizon}")
+            feats.append(f"dt={self._dt}")
+            if self._augment_du:
+                feats.append("du-augmented")
+            if self._path_following:
+                feats.append("path-following")
+            if self._min_time is not None:
+                feats.append("min-time")
+            if self._dims.n_e or self._dims.n_eN:
+                feats.append(f"equalities={self._dims.n_e + self._dims.n_eN}")
+            if self._dims.n_h or self._dims.n_hN:
+                feats.append(f"custom-ineqs={self._dims.n_h + self._dims.n_hN}")
+        state = ", ".join(feats) if feats else "not set up"
+        lines = [f"{self._controller_type} {self.name!r} on model "
+                 f"{self._model.name!r} ({state})"]
+        if self.stats:
+            lines.append(
+                f"  last solve: {'converged' if self.stats.get('converged') else 'NOT converged'}"
+                f" in {self.stats.get('iterations')} iterations, "
+                f"kkt={self.stats.get('kkt_error'):.2e}, "
+                f"{self.stats.get('extime', 0) * 1e3:.1f} ms")
+        return "\n".join(lines)

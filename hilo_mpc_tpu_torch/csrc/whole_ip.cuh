@@ -28,9 +28,13 @@
 // Hessian depends on the point, so stage_hess and term_hess take it (a
 // problem without soft bounds ignores it). Every number (bound offsets, weights, references, scalings,
 // dt, the IP constants) comes from the device array `prm`, so controllers
-// that differ only in numbers share one build. The quadratic cost has no
-// x-u cross term (the penalty is on x alone), so the Riccati step carries
-// no Hux block.
+// that differ only in numbers share one build. A cost with an x-u cross
+// term (an input term of the Δu-augmented problem, whose e = u_prev + Δu
+// couples the state's u_prev with the control) sets P::CROSS; stage_hess
+// then also writes that block S = d²l/du dx (NU x NX), and the Riccati step
+// forms Hux = S + BᵀPA, as the TPU kernel's Huxk (pallas_ip.py:571), which
+// the gain, the P update and the forward pass take unchanged. Without it
+// (P::CROSS false) Hux = BᵀPA and the build is what it was before.
 //
 // Bound. Per scenario-iteration the algorithm does ~21,000 operations at the
 // flagship (N=20, nx=2, nu=1, RK4; EmittedProblem.flops) on a few hundred
@@ -491,7 +495,11 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       lin_load(k, &Ak[0][0], &Bk[0][0], ck);
       P::stage_grad(xk, uk, thk, prm, qb, rb);
       T Qb[NX][NX], Rb[NU][NU];
-      P::stage_hess(xk, uk, thk, prm, &Qb[0][0], &Rb[0][0]);
+      [[maybe_unused]] T Sc[NU][NX];  // the cost's cross block (P::CROSS)
+      if constexpr (P::CROSS)
+        P::stage_hess(xk, uk, thk, prm, &Qb[0][0], &Rb[0][0], &Sc[0][0]);
+      else
+        P::stage_hess(xk, uk, thk, prm, &Qb[0][0], &Rb[0][0]);
       const unsigned mask = P::row_mask(k);
       int ridx = P::row_off(k);
 #pragma unroll
@@ -548,7 +556,10 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
           T e = T(0);
 #pragma unroll
           for (int l = 0; l < NX; ++l) e = e + Bk[l][i] * PA[l][j];
-          Hux[i][j] = e;
+          if constexpr (P::CROSS)
+            Hux[i][j] = Sc[i][j] + e;
+          else
+            Hux[i][j] = e;
         }
         T e = T(0);
 #pragma unroll

@@ -13,17 +13,23 @@ in-kernel AD, so this module writes the model as C++ instead:
 - the step wraps it in the configured ERK tableau with substeps, or the
   discrete map, with the solver scaling and the theta unpack of
   ``control/nmpc.py`` (x = xs·sx, u = us·su, p = theta[2:2+n_p],
-  t = theta[0], h = theta[1]);
+  t = theta[0], h = theta[1]); under the Δu augmentation the state carries
+  u_prev (scaled by su) after the model's states, the control is Δu, the
+  model sees u = u_prev + Δu and the step appends u/su;
 - the quadratic cost gets its gradient and Hessian in closed form:
   g = (h/dt)·sx∘(W+Wᵀ)e and H = (h/dt)·diag(sx)(W+Wᵀ)diag(sx), scattered by
-  the term's indices (no h factor and u = 0 in the terminal cost);
+  the term's indices (no h factor and u = 0 in the terminal cost). Under
+  the augmentation an input term's e holds u_prev + Δu, so its weights land
+  in the u_prev block of Hxx, in Huu and in the cross block Hux (the
+  problem's ``CROSS``); an input-change term weighs Δu alone;
 - soft state bounds, the penalty w·Σ relu(x − ub)² + relu(lb − x)² on the
   unscaled x, likewise: g = 2w·(relu(x − ub) − relu(lb − x)) and a diagonal
   Hessian, 2w where a bound is violated, with the stage's h/dt factor and
   the solver scaling as above (none of h/dt in the terminal cost). The
   Hessian functions take the point for it; a problem without soft bounds
-  emits no such code. Generic (callable) costs, measurement terms and soft
-  generic constraints have no emitter (``OCPSource.cost_error``);
+  emits no such code. Generic (callable) costs, measurement terms, soft
+  generic constraints, path-following references (callables of the path
+  parameter) and a free final time have no emitter (``OCPSource.cost_error``);
 - the box rows become bit masks over the candidate rows
   ``[u-ub; lb-u; x-ub; lb-x]`` of each stage (no x rows at k = 0), then the
   terminal rows ``[x-ub; lb-x]``.
@@ -100,6 +106,9 @@ class OCPSource:
     soft_ub: tuple = ()
     soft_weight: float = 0.0
     cost_error: Optional[str] = None
+    # the Δu augmentation: u_prev rides in the state after the model's
+    # states and the control is Δu
+    augment_du: bool = False
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -378,21 +387,31 @@ def _runs(masks):
 
 
 def _emit_cost(terms, ref_off: int, prm: _Prm, nx: int, nu: int,
-               terminal: bool) -> tuple:
-    """(value, gradient, Hessian) C++ bodies of a quadratic cost, and its
-    operation count. x and u are the unscaled variables, g and H come out
-    with respect to the solver-scaled ones."""
-    val, grad, hess = [], [], []
+               terminal: bool, nx_model: Optional[int] = None) -> tuple:
+    """(value, gradient, Hessian, cross) C++ bodies of a quadratic cost, and
+    its operation count. x and u are the unscaled variables, g and H come
+    out with respect to the solver-scaled ones. ``nx_model`` is the model's
+    state count under the Δu augmentation (u_prev at x[nx_model + j], the
+    control u the increment), else None; an input term then weighs
+    u_prev + Δu and also writes the cross block Hux (NU x NX)."""
+    val, grad, hess, cross = [], [], [], []
     ops = 0
     off = ref_off
     for n_t, term in enumerate(terms):
         src = "x" if term.kind == "states" else "u"
+        # an input term of the augmented problem: u = u_prev + Δu
+        both = nx_model is not None and term.kind == "inputs"
         idx = [int(i) for i in term.idx]
         W = np.asarray(term.W, np.float64)
         Ws = W + W.T
         e = []
         for i, vi in enumerate(idx):
-            v = "T(0)" if (terminal and src == "u") else f"{src}[{vi}]"
+            if terminal and src == "u":
+                v = "T(0)"
+            elif both:
+                v = f"(x[{nx_model + vi}] + u[{vi}])"
+            else:
+                v = f"{src}[{vi}]"
             if term.runtime_ref:
                 e.append(f"({v} - th[{off + i}])")
             elif term.ref is not None:
@@ -424,20 +443,28 @@ def _emit_cost(terms, ref_off: int, prm: _Prm, nx: int, nu: int,
                     hess.append(f"    {H}[{vi * dim + vj}] = {H}[{vi * dim + vj}]"
                                 f" + prm[{w}];")
                     ops += 2
-    return val, grad, hess, ops
+                    if both:
+                        a, b = nx_model + vi, nx_model + vj
+                        grad.append(f"    gx[{a}] = gx[{a}] + prm[{w}] * {names[j]};")
+                        hess.append(f"    Hxx[{a * nx + b}] = Hxx[{a * nx + b}]"
+                                    f" + prm[{w}];")
+                        cross.append(f"    Hux[{vi * nx + b}] = Hux[{vi * nx + b}]"
+                                     f" + prm[{w}];")
+                        ops += 4
+    return val, grad, hess, cross, ops
 
 
-def _emit_soft(src: OCPSource, prm: _Prm) -> tuple:
+def _emit_soft(src: OCPSource, prm: _Prm, nx: int) -> tuple:
     """(value, gradient, Hessian) C++ lines of the soft state bounds'
     penalty on the unscaled x, and the gradient's and Hessian's operation
     count. Only states with a finite soft bound get code; the numbers (the
-    weight, 2·weight, the bounds) go into prm."""
+    weight, 2·weight, the bounds) go into prm. ``nx`` is the solver's state
+    width (the row stride of Hxx)."""
     lbs = [(i, v) for i, v in enumerate(src.soft_lb) if math.isfinite(v)]
     ubs = [(i, v) for i, v in enumerate(src.soft_ub) if math.isfinite(v)]
     states = sorted({i for i, _ in lbs + ubs})
     if not states:
         return [], [], [], 0
-    nx = len(src.soft_lb)
     w, w2 = prm.add(src.soft_weight), prm.add(2.0 * src.soft_weight)
     ub = {i: prm.add(v) for i, v in ubs}
     lb = {i: prm.add(v) for i, v in lbs}
@@ -473,21 +500,32 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
             f"the whole-solve kernel's emitter cannot write {src.cost_error} as "
             f"C++ (a torch.fx emitter is the later extension, ROADMAP.md §C)")
     rhs, model_ops, model_calls = emit_model(src.model)
+    nxm = src.model.n_x
+    aug = src.augment_du
+    if (nx, nu) != ((nxm + src.model.n_u, src.model.n_u) if aug else (nxm, src.model.n_u)):
+        raise NotImplementedError(
+            f"the solver's (nx, nu) = ({nx}, {nu}) is not the model's (or its Δu "
+            f"augmentation's): only the Δu augmentation can be emitted")
     prm = _Prm()
     tol = float(options.tol)
     for name in _IP_FIELDS:
         prm.add(tol / 10.0 if name == "tol10" else getattr(options, name))
     p_dt = prm.add(src.dt)
+    # the scaling of every solver state (u_prev's is su) and control
     p_sx = len(prm.vals)
-    for v in src.x_scaling:
+    for v in src.x_scaling + (src.u_scaling if aug else ()):
         prm.add(v)
     p_su = len(prm.vals)
     for v in src.u_scaling:
         prm.add(v)
-    sv, sg, sh, s_ops = _emit_cost(src.stage_terms, src.off_rs, prm, nx, nu, False)
-    tv, tg, th_, t_ops = _emit_cost(src.term_terms, src.off_rt, prm, nx, nu, True)
+    nx_model = nxm if aug else None
+    sv, sg, sh, sc, s_ops = _emit_cost(src.stage_terms, src.off_rs, prm, nx, nu, False,
+                                       nx_model)
+    tv, tg, th_, _, t_ops = _emit_cost(src.term_terms, src.off_rt, prm, nx, nu, True,
+                                       nx_model)
+    cross = bool(sc)
     # the soft state bounds' penalty: one set of numbers, in both costs
-    pv, pg, ph, p_ops = _emit_soft(src, prm)
+    pv, pg, ph, p_ops = _emit_soft(src, prm, nx)
     sv, sg, sh, s_ops = sv + pv, sg + pg, sh + ph, s_ops + p_ops
     tv, tg, th_ = tv + pv, tg + pg, th_ + ph
     masks, offs, tmask, toffs = _rows(bounds, N, nx, nu)
@@ -498,7 +536,7 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
     for v in toffs:
         prm.add(v)
     prm.add(0.0)                  # keeps P_ROW and P_TROW inside the array
-    step, n_rhs, n_comb = _emit_step(src.spec, nx)
+    step, n_rhs, n_comb = _emit_step(src.spec, nxm)
 
     runs = _runs(masks)
     k0, _, m_last, s_last = runs[-1]
@@ -518,7 +556,15 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
         [f"    Hxx[{a * nx + b}] = Hxx[{a * nx + b}] * (hs * (prm[{p_sx + a}] * "
          f"prm[{p_sx + b}]));" for a in range(nx) for b in range(nx)]
         + [f"    Huu[{a * nu + b}] = Huu[{a * nu + b}] * (hs * (prm[{p_su + a}] * "
-           f"prm[{p_su + b}]));" for a in range(nu) for b in range(nu)])
+           f"prm[{p_su + b}]));" for a in range(nu) for b in range(nu)]
+        + [f"    Hux[{a * nx + b}] = Hux[{a * nx + b}] * (hs * (prm[{p_su + a}] * "
+           f"prm[{p_sx + b}]));" for a in range(nu) for b in range(nx) if cross])
+    # the dynamics: under the augmentation the model sees u = u_prev + Δu,
+    # and the step appends u/su
+    dyn_in = (f"\n    for (int j = 0; j < {nu}; ++j) u[j] = x[{nxm} + j] + u[j];"
+              if aug else "")
+    dyn_out = (f"\n    for (int j = 0; j < {nu}; ++j) out[{nxm} + j] = u[j] / prm[{p_su} + j];"
+               if aug else "")
     region = whole_ip_region(nx, nu, N, n_theta, len(offs), len(toffs))
     text = f"""// Generated by hilo_mpc_tpu_torch/ops/codegen_cuda.py: one NMPC problem
 // for the whole-solve interior point of csrc/whole_ip.cuh.
@@ -530,6 +576,7 @@ struct Problem {{
   static constexpr int TB = {WIP_TB}, MINB_F32 = {WIP_MIN_BLOCKS[0]},
                        MINB_F64 = {WIP_MIN_BLOCKS[1]}, E = {region};
   static constexpr unsigned TERM_MASK = {tmask}u;
+  static constexpr bool CROSS = {"true" if cross else "false"};
   static constexpr int P_TOL = 0, P_TOL10 = 1, P_REG = 2, P_SMIN = 3,
                        P_KEPS = 4, P_KMU = 5, P_TMU = 6, P_TAUMIN = 7,
                        P_MAXIT = 8, P_ROW = {p_row}, P_TROW = {p_trow};
@@ -550,11 +597,11 @@ struct Problem {{
                         S* out) {{
     S x[{nx}], u[{nu}];
     for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
-    for (int j = 0; j < {nu}; ++j) u[j] = us[j] * prm[{p_su} + j];
+    for (int j = 0; j < {nu}; ++j) u[j] = us[j] * prm[{p_su} + j];{dyn_in}
     const T* p = th + 2;
     const T t0 = th[0], h = th[1];
 {chr(10).join(step)}
-    for (int i = 0; i < {nx}; ++i) out[i] = x[i] / prm[{p_sx} + i];
+    for (int i = 0; i < {nxm}; ++i) out[i] = x[i] / prm[{p_sx} + i];{dyn_out}
   }}
 
   template <typename T>
@@ -580,10 +627,10 @@ struct Problem {{
   }}
   template <typename T>
   HM_HD static void stage_hess(const T* xs, const T* us, const T* th,
-                               const T* prm, T* Hxx, T* Huu) {{
+                               const T* prm, T* Hxx, T* Huu{", T* Hux" if cross else ""}) {{
 {scale_in + chr(10) if ph else ""}{zero("Hxx", nx * nx)}
-{zero("Huu", nu * nu)}
-{chr(10).join(sh)}
+{zero("Huu", nu * nu)}{chr(10) + zero("Hux", nu * nx) if cross else ""}
+{chr(10).join(sh + sc)}
     const T hs = th[1] / prm[{p_dt}];
 {scale_h}
   }}
@@ -619,21 +666,22 @@ HM_WHOLE_IP_EXPORTS(Problem)
                        for r in range(2 * nu + 2 * nx) if (m >> r) & 1)
     term_rows = tuple(t for t in range(2 * nx) if (tmask >> t) & 1)
     flops = _iteration_flops(nx, nu, N, len(offs), len(toffs), model_ops,
-                             model_calls, n_rhs, n_comb, s_ops)
+                             model_calls, n_rhs, n_comb, s_ops, cross)
     return EmittedProblem(text=text, prm=np.asarray(prm.vals, np.float64),
                           stage_rows=stage_rows, term_rows=term_rows, flops=flops,
                           region=region)
 
 
 def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
-                     cost_ops) -> int:
+                     cost_ops, cross=False) -> int:
     """Operations of one IP iteration of one scenario, as the algorithm
     needs them (one linearization and one gradient evaluation per iteration;
     what csrc/whole_ip.cuh evaluates again instead of storing is left out):
     each dual operation counts its value
     and its D = nx + nu derivative lanes (a product 1 + 3D, a function call
     2 + 2D), one operation per add, multiply, divide, square root or
-    exponential of the solver algebra."""
+    exponential of the solver algebra. The cost's cross block adds its
+    scaling (3 per entry) and its sum into the Riccati step's Hux (1)."""
     D = nx + nu
     step = (n_rhs * (model_ops * (1 + 3 * D) + model_calls * (2 + 2 * D))
             + n_comb * nx * (1 + 2 * (1 + D)) + (2 * nx + nu) * (1 + D))
@@ -641,6 +689,8 @@ def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
     kkt = nu * (2 * nx + 3) + nx * (2 * nx + 3) + nx + 2 * nx
     rows_kkt = 8                                      # per active row
     cond = 6 + 2 * nx * nx + 2 * nu * nu              # Hessians, per stage
+    if cross:
+        cond += 4 * nu * nx
     rows_cond = 8
     riccati = (2 * nx * nx + 2 * nx ** 3 + 2 * nx * nx * nu + 2 * nu * nu * nx
                + 2 * nu * nx * nx + 2 * nu * nx + nu ** 3 + 2 * nu * nu * (nx + 1)

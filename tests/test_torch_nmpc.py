@@ -107,25 +107,9 @@ def test_entry_point_order_is_enforced():
         nmpc.prepare_batch([[0.2, 0.1]])
 
 
-def _du_bounds(n):
-    n.set_box_constraints(du_lb=[-0.1], du_ub=[0.1])
-    n.setup(options={"dt": 0.1}, device=CPU)
-
-
-def _control_horizon(n):
-    n.control_horizon = 3
-    n.setup(options={"dt": 0.1}, device=CPU)
-
-
 OUT_OF_SLICE = {
-    "inputs_change": lambda n: n.quad_stage_cost.add_inputs_change(weights=1.0),
-    "path_following": lambda n: n.quad_stage_cost.add_states(path_following=True),
-    "du_bounds": _du_bounds,
-    "control_horizon": _control_horizon,
     "discrete_inputs": lambda n: n.set_discrete_inputs("u"),
     "tvp": lambda n: n.set_time_varying_parameters(["E"]),
-    "path_variable": lambda n: n.create_path_variable(),
-    "min_time": lambda n: n.minimize_final_time(),
     "rti": lambda n: n.rti_prepare(x_pred=[0.2, 0.1]),
     "collocation": lambda n: n.setup(options={"dt": 0.1,
                                               "integration_method": "collocation"},
@@ -142,6 +126,40 @@ def test_out_of_slice_features_raise(feature):
     nmpc.horizon = 5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OUT_OF_SLICE[feature](nmpc)
+
+
+def _control_horizon(n):
+    n.control_horizon = 3
+
+
+# the augmented formulations (Δu, path following, minimum time), which
+# raised before they were ported: each now sets up and solves, with the
+# solver dimensions of the JAX rule (hilo_mpc_tpu/control/nmpc.py:384-405)
+PORTED_FEATURES = {
+    "inputs_change": (lambda n: n.quad_stage_cost.add_inputs_change(weights=1.0), (3, 1)),
+    "path_following": (lambda n: n.quad_stage_cost.add_states(path_following=True),
+                       (3, 2)),
+    "du_bounds": (lambda n: n.set_box_constraints(du_lb=[-0.1], du_ub=[0.1]), (3, 1)),
+    "control_horizon": (_control_horizon, (3, 1)),
+    "path_variable": (lambda n: n.create_path_variable(), (3, 2)),
+    "min_time": (lambda n: n.minimize_final_time(dt_min=0.05, dt_max=0.2), (3, 2)),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(PORTED_FEATURES))
+def test_ported_features_set_up_and_solve(feature):
+    configure, dims = PORTED_FEATURES[feature]
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = 5
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=CSTR_REF)
+    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    nmpc.set_parameters(CSTR_P)
+    configure(nmpc)
+    nmpc.setup(options={"dt": 0.1}, device=CPU, dtype=torch.float64)
+    assert (nmpc._dims.nx, nmpc._dims.nu) == dims
+    u = nmpc.optimize([0.2, 0.1])
+    assert u.shape == (1,) and np.isfinite(u).all()
+    assert nmpc.return_prediction()["u"].shape == (5, 1)
 
 
 def _double_integrator():
