@@ -6,7 +6,7 @@
 Phase 0  card name and power limit; build every CUDA kernel from the
          sources in csrc/ (one nvcc per source, all started together): the
          tiled Riccati template for each (nx, nu) that phase 1 checks (phase
-         11's (3, 1), (3, 3) and (3, 2) among them), the
+         11's (3, 1), (3, 3) and (3, 2) and phase 12's (1, 1) among them), the
          wide Riccati variant for phase 1's and phase 4's larger sizes, the
          FGM kernel, and the whole-solve interior point for the flagship
          problem and phase 1's three other row patterns (the soft-box problem
@@ -151,6 +151,37 @@ Phase 11 the augmented formulations: (a) phase 2's controller with golden
          the first 1024 against the CPU (equal iterations, <= 1e-9).
          (d) goldens du_tracking, pathfollow_soft and mintime replayed in
          float64 on the card (< 1e-4).
+Phase 12 implicit integration (Newton-solved collocation and DAE stages on
+         the general path, every Newton step of the interior point one
+         Riccati kernel launch): (a) phase 2's flagship with Radau
+         collocation of degree 3 (8 Newton steps per integrator step),
+         B=131072, float32, cold and warm: solves/s, converged >= 0.97,
+         iterations, Riccati launches = Newton steps and 0 plain sweeps, the
+         wall by part and one profiled cold solve; max|U_colloc - U_rk4| on
+         the jointly converged, held to the RK4 path's float32 stray from
+         float64 + 1e-4; the first 1024 in float64 on the card against the
+         CPU (equal iterations, <= 1e-9); pallas_full declines the implicit
+         integrator with a warning naming it and gives the general path's
+         bits. (b) golden dae_colloc's controller (a DAE model given as
+         callables, N=12, Radau d=3, the NMPC defaults) at B=131072, x0 =
+         0.1 + 0.2·N(0,1) from default_rng(4), float32 at float32's tol
+         1e-4 (the golden's 1e-9 is out of float32's reach), the Riccati
+         kernel at (1, 1): converged >= 0.97, launches = Newton steps (2 per
+         iteration under Mehrotra); the first 1024 at the golden's options in
+         float64, card against CPU (<= 1e-9, equal iterations); the golden
+         replayed in float64 on the card (< 1e-4). (c) Seborg's CSTR
+         (tests/test_library.py:24-30's parameters, dt 0.05, Radau d=3) as a
+         fleet: 20 steps at T_cr = 300 from x0 = [0.5, 350, 300] + [0.05, 2,
+         2]·N(0,1) (default_rng(5)), B=131072, float32, rollouts/s and the
+         share of rollouts that stay bounded (>= 0.97; the rest are starts
+         whose fixed Newton steps diverge at the ignition, as in the JAX
+         package); the first 1024 in float64 on the card against the CPU
+         on the rollouts bounded in both: per state <= 1e-9, or the CPU's
+         own change from x0 moved by one ulp where that is larger, as it is
+         for T near the ignition); a DAE with a quadrature, card against
+         CPU. (d)
+         EKF, UKF and PF on the DAE model, card against CPU in float64 at
+         phase 9's bars.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -175,12 +206,13 @@ GOLDEN_SOFTCON = os.path.join(ROOT, "tests", "golden", "softcon_active.npz")
 GOLDEN_DU = os.path.join(ROOT, "tests", "golden", "du_tracking.npz")
 GOLDEN_PF = os.path.join(ROOT, "tests", "golden", "pathfollow_soft.npz")
 GOLDEN_MT = os.path.join(ROOT, "tests", "golden", "mintime.npz")
+GOLDEN_DAE = os.path.join(ROOT, "tests", "golden", "dae_colloc.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
            "riccati_lq_wide_free_x0", "whole_ip_cross")
 # the tiled Riccati instances phase 1 checks; phase 11 runs (3, 1) (the
 # Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time)
-RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3))
+RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3), (1, 1))
 # the free-x0 mode (MHE's nu = nx): the CSTR's (2, 2), with two estimated
 # parameters (4, 2), the tiled cap (8, 4); the wide variant at (9, 9) and
 # phase 7's (16, 16); phase 7's horizon and batches
@@ -347,7 +379,7 @@ WHOLE_IP_BOUNDS = {
 WHOLE_IP_FLAGSHIP_REGISTERS = (104, 191)
 
 
-def build_cstr_nmpc(options, dtype, bounds=None, horizon=N):
+def build_cstr_nmpc(options, dtype, bounds=None, horizon=N, device="cuda"):
     import torch  # noqa: F401
     from hilo_mpc_tpu_torch import NMPC
     from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
@@ -359,7 +391,7 @@ def build_cstr_nmpc(options, dtype, bounds=None, horizon=N):
                                 else bounds))
     nmpc.set_parameters([1.0] * 6)
     nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **options},
-               device="cuda", dtype=dtype)
+               device=device, dtype=dtype)
     return nmpc
 
 
@@ -2389,6 +2421,333 @@ def phase11_goldens():
         assert max(devs) < 1e-4, (name, devs)
 
 
+# golden dae_colloc's model (tests/golden_configs.py:build_dae_colloc):
+# x' = -x + z + u, 0 = z - 0.5 x - DAE_ALPHA z²
+DAE_ALPHA = 0.05
+DAE_OPTS = {"dt": 0.1, "integration_method": "collocation", "degree": 3,
+            "tol": 1e-9, "max_iter": 80}
+SEBORG_P = {"q_0": 100.0, "V": 100.0, "C_Af": 1.0, "k_0": 7.2e10, "E": 72750.0,
+            "T_f": 350.0, "DeltaH_r": -5e4, "rho": 1000.0, "C_p": 0.239, "UA": 5e4,
+            "tau": 2.0}
+
+
+def dae_model():
+    from hilo_mpc_tpu_torch import Model
+    m = Model(name="dae")
+    m.set_dynamical_states("x")
+    m.set_algebraic_states("z")
+    m.set_inputs("u")
+    m.set_dynamical_equations(lambda x, z, u: -x + z + u)
+    m.set_algebraic_equations(lambda x, z: z - 0.5 * x - DAE_ALPHA * z ** 2)
+    return m
+
+
+def dae_nmpc(dtype, device="cuda", options=None):
+    """Golden dae_colloc's controller (N=12, Radau degree 3, |u| <= 2, the
+    NMPC defaults at tol 1e-9, max_iter 80)."""
+    from hilo_mpc_tpu_torch import NMPC
+    nmpc = NMPC(dae_model())
+    nmpc.horizon = 12
+    nmpc.quad_stage_cost.add_states(weights=[10.0], ref=[0.5])
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_box_constraints(u_lb=[-2.0], u_ub=[2.0])
+    nmpc.setup(options={**DAE_OPTS, **(options or {})}, device=device, dtype=dtype)
+    return nmpc
+
+
+def timed_batch(ctl, x0s, warm=False):
+    """prepare_batch and one cold solve (and a warm one from its shift),
+    each timed to the card's end: (args, cold, warm, seconds by part)."""
+    import torch
+    t0 = time.perf_counter()
+    args = ctl.prepare_batch(x0s)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol = ctl.solve_batch_fn()(*args)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    sol_w, t_warm = None, None
+    if warm:
+        X_w, U_w = shifted(sol, args[1])
+        t0 = time.perf_counter()
+        sol_w = ctl.solve_batch_fn(warm=True)(args[0], args[1], X_w, U_w)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+    return args, sol, sol_w, (t_prep, t_cold, t_warm)
+
+
+def card_vs_cpu(label, build, x0s, tol=1e-9):
+    """The same controller on the card and on the CPU in float64: max|ΔU|
+    (<= tol) with equal iterations."""
+    import torch
+    sols, walls = {}, {}
+    for dev in ("cpu", "cuda"):
+        ctl = build(dev)
+        t0 = time.perf_counter()
+        sols[dev] = ctl.solve_batch_fn()(*ctl.prepare_batch(x0s))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+    c, k = sols["cpu"], sols["cuda"]
+    dev_u = float((k.U.cpu() - c.U).abs().max())
+    same_it = bool(torch.equal(k.iterations.cpu(), c.iterations))
+    log(f"{label} float64 B={x0s.shape[0]}: card {walls['cuda']:.3f} s, CPU "
+        f"{walls['cpu']:.3f} s; converged {float(c.converged.float().mean()):.4f}, "
+        f"iterations p50 {float(c.iterations.float().median()):g} max "
+        f"{int(c.iterations.max())}; max|U_card - U_cpu| {dev_u:.3e}, equal "
+        f"iterations {same_it}")
+    assert same_it and dev_u <= tol, (label, dev_u, same_it)
+    return c
+
+
+def phase12(report):
+    """Implicit integration (module docstring)."""
+    phase12_colloc_flagship(report)
+    phase12_dae(report)
+    phase12_fleet()
+    phase12_filters()
+
+
+def phase12_colloc_flagship(report):
+    """(a) The flagship under Radau collocation of degree 3."""
+    import warnings
+    import torch
+    from hilo_mpc_tpu_torch.ops import riccati
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda, riccati_lq_wide_cuda
+    f32, f64 = torch.float32, torch.float64
+    colloc = {**FLAGSHIP, "integration_method": "collocation", "degree": 3}
+    ctl = build_cstr_nmpc(colloc, f32)
+    x0s = flagship_x0s()
+    ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256]))       # untimed warm-up
+    torch.cuda.synchronize()
+    riccati_lq_cuda.launches = riccati_lq_wide_cuda.launches = 0
+    with count_calls(riccati, "backward_sweep") as sweeps:
+        args, sol, sol_w, (t_prep, t_cold, t_warm) = timed_batch(ctl, x0s, warm=True)
+    launches = riccati_lq_cuda.launches
+    steps = int(sol.iterations.max()) + int(sol_w.iterations.max())
+    for kind, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
+        assert s_.U.shape == (B_MAIN, N, 1) and bool(torch.isfinite(s_.U).all())
+        conv = float(s_.converged.float().mean())
+        log(f"phase12(a) CSTR Radau collocation d=3 B={B_MAIN} N={N} float32 {kind}: "
+            f"{B_MAIN / t:.1f} solves/s ({t:.4f} s wall), converged {conv:.4f}, "
+            f"iterations p50 {float(s_.iterations.float().median()):g} max "
+            f"{int(s_.iterations.max())}")
+        assert conv >= 0.97, (kind, conv)
+    log(f"phase12(a) wall: prepare_batch {t_prep:.4f} s, cold {t_cold:.4f} s, warm "
+        f"{t_warm:.4f} s; riccati_lq launches {launches} = Newton steps {steps}, "
+        f"riccati_lq_wide {riccati_lq_wide_cuda.launches}, plain backward sweeps "
+        f"{sweeps.calls}")
+    assert (launches, riccati_lq_wide_cuda.launches, sweeps.calls) == (steps, 0, 0)
+    profile_solve("phase12(a) cold solve", lambda: ctl.solve_batch_fn()(*args),
+                  int(sol.iterations.max()))
+    # against the RK4 flagship: the two integrators agree to their truncation
+    # error; held to the RK4 path's own float32 stray from float64 + 1e-4
+    rk4 = build_cstr_nmpc(FLAGSHIP, f32)
+    s_rk4 = rk4.solve_batch_fn()(*rk4.prepare_batch(x0s))
+    s_64 = build_cstr_nmpc(FLAGSHIP, f64).solve_batch_fn()(
+        *[a.double() for a in rk4.prepare_batch(x0s)])
+    both = sol.converged & s_rk4.converged & s_64.converged
+    dev = float((sol.U - s_rk4.U).abs()[both].max())
+    stray = float((s_rk4.U.double() - s_64.U).abs()[both].max())
+    log(f"phase12(a) max|U_colloc - U_rk4| {dev:.3e} on the jointly converged "
+        f"({float(both.float().mean()):.4f}); the RK4 path's float32 stray {stray:.3e}")
+    assert dev <= stray + 1e-4, (dev, stray)
+    card_vs_cpu("phase12(a) card vs CPU",
+                lambda d: build_cstr_nmpc(colloc, f64, device=d), x0s[:1024])
+    # pallas_full declines the implicit integrator and solves on the general path
+    whole = build_cstr_nmpc({**colloc, "pallas_full": True}, f32)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn = whole.solve_batch_fn()
+    msgs = [str(w.message) for w in caught]
+    assert any("an implicit integrator (collocation)" in m for m in msgs), msgs
+    s_whole = fn(*args)
+    same = all(torch.equal(a, b) for a, b in zip(s_whole, sol))
+    log(f"phase12(a) pallas_full: warned ({msgs[0][-80:]!r}); the general path's bits "
+        f"{same}")
+    assert same
+    report["riccati_lq"].setdefault("phase12_launches", {})["colloc_flagship"] = launches
+
+
+def phase12_dae(report):
+    """(b) Golden dae_colloc's controller at full width, card vs CPU, and
+    the golden replayed."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops import riccati
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    f32, f64 = torch.float32, torch.float64
+    x0s = 0.1 + 0.2 * np.random.default_rng(4).standard_normal((B_MAIN, 1))
+    # float32 cannot reach the golden's KKT tolerance 1e-9 (no scenario
+    # converges), so the full-width run takes float32's 1e-4
+    ctl = dae_nmpc(f32, options={"tol": 1e-4})
+    ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256]))
+    torch.cuda.synchronize()
+    riccati_lq_cuda.launches = 0
+    with count_calls(riccati, "backward_sweep") as sweeps:
+        _, sol, _, (t_prep, t_cold, _) = timed_batch(ctl, x0s)
+    launches = riccati_lq_cuda.launches
+    loops = int(sol.iterations.max())
+    conv = float(sol.converged.float().mean())
+    assert sol.U.shape == (B_MAIN, 12, 1) and bool(torch.isfinite(sol.U).all())
+    log(f"phase12(b) golden dae_colloc's controller B={B_MAIN} N=12 float32 (tol "
+        f"1e-4, NMPC defaults): prepare_batch {t_prep:.4f} s; cold "
+        f"{B_MAIN / t_cold:.1f} solves/s ({t_cold:.4f} s wall), converged {conv:.4f}, "
+        f"iterations p50 {float(sol.iterations.float().median()):g} max {loops}; "
+        f"riccati_lq launches {launches} = Newton steps {2 * loops} (Mehrotra: 2 per "
+        f"iteration), plain backward sweeps {sweeps.calls}")
+    assert conv >= 0.97, conv
+    assert (launches, sweeps.calls) == (2 * loops, 0)
+    card_vs_cpu("phase12(b) card vs CPU", lambda d: dae_nmpc(f64, device=d), x0s[:1024])
+    data = np.load(GOLDEN_DAE)
+    gold = dae_nmpc(f64)
+    n0 = riccati_lq_cuda.launches
+    t0 = time.perf_counter()
+    devs, its = [], []
+    for k in range(data["U_gold"].shape[0]):
+        u = gold.optimize(data["X_meas"][k])
+        assert gold.stats["converged"], (k, gold.stats)
+        devs.append(float(np.abs(u - data["U_gold"][k]).max()))
+        its.append(gold.stats["iterations"])
+    assert riccati_lq_cuda.launches > n0
+    log(f"phase12(b) golden dae_colloc float64: {len(devs)} steps in "
+        f"{time.perf_counter() - t0:.2f} s, iterations {min(its)}-{max(its)}, "
+        f"max|u - u_gold| = {max(devs):.3e}")
+    assert max(devs) < 1e-4, devs
+    report["riccati_lq"].setdefault("phase12_launches", {})["dae_colloc"] = launches
+
+
+def phase12_fleet():
+    """(c) A plant fleet with a stiff model: Seborg's CSTR under Radau
+    collocation, and a quadrature model, each card vs CPU."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import Model
+    from hilo_mpc_tpu_torch.library import cstr_seborg
+    f32, f64 = torch.float32, torch.float64
+    x0s = np.array([0.5, 350.0, 300.0]) + np.array([0.05, 2.0, 2.0]) \
+        * np.random.default_rng(5).standard_normal((B_MAIN, 3))
+    U = np.full((20, 1), 300.0)
+
+    def seborg(dtype, device="cuda"):
+        m = cstr_seborg()
+        m.setup(dt=0.05, integration_method="collocation", degree=3, device=device,
+                dtype=dtype)
+        m.set_initial_parameter_values([SEBORG_P[k] for k in m.parameters])
+        return m
+
+    m = seborg(f32)
+    m.simulate(x0=x0s[:256], u=U)                                # warm-up
+    t0 = time.perf_counter()
+    out = m.simulate(x0=x0s, u=U)
+    t = time.perf_counter() - t0
+    X = out["x"]
+    # a rollout is bounded while |C_A| <= 2 C_Af, 250 < T < 500 K and 250 <
+    # T_c < 400 K at every step. A start near the unstable middle steady state
+    # ignites within the run, and at dt 0.05 the collocation solution may dip
+    # slightly below C_A = 0 there (the discretization's, not Newton's: 20
+    # Newton steps dip as well); an unbounded rollout is one where the fixed
+    # 8 Newton steps of a step diverged at the ignition (the JAX package's
+    # step does the same: its rollouts of such starts run off unbounded).
+    # There the result amplifies rounding without bound, so the card and the
+    # CPU are compared on the rollouts bounded in both
+    def bounded(X):
+        return (np.isfinite(X).all(axis=(1, 2)) & (np.abs(X[..., 0]) <= 2.0).all(axis=1)
+                & ((X[..., 1] > 250) & (X[..., 1] < 500)).all(axis=1)
+                & ((X[..., 2] > 250) & (X[..., 2] < 400)).all(axis=1))
+    ok = bounded(X)
+    log(f"phase12(c) Seborg CSTR fleet, Radau d=3, dt 0.05, 20 steps, B={B_MAIN} "
+        f"float32: {B_MAIN / t:.1f} rollouts/s ({t:.4f} s wall); bounded rollouts "
+        f"{float(ok.mean()):.5f} ({int((~ok).sum())} not; ignited, T at step 20 > "
+        f"370 K: {float((X[ok, -1, 1] > 370).mean()):.4f}), C_A at step 20 "
+        f"{X[ok, -1, 0].min():.4f}..{X[ok, -1, 0].max():.4f}")
+    assert ok.mean() >= 0.97, ok.mean()
+    outs = [seborg(f64, d).simulate(x0=x0s[:1024], u=U)["x"] for d in ("cpu", "cuda")]
+    # the problem's own amplification of rounding: the CPU's rollouts from
+    # x0 moved by one ulp (starts near the unstable middle steady state
+    # separate over the run)
+    nudged = seborg(f64, "cpu").simulate(x0=x0s[:1024] * (1 + 2.0 ** -52), u=U)["x"]
+    both = bounded(outs[0]) & bounded(outs[1]) & bounded(nudged)
+    dev = np.abs(outs[1] - outs[0])[both].max(axis=(0, 1))
+    ulp = np.abs(nudged - outs[0])[both].max(axis=(0, 1))
+    log(f"phase12(c) Seborg float64 B=1024 card vs CPU: max|Δ| (C_A, T, T_c) "
+        f"{dev[0]:.3e} {dev[1]:.3e} {dev[2]:.3e} on the {int(both.sum())} rollouts "
+        f"bounded in both ({int((~both).sum())} not, the same "
+        f"{bool(np.array_equal(bounded(outs[0]), bounded(outs[1])))}); the CPU "
+        f"against itself from x0 moved by one ulp {ulp[0]:.3e} {ulp[1]:.3e} "
+        f"{ulp[2]:.3e}")
+    # 1e-9, or the problem's own one-ulp amplification where that is larger
+    assert (dev <= np.maximum(1e-9, ulp)).all(), (dev, ulp)
+
+    def quad_model(device):
+        q = Model(name="quad")
+        q.set_equations("dx/dt = -x(t) + z(t) + u(k)\n0 = z(t) - 0.5*x(t)\n"
+                        "int = x(t)**2 + 0.1*u(k)**2")
+        q.setup(dt=0.1, integration_method="collocation", degree=3, device=device,
+                dtype=f64)
+        return q
+    xq = 1.0 + 0.1 * np.random.default_rng(6).standard_normal((1024, 1))
+    Uq = np.full((10, 1), 0.2)
+    qs = [quad_model(d).simulate(x0=xq, z0=0.5 * xq, u=Uq) for d in ("cpu", "cuda")]
+    dev_q = max(float(np.abs(qs[1][k] - qs[0][k]).max()) for k in ("x", "z", "q"))
+    log(f"phase12(c) DAE with a quadrature, Radau d=3, B=1024 float64, 10 steps: "
+        f"card vs CPU max|Δ| over x, z, q {dev_q:.3e}; q at step 10 "
+        f"{qs[1]['q'][:, -1, 0].min():.5f}..{qs[1]['q'][:, -1, 0].max():.5f}")
+    assert dev_q <= 1e-9, dev_q
+
+
+def phase12_filters():
+    """(d) EKF, UKF and PF on the DAE model (RK4 with Newton-solved
+    algebraic states), card vs CPU in float64, at phase 9's bars."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import EKF, PF, UKF
+    from hilo_mpc_tpu_torch.estimation.pf import lhsnorm
+    f64 = torch.float64
+    rng = np.random.default_rng(8)
+    Us = 0.3 * np.sin(np.linspace(0, 3, 30))[:, None]
+    Ys = 0.4 + 0.05 * rng.standard_normal((30, 1))
+    for cls, tol in ((EKF, 1e-9), (UKF, 1e-8)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            f = cls(dae_model())
+            f.Q, f.R = 1e-4 * np.eye(1), np.array([[1e-3]])
+            f.setup(dt=0.1, device=device, dtype=f64)
+            f.set_initial_guess([0.3], P0=0.1 * np.eye(1))
+            t0 = time.perf_counter()
+            f.estimate(Ys, u=Us)
+            runs.append((f, time.perf_counter() - t0))
+        dev = {k: float(np.abs(runs[1][0].solution[k] - runs[0][0].solution[k]).max())
+               for k in ("x", "P")}
+        log(f"phase12(d) {cls.__name__} DAE float64, {Ys.shape[0]} steps: card "
+            f"{runs[1][1]:.3f} s, CPU {runs[0][1]:.3f} s; max|card - CPU| x "
+            f"{dev['x']:.3e}, P {dev['P']:.3e}")
+        assert max(dev.values()) <= tol, dev
+    M = 4096
+    out = []
+    for device in ("cpu", "cuda"):
+        kw = dict(dtype=f64, device=device)
+        pf = PF(dae_model(), n_particles=M, roughening=True)
+        pf.Q, pf.R = 1e-4 * np.eye(1), np.array([[1e-3]])
+        pf.setup(dt=0.1, device=device, dtype=f64)
+        parts = torch.as_tensor(lhsnorm([0.3], 0.1 * np.eye(1), M), **kw)
+        draws = np.random.default_rng(9)
+        p = torch.zeros(0, **kw)
+        for k in range(Ys.shape[0]):
+            parts, x, _ = pf.step_draws(
+                parts, torch.as_tensor(Us[k], **kw), p, torch.as_tensor(Ys[k], **kw),
+                0.1 * k, torch.as_tensor(draws.standard_normal((M, 1)), **kw),
+                torch.as_tensor(draws.random(), **kw),
+                torch.as_tensor(draws.standard_normal((M, 1)), **kw))
+        out.append((parts.cpu().numpy(), x.cpu().numpy()))
+    dev_p = float(np.abs(out[1][0] - out[0][0]).max())
+    dev_x = float(np.abs(out[1][1] - out[0][1]).max())
+    log(f"phase12(d) PF DAE float64, {M} particles, {Ys.shape[0]} steps: max|card - "
+        f"CPU| particles {dev_p:.3e}, x_est {dev_x:.3e}")
+    assert max(dev_p, dev_x) <= 1e-9, (dev_p, dev_x)
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -2555,6 +2914,7 @@ def main():
     phase9()
     phase10(report)
     phase11(report)
+    phase12(report)
     free_x0 = ("hilo_mpc_tpu/ops/pallas_kernels.py:169 with the free-x0 solve at "
                "hilo_mpc_tpu/ops/ip_solver.py:633-642")
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
@@ -2583,10 +2943,11 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         # the whole-solve kernel's soft-box problem, the
-                        # CROSS build's float64 instance, phase 11's
-                        # Riccati launches
+                        # CROSS build's float64 instance, phase 11's and
+                        # phase 12's Riccati launches
                         **{k: v for k, v in r.items()
-                           if k.startswith(("soft_box", "float64", "phase11"))},
+                           if k.startswith(("soft_box", "float64", "phase11",
+                                            "phase12"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, its name kept from its first design)
                         # no single PyTorch call computes any of them:

@@ -19,6 +19,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.model import one_row_last
+
+
 def _as_weight_matrix(weights, n: int) -> np.ndarray:
     W = np.asarray(weights, dtype=float)
     if W.ndim == 0:
@@ -144,15 +147,6 @@ class QuadraticCost:
     def n_runtime_refs(self) -> int:
         """Number of reference entries supplied per solve (through theta)."""
         return sum(t.n for t in self.terms if t.runtime_ref)
-
-
-def one_row_last(v, x, n: int):
-    """A user function's value in (..., n) form: a function of one row may
-    return the batch shape (...) of ``x`` (..., n_x) itself; a value without
-    the batch dims is broadcast to them."""
-    if n == 1 and v.dim() == x.dim() - 1:
-        v = v[..., None]
-    return torch.broadcast_to(v, x.shape[:-1] + (n,))
 
 
 class GenericCost:

@@ -24,6 +24,12 @@ for B scenarios at once, ``optimize`` for one closed-loop step and
 ``optimize_batch``. Every problem function is batch-first: x (..., n_x),
 u (..., n_u), theta (..., n_theta).
 
+The model may be a DAE, integrated by any method of core/integrators.py
+(``integration_method``, ``degree``, ``collocation_scheme``,
+``newton_iters``); the algebraic states' Newton guess is the model's z0, else
+zeros. Such problems, and any implicit integrator, take the general path
+under ``pallas_full`` (with a warning naming the reason).
+
 Not ported yet (NotImplementedError at the setter): discrete inputs,
 time-varying parameters and RTI (ROADMAP.md §A.5). There is no trace
 registry: PyTorch runs eagerly, so there is nothing to trace or share.
@@ -38,15 +44,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.integrators import IntegratorSpec, make_step
-from ..core.model import Model, resolve_device
+from ..core.integrators import IMPLICIT_METHODS, IntegratorSpec, make_step
+from ..core.model import Model, one_row_last, resolve_device
 from ..core.series import TimeSeries
 from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
 from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_problem,
                             whole_ip_supported)
-from .costs import GenericCost, QuadraticCost, make_constraint, one_row_last
+from .costs import GenericCost, QuadraticCost, make_constraint
 
 _NLP_OPTION_KEYS = {
     "integration_method", "degree", "collocation_scheme", "substeps",
@@ -308,6 +314,9 @@ class NMPC:
             substeps=options.get("substeps", 1),
             newton_iters=options.get("newton_iters", 8))
         core_step = make_step(model.ode_fn(), model.alg_fn(), nx, model.n_z, spec)
+        # the algebraic states' Newton guess: the model's z0, else zeros
+        z_guess = torch.as_tensor(model._z0 if model._z0 is not None
+                                  else np.zeros(model.n_z), **kw)
 
         sx = torch.as_tensor(self._x_scaling, **kw)
         su = torch.as_tensor(self._u_scaling, **kw)
@@ -334,7 +343,8 @@ class NMPC:
 
         def dyn(xs, us, theta):
             x, u, _, p, t, h, th_path = unpack(xs, us, theta)
-            x_next, _ = core_step(x, x[..., :0], u, p, t, h)
+            zg = z_guess.expand(x.shape[:-1] + z_guess.shape)
+            x_next, _ = core_step(x, zg, u, p, t, h)
             parts = [x_next / sx]
             if aug:
                 parts.append(u / su)
@@ -491,7 +501,11 @@ class NMPC:
                                   for t in stage_terms + term_terms))
         # what the whole-solve emitter cannot write as C++ (ops/codegen_cuda.py)
         cost_error = None
-        if mt:
+        if spec.method.lower() in IMPLICIT_METHODS:
+            cost_error = f"an implicit integrator ({spec.method})"
+        elif model.n_z:
+            cost_error = "algebraic states (a DAE model)"
+        elif mt:
             cost_error = "a free final time"
         elif any(t.path_following for t in stage_terms + term_terms):
             cost_error = "a path-following reference (a callable of the path parameter)"
@@ -888,8 +902,9 @@ class NMPC:
             warnings.warn("pallas_full requested but the problem shape is not "
                           "kernel-eligible (needs box-only constraints, soft "
                           "state bounds at most, pure Newton steps, fix_x0, "
-                          "quadratic cost terms on states and inputs and a model "
-                          "in the equation DSL or by state-space matrices"
+                          "quadratic cost terms on states and inputs, an explicit "
+                          "integrator and an ODE model in the equation DSL or by "
+                          "state-space matrices"
                           + (f"; this problem has {why}" if why else "")
                           + "); using the general path")
         return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)

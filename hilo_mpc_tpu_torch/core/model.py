@@ -1,19 +1,23 @@
 """Dynamic model: declaration, integration, simulation.
 
-PyTorch port of ``hilo_mpc_tpu/core/model.py`` (the parts the batched NMPC
-path needs). A model's equations are plain functions ``f(x, z, u, p, t)`` over
-BATCH-FIRST tensors (``x`` is ``(..., n_x)``, the result ``(..., n_x)``), built
-from the equation-string DSL (utils/parsing.py) or given as callables.
+PyTorch port of ``hilo_mpc_tpu/core/model.py``. A model's equations are
+plain functions ``f(x, z, u, p, t)`` over BATCH-FIRST tensors (``x`` is
+``(..., n_x)``, the result ``(..., n_x)``), built from the equation-string DSL
+(utils/parsing.py) or given as callables: the dynamics, semi-explicit DAE
+algebraic residuals ``0 = g(x, z, u, p, t)``, measurements and quadratures.
 A linear model may instead be declared by its state-space matrices
 (``set_state_space``), and a discrete-time model (``Model(discrete=True)``)
 gives the next state instead of the derivative. ``setup`` composes the
-equations with a fixed-step ERK integrator, or the discrete map, on an explicit
-device and dtype (``"cuda"`` unless the caller asks for the CPU); ``simulate``
-rolls the step out with a Python loop over time, every scenario at once.
-``linearize``, ``discretize`` and ``jacobians`` derive linear and discrete
-models by ``torch.func`` forward-mode Jacobians.
+equations with a fixed-step integrator (ERK, Radau/Legendre collocation, or
+the discrete map; core/integrators.py) on an explicit device and dtype
+(``"cuda"`` unless the caller asks for the CPU); quadratures of a continuous
+model are integrated as augmented states. ``simulate`` rolls the step out
+with a Python loop over time, every scenario at once. ``linearize``,
+``linearize_trajectory``, ``discretize`` and ``jacobians`` derive linear and
+discrete models by ``torch.func`` forward-mode Jacobians.
 
-Not ported yet: quadratures and DAE algebraic states (ROADMAP.md §A.3.4).
+Not ported yet: ``generate_data`` (ROADMAP.md §A.10) and the composition
+with learned components, ``__add__`` and ``substitute_from`` (§A.7).
 """
 from __future__ import annotations
 
@@ -29,7 +33,6 @@ from .series import TimeSeries
 from .variables import VarSpec
 
 _CANONICAL_ARGS = ("x", "z", "u", "p", "t")
-_NOT_PORTED = "{what} is not ported to the PyTorch package yet — ROADMAP.md §A.3.4"
 
 
 def resolve_device(device) -> torch.device:
@@ -93,8 +96,17 @@ def wrap_rhs(fn: Callable, what: str = "rhs") -> Callable:
     return canonical
 
 
+def one_row_last(v, x, n: int):
+    """A user function's value in (..., n) form: a function of one row may
+    return the batch shape (...) of ``x`` (..., n_x) itself; a value without
+    the batch dims is broadcast to them."""
+    if n == 1 and v.dim() == x.dim() - 1:
+        v = v[..., None]
+    return torch.broadcast_to(v, x.shape[:-1] + (n,))
+
+
 class Model:
-    """Dynamic ODE model with measurements."""
+    """Dynamic ODE/DAE/discrete model with measurements and quadratures."""
 
     def __init__(self, name: Optional[str] = None, discrete: bool = False,
                  time_unit: str = "h"):
@@ -232,19 +244,35 @@ class Model:
         self._set_callable_ode(fn)
         return self
 
+    def set_algebraic_equations(self, fn: Callable):
+        """The residuals ``0 = g(x, z, u, p, t)`` of the algebraic states."""
+        self._alg = wrap_rhs(fn, "alg")
+        return self
+
     def set_measurement_equations(self, fn: Union[Callable, str, Sequence[str]]):
         if isinstance(fn, (str, list, tuple)):
             return self.set_equations(meas=fn)
         self._meas = wrap_rhs(fn, "meas")
         return self
 
-    def set_equations(self, equations=None, ode=None, meas=None):
+    def set_quadrature_functions(self, fn: Callable):
+        """Integrands accumulated over each step (continuous model) or
+        evaluated at the next state (discrete model); one quadrature unless
+        declared otherwise."""
+        self._quad = wrap_rhs(fn, "quad")
+        if self._q.n == 0:
+            self._q.add(1, prefix="q")
+        return self
+
+    def set_equations(self, equations=None, ode=None, alg=None, meas=None, quad=None):
         """Set equations from callables, a dict of callables, or the equation-string DSL."""
         from ..utils.parsing import apply_parsed_equations
 
         if isinstance(equations, dict):
             ode = equations.get("ode", ode)
+            alg = equations.get("alg", alg)
             meas = equations.get("meas", meas)
+            quad = equations.get("quad", quad)
             equations = None
         if equations is not None:
             if callable(equations):
@@ -264,6 +292,10 @@ class Model:
                 self._set_callable_ode(fn)
             else:
                 self._meas = wrap_rhs(fn, what)
+        if alg is not None:
+            self.set_algebraic_equations(alg)
+        if quad is not None:
+            self.set_quadrature_functions(quad)
         return self
 
     def _set_callable_ode(self, fn: Callable):
@@ -370,6 +402,9 @@ class Model:
             return self._meas
         return lambda x, z, u, p, t: x
 
+    def quad_fn(self) -> Optional[Callable]:
+        return self._quad
+
     # -- structural analysis --------------------------------------------------
     def _probe_args(self, seed: int = 0, spread: float = 0.37):
         rng = np.random.default_rng(seed)
@@ -411,6 +446,20 @@ class Model:
         except Exception:  # a user function that fails at a probe point is
             return False   # not known to be linear (the reference's rule)
 
+    @property
+    def is_time_variant(self) -> bool:
+        """Whether the dynamics change between two probe times."""
+        if self._ode is None:
+            return False
+        try:
+            x, z, u, p, _ = self._probe_args(3)
+            f1 = self.ode_fn()(x, z, u, p, 0.17)
+            f2 = self.ode_fn()(x, z, u, p, 2.93)
+            return not np.allclose(f1.cpu().numpy(), f2.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-8)
+        except Exception:
+            return False
+
     # -- setup ----------------------------------------------------------------
     def setup(self, dt: float = 1.0, integration_method: Optional[str] = None,
               degree: int = 3, scheme: str = "radau", substeps: int = 1,
@@ -419,15 +468,15 @@ class Model:
         """Build the per-step transition function on ``device`` in ``dtype``
         (explicit; nothing is chosen by detection; ``device="cpu"`` runs on
         the CPU). ``integration_method`` is one of the ERK names ('euler',
-        'rk4', ...); a discrete-time model always takes 'discrete'."""
+        'rk4', ...), 'collocation' (or 'irk'; Radau IIA or Gauss-Legendre by
+        ``scheme``, of ``degree``), 'cvodes'/'idas' (Radau collocation of
+        degree at least 3); the default is 'collocation' for a DAE model and
+        'rk4' otherwise, and a discrete-time model always takes 'discrete'."""
         if self._ode is None:
             raise RuntimeError(f"model {self.name!r}: no equations set before setup()")
-        if self._quad is not None:
-            raise NotImplementedError(_NOT_PORTED.format(what="quadratures"))
-        if self.n_z:
-            raise NotImplementedError(_NOT_PORTED.format(what="DAE models"))
         if integration_method is None or self._discrete:
-            integration_method = "discrete" if self._discrete else "rk4"
+            integration_method = "discrete" if self._discrete else (
+                "collocation" if self.n_z else "rk4")
         device = resolve_device(device)
         self._int_spec = IntegratorSpec(
             method=integration_method, degree=degree, scheme=scheme,
@@ -436,13 +485,32 @@ class Model:
         self._device = device
         self._dtype = dtype
 
-        core = make_step(self._ode, self._alg, self.n_x, self.n_z, self._int_spec)
-        meas = self.meas_fn()
+        ode, alg, quad, meas = self._ode, self._alg, self._quad, self.meas_fn()
+        nx, nq = self.n_x, (self.n_q if self._quad is not None else 0)
+        if quad is not None and not self._discrete:
+            # quadratures integrated as augmented states: d[q]/dt = integrand
+            def ode_aug(xa, z, u, p, t):
+                x = xa[..., :nx]
+                q = one_row_last(quad(x, z, u, p, t), x, nq)
+                return torch.cat([ode(x, z, u, p, t), q], dim=-1)
 
-        def step(x, z, u, p, t, dt):
-            x_n, z_n = core(x, z, u, p, t, dt)
-            y_n = meas(x_n, z_n, u, p, t + dt)
-            return x_n, z_n, y_n, x_n[..., :0]
+            alg_aug = (None if alg is None else
+                       lambda xa, z, u, p, t: alg(xa[..., :nx], z, u, p, t))
+            core = make_step(ode_aug, alg_aug, nx + nq, self.n_z, self._int_spec)
+
+            def step(x, z, u, p, t, dt):
+                xa = torch.cat([x, x.new_zeros(x.shape[:-1] + (nq,))], dim=-1)
+                xa_n, z_n = core(xa, z, u, p, t, dt)
+                x_n = xa_n[..., :nx]
+                return x_n, z_n, meas(x_n, z_n, u, p, t + dt), xa_n[..., nx:]
+        else:
+            core = make_step(ode, alg, nx, self.n_z, self._int_spec)
+
+            def step(x, z, u, p, t, dt):
+                x_n, z_n = core(x, z, u, p, t, dt)
+                q_n = (one_row_last(quad(x_n, z_n, u, p, t + dt), x_n, nq)
+                       if quad is not None else x_n[..., :0])
+                return x_n, z_n, meas(x_n, z_n, u, p, t + dt), q_n
 
         self._step = step
         self.solution = TimeSeries(self._time_unit)
@@ -617,7 +685,16 @@ class Model:
             else:
                 raise ValueError("no x0 given and no stored initial conditions")
         x0 = np.asarray(x0, dtype=float)
-        z0 = np.zeros(x0.shape[:-1] + (self.n_z,))
+        if z0 is None:
+            # the stored trajectory's last algebraic state, else zeros; a
+            # column the solution never recorded reads NaN and starts at 0
+            z0 = (self.solution["z:f"] if (self.solution is not None and
+                                           self.solution.n_samples and self.n_z)
+                  else np.zeros(self.n_z))
+            z0 = np.nan_to_num(np.asarray(z0, dtype=float))
+        z0 = np.asarray(z0, dtype=float)
+        if batched and z0.ndim == 1:
+            z0 = np.tile(z0, (x0.shape[0], 1))
         t_start = self._time if t0 is None else float(t0)
 
         if batched:
@@ -731,6 +808,30 @@ class Model:
         self._equilibrium = {"x": x_eq, "u": u_eq, "p": np.asarray(p_v)}
         return self
 
+    def linearize_trajectory(self, X, U, p=None, t0: float = 0.0):
+        """Time-varying linearization along a trajectory: (A_k, B_k) as numpy
+        arrays (T, nx, nx) / (T, nx, nu), T the shorter of X and U, at the
+        times t0 + k·dt, computed in float64 on the CPU (the algebraic
+        states at zero)."""
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        U = np.atleast_2d(np.asarray(U, dtype=float))
+        T = min(X.shape[0], U.shape[0])
+        f64 = dict(dtype=torch.float64)
+        f = self.ode_fn()
+        z0 = torch.zeros(self.n_z, **f64)
+        pv = torch.as_tensor(self._param_vector(p), **f64)
+        dt = self._dt or 1.0
+        jac = torch.func.jacfwd
+
+        def jac_at(x, u, t):
+            return (jac(lambda xx: f(xx, z0, u, pv, t))(x),
+                    jac(lambda uu: f(x, z0, uu, pv, t))(u))
+
+        ts = t0 + dt * torch.arange(T, **f64)
+        A, B = torch.func.vmap(jac_at)(torch.as_tensor(X[:T], **f64),
+                                       torch.as_tensor(U[:T], **f64), ts)
+        return A.numpy(), B.numpy()
+
     def jacobians(self, x, u, z=None, p=None, t: float = 0.0):
         """(A, B): Jacobians of the right-hand side (continuous- or
         discrete-time) at a point, as tensors in the model's dtype on its
@@ -781,7 +882,65 @@ class Model:
             new._step = None
         return new
 
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        # the step is rebuilt by setup() after unpickling
+        state["_step"] = None
+        state["_setup_done"] = False
+        # the parent may hold unpicklable closures; a finalized linear model
+        # no longer needs it (finalize deferred linearizations before pickling)
+        state["_linearized_parent"] = None
+        if state.get("_equations_src") is not None:
+            # DSL models re-parse their text on load; equations given as
+            # callables must pickle themselves (lambdas do not)
+            for key in ("_ode", "_alg", "_meas", "_quad", "_dsl"):
+                state[key] = None
+        elif state.get("_ss", {}).get("A") is not None:
+            # state-space models rebuild their closures from the matrices
+            state["_ode"] = None
+            state["_meas"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        if self._ode is None and self._ss.get("A") is not None:
+            self.set_state_space()
+        if self._equations_src is not None and self._ode is None:
+            from ..utils.parsing import apply_parsed_equations
+            x, z, u, p = (list(self._x.names), list(self._z.names),
+                          list(self._u.names), list(self._p.names))
+            apply_parsed_equations(self, self._equations_src)
+            self._x.names, self._z.names = x, z
+            self._u.names, self._p.names = u, p
+
     def __repr__(self):
         return (f"Model({self.name!r}, nx={self.n_x}, nz={self.n_z}, nu={self.n_u}, "
                 f"np={self.n_p}, ny={self.n_y}, "
                 f"{'discrete' if self._discrete else 'continuous'})")
+
+    def __str__(self):
+        """A summary table of the model's variables."""
+        rows = [("kind", "names")]
+        for kind, names in [("states", self._x.names),
+                            ("algebraic", self._z.names),
+                            ("inputs", self._u.names),
+                            ("parameters", self._p.names),
+                            ("measurements", self.measurements)]:
+            rows.append((kind, ", ".join(names) if names else "-"))
+        w0 = max(len(r[0]) for r in rows)
+        w1 = max(len(r[1]) for r in rows)
+        sep = "+" + "-" * (w0 + 2) + "+" + "-" * (w1 + 2) + "+"
+        lines = [f"Model {self.name!r} "
+                 f"({'discrete' if self._discrete else 'continuous'}"
+                 f"{', set up, dt=' + str(self._dt) if self._setup_done else ''})",
+                 sep]
+        for i, (a, b) in enumerate(rows):
+            lines.append(f"| {a:<{w0}} | {b:<{w1}} |")
+            if i == 0:
+                lines.append(sep)
+        lines.append(sep)
+        return "\n".join(lines)
+
+    def __iter__(self):
+        yield from {"x": self._x.names, "z": self._z.names, "u": self._u.names,
+                    "p": self._p.names, "y": self.measurements}.items()

@@ -197,6 +197,7 @@ class MovingHorizonEstimator(Estimator):
                               substeps=options.get("substeps", 1))
         core = make_step(m.ode_fn(), m.alg_fn(), nx, m.n_z, spec)
         meas = m.meas_fn()
+        nz = m.n_z
         h = self._dt
 
         # default weights from covariances if not set explicitly
@@ -231,14 +232,15 @@ class MovingHorizonEstimator(Estimator):
 
         def meas_error(xs, theta):
             x = xs[..., :nx]
-            y_pred = meas(x, x[..., :0], theta[..., off_u:off_u + nu],
-                          full_p(xs, theta), theta[..., 0])
+            y_pred = meas(x, x.new_zeros(x.shape[:-1] + (nz,)),
+                          theta[..., off_u:off_u + nu], full_p(xs, theta), theta[..., 0])
             return (theta[..., off_y:off_y + ny] - y_pred) * theta[..., off_m:off_m + ny]
 
         def dyn(xs, w, theta):
             x = xs[..., :nx]
-            x_next, _ = core(x, x[..., :0], theta[..., off_u:off_u + nu],
-                             full_p(xs, theta), theta[..., 0], h)
+            x_next, _ = core(x, x.new_zeros(x.shape[:-1] + (nz,)),
+                             theta[..., off_u:off_u + nu], full_p(xs, theta),
+                             theta[..., 0], h)
             return torch.cat([x_next + w, xs[..., nx:]], dim=-1)
 
         def stage_cost(xs, w, theta):

@@ -11,7 +11,8 @@ in-kernel AD, so this module writes the model as C++ instead:
   a function template over a scalar type ``S``; with ``S`` the dual number of
   ``csrc/dual.cuh`` one pass gives F and [A | B] (forward mode);
 - the step wraps it in the configured ERK tableau with substeps, or the
-  discrete map, with the solver scaling and the theta unpack of
+  discrete map (an implicit integrator, collocation or a DAE model's Newton
+  stages, has no emitter), with the solver scaling and the theta unpack of
   ``control/nmpc.py`` (x = xs·sx, u = us·su, p = theta[2:2+n_p],
   t = theta[0], h = theta[1]); under the Δu augmentation the state carries
   u_prev (scaled by su) after the model's states, the control is Δu, the
@@ -50,7 +51,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.integrators import IntegratorSpec, erk_tableau
+from ..core.integrators import IMPLICIT_METHODS, IntegratorSpec, erk_tableau
 from ..utils.parsing import _CallStripper
 
 # DSL function -> (C++ function in csrc/dual.cuh, arity)
@@ -92,7 +93,8 @@ class OCPSource:
     (control/costs.py:QuadTerm), the solver scalings and the sampling time
     that divides the stage cost's h; the soft state bounds (unscaled, ±inf
     where a state has none) and their weight; and, where the cost holds a
-    part that has no emitter, what that part is (``cost_error``)."""
+    part that has no emitter, what that part is (``cost_error``; also an
+    implicit integrator or algebraic states)."""
     model: object
     spec: IntegratorSpec
     off_rs: int
@@ -311,6 +313,10 @@ def _emit_step(spec: IntegratorSpec, nx: int) -> tuple:
     lines, n_rhs, n_comb = [], 0, 0
     m = max(int(spec.substeps), 1)
     method = spec.method.lower()
+    if method in IMPLICIT_METHODS:
+        raise NotImplementedError(
+            f"an implicit integrator ({spec.method}) cannot be emitted as C++ "
+            "(ROADMAP.md §B, still to port)")
     if m > 1:
         lines += [f"    const T hh = h / {_lit(m)};",
                   f"    for (int q = 0; q < {m}; ++q) {{",

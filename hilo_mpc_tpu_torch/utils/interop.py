@@ -124,7 +124,8 @@ _MHE_OPTIONS = ("max_iter", "tol", "mu_init", "n_linesearch", "mehrotra",
                 "convexify", "early_exit", "const_cost_hessian")
 
 
-def estimator_from(src, device="cuda", dtype=torch.float64, model=None):
+def estimator_from(src, device="cuda", dtype=torch.float64, model=None,
+                   options=None):
     """The port's twin of a JAX-side MHE, KF, EKF, UKF or PF: its Q, R, P0,
     parameter values and initial guess; for an MHE also the horizon, the
     weights, the bounds and the estimated parameters with their guess and
@@ -132,7 +133,11 @@ def estimator_from(src, device="cuda", dtype=torch.float64, model=None):
     current covariance; for a PF its settings and particles. A set-up ``src`` gives a twin set up on ``device`` in
     ``dtype`` with the same sampling time (an MHE also with the solver
     options and the fast-path decision of ``src``). ``model`` is the port's
-    model, by default ``model_from(src._model)``."""
+    model, by default ``model_from(src._model)``. The JAX estimators keep
+    no record of their integrator, so ``options`` gives the twin's
+    (``integration_method``, ``degree``, ``substeps``), as ``src`` was set
+    up with them: for an MHE merged into its options, for a filter passed
+    to its ``setup``."""
     cls = _ESTIMATORS.get(type(src).__name__)
     if cls is None:
         raise TypeError(f"no estimator of the port mirrors {type(src).__name__}")
@@ -161,9 +166,10 @@ def estimator_from(src, device="cuda", dtype=torch.float64, model=None):
         if src._setup_done:
             opts = {k: getattr(src._ip_opts, k) for k in _MHE_OPTIONS}
             opts["fast_path"] = src.fast_path
-            dst.setup(dt=src._dt, options=opts, device=device, dtype=dtype)
+            dst.setup(dt=src._dt, options={**opts, **(options or {})}, device=device,
+                      dtype=dtype)
     elif src._setup_done:
-        dst.setup(dt=src._dt, device=device, dtype=dtype)
+        dst.setup(dt=src._dt, device=device, dtype=dtype, **(options or {}))
     if src._x0 is not None:
         dst.set_initial_guess(src._x0)
     if cls is ParticleFilter and src._particles is not None:

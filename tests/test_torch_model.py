@@ -124,8 +124,6 @@ def test_substeps_and_erk_methods():
     half = s1(s1(x, x[:0], u, p, 0.0, 0.05)[0], x[:0], u, p, 0.05, 0.05)[0]
     np.testing.assert_allclose(s2(x, x[:0], u, p, 0.0, 0.1)[0].numpy(),
                                half.numpy(), atol=1e-15)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_step(mt.ode_fn(), None, 2, 0, IntegratorSpec(method="collocation"))
     with pytest.raises(ValueError):
         make_step(mt.ode_fn(), None, 2, 0, IntegratorSpec(method="nope"))
 
@@ -134,3 +132,107 @@ def test_setup_is_required():
     mt = torch_cstr()
     with pytest.raises(RuntimeError):
         mt.simulate(x0=[0.2, 0.1])
+
+
+# -- the rest of Model: time variance, trajectory linearization, pickling ------
+
+def _decay_models(time_varying):
+    """x' = -a x (+ sin t) with input u, in both packages."""
+    from hilo_mpc_tpu import Model as JaxModel
+    from hilo_mpc_tpu_torch import Model
+    extra = " + sin(t)" if time_varying else ""
+    text = f"dx/dt = -a*x(t) + u(k){extra}"
+    mj = JaxModel(dtype=jnp.float64)
+    mj.set_equations(text)
+    mt = Model().set_equations(text)
+    return mj, mt
+
+
+@pytest.mark.parametrize("time_varying", [False, True])
+def test_is_time_variant_matches_jax(time_varying):
+    mj, mt = _decay_models(time_varying)
+    mt.setup(dt=0.1, device=CPU, dtype=F64)
+    assert mt.is_time_variant is mj.is_time_variant is time_varying
+    assert torch_cstr().is_time_variant is jax_cstr().is_time_variant is False
+
+
+def test_linearize_trajectory_matches_jax():
+    mj, mt = jax_cstr(), torch_cstr()
+    p = _random_point(5)[2]
+    for m in (mj, mt):
+        m.set_initial_parameter_values(p)
+    mj.setup(dt=0.1)
+    mt.setup(dt=0.1, device=CPU, dtype=F64)
+    rng = np.random.default_rng(6)
+    X = np.array([0.2, 0.1]) + 0.05 * rng.standard_normal((6, 2))
+    U = rng.standard_normal((5, 1))
+    At, Bt = mt.linearize_trajectory(X, U, t0=0.3)
+    Aj, Bj = mj.linearize_trajectory(X, U, t0=0.3)
+    assert At.shape == (5, 2, 2) and Bt.shape == (5, 2, 1)
+    np.testing.assert_allclose(At, np.asarray(Aj), rtol=0, atol=1e-13)
+    np.testing.assert_allclose(Bt, np.asarray(Bj), rtol=0, atol=1e-13)
+
+
+def _pickled_models():
+    """A DSL model (re-parsed on load), a state-space model (closures rebuilt
+    from the matrices) and a DSL DAE with a quadrature, set up and
+    simulated before pickling."""
+    from hilo_mpc_tpu import Model as JaxModel
+    from hilo_mpc_tpu_torch import Model
+    dae = """
+    dx/dt = -x(t) + z(t) + u(k)
+    0 = z(t) - 0.5*x(t)
+    int = x(t)**2
+    """
+    out = {}
+    for name, build in (("dsl", lambda M: M().set_equations(
+                            "dx/dt = -a*x(t) + u(k)\ny(k) = 2*x(t)")),
+                        ("state_space", lambda M: M().set_state_space(
+                            A=[[0.0, 1.0], [-2.0, -0.5]], B=[[0.0], [1.0]],
+                            C=[[1.0, 0.0]])),
+                        ("dae_quadrature", lambda M: M().set_equations(dae))):
+        out[name] = (build(lambda: JaxModel(dtype=jnp.float64)), build(Model))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["dsl", "state_space", "dae_quadrature"])
+def test_pickle_round_trip_matches_jax(kind):
+    """A pickled model keeps its declaration, drops its step (rebuilt by
+    setup()) and simulates as before — and as JAX's own round trip."""
+    import pickle
+    mj, mt = _pickled_models()[kind]
+    p = [0.7] if mt.n_p else None
+    z0 = [0.5] if mt.n_z else None
+    for m, kw in ((mj, {}), (mt, dict(device=CPU, dtype=F64))):
+        m.setup(dt=0.1, **kw)
+        m.set_initial_conditions([1.0] * m.n_x, z0=z0)
+        if p:
+            m.set_initial_parameter_values(p)
+        m.simulate(u=np.full((3, m.n_u), 0.2), steps=3)
+    tj, tt = pickle.loads(pickle.dumps(mj)), pickle.loads(pickle.dumps(mt))
+    assert not tt.is_setup() and tt._step is None
+    for attr in ("dynamical_states", "algebraic_states", "inputs", "parameters",
+                 "measurements", "n_q"):
+        assert getattr(tt, attr) == getattr(mt, attr) == getattr(tj, attr), attr
+    np.testing.assert_array_equal(tt.solution["x"], mt.solution["x"])
+    tj.setup(dt=0.1)
+    tt.setup(dt=0.1, device=CPU, dtype=F64)
+    x0 = np.array([0.4] * tt.n_x)
+    u = np.full((4, tt.n_u), -0.1)
+    kw = dict(x0=x0, u=u, steps=4, store=False, **({"z0": [0.2]} if z0 else {}))
+    out_t, out_j = tt.simulate(**kw), tj.simulate(**kw)
+    for k in ("x", "y", "z", "q"):
+        np.testing.assert_allclose(out_t[k], np.asarray(out_j[k]), rtol=0, atol=1e-12,
+                                   err_msg=k)
+    np.testing.assert_array_equal(out_t["x"], mt.simulate(**kw)["x"])
+
+
+def test_summary_and_iteration():
+    """The summary table and the (kind, names) iteration, as JAX's."""
+    from hilo_mpc_tpu import Model as JaxModel
+    from hilo_mpc_tpu_torch import Model
+    text = "dx/dt = -x(t) + z(t)\n0 = z(t) - 0.5*x(t)"
+    mj = JaxModel(name="dae").set_equations(text)
+    mt = Model(name="dae").set_equations(text)
+    assert str(mt) == str(mj)
+    assert dict(mt) == dict(mj)

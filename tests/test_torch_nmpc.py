@@ -111,9 +111,6 @@ OUT_OF_SLICE = {
     "discrete_inputs": lambda n: n.set_discrete_inputs("u"),
     "tvp": lambda n: n.set_time_varying_parameters(["E"]),
     "rti": lambda n: n.rti_prepare(x_pred=[0.2, 0.1]),
-    "collocation": lambda n: n.setup(options={"dt": 0.1,
-                                              "integration_method": "collocation"},
-                                     device=CPU),
     "parallel_riccati": lambda n: n.setup(options={"dt": 0.1,
                                                    "parallel_riccati": True},
                                           device=CPU),
