@@ -182,6 +182,40 @@ Phase 12 implicit integration (Newton-solved collocation and DAE stages on
          CPU. (d)
          EKF, UKF and PF on the DAE model, card against CPU in float64 at
          phase 9's bars.
+Phase 13 the closed loop and the real-time entry points (each step of a
+         loop one batched solve of all scenarios, every Newton step one
+         Riccati kernel launch; launches read around each path and listed
+         under phase13 keys in the kernels line): (a)
+         parallel/closed_loop.py:fused_closed_loop_fn on the flagship
+         controller and the CSTR plant, B=131072, 20 steps, float32: wall,
+         scenario-steps/s, Riccati launches (= the sum over steps of each
+         step's slowest iterations), converged share > 0.95, final
+         |x - x_eq| < 3e-2 (tests/test_parallel.py's bar); the first 256 in
+         float64 card against CPU (<= 1e-9, equal per-step iterations).
+         (b) batched RTI (rti_prepare_batch / rti_feedback_batch) on the same
+         fleet, warm, 20 steps: prepare ms (solve and gain), the gain alone,
+         feedback ms, launches; the same loop with rti_gn_iterations=1 (one
+         launch per prepare); the first 256 in float64 card against CPU,
+         both modes. (c) fused_closed_loop_mhe_fn with phase 7's MHE
+         (windows of mhe_cstr_windows, seed 6), B=32768, 10 steps: the
+         window solves' free-x0 launches (= the sum over steps of each
+         step's slowest window iterations; no wide launch, no plain sweep)
+         beside the controller's, converged
+         shares, the estimate's error; 64 scenarios card against CPU in
+         float64. (d) fused_closed_loop_ekf_fn, B=131072, 20 steps,
+         measurement noise 0.005 from a seeded CUDA generator: p99 final
+         error < 3e-2 and estimate error < 2e-2 (the JAX test's bars, at
+         the 99th percentile of the fleet), the same seed twice the same
+         bits. (e) the flagship with E time-varying (a seeded table of 40,
+         step 7), B=131072: the general path (Riccati kernel) and pallas_full
+         (one whole-solve launch; the emitted problem reads p per stage),
+         the kernel against its plain version and the two routes within 5e-4
+         on the jointly converged. (f) parallel_riccati (log-depth scans,
+         plain PyTorch: no Riccati launch, as the JAX solver bypasses its
+         Pallas kernel) and bf16 storage of the linearization, each at
+         B=131072 float32 beside the kernel route, card against CPU; the
+         LQ step alone, the scans against the kernel route, at N = 20, 200,
+         2000 for one scenario and for B·N = 131072·20.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -2748,6 +2782,463 @@ def phase12_filters():
     assert max(dev_p, dev_x) <= 1e-9, (dev_p, dev_x)
 
 
+X_EQ = (0.3, 0.18055)
+# phase 13's fleets: the MHE loop's batch, each loop's steps, the scenarios
+# held card against CPU
+B_MHE_LOOP = 32768
+STEPS_LOOP, STEPS_MHE_LOOP = 20, 10
+B_CHECK, B_CHECK_MHE = 256, 64
+# E of the time-varying-parameter CSTR: a seeded sequence of 40 values
+TVP_E_SEED = 11
+
+
+def cstr_plant(dtype, device="cuda"):
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    plant = cstr_schaffner_and_zeitz()
+    plant.setup(dt=0.1, integration_method="rk4", device=device, dtype=dtype)
+    return plant
+
+
+def synced(fn):
+    """fn()'s result and its wall time in seconds, the card synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def final_error(X):
+    """Per-scenario distance of the last state from the set point."""
+    import numpy as np
+    return np.linalg.norm(np.asarray(X)[:, -1] - np.array(X_EQ), axis=1)
+
+
+def loop_launches(iterations):
+    """Launches a batched solve per step makes: its loop runs to the
+    slowest scenario, one Riccati launch per iteration (B, steps) -> int."""
+    return int(iterations.max(dim=0).values.sum())
+
+
+def phase13(report):
+    """The closed loop and the real-time entry points (module docstring)."""
+    for part in (phase13_fused_loop, phase13_rti, phase13_mhe_loop, phase13_ekf_loop,
+                 phase13_tvp, phase13_options, phase13_lq_horizons):
+        t = time.perf_counter()
+        part(report)
+        log(f"{part.__name__} took {time.perf_counter() - t:.1f} s")
+
+
+def phase13_fused_loop(report):
+    """(a) fused_closed_loop_fn on the flagship fleet."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.parallel import fused_closed_loop_fn
+    f32, f64 = torch.float32, torch.float64
+    p = np.ones(6)
+    x0s = flagship_x0s()
+    fused_closed_loop_fn(build_cstr_nmpc(FLAGSHIP, f32), cstr_plant(f32), 1,
+                         plant_p=p)(x0s[:256])                     # untimed warm-up
+    run = fused_closed_loop_fn(build_cstr_nmpc(FLAGSHIP, f32), cstr_plant(f32),
+                               STEPS_LOOP, plant_p=p)
+    riccati_lq_cuda.launches = 0
+    res, t = synced(lambda: run(x0s))
+    launches = riccati_lq_cuda.launches
+    assert res.X.shape == (B_MAIN, STEPS_LOOP + 1, 2) and bool(torch.isfinite(res.X).all())
+    assert launches == loop_launches(res.iterations), (launches, loop_launches(res.iterations))
+    conv = float(res.converged.float().mean())
+    err = final_error(res.X.cpu())
+    it = res.iterations.float()
+    log(f"phase13(a) fused_closed_loop_fn flagship B={B_MAIN} N={N} {STEPS_LOOP} steps "
+        f"float32: {t:.4f} s wall, {B_MAIN * STEPS_LOOP / t:.1f} scenario-steps/s "
+        f"({t / STEPS_LOOP * 1e3:.2f} ms per step); riccati_lq launches {launches} "
+        f"(= the steps' slowest iterations), converged {conv:.5f}, iterations per solve "
+        f"p50 {float(it.median()):g} max {int(it.max())}; final |x - x_eq| p50 "
+        f"{np.median(err):.3e} p99 {np.quantile(err, 0.99):.3e} max {err.max():.3e}")
+    assert conv > 0.95, conv
+    assert err.max() < 3e-2, err.max()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        r = fused_closed_loop_fn(build_cstr_nmpc(FLAGSHIP, f64, device=dev),
+                                 cstr_plant(f64, dev), STEPS_LOOP, plant_p=p)(x0s[:B_CHECK])
+        out[dev] = [v.cpu() for v in r]
+    dev_x = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    dev_u = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    same_it = bool(torch.equal(out["cuda"][3], out["cpu"][3]))
+    log(f"phase13(a) float64 B={B_CHECK}: max|X_card - X_cpu| {dev_x:.3e}, max|U_card - "
+        f"U_cpu| {dev_u:.3e}, equal per-step iterations {same_it}")
+    assert max(dev_x, dev_u) <= 1e-9 and same_it, (dev_x, dev_u, same_it)
+    report["riccati_lq"].setdefault("phase13_launches", {})["fused_loop"] = launches
+    report["phase13_loop"] = dict(seconds=t, steps_per_s=B_MAIN * STEPS_LOOP / t)
+
+
+def rti_fleet(nmpc, plant, X, steps, warm=True):
+    """A fleet closed loop by batched RTI: feedback, plant step, prepare at
+    the new states (warm from each scenario's shifted solution). Returns
+    the applied moves (steps, B, nu), the final states, and the prepare and
+    feedback walls per step."""
+    import numpy as np
+    p = np.ones(6)
+    nmpc.rti_prepare_batch(X)
+    Us, t_prep, t_fb = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        U = nmpc.rti_feedback_batch(X)
+        t_fb.append(time.perf_counter() - t0)
+        Us.append(U)
+        X = plant.simulate(x0=X, u=U[:, None, :], p=p, steps=1)["x"][:, -1]
+        _, t = synced(lambda: nmpc.rti_prepare_batch(X, warm=warm))
+        t_prep.append(t)
+    return np.array(Us), X, t_prep, t_fb
+
+
+def phase13_rti(report):
+    """(b) Batched RTI on the flagship fleet, warm: full-solve prepares,
+    then one-iteration prepares (rti_gn_iterations = 1)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    f32, f64 = torch.float32, torch.float64
+    x0s = flagship_x0s()
+    plant = cstr_plant(f32)
+    warmup = build_cstr_nmpc(FLAGSHIP, f32)
+    rti_fleet(warmup, plant, x0s[:256], 2)                        # untimed warm-up
+    nmpc = build_cstr_nmpc(FLAGSHIP, f32)
+    riccati_lq_cuda.launches = 0
+    (_, X, t_prep, t_fb), t = synced(lambda: rti_fleet(nmpc, plant, x0s, STEPS_LOOP))
+    launches = riccati_lq_cuda.launches
+    conv = float(nmpc._rti_batch["converged"].mean())
+    err = final_error(X[:, None])
+    # the gain alone at the last prepare's solution
+    X_prev, U_prev = nmpc._rti_batch_warm
+    theta_B = nmpc.prepare_batch(X)[0]
+    _, t_gain = synced(lambda: nmpc.rti_gain(X_prev, U_prev, theta_B))
+    ms = np.array(t_prep) * 1e3
+    log(f"phase13(b) batched RTI flagship B={B_MAIN} N={N} float32, {STEPS_LOOP} warm "
+        f"steps: {t:.4f} s wall; prepare (solve + gain) p50 {np.median(ms):.2f} ms, min "
+        f"{ms.min():.2f}, max {ms.max():.2f}; the gain alone {t_gain * 1e3:.2f} ms; "
+        f"feedback (numpy, B scenarios) p50 {np.median(t_fb) * 1e3:.3f} ms; riccati_lq "
+        f"launches {launches}; converged {conv:.5f}; final |x - x_eq| max {err.max():.3e}")
+    assert launches > 0 and conv > 0.95 and err.max() < 3e-2, (launches, conv, err.max())
+    # classical RTI: the same fleet loop with rti_gn_iterations = 1, one
+    # interior-point iteration (one Riccati launch) per prepare
+    gn = build_cstr_nmpc(FLAGSHIP, f32)
+    gn.rti_gn_iterations = 1
+    riccati_lq_cuda.launches = 0
+    (_, X_gn, t_prep_gn, t_fb_gn), t_gn = synced(
+        lambda: rti_fleet(gn, plant, x0s, STEPS_LOOP))
+    gn_launches = riccati_lq_cuda.launches
+    err_gn = final_error(X_gn[:, None])
+    ms_gn = np.array(t_prep_gn) * 1e3
+    log(f"phase13(b) rti_gn_iterations=1, {STEPS_LOOP} warm steps: {t_gn:.4f} s wall; "
+        f"prepare (one iteration + gain) p50 {np.median(ms_gn):.2f} ms, min "
+        f"{ms_gn.min():.2f}, max {ms_gn.max():.2f}; feedback p50 "
+        f"{np.median(t_fb_gn) * 1e3:.3f} ms; riccati_lq launches {gn_launches} (one per "
+        f"prepare); final |x - x_eq| p99 {np.quantile(err_gn, 0.99):.3e} max "
+        f"{err_gn.max():.3e}")
+    assert gn_launches == STEPS_LOOP + 1, gn_launches
+    assert err_gn.max() < 3e-2, err_gn.max()
+    for k in (None, 1):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            ctl = build_cstr_nmpc(FLAGSHIP, f64, device=dev)
+            ctl.rti_gn_iterations = k
+            U_d, X_d, _, _ = rti_fleet(ctl, cstr_plant(f64, dev), x0s[:B_CHECK], STEPS_LOOP)
+            out[dev] = (U_d, X_d)
+        dev_u = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+        dev_x = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+        log(f"phase13(b) rti_gn_iterations={k} float64 B={B_CHECK}, {STEPS_LOOP} steps: "
+            f"max|U_card - U_cpu| {dev_u:.3e}, max|x_card - x_cpu| {dev_x:.3e}")
+        assert max(dev_u, dev_x) <= 1e-9, (k, dev_u, dev_x)
+    report["riccati_lq"].setdefault("phase13_launches", {}).update(
+        batched_rti=launches, batched_rti_gn=gn_launches)
+    report["phase13_rti"] = dict(prepare_ms=float(np.median(ms)),
+                                 feedback_ms=float(np.median(t_fb)) * 1e3,
+                                 gn_prepare_ms=float(np.median(ms_gn)))
+
+
+def mhe_loop(dtype, device, B):
+    """The MHE loop's pieces on ``device``: the run function (the flagship
+    controller, phase 7's MHE, the CSTR plant) and its inputs (windows from
+    numpy plant runs, mhe_cstr_windows)."""
+    import numpy as np
+    from hilo_mpc_tpu_torch import MHE
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    from hilo_mpc_tpu_torch.parallel import fused_closed_loop_mhe_fn
+    mhe = MHE(cstr_schaffner_and_zeitz())
+    mhe.horizon = N_MHE
+    mhe.Q, mhe.R, mhe.P0 = 1e-4, 1e-3, 0.1 * np.eye(2)
+    mhe.set_initial_parameter_values(np.ones(6))
+    mhe.setup(dt=0.1, device=device, dtype=dtype)
+    run = fused_closed_loop_mhe_fn(build_cstr_nmpc(FLAGSHIP, dtype, device=device),
+                                   cstr_plant(dtype, device), mhe, STEPS_MHE_LOOP,
+                                   plant_p=np.ones(6))
+    Ys, Us, x0, X_last = mhe_cstr_windows(B, seed=6)
+    return run, (X_last, Ys, Us, x0)
+
+
+def phase13_mhe_loop(report):
+    """(c) fused_closed_loop_mhe_fn: the controller and an MHE window solve
+    per step, the window in the Riccati kernel's free-x0 mode."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops import riccati
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda, riccati_lq_wide_cuda
+    f32, f64 = torch.float32, torch.float64
+    run, inputs = mhe_loop(f32, "cuda", 256)
+    run(*inputs)                                                   # untimed warm-up
+    run, inputs = mhe_loop(f32, "cuda", B_MHE_LOOP)
+    riccati_lq_cuda.launches = riccati_lq_cuda.free_x0_launches = 0
+    riccati_lq_wide_cuda.launches = 0
+    with count_calls(riccati, "backward_sweep") as sweeps:
+        res, t = synced(lambda: run(*inputs))
+    launches, free = riccati_lq_cuda.launches, riccati_lq_cuda.free_x0_launches
+    got = (free, launches - free, riccati_lq_wide_cuda.launches, sweeps.calls)
+    want = (loop_launches(res.mhe_iterations), loop_launches(res.iterations), 0, 0)
+    conv, conv_m = float(res.converged.float().mean()), float(res.mhe_converged.float().mean())
+    est = (res.X_est[:, -1] - res.X[:, -1]).abs().cpu().numpy()
+    err = final_error(res.X.cpu())
+    log(f"phase13(c) fused_closed_loop_mhe_fn B={B_MHE_LOOP} N={N}, window {N_MHE}, "
+        f"{STEPS_MHE_LOOP} steps float32: {t:.4f} s wall, "
+        f"{B_MHE_LOOP * STEPS_MHE_LOOP / t:.1f} scenario-steps/s; riccati_lq launches "
+        f"{launches}, of them free-x0 {free} ({free / STEPS_MHE_LOOP:g} per step; = the "
+        f"window solves' slowest iterations {want[0]}), the controller's {got[1]} (= "
+        f"{want[1]}); riccati_lq_wide launches {got[2]}, plain backward sweeps "
+        f"{got[3]}; controller converged {conv:.5f}, windows converged {conv_m:.5f}; final "
+        f"|x_est - x| max {est.max():.3e} p99 {np.quantile(est, 0.99):.3e}; final |x - "
+        f"x_eq| max {err.max():.3e}")
+    assert got == want, ("free-x0, controller, wide launches, plain sweeps", got, want)
+    assert conv > 0.95 and conv_m > 0.9, (conv, conv_m)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        run_d, inputs_d = mhe_loop(f64, dev, B_CHECK_MHE)
+        out[dev] = [v.cpu() for v in run_d(*inputs_d)]
+    dev_x = max(float((out["cuda"][k] - out["cpu"][k]).abs().max()) for k in (0, 1, 2))
+    log(f"phase13(c) float64 B={B_CHECK_MHE}: max|card - CPU| over X, X_est, U {dev_x:.3e}")
+    assert dev_x <= 1e-9, dev_x
+    report["riccati_lq"].setdefault("phase13_launches", {})["mhe_loop_controller"] = got[1]
+    report["riccati_lq_free_x0"]["phase13_launches"] = {"mhe_loop": free}
+
+
+def phase13_ekf_loop(report):
+    """(d) fused_closed_loop_ekf_fn with measurement noise from a seeded
+    CUDA generator."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import EKF
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.parallel import fused_closed_loop_ekf_fn
+    f32 = torch.float32
+
+    def build(steps):
+        ekf = EKF(cstr_schaffner_and_zeitz())
+        ekf.Q, ekf.R = 1e-4 * np.eye(2), np.array([[1e-4]])
+        ekf.set_initial_parameter_values(np.ones(6))
+        ekf.setup(dt=0.1, device="cuda", dtype=f32)
+        return fused_closed_loop_ekf_fn(build_cstr_nmpc(FLAGSHIP, f32), cstr_plant(f32),
+                                        ekf, steps, plant_p=np.ones(6),
+                                        meas_noise_std=np.array([0.005]))
+    x0 = flagship_x0s()
+    x_est0 = x0 + 0.02 * np.random.default_rng(7).standard_normal(x0.shape)
+    P0 = 0.05 * np.eye(2)
+
+    def gen(seed):
+        return torch.Generator("cuda").manual_seed(seed)
+    build(1)(x0[:256], x_est0[:256], P0, generator=gen(1))          # untimed warm-up
+    run = build(STEPS_LOOP)
+    riccati_lq_cuda.launches = 0
+    res, t = synced(lambda: run(x0, x_est0, P0, generator=gen(0)))
+    launches = riccati_lq_cuda.launches
+    conv = float(res.converged.float().mean())
+    err = final_error(res.X.cpu())
+    est = (res.X_est[:, -1] - res.X[:, -1]).abs().cpu().numpy().max(axis=1)
+    log(f"phase13(d) fused_closed_loop_ekf_fn B={B_MAIN} N={N} {STEPS_LOOP} steps "
+        f"float32, measurement noise 0.005 (CUDA generator, seed 0): {t:.4f} s wall, "
+        f"{B_MAIN * STEPS_LOOP / t:.1f} scenario-steps/s; riccati_lq launches {launches}; "
+        f"converged {conv:.5f}; final |x - x_eq| p99 {np.quantile(err, 0.99):.3e} max "
+        f"{err.max():.3e}; final |x_est - x| p99 {np.quantile(est, 0.99):.3e} max "
+        f"{est.max():.3e}")
+    assert launches == loop_launches(res.iterations) and conv > 0.95, (launches, conv)
+    assert np.quantile(err, 0.99) < 3e-2 and np.quantile(est, 0.99) < 2e-2
+    again = build(2)(x0[:1024], x_est0[:1024], P0, generator=gen(0))
+    first = build(2)(x0[:1024], x_est0[:1024], P0, generator=gen(0))
+    same = all(torch.equal(a, b) for a, b in zip(again, first))
+    log(f"phase13(d) the same generator seed twice (B=1024, 2 steps): the same bits {same}")
+    assert same
+    report["riccati_lq"].setdefault("phase13_launches", {})["ekf_loop"] = launches
+
+
+def tvp_nmpc(options, dtype, device="cuda"):
+    """The flagship controller with E time-varying: a seeded sequence of 40
+    values (1 + 0.1 sin + 0.02 N(0,1), default_rng(TVP_E_SEED)), read at
+    the closed-loop step and wrapping around."""
+    import numpy as np
+    from hilo_mpc_tpu_torch import NMPC
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    E = (1.0 + 0.1 * np.sin(np.linspace(0.0, 6.0, 40))
+         + 0.02 * np.random.default_rng(TVP_E_SEED).standard_normal(40))
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = N
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=list(X_EQ))
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    nmpc.set_parameters([1.0] * 6)
+    nmpc.set_time_varying_parameters(["E"], {"E": E})
+    nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **options},
+               device=device, dtype=dtype)
+    return nmpc
+
+
+def phase13_tvp(report):
+    """(e) A time-varying-parameter CSTR through the general path and
+    through pallas_full (the emitted problem reads p per stage from
+    theta), the whole-solve kernel against its plain version."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda, solve_ocp_full_reference
+    f32 = torch.float32
+    x0s = flagship_x0s()
+    gen = tvp_nmpc(FLAGSHIP, f32)
+    whole = tvp_nmpc({**FLAGSHIP, "pallas_full": True}, f32)
+    for ctl in (gen, whole):
+        ctl._step_count = 7              # seven steps into the table
+        ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256]))    # untimed warm-up
+    args = gen.prepare_batch(x0s)
+    assert torch.equal(args[0], whole.prepare_batch(x0s[:1])[0][0].expand_as(args[0]))
+    assert len(set(args[0][0, :, 2 + 5].tolist())) > 1   # E varies along the horizon
+    riccati_lq_cuda.launches = solve_ocp_full_cuda.launches = 0
+    sol_g, t_g = synced(lambda: gen.solve_batch_fn()(*args))
+    ric = riccati_lq_cuda.launches
+    sol_w, t_w = synced(lambda: whole.solve_batch_fn()(*args))
+    wip = solve_ocp_full_cuda.launches
+    assert wip == 1 and riccati_lq_cuda.launches == ric, (wip, riccati_lq_cuda.launches, ric)
+    plain, t_p = synced(lambda: solve_ocp_full_reference(whole._funcs, whole._dims,
+                                                         whole._bounds, *args,
+                                                         whole._ip_opts))
+    both = sol_w.converged & plain.converged
+    dev_k = float((sol_w.U - plain.U).abs()[both].max())
+    both_r = sol_w.converged & sol_g.converged
+    dev_r = float((sol_w.U - sol_g.U).abs()[both_r].max())
+    conv_g, conv_w = float(sol_g.converged.float().mean()), float(sol_w.converged.float().mean())
+    log(f"phase13(e) tvp CSTR (E from a table of 40, step 7) B={B_MAIN} N={N} float32: "
+        f"general path {t_g:.4f} s ({B_MAIN / t_g:.1f} solves/s, riccati_lq launches {ric}, "
+        f"converged {conv_g:.5f}); pallas_full {t_w * 1e3:.3f} ms ({B_MAIN / t_w:.1f} "
+        f"solves/s, whole_ip launches {wip}, converged {conv_w:.5f}); its plain version "
+        f"{t_p:.4f} s; max|U_kernel - U_plain| {dev_k:.3e} and max|U_whole - U_general| "
+        f"{dev_r:.3e} on the jointly converged ({float(both.float().mean()):.5f}, "
+        f"{float(both_r.float().mean()):.5f})")
+    assert min(conv_g, conv_w) >= 0.97 and dev_k <= 5e-4 and dev_r <= 5e-4, \
+        (conv_g, conv_w, dev_k, dev_r)
+    report["riccati_lq"].setdefault("phase13_launches", {})["tvp_general"] = ric
+    report["whole_ip"]["phase13_launches"] = {"tvp": wip}
+
+
+def phase13_options(report):
+    """(f) parallel_riccati and bf16 storage on the flagship, card against
+    CPU; the parallel route launches no Riccati kernel (as the JAX solver
+    launches no Pallas kernel under the option)."""
+    import dataclasses
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    f32, f64 = torch.float32, torch.float64
+    x0s = flagship_x0s()
+    base = build_cstr_nmpc(FLAGSHIP, f32)
+    args = base.prepare_batch(x0s)
+    ref, t_ref = synced(lambda: base.solve_batch_fn()(*args))
+    rows = {}
+    for name, extra in (("parallel_riccati", {"parallel_riccati": True}),
+                        ("bf16 storage", {"lin_storage_dtype": "bfloat16"})):
+        ctl = build_cstr_nmpc({**FLAGSHIP, **extra}, f32)
+        ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256]))       # untimed warm-up
+        riccati_lq_cuda.launches = 0
+        sol, t = synced(lambda: ctl.solve_batch_fn()(*args))
+        ric = riccati_lq_cuda.launches
+        both = sol.converged & ref.converged
+        dev = float((sol.U - ref.U).abs()[both].max())
+        rows[name] = (sol, ric)
+        log(f"phase13(f) {name} flagship B={B_MAIN} float32: {t:.4f} s ({B_MAIN / t:.1f} "
+            f"solves/s; the Riccati-kernel route {t_ref:.4f} s), riccati_lq launches {ric}, "
+            f"converged {float(sol.converged.float().mean()):.5f}, iterations max "
+            f"{int(sol.iterations.max())}; max|U - U_kernel route| on the jointly "
+            f"converged {dev:.3e}")
+        # bf16-rounded blocks make each Newton step inexact, and some
+        # scenarios stall above tol 1e-4, as on the JAX package's route
+        assert float(sol.converged.float().mean()) >= (0.95 if "bf16" in name else 0.97)
+    assert rows["parallel_riccati"][1] == 0 and rows["bf16 storage"][1] > 0
+    # card against CPU: the parallel route in float64 (<= 1e-9, equal
+    # iterations); bf16 storage in float32 within the CPU's own bf16 stray
+    # from its float32 route + 1e-4; float64 ignores bf16 storage bit for bit
+    card_vs_cpu("phase13(f) parallel_riccati card vs CPU",
+                lambda d: build_cstr_nmpc({**FLAGSHIP, "parallel_riccati": True}, f64,
+                                          device=d), x0s[:B_CHECK])
+    sub = x0s[:B_CHECK]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for name, extra in (("f32", {}), ("bf16", {"lin_storage_dtype": "bfloat16"})):
+            ctl = build_cstr_nmpc({**FLAGSHIP, **extra}, f32, device=dev)
+            out[dev, name] = ctl.solve_batch_fn()(*ctl.prepare_batch(sub)).U.cpu()
+    stray = float((out["cpu", "bf16"] - out["cpu", "f32"]).abs().max())
+    dev_bf = float((out["cuda", "bf16"] - out["cpu", "bf16"]).abs().max())
+    b64 = build_cstr_nmpc(FLAGSHIP, f64)
+    s64 = build_cstr_nmpc({**FLAGSHIP, "lin_storage_dtype": "bfloat16"}, f64)
+    a64 = b64.prepare_batch(sub)
+    same = all(torch.equal(a, b) for a, b in zip(b64.solve_batch_fn()(*a64),
+                                                 s64.solve_batch_fn()(*a64)))
+    log(f"phase13(f) bf16 storage B={B_CHECK} float32: max|U_card - U_cpu| {dev_bf:.3e} "
+        f"(the CPU's bf16 stray from float32 {stray:.3e}); float64 ignores it bit for bit "
+        f"on the card: {same}")
+    assert dev_bf <= stray + 1e-4 and same, (dev_bf, stray, same)
+    assert dataclasses.asdict(s64._ip_opts)["lin_storage_dtype"] == "bfloat16"
+    report["riccati_lq"].setdefault("phase13_launches", {})["bf16_storage"] = \
+        rows["bf16 storage"][1]
+
+
+# (N, B) of the LQ-step comparison: one scenario, and B·N = 131072·20
+LQ_HORIZONS = ((20, 1), (20, 131072), (200, 1), (200, 13107), (2000, 1), (2000, 1310))
+
+
+def phase13_lq_horizons(report):
+    """(f) The LQ step alone at the flagship widths (nx, nu) = (2, 1):
+    ``parallel_riccati``'s doubling scans (ops/riccati.py:solve_lq_parallel)
+    against the Riccati kernel's route (make_lq_solver) over horizons the
+    scans are meant for, one scenario and B·N = 131072·20, on phase 1's
+    random problems (CUDA events, median of 3 after one untimed call)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.riccati import make_lq_solver, solve_lq_parallel
+    kernel = make_lq_solver(reg=1e-8)
+    rows = report["phase13_lq_ms"] = {}
+    for N_h, B in LQ_HORIZONS:
+        args = lq_problem(B, N_h, 2, 1, torch.float32, seed=N_h + B)
+        times, outs = {}, {}
+        for name, fn in (("kernel", kernel),
+                         ("scans", lambda *a: solve_lq_parallel(*a, reg=1e-8))):
+            outs[name] = fn(*args)
+            ev = []
+            for _ in range(3):
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                t0.record()
+                fn(*args)
+                t1.record()
+                torch.cuda.synchronize()
+                ev.append(t0.elapsed_time(t1))
+            times[name] = float(np.median(ev))
+        dU_k, dU_s = outs["kernel"].dU, outs["scans"].dU
+        scale = float(dU_k.abs().max())
+        dev = float((dU_k - dU_s).abs().max())
+        log(f"phase13(f) LQ step N={N_h} B={B} (2, 1) float32: Riccati kernel route "
+            f"{times['kernel']:.4f} ms, parallel_riccati's scans {times['scans']:.4f} ms "
+            f"({times['scans'] / times['kernel']:.2f}x); max|dU_scans - dU_kernel| "
+            f"{dev:.3e} (max|dU| {scale:.3e})")
+        assert bool(torch.isfinite(dU_s).all()) and dev <= 1e-3 * max(scale, 1.0), \
+            (N_h, B, dev, scale)
+        rows[f"N={N_h} B={B}"] = (times["kernel"], times["scans"])
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -2903,18 +3394,11 @@ def main():
                 f"dynamic shared memory")
 
     report = {}
-    phase1(report)
-    phase2(report)
-    phase3()
-    phase4(report)
-    phase5()
-    phase6(report)
-    phase7(report)
-    phase8()
-    phase9()
-    phase10(report)
-    phase11(report)
-    phase12(report)
+    for phase in (phase1, phase2, phase3, phase4, phase5, phase6, phase7, phase8,
+                  phase9, phase10, phase11, phase12, phase13):
+        t = time.perf_counter()
+        phase(report) if phase.__code__.co_argcount else phase()
+        log(f"{phase.__name__} took {time.perf_counter() - t:.1f} s")
     free_x0 = ("hilo_mpc_tpu/ops/pallas_kernels.py:169 with the free-x0 solve at "
                "hilo_mpc_tpu/ops/ip_solver.py:633-642")
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
@@ -2943,11 +3427,11 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         # the whole-solve kernel's soft-box problem, the
-                        # CROSS build's float64 instance, phase 11's and
-                        # phase 12's Riccati launches
+                        # CROSS build's float64 instance, phases 11-13's
+                        # launches
                         **{k: v for k, v in r.items()
                            if k.startswith(("soft_box", "float64", "phase11",
-                                            "phase12"))},
+                                            "phase12", "phase13"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, its name kept from its first design)
                         # no single PyTorch call computes any of them:

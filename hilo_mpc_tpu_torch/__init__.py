@@ -1,9 +1,11 @@
 """hilo_mpc_tpu_torch — the PyTorch/CUDA port of hilo_mpc_tpu.
 
 Same flat names as the JAX package for the ported slices (the batched NMPC
-solve, with the whole-solve interior point behind ``pallas_full``; linear
-models, LMPC with its condensed fast-gradient path, LQR; moving-horizon
-estimation, the Kalman filters and the particle filter); every Pallas kernel
+solve, with the whole-solve interior point behind ``pallas_full``, and its
+real-time iteration; the open-loop OCP; linear models, LMPC with its
+condensed fast-gradient path, LQR, PID; moving-horizon estimation, the
+Kalman filters and the particle filter; ``SimpleControlLoop`` and the
+batched closed loops of ``parallel``); every Pallas kernel
 of the JAX package is a CUDA kernel written by hand for Hopper
 (ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
 ``Model.setup``, ``NMPC.setup``, ``LMPC.setup``, ``LQR.setup`` and each
@@ -15,7 +17,9 @@ README.md, "PyTorch / H100 port".
 from . import library
 from .control.lmpc import LMPC
 from .control.lqr import LinearQuadraticRegulator
-from .control.nmpc import NMPC
+from .control.nmpc import NMPC, OCP, OptimalControlProblem
+from .control.pid import PID
+from .control_loop import SimpleControlLoop
 from .core.model import Model
 from .core.series import TimeSeries
 from .estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
@@ -34,7 +38,8 @@ PF = ParticleFilter
 
 __version__ = "0.8.3"
 
-__all__ = ["Model", "NMPC", "LMPC", "LQR", "LinearQuadraticRegulator",
+__all__ = ["Model", "NMPC", "OCP", "OptimalControlProblem", "PID",
+           "SimpleControlLoop", "LMPC", "LQR", "LinearQuadraticRegulator",
            "MHE", "MovingHorizonEstimator", "KF", "KalmanFilter", "EKF",
            "ExtendedKalmanFilter", "UKF", "UnscentedKalmanFilter", "PF",
            "ParticleFilter", "TimeSeries", "library", "IPOptions", "OCPBounds",

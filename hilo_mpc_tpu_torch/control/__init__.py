@@ -1,2 +1,3 @@
-from .nmpc import NMPC
+from .nmpc import NMPC, OCP, OptimalControlProblem
+from .pid import PID
 from .costs import GenericConstraint, GenericCost, QuadraticCost

@@ -9,7 +9,13 @@ augmented Lagrangian), scaling, time-invariant parameters, warm starts and
 multi-start; and the augmented formulations: Δu costs and bounds and a
 control horizon (the state carries u_prev, the control is Δu), path
 following (a path parameter state and its virtual velocity control) and
-minimum time (a dt-carrying state and a stage-0 dt-adjust control). The
+minimum time (a dt-carrying state and a stage-0 dt-adjust control);
+time-varying parameters (a (T, n_tvp) table read by the closed-loop step
+count, wrapping around); real-time iteration (``rti_prepare`` /
+``rti_feedback`` and their batched forms: a solve at the predicted state
+ahead of the measurement, then the first move corrected by the first-stage
+Riccati gain, a host-side matvec and clip); the solver's iterate history
+(``ipopt_debugger``); and the open-loop ``OptimalControlProblem``. The
 multiple-shooting structure is
 kept stagewise and solved by the batched interior point of ops/ip_solver.py,
 whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors. With
@@ -30,9 +36,10 @@ The model may be a DAE, integrated by any method of core/integrators.py
 zeros. Such problems, and any implicit integrator, take the general path
 under ``pallas_full`` (with a warning naming the reason).
 
-Not ported yet (NotImplementedError at the setter): discrete inputs,
-time-varying parameters and RTI (ROADMAP.md §A.5). There is no trace
-registry: PyTorch runs eagerly, so there is nothing to trace or share.
+Not ported yet (NotImplementedError at the setter): discrete inputs
+(ROADMAP.md §A.5.5); plotting (``plot_iterations``, ROADMAP.md §A.10). There
+is no trace registry: PyTorch runs eagerly, so there is nothing to trace or
+share.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import hessian, jacrev, vmap
 
 from ..core.integrators import IMPLICIT_METHODS, IntegratorSpec, make_step
 from ..core.model import Model, one_row_last, resolve_device
@@ -50,6 +58,7 @@ from ..core.series import TimeSeries
 from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
+from ..ops.riccati import backward_sweep
 from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_problem,
                             whole_ip_supported)
 from .costs import GenericCost, QuadraticCost, make_constraint
@@ -65,11 +74,6 @@ _NLP_OPTION_KEYS = {
     "mi_max_enum",
     "initial_guess",
 }
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"— ROADMAP.md §A.5")
 
 
 class NMPC:
@@ -100,6 +104,8 @@ class NMPC:
         self._u_scaling = np.ones(nu)
         self._x_guess: Optional[np.ndarray] = None
         self._u_guess = np.zeros(nu)
+        self._tvp_names: list = []
+        self._tvp_values: Optional[np.ndarray] = None   # (T, n_tvp)
         self._p_defaults: Optional[np.ndarray] = None
 
         self._path_following = False
@@ -117,6 +123,16 @@ class NMPC:
         self._u_old = np.zeros(nu)
         self._theta_path0 = 0.0
         self._warm = None          # previous (X, U) scaled solution for warm start
+        self._rti = None           # prepared RTI data (rti_prepare/rti_feedback)
+        self._rti_pending = None   # (xs0, U, theta) applied by the last feedback
+        # int k: the RTI prepare (single and batched) runs exactly k
+        # interior-point iterations (classical single-iteration RTI at
+        # k = 1); None: a full solve
+        self.rti_gn_iterations = None
+        self._rti_batch = None     # prepared batched-RTI data
+        self._rti_batch_warm = None  # the last batched-RTI solution (X, U)
+        self._rti_batch_u_old = None  # the fleet's applied inputs (Δu)
+        self.iteration_history = None
         self.solution: Optional[TimeSeries] = None
         self.last_prediction = None
         self.stats: dict = {}
@@ -244,17 +260,38 @@ class NMPC:
                           "dt_max": (np.inf if dt_max is None else float(dt_max))}
         return self
 
+    def set_time_varying_parameters(self, names, values=None):
+        """Declare model parameters whose values vary over time; ``values``
+        as for ``set_tvp_values``."""
+        if isinstance(names, str):
+            names = [names]
+        for nm in names:
+            if nm not in self._model.parameters:
+                raise ValueError(f"{nm!r} is not a model parameter")
+        self._tvp_names = list(names)
+        if values is not None:
+            self.set_tvp_values(values)
+        return self
+
+    def set_tvp_values(self, values):
+        """values: dict name -> (T,) array, or array (T, n_tvp). Row k is
+        read at closed-loop step k, wrapping around after T rows."""
+        if isinstance(values, dict):
+            cols = [np.asarray(values[nm], dtype=float).ravel()
+                    for nm in self._tvp_names]
+            T = max(c.size for c in cols)
+            arr = np.stack([np.resize(c, T) for c in cols], axis=1)
+        else:
+            arr = np.atleast_2d(np.asarray(values, dtype=float))
+            if arr.shape[1] != len(self._tvp_names):
+                arr = arr.T
+        self._tvp_values = arr
+        return self
+
     # -- features of later slices ---------------------------------------------
     def set_discrete_inputs(self, *args, **kwargs):
-        raise _not_ported("discrete (mixed-integer) inputs")
-
-    def set_time_varying_parameters(self, *args, **kwargs):
-        raise _not_ported("time-varying parameters")
-
-    def rti_prepare(self, *args, **kwargs):
-        raise _not_ported("real-time iteration")
-
-    rti_feedback = rti_prepare_batch = rti_feedback_batch = rti_prepare
+        raise NotImplementedError("discrete (mixed-integer) inputs are not ported to "
+                                  "the PyTorch package yet — ROADMAP.md §A.5.5")
 
     # -- setup ----------------------------------------------------------------
     def setup(self, options: Optional[dict] = None, solver_options: Optional[dict]
@@ -607,6 +644,9 @@ class NMPC:
         self._mu_cold = float(ip_opts.mu_init)
         self._mu_warm = min(float(ip_opts.mu_init), 1e-3)
 
+        # host copies of the bounds for the RTI feedback phase (no device call)
+        self._bounds_np = OCPBounds(*(b.cpu().numpy() for b in self._bounds))
+
         self.solution = TimeSeries(model.time_unit)
         self.solution.register("x", model.dynamical_states)
         self.solution.register("u", model.inputs)
@@ -616,6 +656,8 @@ class NMPC:
         self._time = 0.0
         self._step_count = 0
         self._warm = None
+        self._rti = self._rti_pending = self._rti_batch = None
+        self._rti_batch_warm = self._rti_batch_u_old = None
         return self
 
     def is_setup(self) -> bool:
@@ -625,22 +667,63 @@ class NMPC:
         return torch.as_tensor(np.asarray(a, dtype=float), dtype=self._dtype,
                                device=self._device)
 
-    def _solve(self, theta_B, xs0_B, X_B, U_B, mu0):
+    def _solve(self, theta_B, xs0_B, X_B, U_B, mu0, options=None):
+        """The general path's batched solve; with ``record_iterates`` the
+        pair (solution, history)."""
         return solve_ocp(self._funcs, self._dims, self._bounds, theta_B, xs0_B,
-                         X_B, U_B, options=self._ip_opts, fix_x0=True, mu0=mu0)
+                         X_B, U_B, options=options or self._ip_opts, fix_x0=True,
+                         mu0=mu0)
+
+    def _keep_history(self, out, first=False):
+        """The solution of a solve; under ``record_iterates`` its history
+        goes to ``iteration_history`` as numpy (one scenario's when
+        ``first``, as the JAX package keeps it for ``optimize``)."""
+        if not self._ip_opts.record_iterates:
+            return out
+        sol, hist = out
+        self.iteration_history = {k: (v[0] if first else v).cpu().numpy()
+                                  for k, v in hist.items()}
+        return sol
 
     # -- theta assembly --------------------------------------------------------
-    def _assemble_p_rows(self, cp, N):
+    def _assemble_p_rows(self, cp, tvp, N, step0):
+        """(N+1, n_p) parameter rows: the defaults or ``cp`` (all parameters,
+        or only the constant ones), then the time-varying columns from
+        ``tvp`` (rows; one row holds over the horizon, a short table is
+        padded with its last row) or else from the stored table at rows
+        step0.. (wrapping around)."""
         n_p = self._model.n_p
+        p_rows = np.zeros((N + 1, n_p))
         base = np.zeros(n_p)
         if self._p_defaults is not None:
             base[:] = self._p_defaults
         if cp is not None:
             cp = np.asarray(cp, dtype=float).ravel()
-            if cp.size != n_p:
+            const_idx = [i for i, nm in enumerate(self._model.parameters)
+                         if nm not in self._tvp_names]
+            if cp.size == n_p:
+                base[:] = cp
+            elif cp.size == len(const_idx):
+                base[const_idx] = cp
+            else:
                 raise ValueError(f"cp has {cp.size} entries")
-            base[:] = cp
-        return np.tile(base, (N + 1, 1))
+        p_rows[:] = base
+        if self._tvp_names:
+            vals = tvp
+            if vals is None:
+                if self._tvp_values is None:
+                    raise ValueError("time-varying parameters declared but no values")
+                T = self._tvp_values.shape[0]
+                vals = self._tvp_values[(step0 + np.arange(N + 1)) % T]
+            else:
+                vals = np.atleast_2d(np.asarray(vals, dtype=float))
+                if vals.shape[0] == 1:
+                    vals = np.tile(vals, (N + 1, 1))
+                elif vals.shape[0] < N + 1:
+                    vals = np.vstack([vals, np.tile(vals[-1], (N + 1 - vals.shape[0], 1))])
+            tvp_idx = [self._model.parameters.index(nm) for nm in self._tvp_names]
+            p_rows[:, tvp_idx] = vals[:N + 1]
+        return p_rows
 
     def _ref_dict_column(self, name, value, N, step0, what):
         """One reference column for a named variable from a ref_sc/ref_tc dict
@@ -704,12 +787,12 @@ class NMPC:
             return np.concatenate(cols, axis=1)
         return np.zeros((N + 1, 0))
 
-    def _assemble_theta(self, cp, ref, ref_sc=None, ref_tc=None):
-        N = self._horizon
+    def _assemble_theta(self, cp, tvp, ref=None, N=None, ref_sc=None, ref_tc=None):
+        N = N or self._horizon
         step0 = self._step_count
         t_col = self._time + self._dt * np.arange(N + 1)
         dt_col = np.full(N + 1, self._dt)
-        p_rows = self._assemble_p_rows(cp, N)
+        p_rows = self._assemble_p_rows(cp, tvp, N, step0)
         refs_s = self._assemble_refs(
             [t for t in self.quad_stage_cost.terms if t.runtime_ref], ref, N,
             step0, ref_dict=ref_sc)
@@ -817,14 +900,15 @@ class NMPC:
         if x0.size != self._model.n_x:
             raise ValueError(f"x0 has {x0.size} entries, expected {self._model.n_x} "
                              f"({self._model.dynamical_states})")
-        theta = self._assemble_theta(cp, ref, ref_sc=ref_sc, ref_tc=ref_tc)
+        theta = self._assemble_theta(cp, tvp, ref, ref_sc=ref_sc, ref_tc=ref_tc)
         xs0 = self._solver_x0(x0)
         X_init, U_init = self._initial_trajectory(xs0, theta)
         warm = self._warm is not None and self._warm_start
         mu0 = self._mu_warm if warm else self._mu_cold
         th_t, xs0_t = self._tensor(theta)[None], self._tensor(xs0)[None]
         X_t = self._tensor(X_init)[None]
-        sol = self._solve(th_t, xs0_t, X_t, self._tensor(U_init)[None], mu0)
+        sol = self._keep_history(
+            self._solve(th_t, xs0_t, X_t, self._tensor(U_init)[None], mu0), first=True)
         X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
 
         def scalar(v):
@@ -843,6 +927,8 @@ class NMPC:
                 U_r = U_init + self._widen(0.5 * rng.standard_normal(shape))
                 sol_r = self._solve(th_t, xs0_t, X_t, self._tensor(U_r)[None],
                                     self._mu_cold)
+                if self._ip_opts.record_iterates:
+                    sol_r = sol_r[0]    # the history kept is the first solve's
                 if scalar(sol_r.converged) and scalar(sol_r.objective) < best_obj:
                     sol, best_obj = sol_r, scalar(sol_r.objective)
                     X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
@@ -882,10 +968,178 @@ class NMPC:
                                 float(self.stats["converged"])]))
         return u0
 
+    # -- real-time iteration (prepare / feedback split) ----------------------
+    def rti_gain(self, X, U, theta):
+        """First-stage Riccati feedback gains K_0 (B, nus, nxs) at solved
+        trajectories X (B, N+1, nxs), U (B, N, nus), theta (B, N+1, n_theta),
+        in solver scaling: the dynamics Jacobians and the stage-cost
+        Hessians at (X, U) by ``torch.func`` (``jacrev`` / ``hessian`` under
+        one ``vmap`` over all B·N stages), the terminal Hessian, and the
+        plain backward sweep (ops/riccati.py) with reg = 1e-8, as the JAX
+        package's ``_build_rti_gain``. K_0 is the Gauss-Newton approximation
+        of ∂u0*/∂x0 (cost curvature only: the λᵀ∇²f term is left out, as in
+        RTI schemes). A plain computation in both packages: the Riccati
+        kernel does not run here."""
+        f, d = self._funcs, self._dims
+        Bn, N, nxs, nus = X.shape[0], d.N, d.nx, d.nu
+        xs = X[:, :-1].reshape(Bn * N, nxs)
+        us = U.reshape(Bn * N, nus)
+        th = theta[:, :-1].reshape(Bn * N, -1)
+        A, Bm = vmap(jacrev(f.dyn, argnums=(0, 1)))(xs, us, th)
+        (Q, _), (S, R) = vmap(hessian(f.stage_cost, argnums=(0, 1)))(xs, us, th)
+        P_T = vmap(hessian(f.term_cost))(X[:, -1], theta[:, -1])
+        z = X.new_zeros
+
+        def stages(M):
+            return M.reshape(Bn, N, *M.shape[1:])
+
+        K, *_ = backward_sweep(stages(A), stages(Bm), stages(Q), stages(S), stages(R),
+                               z(Bn, N, nxs), z(Bn, N, nus), z(Bn, N, nxs), P_T,
+                               z(Bn, nxs), reg=1e-8)
+        return K[:, 0]
+
+    def _rti_gn_options(self) -> IPOptions:
+        """Classical RTI's prepare: exactly ``rti_gn_iterations``
+        interior-point iterations (each one Riccati factor and solve), no
+        early exit, the warm barrier, no history."""
+        return dataclasses.replace(
+            self._ip_opts, max_iter=int(self.rti_gn_iterations), early_exit=False,
+            mu_init=min(self._ip_opts.mu_init, 1e-3), record_iterates=False)
+
+    def _check_rti(self, what="RTI mode"):
+        if not self._setup_done:
+            raise RuntimeError("call setup() first")
+        if self._path_following or self._min_time is not None:
+            raise NotImplementedError(
+                f"{what} supports the standard and Δu-augmented NMPC "
+                f"formulations (no path following, minimum time or discrete "
+                f"inputs)")
+
+    def rti_prepare(self, x_pred=None, cp=None, tvp=None, ref=None,
+                    ref_sc=None, ref_tc=None):
+        """Preparation phase of real-time-iteration NMPC: solve the horizon
+        problem at the PREDICTED next state (before the measurement exists)
+        and keep the first input and the first-stage Riccati feedback gain;
+        ``rti_feedback(x0)`` then answers the measured state at once.
+
+        ``x_pred`` defaults to the one-step prediction from the state and
+        move of the last feedback (one device call here, so the feedback
+        phase needs none), else the last solve's prediction; the first call
+        must pass it. With ``rti_gn_iterations = k`` the solve runs exactly
+        k interior-point iterations from the shifted previous trajectory."""
+        self._check_rti()
+        t0 = _time.perf_counter()
+        nx = self._model.n_x
+        if x_pred is None:
+            pend = self._rti_pending
+            if pend is not None:
+                xs_pred = self._funcs.dyn(self._tensor(pend["xs0"]),
+                                          self._tensor(pend["U"][0]),
+                                          self._tensor(pend["theta"][0]))
+                x_pred = xs_pred.cpu().numpy()[:nx] * self._x_scaling
+            elif self.last_prediction is not None:
+                x_pred = self.last_prediction["x"][1]
+            else:
+                raise RuntimeError(
+                    "no prediction available yet — pass x_pred= on the first "
+                    "rti_prepare() call (e.g. the current measured state)")
+        x_pred = np.asarray(x_pred, dtype=float).ravel()
+        if x_pred.size != nx:
+            raise ValueError(f"x_pred has {x_pred.size} entries, expected {nx}")
+        self._rti_pending = None
+        theta = self._assemble_theta(cp, tvp, ref, ref_sc=ref_sc, ref_tc=ref_tc)
+        xs_pred = self._solver_x0(x_pred)
+        X_init, U_init = self._initial_trajectory(xs_pred, theta)
+        args = (self._tensor(theta)[None], self._tensor(xs_pred)[None],
+                self._tensor(X_init)[None], self._tensor(U_init)[None])
+        if self.rti_gn_iterations:
+            sol = self._solve(*args, mu0=None, options=self._rti_gn_options())
+        else:
+            warm = self._warm is not None and self._warm_start
+            sol = self._keep_history(
+                self._solve(*args, self._mu_warm if warm else self._mu_cold), first=True)
+        K0 = self.rti_gain(sol.X, sol.U, args[0])[0].cpu().numpy()
+        X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
+        self._warm = (X, U)
+        nu = self._model.n_u
+        # rti_feedback advances _time before the next prepare, so _time is
+        # the sampling instant of x_pred on either path
+        self.last_prediction = {
+            "x": X[:, :nx] * self._x_scaling,
+            "u": (X[1:, nx:nx + nu] if self._augment_du else U[:, :nu]) * self._u_scaling,
+            "t": self._time + self._dt * np.arange(self._horizon + 1),
+        }
+        self._rti = {
+            "xs_pred": xs_pred, "theta": theta, "X": X, "U": U, "K0": K0,
+            "stats": {"iterations": int(sol.iterations[0]),
+                      "kkt_error": float(sol.kkt_error[0]),
+                      "objective": float(sol.objective[0]),
+                      "converged": bool(sol.converged[0]),
+                      "status": int(sol.status[0]),
+                      "mode": "rti-gn" if self.rti_gn_iterations else "rti",
+                      "t_prepare": _time.perf_counter() - t0},
+        }
+        return self._rti["stats"]
+
+    def rti_feedback(self, x0):
+        """Feedback phase: the control for the measured state,
+        u_0 = clip(u_0* + K_0 (x0 − x_pred)), from what ``rti_prepare``
+        kept — a numpy matvec and clip, no device call (the next prepare
+        propagates the state). Under the Δu augmentation the move is Δu:
+        clipped to its bounds, u = u_prev + Δu clipped to the input box and
+        the clip folded back into Δu. Updates the solution series like
+        ``optimize``."""
+        if self._rti is None:
+            raise RuntimeError("call rti_prepare() first")
+        t0 = _time.perf_counter()
+        x0 = np.asarray(x0, dtype=float).ravel()
+        if x0.size != self._model.n_x:
+            raise ValueError(f"x0 has {x0.size} entries, expected {self._model.n_x}")
+        d = self._rti
+        b = self._bounds_np
+        xs0 = self._solver_x0(x0)
+        U = d["U"].copy()
+        U[0] = np.clip(U[0] + d["K0"] @ (xs0 - d["xs_pred"]), b.lbu[0], b.ubu[0])
+        nx, nu = self._model.n_x, self._model.n_u
+        if self._augment_du:
+            u_s = np.clip(xs0[nx:nx + nu] + U[0, :nu], b.lbx[1, nx:nx + nu],
+                          b.ubx[1, nx:nx + nu])
+            U[0, :nu] = u_s - xs0[nx:nx + nu]
+            u0 = u_s * self._u_scaling
+        else:
+            u0 = U[0, :nu] * self._u_scaling
+        self._u_old = u0.copy()
+        self._rti_pending = {"xs0": xs0, "U": U, "theta": d["theta"]}
+        self._time += self._dt
+        self._step_count += 1
+        self.stats = {**d["stats"], "phase": "rti",
+                      "t_feedback": _time.perf_counter() - t0,
+                      "extime": d["stats"]["t_prepare"]}
+        if self.solution is not None:
+            self.solution.append(
+                self._time, x=x0, u=u0,
+                stats=np.array([self.stats["iterations"], self.stats["kkt_error"],
+                                self.stats["t_feedback"] * 1e3,
+                                float(self.stats["converged"])]))
+        self._rti = None
+        return u0
+
+    def plot_iterations(self, save_as=None, show=False):
+        """The recorded iterate history as a figure: plotting is not ported
+        (``iteration_history`` holds the numbers)."""
+        if self.iteration_history is None:
+            raise RuntimeError("enable options={'ipopt_debugger': True} and call "
+                               "optimize() first")
+        raise NotImplementedError("plotting is not ported to the PyTorch package "
+                                  "yet — ROADMAP.md §A.10; the numbers are in "
+                                  "iteration_history")
+
     # -- batched solve ---------------------------------------------------------
     def solve_batch_fn(self, warm: bool = False):
         """Return a function (theta_B, xs0_B, X_init_B, U_init_B) -> OCPSolution
-        batched over scenarios (tensors on this controller's device).
+        batched over scenarios (tensors on this controller's device); on the
+        general path with ``ipopt_debugger`` the pair (OCPSolution, history)
+        of ``ops/ip_solver.py:solve_ocp``.
 
         warm=True uses the warm-start barrier min(mu_init, 1e-3): pass it when
         the initial trajectories come from a previous solution (the closed-loop
@@ -976,8 +1230,20 @@ class NMPC:
         (theta_B, xs0_B, X_init_B, U_init_B) tensors on this controller's
         device. ``u_prev`` (B, n_u): each scenario's previous input for the
         Δu-augmented formulation (default: this controller's ``_u_old`` for
-        every scenario). ``tvp`` is accepted for API parity and unused
-        (time-varying parameters are not ported)."""
+        every scenario). ``tvp``: the time-varying parameters' rows over the
+        horizon (see ``_assemble_p_rows``), shared by the batch."""
+        theta, xs0 = self._batch_theta_xs0(x0_batch, cp, tvp, ref, u_prev)
+        Bn = xs0.shape[0]
+        N, nus = self._dims.N, self._dims.nu
+        U = self._tensor(self._cold_U())
+        X_B = self._rollout_guess(xs0, theta, U)
+        U_B = U.expand(Bn, N, nus).contiguous()
+        theta_B = theta.expand((Bn,) + tuple(theta.shape)).contiguous()
+        X_B = self._select_cold_guess(X_B, xs0, U_B, theta_B)
+        return theta_B, xs0, X_B, U_B
+
+    def _batch_theta_xs0(self, x0_batch, cp, tvp, ref, u_prev):
+        """theta (N+1, n_theta) and the solver's x0 (B, nxs) of B scenarios."""
         if not self._setup_done:
             raise RuntimeError("call setup() first")
         if u_prev is not None and not self._augment_du:
@@ -985,8 +1251,7 @@ class NMPC:
                              "formulation (Δu costs/bounds or Nc < N)")
         x0_batch = np.atleast_2d(np.asarray(x0_batch, dtype=float))
         Bn = x0_batch.shape[0]
-        N, nus = self._dims.N, self._dims.nu
-        theta = self._tensor(self._assemble_theta(cp, ref))
+        theta = self._tensor(self._assemble_theta(cp, tvp, ref))
         # the appended components of _solver_x0 are the same for every scenario
         xs0_np = np.concatenate([x0_batch / self._x_scaling,
                                  np.tile(self._solver_x0(x0_batch[0])[self._model.n_x:],
@@ -997,25 +1262,97 @@ class NMPC:
             if u_prev.shape != (Bn, nu):
                 raise ValueError(f"u_prev has shape {u_prev.shape}, expected {(Bn, nu)}")
             xs0_np[:, nx:nx + nu] = u_prev / self._u_scaling
-        xs0 = self._tensor(xs0_np)
-        U = self._tensor(self._cold_U())
-        X_B = self._rollout_guess(xs0, theta, U)
-        U_B = U.expand(Bn, N, nus).contiguous()
-        theta_B = theta.expand((Bn,) + tuple(theta.shape)).contiguous()
-        X_B = self._select_cold_guess(X_B, xs0, U_B, theta_B)
-        return theta_B, xs0, X_B, U_B
+        return theta, self._tensor(xs0_np)
 
     def optimize_batch(self, x0_batch, cp=None, tvp=None, ref=None,
                        u_prev=None):
         """Solve B independent MPC problems at once; returns ((B, n_u) first
         moves as numpy, OCPSolution). ``u_prev`` (B, n_u): per-scenario
         previous inputs for the Δu-augmented formulation."""
-        sol = self.solve_batch_fn()(*self.prepare_batch(x0_batch, cp, tvp, ref,
-                                                        u_prev=u_prev))
+        sol = self._keep_history(self.solve_batch_fn()(
+            *self.prepare_batch(x0_batch, cp, tvp, ref, u_prev=u_prev)))
         nx, nu = self._model.n_x, self._model.n_u
         u0 = (sol.X[:, 1, nx:nx + nu] if self._augment_du
               else sol.U[:, 0, :nu]).cpu().numpy() * self._u_scaling
         return u0, sol
+
+    def rti_prepare_batch(self, x_pred_batch, cp=None, tvp=None, ref=None,
+                          warm: bool = False, u_prev=None):
+        """Batched RTI preparation: B horizon problems solved at the
+        predicted states and every first-stage gain, kept for
+        ``rti_feedback_batch``. ``warm=True`` starts each scenario from its
+        own previous solution shifted by one stage (on the device) with the
+        warm barrier. Under the Δu augmentation each scenario's previous
+        input rides in its solver state: ``u_prev`` (B, n_u), by default the
+        inputs the last ``rti_feedback_batch`` applied (zeros before it).
+        With ``rti_gn_iterations = k`` every scenario runs exactly k
+        interior-point iterations, as ``rti_prepare`` does (the JAX
+        package's batched prepare ignores the option and always solves).
+        Returns numpy arrays: {"xs_pred", "U", "K0", "converged"}."""
+        self._check_rti("batched RTI")
+        Bn = np.atleast_2d(np.asarray(x_pred_batch)).shape[0]
+        if self._augment_du and u_prev is None:
+            u_old = self._rti_batch_u_old
+            u_prev = (u_old if u_old is not None and u_old.shape[0] == Bn
+                      else np.zeros((Bn, self._model.n_u)))
+        prev = self._rti_batch_warm
+        if warm and prev is not None and prev[0].shape[0] == Bn:
+            theta, xs0 = self._batch_theta_xs0(x_pred_batch, cp, tvp, ref, u_prev)
+            X_prev, U_prev = prev
+            args = (theta.expand((Bn,) + tuple(theta.shape)).contiguous(), xs0,
+                    torch.cat([xs0[:, None], X_prev[:, 2:], X_prev[:, -1:]], dim=1),
+                    torch.cat([U_prev[:, 1:], U_prev[:, -1:]], dim=1))
+            solve = self.solve_batch_fn(warm=True)
+        else:
+            args = self.prepare_batch(x_pred_batch, cp, tvp, ref, u_prev=u_prev)
+            solve = self.solve_batch_fn()
+        if self.rti_gn_iterations:
+            sol = self._solve(*args, mu0=None, options=self._rti_gn_options())
+        else:
+            sol = self._keep_history(solve(*args))
+        K0 = self.rti_gain(sol.X, sol.U, args[0])
+        self._rti_batch_warm = (sol.X, sol.U)
+        self._rti_batch = {"xs_pred": args[1].cpu().numpy(), "U": sol.U.cpu().numpy(),
+                           "K0": K0.cpu().numpy(),
+                           "converged": sol.converged.cpu().numpy()}
+        return self._rti_batch
+
+    def rti_feedback_batch(self, x0_batch):
+        """Batched feedback phase: (B, n_u) first moves for B measured
+        states from the gains ``rti_prepare_batch`` kept — one einsum and
+        clip in numpy, no device call."""
+        if self._rti_batch is None:
+            raise RuntimeError("call rti_prepare_batch() first")
+        d = self._rti_batch
+        x0_batch = np.atleast_2d(np.asarray(x0_batch, dtype=float))
+        Bn = x0_batch.shape[0]
+        if Bn != d["xs_pred"].shape[0]:
+            raise ValueError(f"x0_batch has {Bn} scenarios, prepared "
+                             f"{d['xs_pred'].shape[0]}")
+        b = self._bounds_np
+        nx, nu = self._model.n_x, self._model.n_u
+        if self._augment_du:
+            # the deviation uses the u_prev the prepare solved with (zero on
+            # the augmented rows); Δu is clipped to its bounds, then
+            # u = u_prev + Δu to the input box (state bounds on those rows)
+            u_old_s = d["xs_pred"][:, nx:nx + nu]
+            xs0 = np.concatenate([x0_batch / self._x_scaling, u_old_s], axis=1)
+            dU0 = np.clip(d["U"][:, 0, :] + np.einsum("bij,bj->bi", d["K0"],
+                                                      xs0 - d["xs_pred"]),
+                          b.lbu[0], b.ubu[0])
+            u_s = np.clip(u_old_s + dU0[:, :nu], b.lbx[1, nx:nx + nu],
+                          b.ubx[1, nx:nx + nu])
+            u0 = u_s * self._u_scaling
+            # carried to the next rti_prepare_batch as the fleet's u_prev
+            self._rti_batch_u_old = u0.copy()
+            self._rti_batch = None
+            return u0
+        xs0 = x0_batch / self._x_scaling
+        U0 = np.clip(d["U"][:, 0, :] + np.einsum("bij,bj->bi", d["K0"],
+                                                 xs0 - d["xs_pred"]),
+                     b.lbu[0], b.ubu[0])
+        self._rti_batch = None
+        return U0[:, :nu] * self._u_scaling
 
     def return_prediction(self):
         """The last solve's predicted {"x", "u", "t"} (unscaled)."""
@@ -1048,3 +1385,31 @@ class NMPC:
                 f"kkt={self.stats.get('kkt_error'):.2e}, "
                 f"{self.stats.get('extime', 0) * 1e3:.1f} ms")
         return "\n".join(lines)
+
+
+class OptimalControlProblem(NMPC):
+    """Open-loop optimal control: one solve, then the control sequence
+    applied step by step (``reset`` solves again at the next call)."""
+
+    _controller_type = "OCP"
+
+    def __init__(self, model, **kwargs):
+        super().__init__(model, **kwargs)
+        self._u_sequence = None
+        self._seq_pos = 0
+
+    def optimize(self, x0, **kwargs):
+        if self._u_sequence is None:
+            super().optimize(x0, **kwargs)
+            self._u_sequence = np.asarray(self.last_prediction["u"])
+            self._seq_pos = 0
+        u = self._u_sequence[min(self._seq_pos, len(self._u_sequence) - 1)]
+        self._seq_pos += 1
+        return u
+
+    def reset(self):
+        self._u_sequence = None
+        self._seq_pos = 0
+
+
+OCP = OptimalControlProblem

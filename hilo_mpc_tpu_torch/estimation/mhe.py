@@ -353,27 +353,33 @@ class MovingHorizonEstimator(Estimator):
 
     # -- batched windows -----------------------------------------------------
     def _theta_batch(self, Ys, Us, x_arrivals, p_vec, t0=0.0):
-        """theta (B, N+1, n_theta) of B windows, float64 numpy."""
+        """theta (B, N+1, n_theta) of B windows: float64 numpy from numpy
+        inputs; from tensors a tensor of Ys's dtype and device (the fused
+        MHE loop assembles its windows on the device)."""
+        as_np = not isinstance(Ys, torch.Tensor)
+        if as_np:
+            Ys, Us, x_arrivals, p_vec = (torch.as_tensor(np.asarray(a, dtype=float))
+                                         for a in (Ys, Us, x_arrivals, p_vec))
         m = self._model
         B, N = Ys.shape[0], self._horizon
         nx, n_pe = m.n_x, len(self._est_params)
         off_u, off_y, off_p, off_ax, off_ap = self._offsets
-        theta = np.zeros((B, N + 1, self._n_theta))
-        theta[:, :, 0] = t0 + self._dt * np.arange(N + 1)[None, :]
+        theta = Ys.new_zeros(B, N + 1, self._n_theta)
+        theta[:, :, 0] = t0 + self._dt * torch.arange(N + 1, dtype=Ys.dtype,
+                                                      device=Ys.device)
         # interval input for node k -> k+1 is the u applied AFTER y_k was
         # measured, i.e. row k+1's (rows pair (y_{j+1}, u_j) like the filters)
-        theta[:, :, off_u:off_u + m.n_u] = np.concatenate([Us[:, 1:], Us[:, -1:]],
-                                                          axis=1)
-        theta[:, :, off_y:off_y + m.n_y] = np.nan_to_num(Ys, nan=0.0)
-        theta[:, :, off_p:off_p + m.n_p] = p_vec[None, None, :]
+        theta[:, :, off_u:off_u + m.n_u] = torch.cat([Us[:, 1:], Us[:, -1:]], dim=1)
+        theta[:, :, off_y:off_y + m.n_y] = torch.nan_to_num(Ys, nan=0.0)
+        theta[:, :, off_p:off_p + m.n_p] = p_vec
         theta[:, :, off_ax:off_ax + nx] = x_arrivals[:, None, :]
         if n_pe:
-            theta[:, :, off_ap:off_ap + n_pe] = self._p_arrival[None, None, :]
+            theta[:, :, off_ap:off_ap + n_pe] = torch.as_tensor(
+                self._p_arrival, dtype=Ys.dtype, device=Ys.device)
         # NaN marks a missing measurement: its error term is masked out
-        theta[:, :, self._off_mask:self._off_mask + m.n_y] = \
-            np.isfinite(Ys).astype(float)
+        theta[:, :, self._off_mask:self._off_mask + m.n_y] = torch.isfinite(Ys).to(Ys.dtype)
         theta[:, 0, -1] = 1.0   # arrival-cost indicator
-        return theta
+        return theta.numpy() if as_np else theta
 
     def estimate_batch(self, Ys, Us=None, x_arrivals=None, p=None, mesh=None):
         """Solve B independent MHE windows at once.

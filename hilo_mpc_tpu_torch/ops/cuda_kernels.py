@@ -6,9 +6,10 @@ shapes, allocates outputs and scratch with ``torch.empty``, launches on
 PyTorch's current stream without synchronizing (``fgm_boxqp_cuda`` called
 without its ``constants`` first reads H back), and counts its launches in a
 plain integer attribute (``<wrapper>.launches``) so a run can show that its
-main path went through the kernel. For CPU tensors — and only for them — a
-wrapper returns its plain version instead; for CUDA tensors it launches the
-kernel or raises.
+main path went through the kernel (the Riccati wrappers also count their
+free-x0 launches, ``<wrapper>.free_x0_launches``). For CPU tensors — and
+only for them — a wrapper returns its plain version instead; for CUDA
+tensors it launches the kernel or raises.
 
 Sources live in ``hilo_mpc_tpu_torch/csrc/`` and are built by ``nvcc`` at first
 use (ops/_build.py); the Riccati kernel is a template there, instantiated for
@@ -263,10 +264,11 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     if rc != 0:
         raise RuntimeError(f"riccati_lq kernel launch failed: cudaError {rc}")
     riccati_lq_cuda.launches += 1
+    riccati_lq_cuda.free_x0_launches += dx0 is None
     return bufs[:6]
 
 
-riccati_lq_cuda.launches = 0
+riccati_lq_cuda.launches = riccati_lq_cuda.free_x0_launches = 0
 
 
 def riccati_lq_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
@@ -408,10 +410,11 @@ def riccati_lq_wide_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     if rc != 0:
         raise RuntimeError(f"riccati_lq_wide kernel launch failed: cudaError {rc}")
     riccati_lq_wide_cuda.launches += 1
+    riccati_lq_wide_cuda.free_x0_launches += dx0 is None
     return bufs[:6]
 
 
-riccati_lq_wide_cuda.launches = 0
+riccati_lq_wide_cuda.launches = riccati_lq_wide_cuda.free_x0_launches = 0
 
 
 def riccati_lq_wide_host(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,

@@ -36,8 +36,17 @@ so a problem without them runs no extra operation. Equalities enter through
 an augmented Lagrangian on the costs, with multipliers Y, yN and penalty rho
 per scenario, updated at barrier-subproblem solves (the LANCELOT rule).
 
-Not ported yet (raise NotImplementedError): ``record_iterates``,
-``parallel_riccati`` and ``lin_storage_dtype`` (ROADMAP.md §A.3.3). As in the JAX package,
+Every option of the JAX IPOptions is taken. ``record_iterates`` keeps a
+per-iteration history and makes ``solve_ocp`` return ``(solution, history)``
+as the JAX solver does. ``parallel_riccati`` solves each LQ step by the
+log-depth scans of ``ops/riccati.py:solve_lq_parallel``, plain batched
+PyTorch: the caller asked for that solver, so on CUDA tensors those steps
+launch no Riccati kernel, just as the JAX solver bypasses its Pallas kernel
+under the option. ``lin_storage_dtype`` (float32 only) rounds the
+linearization's Jacobian and Hessian blocks to that dtype and promotes them
+back at once, so the Riccati kernel still receives float32; float64 ignores
+it. The JAX solver keeps the blocks in bf16 to cut its memory traffic; here
+the option only reproduces that rounding and saves no memory or traffic. As in the JAX package,
 ``solve_ocp`` ignores ``pallas_full``: only ``NMPC.solve_batch_fn`` reads it
 and routes eligible problems to the whole-solve kernel (ops/whole_ip.py).
 ``riccati_unroll``, ``pallas_riccati``, ``pallas_pack``, ``pallas_tile``,
@@ -52,7 +61,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import grad, jvp, vmap
 
-from .riccati import make_lq_solver
+from .riccati import make_lq_solver, solve_lq_parallel
 
 
 class OCPFunctions(NamedTuple):
@@ -171,17 +180,11 @@ class _Carry(NamedTuple):
     eqv: Optional[torch.Tensor] = None   # (B,) last accepted max violation
 
 
-_NOT_PORTED = ("{what} is not ported to the PyTorch package yet — "
-               "ROADMAP.md §A.3.3")
-
-
 def _check_supported(funcs: OCPFunctions, dims: OCPDims, opt: IPOptions):
-    todo = [(opt.record_iterates, "record_iterates"),
-            (opt.parallel_riccati, "parallel_riccati"),
-            (opt.lin_storage_dtype is not None, "lin_storage_dtype")]
-    for cond, what in todo:
-        if cond:
-            raise NotImplementedError(_NOT_PORTED.format(what=what))
+    if opt.lin_storage_dtype is not None and not isinstance(
+            getattr(torch, str(opt.lin_storage_dtype), None), torch.dtype):
+        raise ValueError(f"lin_storage_dtype {opt.lin_storage_dtype!r} is not a "
+                         f"torch dtype name")
     for n, fn, what in ((dims.n_h, funcs.stage_ineq, "stage_ineq"),
                         (dims.n_hN, funcs.term_ineq, "term_ineq"),
                         (dims.n_e, funcs.stage_eq, "stage_eq"),
@@ -279,15 +282,21 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
               theta: torch.Tensor, x0: torch.Tensor, X_init: torch.Tensor,
               U_init: torch.Tensor, options: IPOptions = IPOptions(),
               fix_x0: bool = True, mu0: Optional[float] = None,
-              lq_solver: Callable = make_lq_solver) -> OCPSolution:
+              lq_solver: Callable = make_lq_solver):
     """Solve B OCP instances at once (batch-first, see the module docstring).
+    Returns an ``OCPSolution``; with ``options.record_iterates`` the pair
+    ``(OCPSolution, history)``, history a dict of the iterates before each
+    iteration's update, zero past each scenario's last iteration:
+    X (B, max_iter, N+1, nx), U (B, max_iter, N, nu), kkt, mu, objective
+    (B, max_iter) and n (B,), the scenario's iteration count.
 
     ``mu0`` optionally overrides ``options.mu_init`` at call time: cold- and
     warm-start solves differ only in the initial barrier. ``lq_solver(reg)``
     builds the LQ step of every iteration: ``make_lq_solver`` (the default:
     a hand-written CUDA kernel on CUDA tensors) or
     ``ops/riccati.py:make_plain_lq_solver`` (the plain sweeps on any
-    device). ``fix_x0=False`` frees x_0 (``x0`` is then unused: X_init[:, 0]
+    device); ``options.parallel_riccati`` replaces it by
+    ``solve_lq_parallel``. ``fix_x0=False`` frees x_0 (``x0`` is then unused: X_init[:, 0]
     is its start, as in the JAX solver): its bound rows stay, its
     stationarity row joins the KKT test and each LQ step gets dx0=None."""
     _check_supported(funcs, dims, options)
@@ -455,6 +464,10 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         _, _, Hxx_c, Hux_c, Huu_c = cost_terms(X_init[:, :-1], U_init, al0)
         _, HN_c = term_terms(X_init[:, -1], al0)
 
+    store_dtype = (getattr(torch, opt.lin_storage_dtype)
+                   if opt.lin_storage_dtype is not None and dtype == torch.float32
+                   else None)
+
     def linearize(X, U, al):
         """One full linearization of dynamics/costs/constraints along the horizon."""
         Xs = X[:, :-1]
@@ -477,8 +490,28 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
             Hj = (Jh[..., :nx], Jh[..., nx:])
         if n_hN:
             HjN = _jacobian(lambda xx: funcs.term_ineq(xx, th_N), (X[:, -1],))
+        if store_dtype is not None:
+            # the Jacobian and Hessian blocks are rounded to the narrow dtype
+            # (values and gradients stay float32); the box rows' ±1
+            # selectors are exact in it, so only the generic rows' Jacobians
+            # round
+            A, Bm, Hxx, Hux, Huu, HN = (t.to(store_dtype)
+                                        for t in (A, Bm, Hxx, Hux, Huu, HN))
+            Hj = None if Hj is None else tuple(t.to(store_dtype) for t in Hj)
+            HjN = None if HjN is None else HjN.to(store_dtype)
         return (F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, stage_c(X, U, theta),
                 term_c(X, theta), Hj, HjN)
+
+    def promote(lin):
+        """The linearization with its rounded blocks back in the solve dtype."""
+        if store_dtype is None:
+            return lin
+
+        def up(t):
+            if t is None:
+                return None
+            return tuple(up(a) for a in t) if isinstance(t, tuple) else t.to(dtype)
+        return tuple(up(t) for t in lin)
 
     def rows_T(v, vN, Hj, HjN):
         """Cᵀv for the stage rows (x and u parts) and CNᵀvN for the terminal ones."""
@@ -551,14 +584,18 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
                 + ((term_c(X, th) + sN) * maskN_f).abs().sum(dim=-1))
         return f + bar + nu_p * viol
 
-    lq_solver = make_lq(reg=opt.reg)
+    if opt.parallel_riccati:
+        def lq_solver(*blocks):
+            return solve_lq_parallel(*blocks, reg=opt.reg)
+    else:
+        lq_solver = make_lq(reg=opt.reg)
     # a free x_0: the LQ solve picks dx_0 from its own stage-0 value function
     dx0 = torch.zeros(Bn, nx, **kw) if fix_x0 else None
 
     def iteration(cr: _Carry) -> _Carry:
         X, U, lam, s, z, sN, zN, mu, nu_p = cr[:9]
         al = (cr.Y, cr.yN, cr.rho) if has_al else None
-        lin = linearize(X, U, al)
+        lin = promote(linearize(X, U, al))
         F, A, Bm, gx, gu, Hxx, Hux, Huu, gN, HN, c, cN, Hj, HjN = lin
 
         # convergence / barrier bookkeeping on the CURRENT iterate
@@ -742,22 +779,41 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
                            eqv=torch.full((Bn,), float("inf"), **kw))
                       if has_al else {}))
 
-    for _ in range(opt.max_iter):
+    if opt.record_iterates:
+        # the per-iteration history ring of the JAX solver, batch-first
+        hist = {"X": torch.zeros(Bn, opt.max_iter, N + 1, nx, **kw),
+                "U": torch.zeros(Bn, opt.max_iter, N, nu, **kw),
+                "kkt": torch.zeros(Bn, opt.max_iter, **kw),
+                "mu": torch.zeros(Bn, opt.max_iter, **kw),
+                "objective": torch.zeros(Bn, opt.max_iter, **kw)}
+
+    for i in range(opt.max_iter):
         # finished scenarios freeze themselves, as in the JAX while_loop
         done = carry.converged | carry.diverged
         if opt.early_exit and bool(done.all()):
             break
         new = iteration(carry)
+        if opt.record_iterates:
+            # a scenario still running is at its own iteration i: its
+            # iterate before the update, the KKT error of that iterate and
+            # the barrier it started from
+            rec = {"X": carry.X, "U": carry.U, "kkt": new.kkt, "mu": carry.mu,
+                   "objective": objective(carry.X, carry.U, theta)}
+            for k, v in rec.items():
+                hist[k][:, i] = _select(done, hist[k][:, i], v)
         carry = _Carry(*[None if a is None else _select(done, a, b)
                          for a, b in zip(carry, new)])
 
     obj = objective(carry.X, carry.U, theta)
     status = torch.where(carry.converged, 0, torch.where(carry.diverged, 2, 1))
-    return OCPSolution(
+    sol = OCPSolution(
         X=carry.X, U=carry.U, lam=carry.lam, s=carry.s, z=carry.z, sN=carry.sN,
         zN=carry.zN, mu=carry.mu, kkt_error=carry.kkt, objective=obj,
         iterations=carry.it, converged=carry.converged,
         status=status.to(torch.int32))
+    if opt.record_iterates:
+        return sol, {**hist, "n": carry.it}
+    return sol
 
 
 def _select(keep, a, b):

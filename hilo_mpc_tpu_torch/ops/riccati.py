@@ -5,8 +5,9 @@ carries leading batch dims, the horizon recursion is a Python loop over the
 stage axis, and each per-stage operation is the same unrolled small-matrix
 algebra as the JAX sweeps (ops/smallalg.py). These sweeps are the plain
 version of the CUDA kernel ``ops/cuda_kernels.py:riccati_lq_cuda``
-(``make_plain_lq_solver``); ``lqr_backward`` and ``dare_solve`` give the LQR
-gains.
+(``make_plain_lq_solver``); ``solve_lq_parallel`` solves the same problem by
+log-depth scans over the stages (the interior point's ``parallel_riccati``
+option); ``lqr_backward`` and ``dare_solve`` give the LQR gains.
 
 Equality-constrained LQ problem solved here (per scenario):
 
@@ -111,6 +112,147 @@ def solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
         eye = torch.eye(P0.shape[-1], dtype=P0.dtype, device=P0.device)
         dx0 = -torch.linalg.solve(P0 + reg * eye, p0[..., None])[..., 0]
     dX, dU, lam = forward_sweep(A, B, c, K, kff, dx0, Ps_next, ps_next)
+    return LQSolution(dX=dX, dU=dU, lam=lam, K=K, kff=kff, cost_red=dec)
+
+
+def _suffix_scan(combine, elems, axes):
+    """Inclusive suffix scan by doubling: element k of the stage axis
+    becomes combine(e_k, combine(e_{k+1}, ... e_{n-1})) for an associative
+    ``combine(earlier, later)`` on tuples of tensors; ``axes`` gives each
+    entry's stage axis (-3 for matrices, -2 for vectors). Any length n, in
+    ceil(log2 n) rounds."""
+    n = elems[0].shape[axes[0]]
+    d = 1
+    while d < n:
+        head = combine(tuple(e.narrow(a, 0, n - d) for e, a in zip(elems, axes)),
+                       tuple(e.narrow(a, d, n - d) for e, a in zip(elems, axes)))
+        elems = tuple(torch.cat([h, e.narrow(a, n - d, d)], dim=a)
+                      for h, e, a in zip(head, elems, axes))
+        d *= 2
+    return elems
+
+
+def _prefix_scan(combine, elems, axes):
+    """Inclusive prefix scan by doubling: element k becomes
+    combine(... combine(e_0, e_1) ..., e_k); as ``_suffix_scan``."""
+    n = elems[0].shape[axes[0]]
+    d = 1
+    while d < n:
+        tail = combine(tuple(e.narrow(a, 0, n - d) for e, a in zip(elems, axes)),
+                       tuple(e.narrow(a, d, n - d) for e, a in zip(elems, axes)))
+        elems = tuple(torch.cat([e.narrow(a, 0, d), t], dim=a)
+                      for t, e, a in zip(tail, elems, axes))
+        d *= 2
+    return elems
+
+
+def solve_lq_parallel(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
+                      reg: float = 1e-9) -> LQSolution:
+    """Temporal-parallel LQ solve of ``hilo_mpc_tpu/ops/riccati.py:99``:
+    the same problem and result as ``solve_lq`` (a given dx0), but both
+    recursions run as log-depth associative scans over the stage axis.
+
+    Per stage the control's cross and linear terms are eliminated by
+    completing the square (u = ũ − R⁻¹(S dx + r)); the stages become
+    conditional value-function elements (A, b, C, η, J) composed by the
+    standard rule, and a suffix scan gives (P_k, p_k) = (J_k, −η_k) for
+    every k at once. The gains follow stagewise, and the forward rollout
+    is a prefix scan over affine-map composition. The JAX function uses
+    ``lax.associative_scan``; here each scan is a hand-written doubling
+    scan (``_suffix_scan``, ``_prefix_scan``): ceil(log2 n) rounds of
+    batched small-matrix composes, any n. Plain batched PyTorch on any
+    device, so on CUDA tensors this solve launches no Riccati kernel (the
+    JAX solver likewise bypasses its Pallas kernel under
+    ``parallel_riccati``). Leading batch dims broadcast as in ``solve_lq``.
+    ``dx0=None`` frees the initial state as the JAX solver does before
+    this solve: a plain backward sweep gives P_0 and p_0, and
+    dx_0 = −(P_0 + reg·I)⁻¹ p_0."""
+    N, nx, nu = A.shape[-3], A.shape[-1], B.shape[-1]
+    dtype, device = A.dtype, A.device
+    if dx0 is None:
+        _, _, P0, p0, _, _, _ = backward_sweep(A, B, Q, S, R, q, r, c, P_term,
+                                               p_term, reg)
+        eye = torch.eye(nx, dtype=dtype, device=device)
+        dx0 = -torch.linalg.solve(P0 + reg * eye, p0[..., None])[..., 0]
+    batch = _batch_shape(A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+    A, B, Q, S, R = (M.expand(*batch, *M.shape[-3:]) for M in (A, B, Q, S, R))
+    q, r, c = (v.expand(*batch, *v.shape[-2:]) for v in (q, r, c))
+    P_term, p_term = P_term.expand(*batch, nx, nx), p_term.expand(*batch, nx)
+    dx0 = dx0.expand(*batch, nx)
+    I_nu = torch.eye(nu, dtype=dtype, device=device)
+    I_nx = torch.eye(nx, dtype=dtype, device=device)
+    mm = torch.matmul
+
+    def mv(M, v):
+        return mm(M, v[..., None])[..., 0]
+
+    # eliminate the control's cross and linear terms per stage
+    R_reg = R + reg * I_nu
+    Rinv = torch.linalg.inv(0.5 * (R_reg + R_reg.transpose(-1, -2)))
+    RiS = mm(Rinv, S)                                   # R⁻¹S
+    Rir = mv(Rinv, r)                                   # R⁻¹r
+    A_t = A - mm(B, RiS)                                # A − B R⁻¹ S
+    c_t = c - mv(B, Rir)                                # c − B R⁻¹ r
+    St = S.transpose(-1, -2)
+    Q_t = Q - mm(St, RiS)
+    q_t = q - mv(St, Rir)
+    C_t = mm(mm(B, Rinv), B.transpose(-1, -2))          # B R⁻¹ Bᵀ
+
+    # elements: stages 0..N-1, then the terminal boundary element
+    zM = torch.zeros(*batch, 1, nx, nx, dtype=dtype, device=device)
+    zv = torch.zeros(*batch, 1, nx, dtype=dtype, device=device)
+    Ae = torch.cat([A_t, zM], dim=-3)
+    be = torch.cat([c_t, zv], dim=-2)
+    Ce = torch.cat([C_t, zM], dim=-3)
+    etae = torch.cat([-q_t, -p_term[..., None, :]], dim=-2)
+    Je = torch.cat([Q_t, P_term[..., None, :, :]], dim=-3)
+
+    def combine(ei, ej):
+        """ei spans [k, m] (earlier), ej spans [m, l] (later)."""
+        Ai, bi, Ci, etai, Ji = ei
+        Aj, bj, Cj, etaj, Jj = ej
+        M = torch.linalg.inv(I_nx + mm(Ci, Jj))
+        AjM = mm(Aj, M)
+        A_new = mm(AjM, Ai)
+        b_new = mv(AjM, bi + mv(Ci, etaj)) + bj
+        C_new = mm(mm(AjM, Ci), Aj.transpose(-1, -2)) + Cj
+        Mt = torch.linalg.inv(I_nx + mm(Jj, Ci))
+        AiT_Mt = mm(Ai.transpose(-1, -2), Mt)
+        eta_new = mv(AiT_Mt, etaj - mv(Jj, bi)) + etai
+        J_new = mm(mm(AiT_Mt, Jj), Ai) + Ji
+        return A_new, b_new, C_new, eta_new, J_new
+
+    _, _, _, eta_all, J_all = _suffix_scan(combine, (Ae, be, Ce, etae, Je),
+                                           (-3, -2, -3, -2, -3))
+    Ps, ps = J_all, -eta_all                            # P_k, p_k for k = 0..N
+
+    # gains from (P_{k+1}, p_{k+1}) for every stage at once
+    P_next, p_next = Ps[..., 1:, :, :], ps[..., 1:, :]
+    Bt = B.transpose(-1, -2)
+    G = R + mm(Bt, mm(P_next, B))                       # R + BᵀP'B
+    G = 0.5 * (G + G.transpose(-1, -2)) + reg * I_nu
+    H_ux = S + mm(mm(Bt, P_next), A)
+    g_u = r + mv(Bt, mv(P_next, c) + p_next)
+    Ginv = torch.linalg.inv(G)
+    K = -mm(Ginv, H_ux)
+    kff = -mv(Ginv, g_u)
+
+    # the forward affine rollout as a prefix scan over (M, v) composition
+    Mcl = A + mm(B, K)
+    vcl = mv(B, kff) + c
+
+    def affine_compose(f, g):
+        """f then g: x -> Mg (Mf x + vf) + vg."""
+        Mf, vf = f
+        Mg, vg = g
+        return mm(Mg, Mf), mv(Mg, vf) + vg
+
+    Mscan, vscan = _prefix_scan(affine_compose, (Mcl, vcl), (-3, -2))
+    dX_tail = mv(Mscan, dx0[..., None, :].expand(*batch, N, nx)) + vscan
+    dX = torch.cat([dx0[..., None, :], dX_tail], dim=-2)
+    dU = mv(K, dX[..., :-1, :]) + kff
+    lam = mv(P_next, dX[..., 1:, :]) + p_next
+    dec = -0.5 * (kff * g_u).sum(dim=(-2, -1))
     return LQSolution(dX=dX, dU=dU, lam=lam, K=K, kff=kff, cost_red=dec)
 
 

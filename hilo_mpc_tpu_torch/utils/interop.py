@@ -11,8 +11,8 @@ this module needs no JAX: a test hands both solvers identical inputs.
 state-space model, LMPC or LQR in the port from its numpy matrices, names,
 weights and bounds (read by attribute, again without importing JAX), so both
 sides of a test start from the same numbers; ``model_from`` a model declared
-by equation text or matrices, and ``estimator_from`` an MHE, KF, EKF, UKF or
-PF.
+by equation text or matrices, ``estimator_from`` an MHE, KF, EKF, UKF or
+PF, and ``pid_from`` a PID.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 
 from ..control.lmpc import LMPC
 from ..control.lqr import LinearQuadraticRegulator
+from ..control.pid import PID
 from ..core.model import Model
 from ..estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
                              UnscentedKalmanFilter)
@@ -178,4 +179,18 @@ def estimator_from(src, device="cuda", dtype=torch.float64, model=None,
         # a Kalman filter's current covariance (setup takes it from P0, and a
         # later set_initial_guess(P0=...) leaves it)
         dst._P = np.array(src._P)
+    return dst
+
+
+def pid_from(src) -> PID:
+    """The port's twin of a JAX-side PID: its loops, options, tunings,
+    output limits and set points; set up with the same dt if ``src`` is."""
+    dst = PID(n_set_points=src.n_set_points, name=src.name, k_p=src.k_p,
+              t_i=src.t_i, t_d=src.t_d,
+              proportional_on_process_value=src._p_on_pv,
+              derivative_on_process_value=src._d_on_pv)
+    dst.set_output_limits(*src._u_bounds)
+    if src.is_setup():
+        dst.setup(dt=src._dt)
+    dst.set_point = src.set_point
     return dst

@@ -165,24 +165,6 @@ def test_ip_options_mirror_jax():
     assert dataclasses.asdict(tip.IPOptions()) == dataclasses.asdict(jip.IPOptions())
 
 
-_NOT_PORTED = {
-    "record_iterates": dict(opts=dict(record_iterates=True)),
-    "parallel_riccati": dict(opts=dict(parallel_riccati=True)),
-    "lin_storage_dtype": dict(opts=dict(lin_storage_dtype="bfloat16")),
-}
-
-
-@pytest.mark.parametrize("feature", sorted(_NOT_PORTED))
-def test_out_of_slice_options_raise(feature):
-    _, tfuncs, _, tdims, bnd, args = _di_problem(True)
-    spec = _NOT_PORTED[feature]
-    funcs = tfuncs._replace(**spec.get("funcs", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tip.solve_ocp(funcs, tdims, tip.OCPBounds(*to_torch(bnd, device=CPU)),
-                      *to_torch(args, device=CPU),
-                      tip.IPOptions(**spec.get("opts", {})))
-
-
 def test_solve_ocp_ignores_pallas_full():
     """As in the JAX package, solve_ocp does not read pallas_full: only
     NMPC.solve_batch_fn routes to the whole-solve kernel."""

@@ -109,11 +109,6 @@ def test_entry_point_order_is_enforced():
 
 OUT_OF_SLICE = {
     "discrete_inputs": lambda n: n.set_discrete_inputs("u"),
-    "tvp": lambda n: n.set_time_varying_parameters(["E"]),
-    "rti": lambda n: n.rti_prepare(x_pred=[0.2, 0.1]),
-    "parallel_riccati": lambda n: n.setup(options={"dt": 0.1,
-                                                   "parallel_riccati": True},
-                                          device=CPU),
 }
 
 
