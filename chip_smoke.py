@@ -27,7 +27,11 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          per block, threads) for each n phase 1 checks above 128; the FGM
          register design (csrc/fgm_boxqp_reg.cuh) for each n up to 64 that
          phases 1 and 4 run or time, with its registers, spills (none where
-         the router takes it) and blocks per SM.
+         the router takes it) and blocks per SM; the whole-solve kernel on
+         the traced problems of phases 1, 11(b) and 14 (ops/codegen_fx.py:
+         the msd, golden pathfollow_soft's controller, the CSTR with a
+         generic cost and a measurement term, the flagship), each build's
+         registers and spills printed.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
@@ -36,9 +40,11 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          through all three designs, with and without u0 and with infinite
          bounds; at the flagship FGM shape the register design against the
          resident kernel too; the whole-solve kernel in four row patterns,
-         soft state bounds among them, and its CROSS build on phase 11(a)'s
-         problem: on 1024 scenarios float64 with equal iterations and U to
-         1e-12 and float32 to 5e-4; at B=131072 float32 within the float32
+         soft state bounds among them, its CROSS build on phase 11(a)'s
+         problem and its traced build on phase 14(a)'s msd (whole_ip_traced,
+         with the build's registers and spills): on 1024 scenarios float64
+         with equal iterations and U to 1e-12 (1e-9 for the traced build)
+         and float32 to 5e-4; at B=131072 float32 within the float32
          plain version's stray from float64 plus 5e-4, both dtypes timed
          there beside the operations bound), and each timed at the shape of its
          main path (the wide variant at phase 4's (16, 8), B=1024, float64
@@ -144,8 +150,9 @@ Phase 11 the augmented formulations: (a) phase 2's controller with golden
          max_iter 80) at B=131072, float32, x0 = 0.1·N(0,1) from
          default_rng(3): the Riccati kernel at (3, 3) under Mehrotra and
          convexify (launches = Newton steps, no plain sweep), the first 1024
-         in float64 against the plain LQ step, and pallas_full declined
-         with the reason named. (c) golden mintime's controller at
+         in float64 against the plain LQ step; under pure Newton steps
+         pallas_full takes the whole-solve kernel (the traced route): no
+         warning, one launch, no Riccati launch. (c) golden mintime's controller at
          B=16384, float64, x0 = [-1, 0] + [0.25, 0.15]·N(0,1) from
          default_rng(11): the converged fraction and the optimal dt range,
          the first 1024 against the CPU (equal iterations, <= 1e-9).
@@ -217,6 +224,26 @@ Phase 13 the closed loop and the real-time entry points (each step of a
          LQ step alone, the scans against the kernel route, at N = 20, 200,
          2000 for one scenario and for B·N = 131072·20.
 
+Phase 14 the whole-solve kernel on traced problems (ops/codegen_fx.py: the
+         problem functions traced with make_fx and written as C++, the
+         costs' derivatives by nested dual numbers, csrc/traced.cuh), each at
+         B=131072, float32, through pallas_full (exactly one whole-solve
+         launch, no Riccati launch, no warning) and through the general path
+         (the Riccati kernel): solves/s of both, converged >= 0.97, U within
+         the general path's float32 stray from its float64 answer + 5e-4 on
+         the jointly converged, the first 1024 through the kernel against its
+         plain version (float64 equal iterations, 1e-9; float32 5e-4): (a)
+         phase 10(a)'s msd as a callable with its soft |pos| <= 1, without
+         the hard row, pure Newton options, x0 = 0.2·N(0,1) from
+         default_rng(1); (b) golden pathfollow_soft's controller under pure
+         Newton steps, x0 = 0.1·N(0,1) from default_rng(3), then the golden's
+         25 steps replayed with every solve through the kernel's float64
+         instance (WholeIPLaunch; max|u - u_gold| < 1e-4, 25 launches); (c)
+         the flagship with a generic stage cost (x_1 - 0.3)^4 and a terminal
+         measurement term; (d) the flagship written by both emitters
+         (ops/codegen_cuda.py and the trace): equal iterations and U within
+         1e-5 in float32, each build's kernel ms, registers and spills.
+
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result. The second-to-last line is the kernels JSON object, the last line
@@ -243,7 +270,7 @@ GOLDEN_MT = os.path.join(ROOT, "tests", "golden", "mintime.npz")
 GOLDEN_DAE = os.path.join(ROOT, "tests", "golden", "dae_colloc.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
-           "riccati_lq_wide_free_x0", "whole_ip_cross")
+           "riccati_lq_wide_free_x0", "whole_ip_cross", "whole_ip_traced")
 # the tiled Riccati instances phase 1 checks; phase 11 runs (3, 1) (the
 # Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time)
 RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3), (1, 1))
@@ -481,6 +508,83 @@ def pathfollow_nmpc(options, dtype, device="cuda"):
     return nmpc
 
 
+# pure Newton steps, as the whole-solve kernel takes them (the flagship's
+# options but the tolerance, which follows the dtype: 1e-4 in float32)
+PURE_NEWTON = {"dt": 0.1, "max_iter": 25, "convexify": False, "n_linesearch": 1,
+               "mu_init": 1e-2, "mehrotra": False}
+# golden pathfollow_soft's options under pure Newton steps
+PF_NEWTON = {"dt": 0.1, "max_iter": 80, "convexify": False, "n_linesearch": 1,
+             "mehrotra": False}
+
+
+def msd_traced_nmpc(dtype, device="cuda", horizon=N, options=None):
+    """Phase 10(a)'s mass-spring-damper (tools/tpu_validation.py:55-80; a
+    model given as a callable) with its soft |pos| <= 1 and without its hard
+    row, at pure Newton options: the whole-solve kernel's traced route."""
+    import torch
+    from hilo_mpc_tpu_torch import NMPC, Model
+    m = Model(name="msd")
+    m.set_dynamical_states(["pos", "vel"])
+    m.set_inputs("f")
+    m.set_dynamical_equations(lambda x, u: torch.stack(
+        [x[..., 1], -0.5 * x[..., 0] - 0.2 * x[..., 1] + u[..., 0]], dim=-1))
+    nmpc = NMPC(m)
+    nmpc.horizon = horizon
+    nmpc.quad_stage_cost.add_states(weights=[4.0, 1.0], ref=[0.9, 0.0])
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_box_constraints(u_lb=[-3.0], u_ub=[3.0], x_ub=[1.0, float("inf")],
+                             x_lb=[-1.0, -float("inf")], x_soft=True)
+    nmpc.setup(options={**PURE_NEWTON, **(options or {})}, device=device, dtype=dtype)
+    return nmpc
+
+
+def msd_x0s(B=B_MAIN):
+    """Phase 10(a)'s batch: x0 = 0.2·N(0,1) from default_rng(1)."""
+    import numpy as np
+    return 0.2 * np.random.default_rng(1).standard_normal((B_MAIN, 2))[:B]
+
+
+def cstr_generic_nmpc(dtype, device="cuda", options=None):
+    """The flagship with a generic stage cost (x_1 - 0.3)^4 and a terminal
+    measurement term (y = x_2 against 0.18, weight 1): the traced route's
+    generic costs on the DSL model."""
+    import torch  # noqa: F401
+    from hilo_mpc_tpu_torch import NMPC
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    nmpc = NMPC(cstr_schaffner_and_zeitz())
+    nmpc.horizon = N
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=[0.3, 0.18055])
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.stage_cost.cost = lambda x: (x[..., 0] - 0.3) ** 4
+    nmpc.quad_terminal_cost.add_measurements(weights=1.0, ref=[0.18])
+    nmpc.set_box_constraints(**WHOLE_IP_BOUNDS["flagship"])
+    nmpc.set_parameters([1.0] * 6)
+    nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **FLAGSHIP,
+                        **(options or {})}, device=device, dtype=dtype)
+    return nmpc
+
+
+def traced_problems():
+    """{label: the emitted problem} of the traced builds phases 1, 11(b) and
+    14 run (float32 controllers at their own theta width): the msd, golden
+    pathfollow_soft's controller, the generic-cost CSTR and the flagship
+    (phase 0 prints each build's registers)."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.codegen_fx import emit_fx_problem
+    f32 = torch.float32
+    builders = {"msd": lambda: msd_traced_nmpc(f32),
+                "pathfollow_soft": lambda: pathfollow_nmpc(PF_NEWTON, f32),
+                "cstr_generic": lambda: cstr_generic_nmpc(f32),
+                "flagship": lambda: build_cstr_nmpc(FLAGSHIP, f32)}
+    out = {}
+    for name, build in builders.items():
+        nmpc = build()
+        bnd = tuple(b.cpu().double().numpy() for b in nmpc._bounds)
+        out[name] = emit_fx_problem(nmpc._funcs, nmpc._dims, bnd,
+                                    nmpc._funcs.source.n_theta, nmpc._ip_opts)
+    return out
+
+
 def mintime_nmpc(dtype, device="cuda"):
     """Golden mintime's controller (tests/golden_configs.py:244-273): a
     rest-to-rest double-integrator transfer, N=16, |u| <= 1, the terminal
@@ -512,6 +616,7 @@ def phase1(report):
     phase1_fgm_cluster(report.setdefault("fgm_boxqp_column_blocks", {}))
     phase1_whole_ip(report.setdefault("whole_ip", {}))
     phase1_whole_ip_cross(report.setdefault("whole_ip_cross", {}))
+    phase1_whole_ip_traced(report.setdefault("whole_ip_traced", {}))
 
 
 def idle_lane_share(iterations):
@@ -1107,6 +1212,107 @@ def phase1_whole_ip_cross(report):
     log(f"phase1 whole_ip_cross B={B_MAIN} N={N} float64: kernel {ms64:.4f} ms one "
         f"call; bound {b64:.4f} ms ({by64}): {b64 / ms64:.1%} of the bound")
     report.update(float64_ms=ms64, float64_bound_ms=b64)
+
+
+def traced_kernel_vs_plain(label, problem, ctl, args):
+    """The traced build of ``problem`` against its plain version on the
+    first 1024 scenarios of ``args`` (float32 inputs of the float32
+    controller ctl[float32], whose options the problem holds; both dtypes
+    solve at those options): float64 with equal iterations and U to 1e-9
+    (the card fuses multiply-adds where the plain version's kernels do
+    not), float32 U to 5e-4 on the jointly converged. Returns the float32
+    error."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import WholeIPLaunch, solve_ocp_full_reference
+    errs = {}
+    opts = ctl[torch.float32]._ip_opts           # the options the problem holds
+    for dt in (torch.float64, torch.float32):
+        c = ctl[dt]
+        f = (c._funcs, c._dims, c._bounds)
+        sub = [a[:1024].to(dt) for a in args]
+        k = WholeIPLaunch(problem, c._dims, dt, sub[0].device)(*sub, opts.mu_init)
+        r = solve_ocp_full_reference(*f, *sub, opts)
+        torch.cuda.synchronize()
+        both = k.converged & r.converged
+        errs[dt] = float((k.U - r.U).abs()[both].max())
+        log(f"{label} B=1024 {str(dt)[6:]}: converged kernel "
+            f"{float(k.converged.float().mean()):.4f} plain "
+            f"{float(r.converged.float().mean()):.4f}, equal iterations "
+            f"{float((k.iterations == r.iterations).float().mean()):.4f}, "
+            f"max|U_kernel - U_plain| on the jointly converged {errs[dt]:.3e}")
+        assert float(both.float().mean()) >= 0.97, (label, dt)
+        if dt == torch.float64:
+            assert torch.equal(k.iterations, r.iterations), label
+            assert float((k.U - r.U).abs().max()) <= 1e-9, (label, errs[dt])
+    assert errs[torch.float32] <= 5e-4, (label, errs[torch.float32])
+    return errs[torch.float32]
+
+
+def build_registers(problem):
+    """{"float32"|"float64": [registers, spill bytes]} of a whole-solve
+    build (nvcc's -Xptxas -v log beside the library)."""
+    from hilo_mpc_tpu_torch.ops import _build
+    return whole_ip_registers(_build.source_library_path(problem.text) + ".log")
+
+
+def phase1_whole_ip_traced(report):
+    """The whole-solve kernel on a traced problem (phase 14(a)'s msd: a
+    callable model, soft |pos| <= 1, pure Newton): against its plain version
+    on the first 1024 scenarios in both dtypes; at B=131072 float32 timed
+    beside its operations bound and held to the float32 plain version's
+    stray from the float64 one plus 5e-4; its build's registers and spills
+    (the Hessians by one nested dual pass)."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import (WholeIPLaunch,
+                                                 solve_ocp_full_reference,
+                                                 whole_ip_gate)
+    f32, f64 = torch.float32, torch.float64
+    ctl = {dt: msd_traced_nmpc(dt) for dt in (f64, f32)}
+    nmpc = ctl[f32]
+    problem, why = whole_ip_gate(nmpc._funcs, nmpc._dims, nmpc._bounds, nmpc._ip_opts,
+                                 True)
+    assert problem is not None and "codegen_fx.py" in problem.text, why
+    args = nmpc.prepare_batch(msd_x0s())
+    err = traced_kernel_vs_plain("phase1 whole_ip_traced (msd)", problem, ctl, args)
+    f, opts = (nmpc._funcs, nmpc._dims, nmpc._bounds), nmpc._ip_opts
+    f64_ = (ctl[f64]._funcs, ctl[f64]._dims, ctl[f64]._bounds)
+    launch = WholeIPLaunch(problem, nmpc._dims, f32, args[0].device)
+    kernel = lambda: launch.launch(*args, opts.mu_init)  # noqa: E731
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
+    plain_ms = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args, opts), reps=3)
+    k = launch.launch(*args, opts.mu_init)
+    r = solve_ocp_full_reference(*f, *args, opts)
+    args64 = [a.double() for a in args]
+    r64 = solve_ocp_full_reference(*f64_, *args64, ctl[f64]._ip_opts)
+    torch.cuda.synchronize()
+    both = k.converged & r.converged
+    gap = float((k.U - r.U).abs()[both].max())
+    j = both & r64.converged
+    stray = float((r.U.double() - r64.U).abs()[j].max())
+    off = float((k.U.double() - r64.U).abs()[j].max())
+    its = int(k.iterations.sum())
+    b_ms, b_by = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN,
+                                         args[0].shape[2], its))
+    regs = build_registers(problem)
+    log(f"phase1 whole_ip_traced (msd, nx=2 nu=1, {problem.region} values per "
+        f"scenario) B={B_MAIN} N={N} float32: converged kernel "
+        f"{float(k.converged.float().mean()):.4f} plain "
+        f"{float(r.converged.float().mean()):.4f}, max|U_kernel - U_plain| on the "
+        f"jointly converged {gap:.3e}; against the float64 plain version: plain "
+        f"{stray:.3e}, kernel {off:.3e}; kernel {ms:.4f} ms one call, {b2b_ms:.4f} "
+        f"ms back to back, plain {plain_ms:.4f} ms (median of 3 runs); bound "
+        f"{b_ms:.4f} ms ({b_by}; {problem.flops} operations per "
+        f"scenario-iteration, {its} scenario-iterations): {b_ms / ms:.1%} of the "
+        f"bound one call; idle-lane share {idle_lane_share(k.iterations):.4f} "
+        f"(iterations p50 {float(k.iterations.float().median()):g} max "
+        f"{int(k.iterations.max())}); registers float32 {regs['float32'][0]} "
+        f"({regs['float32'][1]} bytes spilled), float64 {regs['float64'][0]} "
+        f"({regs['float64'][1]} bytes spilled)")
+    assert float(both.float().mean()) >= 0.97 and off <= stray + 5e-4, (off, stray)
+    report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by, float32_registers=regs["float32"],
+                  float64_registers=regs["float64"])
 
 
 def phase2(report):
@@ -2325,7 +2531,8 @@ def phase11_du(report):
 def phase11_pathfollow(report):
     """(b) Golden pathfollow_soft's controller at B=131072, float32, NMPC
     defaults but max_iter 80: the general path through the Riccati kernel
-    at (3, 3), soft rows and convexify; pallas_full declines it."""
+    at (3, 3), soft rows and convexify; under pure Newton steps pallas_full
+    takes the whole-solve kernel (phase 14(b) measures that route)."""
     import warnings
 
     import numpy as np
@@ -2374,14 +2581,20 @@ def phase11_pathfollow(report):
     log(f"phase11(b) first 1024 scenarios float64: max|U_kernel - U_plain| {dev64:.3e} "
         f"(equal iterations {bool(torch.equal(k64.iterations, p64.iterations))})")
     assert torch.equal(k64.iterations, p64.iterations) and dev64 <= 1e-9, dev64
-    # pallas_full: the gate declines and names the reason
-    pf = pathfollow_nmpc({**opts, "pallas_full": True}, torch.float32)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        pf.solve_batch_fn()
-    why = [str(w.message) for w in caught if "pallas_full" in str(w.message)]
-    log(f"phase11(b) pallas_full: {why[0] if why else 'no warning'}")
-    assert why and "path-following reference" in why[0], why
+    # pallas_full under pure Newton steps takes the whole-solve kernel (the
+    # traced route), without a warning: one launch, no Riccati launch
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
+    pf = pathfollow_nmpc({**PF_NEWTON, "pallas_full": True}, torch.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fn = pf.solve_batch_fn()
+    solve_ocp_full_cuda.launches = riccati_lq_cuda.launches = 0
+    s_pf = fn(*pf.prepare_batch(x0s[:1024]))
+    torch.cuda.synchronize()
+    log(f"phase11(b) pallas_full under pure Newton steps: whole_ip launches "
+        f"{solve_ocp_full_cuda.launches}, riccati_lq launches "
+        f"{riccati_lq_cuda.launches}, converged {float(s_pf.converged.float().mean()):.4f}")
+    assert (solve_ocp_full_cuda.launches, riccati_lq_cuda.launches) == (1, 0)
     report["riccati_lq"].setdefault("phase11_launches", {})["pathfollow"] = launches
     report["phase11_pathfollow"] = dict(converged=conv, solves_per_s=B_MAIN / t_cold)
 
@@ -3239,6 +3452,157 @@ def phase13_lq_horizons(report):
         rows[f"N={N_h} B={B}"] = (times["kernel"], times["scans"])
 
 
+def phase14(report):
+    """The whole-solve kernel on traced problems (ops/codegen_fx.py)."""
+    phase14_msd(report)
+    phase14_pathfollow(report)
+    phase14_cstr_generic(report)
+    phase14_two_emitters(report)
+
+
+def two_routes(label, build, x0s, report):
+    """A traced problem at B=131072, float32, through pallas_full (exactly
+    one whole-solve launch, no Riccati launch, no warning) and through the
+    general path (the Riccati kernel): solves/s of both, each converged on
+    >= 0.97, U within the general path's float32 stray from its float64
+    answer plus 5e-4 on the jointly converged; the first 1024 through the
+    kernel against its plain version. Returns the kernel route's solution."""
+    import warnings
+
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
+    f32, f64 = torch.float32, torch.float64
+    whole, general = build(f32, {"pallas_full": True}), build(f32, None)
+    args = whole.prepare_batch(x0s)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fn = whole.solve_batch_fn()
+    for f in (fn, general.solve_batch_fn()):                   # untimed warm-up
+        f(*[a[:256] for a in args])
+    torch.cuda.synchronize()
+    runs = {}
+    for name, f in (("whole-solve kernel", fn), ("general path", general.solve_batch_fn())):
+        solve_ocp_full_cuda.launches = riccati_lq_cuda.launches = 0
+        t0 = time.perf_counter()
+        sol = f(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = (sol, wall, solve_ocp_full_cuda.launches, riccati_lq_cuda.launches)
+        conv = float(sol.converged.float().mean())
+        log(f"{label} {name} B={B_MAIN} float32: {B_MAIN / wall:.1f} solves/s "
+            f"({wall:.4f} s wall), converged {conv:.4f}, iterations p50 "
+            f"{float(sol.iterations.float().median()):g} max "
+            f"{int(sol.iterations.max())}; whole_ip launches {runs[name][2]}, "
+            f"riccati_lq launches {runs[name][3]}")
+        assert bool(torch.isfinite(sol.U).all()) and conv >= 0.97, (label, name, conv)
+    (sw, tw, w_full, w_ric), (sg, tg, g_full, g_ric) = runs.values()
+    assert (w_full, w_ric) == (1, 0), (label, w_full, w_ric)
+    assert g_full == 0 and g_ric > 0, (label, g_full, g_ric)
+    g64 = build(f64, None)
+    s64 = g64.solve_batch_fn()(*[a.double() for a in args])
+    torch.cuda.synchronize()
+    j = sw.converged & sg.converged & s64.converged
+    dev = float((sw.U - sg.U).abs()[j].max())
+    stray = float((sg.U.double() - s64.U).abs()[j].max())
+    off = float((sw.U.double() - s64.U).abs()[j].max())
+    log(f"{label}: max|U_whole - U_general| {dev:.3e} on the jointly converged "
+        f"({float(j.float().mean()):.4f}); against the float64 general path: "
+        f"general {stray:.3e}, kernel {off:.3e}; the kernel route "
+        f"{tg / tw:.1f}x the general path's solves/s")
+    assert off <= stray + 5e-4, (label, off, stray)
+    err = traced_kernel_vs_plain(f"{label} kernel vs plain", whole._wip["problem"],
+                                 {f32: whole, f64: g64}, args)
+    report[label] = dict(whole_solves_per_s=B_MAIN / tw, general_solves_per_s=B_MAIN / tg,
+                         max_abs_err=err, route_gap=dev, launches=w_full)
+    return sw
+
+
+def phase14_msd(report):
+    """(a) phase 10(a)'s msd as a callable, soft |pos| <= 1, no hard row."""
+    def build(dt, options):
+        return msd_traced_nmpc(dt, options=options)
+    two_routes("phase14(a) msd", build, msd_x0s(), report)
+    report["whole_ip_traced"]["launches"] = report["phase14(a) msd"]["launches"]
+
+
+def phase14_pathfollow(report):
+    """(b) golden pathfollow_soft's controller under pure Newton steps at
+    B=131072; then its 25-step loop replayed with every solve through the
+    whole-solve kernel's float64 instance (max|u - u_gold| < 1e-4)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda,
+                                                 whole_ip_gate)
+
+    def build(dt, options):
+        return pathfollow_nmpc({**PF_NEWTON, **(options or {})}, dt)
+    x0s = 0.1 * np.random.default_rng(3).standard_normal((B_MAIN, 2))
+    two_routes("phase14(b) pathfollow_soft", build, x0s, report)
+    data = np.load(GOLDEN_PF)
+    tn = pathfollow_nmpc({**PF_NEWTON, "tol": 1e-9}, torch.float64)
+    problem, why = whole_ip_gate(tn._funcs, tn._dims, tn._bounds, tn._ip_opts, True)
+    assert problem is not None, why
+    launch = WholeIPLaunch(problem, tn._dims, torch.float64, tn._bounds.lbx.device)
+    tn._solve = lambda th, x0, X, U, mu0, options=None: launch(th, x0, X, U, mu0)
+    solve_ocp_full_cuda.launches = 0
+    devs, its = [], []
+    for k in range(data["U_gold"].shape[0]):
+        u = tn.optimize(data["X_meas"][k])
+        assert tn.stats["converged"], (k, tn.stats)
+        devs.append(float(np.abs(u - data["U_gold"][k]).max()))
+        its.append(tn.stats["iterations"])
+    log(f"phase14(b) golden pathfollow_soft replayed through the whole-solve "
+        f"kernel's float64 instance: max|u - u_gold| {max(devs):.3e} over "
+        f"{len(devs)} steps, {solve_ocp_full_cuda.launches} launches, iterations "
+        f"{its}")
+    assert max(devs) < 1e-4 and solve_ocp_full_cuda.launches == len(devs), devs
+    report["phase14(b) pathfollow_soft"]["golden_max_abs_err"] = max(devs)
+
+
+def phase14_cstr_generic(report):
+    """(c) the flagship with a generic stage cost and a terminal measurement
+    term."""
+    def build(dt, options):
+        return cstr_generic_nmpc(dt, options=options)
+    two_routes("phase14(c) cstr_generic", build, flagship_x0s(), report)
+
+
+def phase14_two_emitters(report):
+    """(d) the flagship written by both emitters (ops/codegen_cuda.py's DSL
+    route and ops/codegen_fx.py's trace), float32 at B=131072: equal
+    iterations and U within 1e-5; each build's kernel ms, registers and
+    spills."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.codegen_fx import emit_fx_problem
+    from hilo_mpc_tpu_torch.ops.whole_ip import WholeIPLaunch, whole_ip_problem
+    nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
+    args = nmpc.prepare_batch(flagship_x0s())
+    nt, opts = args[0].shape[2], nmpc._ip_opts
+    bnd = tuple(b.cpu().double().numpy() for b in nmpc._bounds)
+    problems = {"dsl": whole_ip_problem(nmpc._funcs, nmpc._dims, nmpc._bounds, nt, opts),
+                "traced": emit_fx_problem(nmpc._funcs, nmpc._dims, bnd, nt, opts)}
+    assert "codegen_cuda.py" in problems["dsl"].text
+    sols, out = {}, {}
+    for name, problem in problems.items():
+        launch = WholeIPLaunch(problem, nmpc._dims, torch.float32, args[0].device)
+        ms = cuda_time_ms(lambda: launch.launch(*args, opts.mu_init))
+        sols[name] = launch.launch(*args, opts.mu_init)
+        regs = build_registers(problem)
+        out[name] = dict(ms=ms, registers=regs["float32"], flops=problem.flops)
+        log(f"phase14(d) flagship, {name} route: kernel {ms:.4f} ms one call, "
+            f"{problem.flops} operations per scenario-iteration; registers "
+            f"float32 {regs['float32'][0]} ({regs['float32'][1]} bytes spilled), "
+            f"float64 {regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
+    torch.cuda.synchronize()
+    a, b = sols["dsl"], sols["traced"]
+    dev = float((a.U - b.U).abs().max())
+    eq = bool(torch.equal(a.iterations, b.iterations))
+    log(f"phase14(d): equal iterations {eq}, max|U_dsl - U_traced| {dev:.3e}")
+    assert eq and dev <= 1e-5, (eq, dev)
+    report["phase14(d) two emitters"] = out
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -3248,10 +3612,11 @@ def whole_ip_registers(log_path):
             if "Compiling entry function" in line:
                 cur = (("float32" if "whole_ip_kernelIf" in line else "float64")
                        if "whole_ip_kernel" in line else None)
-            elif cur and "spill stores" in line:
+            elif cur and cur not in out and "spill stores" in line:
                 out[cur] = [None, int(line.split("bytes spill stores")[0].split(",")[-1])]
-            elif cur and "registers" in line:
+            elif cur and "Used" in line and "registers" in line:
                 out[cur][0] = int(line.split("Used")[1].split("registers")[0])
+                cur = None
     return out
 
 
@@ -3295,6 +3660,10 @@ def build_jobs():
     problem = whole_ip_problem(du._funcs, du._dims, du._bounds, nt, du._ip_opts)
     jobs.append((f"whole_ip du_cross, CROSS ({problem.region} values per scenario)",
                  _build.source_library_path, problem.text))
+    # the traced route (ops/codegen_fx.py): phases 1, 11(b) and 14
+    for label, problem in traced_problems().items():
+        jobs.append((f"whole_ip traced {label} ({problem.region} values per scenario)",
+                     _build.source_library_path, problem.text))
     return jobs
 
 
@@ -3353,6 +3722,11 @@ def main():
             assert regs["float32"][0] <= WHOLE_IP_FLAGSHIP_REGISTERS[0], regs
             assert regs["float32"][1] == 0, regs
             assert regs["float64"][0] <= WHOLE_IP_FLAGSHIP_REGISTERS[1], regs
+        if label.startswith("whole_ip traced"):
+            regs = whole_ip_registers(lib + ".log")
+            log(f"    traced build registers per thread: float32 {regs['float32'][0]} "
+                f"({regs['float32'][1]} bytes spilled), float64 "
+                f"{regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
         if label.startswith("whole_ip du_cross"):
             regs = whole_ip_registers(lib + ".log")
             log(f"    CROSS build (nx=3, nu=1) registers per thread: float32 "
@@ -3395,7 +3769,7 @@ def main():
 
     report = {}
     for phase in (phase1, phase2, phase3, phase4, phase5, phase6, phase7, phase8,
-                  phase9, phase10, phase11, phase12, phase13):
+                  phase9, phase10, phase11, phase12, phase13, phase14):
         t = time.perf_counter()
         phase(report) if phase.__code__.co_argcount else phase()
         log(f"{phase.__name__} took {time.perf_counter() - t:.1f} s")
@@ -3409,13 +3783,16 @@ def main():
                 "fgm_boxqp_column_blocks": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143",
                 "whole_ip_cross": "hilo_mpc_tpu/ops/pallas_ip.py:143 with the cost's "
-                                  "cross block at :571"}
+                                  "cross block at :571",
+                "whole_ip_traced": "hilo_mpc_tpu/ops/pallas_ip.py:143 with the traced "
+                                   "model and cost of :215-322"}
     sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
                "riccati_lq_free_x0": "riccati_lq.cuh",
                "riccati_lq_wide_free_x0": "riccati_lq_wide.cuh",
                "fgm_boxqp": "fgm_boxqp_reg.cuh", "fgm_boxqp_resident": "fgm_boxqp.cu",
                "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
-               "whole_ip": "whole_ip.cuh", "whole_ip_cross": "whole_ip.cuh"}
+               "whole_ip": "whole_ip.cuh", "whole_ip_cross": "whole_ip.cuh",
+               "whole_ip_traced": "whole_ip.cuh"}
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -3430,8 +3807,9 @@ def main():
                         # CROSS build's float64 instance, phases 11-13's
                         # launches
                         **{k: v for k, v in r.items()
-                           if k.startswith(("soft_box", "float64", "phase11",
-                                            "phase12", "phase13"))},
+                           if k.startswith(("soft_box", "float32_registers",
+                                            "float64", "phase11", "phase12",
+                                            "phase13"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, its name kept from its first design)
                         # no single PyTorch call computes any of them:

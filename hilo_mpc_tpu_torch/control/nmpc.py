@@ -59,8 +59,8 @@ from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
 from ..ops.riccati import backward_sweep
-from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_problem,
-                            whole_ip_supported)
+from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_gate,
+                            whole_ip_problem)
 from .costs import GenericCost, QuadraticCost, make_constraint
 
 _NLP_OPTION_KEYS = {
@@ -536,24 +536,26 @@ class NMPC:
                           and not soft_cons_s and not soft_cons_t and not mt
                           and all(t.kind != "measurements" and not t.path_following
                                   for t in stage_terms + term_terms))
-        # what the whole-solve emitter cannot write as C++ (ops/codegen_cuda.py)
-        cost_error = None
+        # what neither whole-solve emitter can write as C++ (cost_error), and
+        # what sends a problem from ops/codegen_cuda.py's emitter to the
+        # traced route of ops/codegen_fx.py (dsl_error)
+        cost_error = dsl_error = None
         if spec.method.lower() in IMPLICIT_METHODS:
             cost_error = f"an implicit integrator ({spec.method})"
         elif model.n_z:
             cost_error = "algebraic states (a DAE model)"
         elif mt:
             cost_error = "a free final time"
-        elif any(t.path_following for t in stage_terms + term_terms):
-            cost_error = "a path-following reference (a callable of the path parameter)"
+        if any(t.path_following for t in stage_terms + term_terms):
+            dsl_error = "a path-following reference (a callable of the path parameter)"
         elif path:
-            cost_error = "a path parameter (create_path_variable)"
+            dsl_error = "a path parameter (create_path_variable)"
         elif not gen_stage.is_empty or not gen_term.is_empty:
-            cost_error = "a generic (callable) cost"
+            dsl_error = "a generic (callable) cost"
         elif any(t.kind == "measurements" for t in stage_terms + term_terms):
-            cost_error = "a measurement cost term"
+            dsl_error = "a measurement cost term"
         elif soft_cons_s or soft_cons_t:
-            cost_error = "a soft generic (callable) constraint"
+            dsl_error = "a soft generic (callable) constraint"
 
         dims = OCPDims(nx=nxs, nu=nus, N=N, n_h=n_h, n_hN=n_hN, n_e=n_e, n_eN=n_eN)
         source = OCPSource(
@@ -561,7 +563,10 @@ class NMPC:
             stage_terms=tuple(stage_terms), term_terms=tuple(term_terms),
             x_scaling=tuple(self._x_scaling), u_scaling=tuple(self._u_scaling),
             dt=step_dt, soft_lb=tuple(x_pen_lb), soft_ub=tuple(x_pen_ub),
-            soft_weight=soft_w, cost_error=cost_error, augment_du=aug)
+            soft_weight=soft_w, cost_error=cost_error, augment_du=aug,
+            dsl_error=dsl_error,
+            n_theta=off_rt + sum(t.n for t in term_terms if t.runtime_ref),
+            dtype=dtype, device=self._device)
         funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost,
                              stage_ineq=stage_ineq if n_h else None,
                              term_ineq=term_ineq if n_hN else None,
@@ -1152,15 +1157,15 @@ class NMPC:
             cache = self._whole_ip_cache()
             if cache["eligible"]:
                 return self._whole_ip_fn(cache, mu_val)
-            why = self._funcs.source.cost_error
-            warnings.warn("pallas_full requested but the problem shape is not "
-                          "kernel-eligible (needs box-only constraints, soft "
-                          "state bounds at most, pure Newton steps, fix_x0, "
-                          "quadratic cost terms on states and inputs, an explicit "
-                          "integrator and an ODE model in the equation DSL or by "
-                          "state-space matrices"
-                          + (f"; this problem has {why}" if why else "")
-                          + "); using the general path")
+            warnings.warn("pallas_full requested but the problem is not "
+                          "kernel-eligible (the whole-solve kernel takes box "
+                          "constraints, soft state bounds and soft generic "
+                          "constraints, pure Newton steps, fix_x0, an explicit "
+                          "integrator, an ODE model in the equation DSL, by "
+                          "state-space matrices or as a callable, and any cost "
+                          "that traces to its op table: quadratic, generic, "
+                          "measurement and path-following terms; declined "
+                          f"here: {cache['why']}); using the general path")
         return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)
 
     def _weights_key(self):
@@ -1176,23 +1181,31 @@ class NMPC:
 
     def _whole_ip_cache(self) -> dict:
         """The whole-solve path prepared for the current problem: the gate's
-        result and a ``WholeIPLaunch`` per (device, n_theta) (each with its
-        emitted problem, bound entry point, prm on the card and row
-        indices). Bounds, weights and options reach the solver only through
-        setup(), which makes new ``_funcs``, ``_bounds`` and ``_ip_opts``;
-        the cache is keyed on those objects and on the cost terms' numbers,
-        so a new setup() or a weight edited in place drops it. Cold and warm
+        result (``eligible``, and ``why`` not), the problem it emitted for
+        this controller's theta width, and a ``WholeIPLaunch`` per (device,
+        n_theta) (each with its emitted problem, bound entry point, prm on
+        the card and row indices). The gate decides from the options, the
+        dims and the emission (ops/whole_ip.py:whole_ip_gate), before any
+        compile. A problem that neither the DSL emitter nor the trace can
+        write is declined here; a problem that is eligible and then fails
+        to build or launch raises. Bounds, weights and options reach the
+        solver only through setup(), which makes new ``_funcs``,
+        ``_bounds`` and ``_ip_opts``; the cache is keyed on those objects
+        and on the cost terms' numbers, so a new setup() or a weight edited
+        in place drops it, and the traced route traces the problem again:
+        the constants of the problem functions' closures are read at that
+        point, as JAX's ``jit`` reads them at trace time. Cold and warm
         solves share it: they differ only in mu0, a launch argument."""
         c = self._wip
         weights = self._weights_key()
         if (c is None or c["funcs"] is not self._funcs or c["bounds"] is not self._bounds
                 or c["opts"] != self._ip_opts or c["weights"] != weights):
-            eligible = (self._funcs.source.cost_error is None
-                        and whole_ip_supported(self._dims, self._bounds,
-                                               self._ip_opts, True, self._model))
+            problem, why = whole_ip_gate(self._funcs, self._dims, self._bounds,
+                                         self._ip_opts, True)
             c = self._wip = dict(funcs=self._funcs, bounds=self._bounds,
                                  opts=self._ip_opts, weights=weights,
-                                 eligible=eligible, launch={})
+                                 eligible=problem is not None, why=why,
+                                 problem=problem, launch={})
         return c
 
     def _whole_ip_fn(self, cache, mu0):
@@ -1213,8 +1226,10 @@ class NMPC:
             key = (th.device, th.shape[2])
             launch = cache["launch"].get(key)
             if launch is None:
-                problem = whole_ip_problem(funcs, dims, self._bounds, th.shape[2],
-                                           self._ip_opts)
+                problem = (cache["problem"]
+                           if th.shape[2] == self._funcs.source.n_theta else
+                           whole_ip_problem(funcs, dims, self._bounds, th.shape[2],
+                                            self._ip_opts))
                 launch = cache["launch"][key] = WholeIPLaunch(
                     problem, dims, torch.float32, th.device)
             f32 = torch.float32

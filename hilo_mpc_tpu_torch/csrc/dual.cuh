@@ -20,6 +20,16 @@
 //            taken as 0 where a == 0 and b >= 0 (torch.pow)
 // fmin and fmax propagate NaN as torch.minimum and torch.maximum do.
 //
+// Duals nest: Dual<Dual<T, D>, D> seeded with the unit vectors at both levels
+// carries the value, the gradient and the Hessian of a scalar function, the
+// counterpart of JAX's jvp of grad (forward over forward), and Dual<Dual<T,
+// 1>, D> one Hessian column per pass (csrc/traced.cuh). Every rule is written
+// in terms of T's own operations, so it holds at every level; the mixed
+// operations take the plain scalar (scalar_t<T>: float or double) on the
+// other side, and branches compare plain values (plain()). At a kink the
+// nested rules follow PyTorch's double backward (the derivative of a masked
+// rule is masked too).
+//
 // Everything is __host__ __device__: the same header compiles with nvcc for
 // the card and with the host C++ compiler for the CPU tests.
 #pragma once
@@ -79,11 +89,27 @@ struct Dual {
   T v;
   T d[D];
   HM_HD Dual() {}
-  HM_HD explicit Dual(T x) : v(x) {
+  // a constant: the value x (a plain scalar, or a T), no derivative
+  template <typename U>
+  HM_HD explicit Dual(const U& x) : v(x) {
 #pragma unroll
     for (int i = 0; i < D; ++i) d[i] = T(0);
   }
 };
+
+// the plain scalar type under (nested) duals: float or double
+template <typename T> struct ScalarOf { using type = T; };
+template <typename T, int D> struct ScalarOf<Dual<T, D>> {
+  using type = typename ScalarOf<T>::type;
+};
+template <typename T> using scalar_t = typename ScalarOf<T>::type;
+
+// the plain value of a scalar or a (nested) dual
+HM_HD float plain(float v) { return v; }
+HM_HD double plain(double v) { return v; }
+template <typename T, int D> HM_HD scalar_t<T> plain(const Dual<T, D>& a) {
+  return plain(a.v);
+}
 
 // f(a) with f(a.v) = val and f'(a.v) = der
 template <typename T, int D>
@@ -113,13 +139,13 @@ HM_HD Dual<T, D> operator+(const Dual<T, D>& a, const Dual<T, D>& b) {
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator+(const Dual<T, D>& a, T b) {
+HM_HD Dual<T, D> operator+(const Dual<T, D>& a, scalar_t<T> b) {
   Dual<T, D> r = a;
   r.v = a.v + b;
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator+(T a, const Dual<T, D>& b) {
+HM_HD Dual<T, D> operator+(scalar_t<T> a, const Dual<T, D>& b) {
   Dual<T, D> r = b;
   r.v = a + b.v;
   return r;
@@ -134,13 +160,13 @@ HM_HD Dual<T, D> operator-(const Dual<T, D>& a, const Dual<T, D>& b) {
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator-(const Dual<T, D>& a, T b) {
+HM_HD Dual<T, D> operator-(const Dual<T, D>& a, scalar_t<T> b) {
   Dual<T, D> r = a;
   r.v = a.v - b;
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator-(T a, const Dual<T, D>& b) {
+HM_HD Dual<T, D> operator-(scalar_t<T> a, const Dual<T, D>& b) {
   Dual<T, D> r;
   r.v = a - b.v;
 #pragma unroll
@@ -157,7 +183,7 @@ HM_HD Dual<T, D> operator*(const Dual<T, D>& a, const Dual<T, D>& b) {
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator*(const Dual<T, D>& a, T b) {
+HM_HD Dual<T, D> operator*(const Dual<T, D>& a, scalar_t<T> b) {
   Dual<T, D> r;
   r.v = a.v * b;
 #pragma unroll
@@ -165,7 +191,7 @@ HM_HD Dual<T, D> operator*(const Dual<T, D>& a, T b) {
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator*(T a, const Dual<T, D>& b) {
+HM_HD Dual<T, D> operator*(scalar_t<T> a, const Dual<T, D>& b) {
   Dual<T, D> r;
   r.v = a * b.v;
 #pragma unroll
@@ -182,7 +208,7 @@ HM_HD Dual<T, D> operator/(const Dual<T, D>& a, const Dual<T, D>& b) {
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator/(const Dual<T, D>& a, T b) {
+HM_HD Dual<T, D> operator/(const Dual<T, D>& a, scalar_t<T> b) {
   Dual<T, D> r;
   r.v = a.v / b;
 #pragma unroll
@@ -190,7 +216,7 @@ HM_HD Dual<T, D> operator/(const Dual<T, D>& a, T b) {
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> operator/(T a, const Dual<T, D>& b) {
+HM_HD Dual<T, D> operator/(scalar_t<T> a, const Dual<T, D>& b) {
   Dual<T, D> r;
   r.v = a / b.v;
 #pragma unroll
@@ -281,10 +307,10 @@ HM_HD Dual<T, D> m_atan2(const Dual<T, D>& a, const Dual<T, D>& b) {
 // torch.minimum / torch.maximum: the tie splits the derivative in halves
 template <typename T, int D>
 HM_HD Dual<T, D> m_fmin(const Dual<T, D>& a, const Dual<T, D>& b) {
-  if (a.v != a.v) return a;
-  if (b.v != b.v) return b;
-  if (a.v < b.v) return a;
-  if (b.v < a.v) return b;
+  if (plain(a) != plain(a)) return a;
+  if (plain(b) != plain(b)) return b;
+  if (plain(a) < plain(b)) return a;
+  if (plain(b) < plain(a)) return b;
   Dual<T, D> r;
   r.v = a.v;
 #pragma unroll
@@ -293,10 +319,10 @@ HM_HD Dual<T, D> m_fmin(const Dual<T, D>& a, const Dual<T, D>& b) {
 }
 template <typename T, int D>
 HM_HD Dual<T, D> m_fmax(const Dual<T, D>& a, const Dual<T, D>& b) {
-  if (a.v != a.v) return a;
-  if (b.v != b.v) return b;
-  if (a.v > b.v) return a;
-  if (b.v > a.v) return b;
+  if (plain(a) != plain(a)) return a;
+  if (plain(b) != plain(b)) return b;
+  if (plain(a) > plain(b)) return a;
+  if (plain(b) > plain(a)) return b;
   Dual<T, D> r;
   r.v = a.v;
 #pragma unroll
@@ -305,34 +331,37 @@ HM_HD Dual<T, D> m_fmax(const Dual<T, D>& a, const Dual<T, D>& b) {
 }
 
 template <typename T, int D>
-HM_HD Dual<T, D> m_pow(const Dual<T, D>& a, T c) {
+HM_HD Dual<T, D> m_pow(const Dual<T, D>& a, scalar_t<T> c) {
+  using C = scalar_t<T>;
   return chain(a, m_pow(a.v, c),
-               c == T(0) ? T(0) : c * m_pow(a.v, c - T(1)));
+               c == C(0) ? T(0) : c * m_pow(a.v, c - C(1)));
 }
 template <typename T, int D>
 HM_HD Dual<T, D> m_pow(const Dual<T, D>& a, const Dual<T, D>& b) {
+  using C = scalar_t<T>;
   Dual<T, D> r;
   r.v = m_pow(a.v, b.v);
-  const T da = b.v == T(0) ? T(0) : b.v * m_pow(a.v, b.v - T(1));
-  const T db = (a.v == T(0) && b.v >= T(0)) ? T(0) : r.v * m_log(a.v);
+  const T da = plain(b) == C(0) ? T(0) : b.v * m_pow(a.v, b.v - C(1));
+  const T db = (plain(a) == C(0) && plain(b) >= C(0)) ? T(0) : r.v * m_log(a.v);
 #pragma unroll
   for (int i = 0; i < D; ++i) r.d[i] = da * a.d[i] + db * b.d[i];
   return r;
 }
 template <typename T, int D>
-HM_HD Dual<T, D> m_pow(T a, const Dual<T, D>& b) {
+HM_HD Dual<T, D> m_pow(scalar_t<T> a, const Dual<T, D>& b) {
+  using C = scalar_t<T>;
   const T v = m_pow(a, b.v);
-  return chain(b, v, (a == T(0) && b.v >= T(0)) ? T(0) : v * m_log(a));
+  return chain(b, v, (a == C(0) && plain(b) >= C(0)) ? T(0) : v * m_log(a));
 }
 
 // the two-argument functions with one plain argument
 #define HM_MIXED(name)                                                   \
   template <typename T, int D>                                           \
-  HM_HD Dual<T, D> name(const Dual<T, D>& a, T b) {                      \
+  HM_HD Dual<T, D> name(const Dual<T, D>& a, scalar_t<T> b) {            \
     return name(a, Dual<T, D>(b));                                       \
   }                                                                      \
   template <typename T, int D>                                           \
-  HM_HD Dual<T, D> name(T a, const Dual<T, D>& b) {                      \
+  HM_HD Dual<T, D> name(scalar_t<T> a, const Dual<T, D>& b) {            \
     return name(Dual<T, D>(a), b);                                       \
   }
 HM_MIXED(m_atan2)

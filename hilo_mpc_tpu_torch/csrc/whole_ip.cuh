@@ -19,7 +19,9 @@
 // The per-scenario loop replaces the TPU kernel's per-lane freeze, so the
 // iteration count of every scenario is the one its own test gives.
 //
-// The problem is a struct P that ops/codegen_cuda.py emits per controller:
+// The problem is a struct P that ops/codegen_cuda.py emits per controller
+// (or ops/codegen_fx.py from a torch.fx trace, its costs' derivatives by
+// the dual numbers of traced.cuh):
 // the sizes NX, NU, N, NT, the active box rows (row_mask(k) over the 2NU+2NX
 // candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, row_off(k) their
 // first slot, TERM_MASK over [x-ub; lb-x] of the terminal stage), the
@@ -884,6 +886,33 @@ HM_HDN void wip_block(const WipIn<T>& in, const WipOut<T>& out, T* region, int b
   });
 }
 
+// The stage cost's gradient g = (gx, gu) and Hessian H over (x, u), D x D
+// with D = NX + NU, as the kernel takes them (the Hux block where P::CROSS,
+// its transpose beside it; zero otherwise), and the terminal cost's (for the
+// host-side tests)
+template <typename T, typename P>
+void stage_derivs(const T* xs, const T* us, const T* th, const T* prm, T* g, T* H) {
+  constexpr int NX = P::NX, NU = P::NU, D = NX + NU;
+  T Hxx[NX * NX], Huu[NU * NU], Hux[NU * NX];
+  for (int e = 0; e < NU * NX; ++e) Hux[e] = T(0);
+  P::stage_grad(xs, us, th, prm, g, g + NX);
+  if constexpr (P::CROSS)
+    P::stage_hess(xs, us, th, prm, Hxx, Huu, Hux);
+  else
+    P::stage_hess(xs, us, th, prm, Hxx, Huu);
+  for (int a = 0; a < D; ++a)
+    for (int b = 0; b < D; ++b)
+      H[a * D + b] = a < NX && b < NX     ? Hxx[a * NX + b]
+                     : a >= NX && b >= NX ? Huu[(a - NX) * NU + b - NX]
+                     : a >= NX            ? Hux[(a - NX) * NX + b]
+                                          : Hux[(b - NX) * NX + a];
+}
+template <typename T, typename P>
+void term_derivs(const T* xs, const T* th, const T* prm, T* g, T* H) {
+  P::term_grad(xs, th, prm, g);
+  P::term_hess(xs, th, prm, H);
+}
+
 // F and [A | B] of one stage by the dual pass (for the host-side tests)
 template <typename T, typename P>
 void dyn_lin(const T* xs, const T* us, const T* th, const T* prm, T* F, T* AB) {
@@ -960,7 +989,8 @@ int whole_ip_run_host(const WipIn<T>& in, const WipOut<T>& out, void* scratch, i
 // The C entry points of one generated problem (bound with ctypes). On the
 // card whole_ip_f32 / whole_ip_f64 enqueue the kernel on `stream` and return
 // its cudaError_t; on the host whole_ip_host_f32 / _f64 run the same block
-// schedule in loops, dyn_lin_host_f64 the dual pass. `scratch` holds
+// schedule in loops, dyn_lin_host_f64 the dual pass, cost_derivs_host_f64
+// the costs' gradients and Hessians. `scratch` holds
 // ceil(B/TB)·TB·E elements of the kernel's type.
 #define HM_WIP_ARGS                                                          \
   const void *th, const void *x0, const void *X, const void *U,              \
@@ -999,6 +1029,19 @@ int whole_ip_run_host(const WipIn<T>& in, const WipOut<T>& out, void* scratch, i
       hm::dyn_lin<double, P>(xs + b * P::NX, us + b * P::NU, th + b * P::NT, \
                              prm, F + b * P::NX,                             \
                              AB + b * P::NX * (P::NX + P::NU));              \
+    return 0;                                                                \
+  }                                                                          \
+  extern "C" int cost_derivs_host_f64(const double* xs, const double* us,    \
+                                      const double* th, const double* prm,   \
+                                      double* g, double* H, double* gN,      \
+                                      double* HN, int B) {                   \
+    constexpr int NX = P::NX, D = P::NX + P::NU;                             \
+    for (int b = 0; b < B; ++b) {                                            \
+      hm::stage_derivs<double, P>(xs + b * NX, us + b * P::NU, th + b * P::NT, \
+                                  prm, g + b * D, H + b * D * D);            \
+      hm::term_derivs<double, P>(xs + b * NX, th + b * P::NT, prm,           \
+                                 gN + b * NX, HN + b * NX * NX);             \
+    }                                                                        \
     return 0;                                                                \
   }
 #endif

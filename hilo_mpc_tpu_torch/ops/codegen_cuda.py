@@ -28,9 +28,7 @@ in-kernel AD, so this module writes the model as C++ instead:
   Hessian, 2w where a bound is violated, with the stage's h/dt factor and
   the solver scaling as above (none of h/dt in the terminal cost). The
   Hessian functions take the point for it; a problem without soft bounds
-  emits no such code. Generic (callable) costs, measurement terms, soft
-  generic constraints, path-following references (callables of the path
-  parameter) and a free final time have no emitter (``OCPSource.cost_error``);
+  emits no such code;
 - the box rows become bit masks over the candidate rows
   ``[u-ub; lb-u; x-ub; lb-x]`` of each stage (no x rows at k = 0), then the
   terminal rows ``[x-ub; lb-x]``.
@@ -39,8 +37,16 @@ Structure goes into the source (sizes, the active-row pattern, the tableau,
 the expressions, the cost's sparsity); numbers go into the array ``prm``
 (bound offsets, weights, constant references, scalings, dt, the IP
 constants), so controllers that differ only in numbers share one build.
-What cannot be emitted (a model given as a Python callable, DAE states, a
-function outside the DSL table) raises ``NotImplementedError`` here.
+
+``emit_problem`` chooses the route: a problem this module can write is
+written here, every other one (a model given as a Python callable, a
+generic cost, a measurement term, a soft generic constraint, a
+path-following reference or path parameter: ``OCPSource.dsl_error``) by
+ops/codegen_fx.py from a ``torch.fx`` trace of the problem functions, which
+shares ``_struct_head``, ``_rows`` and the solver's operation count with
+this module. What neither route can write (an implicit integrator,
+algebraic states, a free final time: ``OCPSource.cost_error``; more than
+``MAX_ROWS`` candidate rows) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -87,14 +93,18 @@ _IP_FIELDS = ("tol", "tol10", "reg", "s_min", "kappa_eps", "kappa_mu",
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class OCPSource:
-    """What the emitter needs of an NMPC problem (``NMPC.setup`` attaches it
+    """What the emitters need of an NMPC problem (``NMPC.setup`` attaches it
     to its ``OCPFunctions``): the model and integrator, the theta layout
-    [t, h, p (n_p), stage refs, terminal refs], the quadratic cost terms
-    (control/costs.py:QuadTerm), the solver scalings and the sampling time
-    that divides the stage cost's h; the soft state bounds (unscaled, ±inf
-    where a state has none) and their weight; and, where the cost holds a
-    part that has no emitter, what that part is (``cost_error``; also an
-    implicit integrator or algebraic states)."""
+    [t, h, p (n_p), stage refs, terminal refs] and its width, the quadratic
+    cost terms (control/costs.py:QuadTerm), the solver scalings and the
+    sampling time that divides the stage cost's h; the soft state bounds
+    (unscaled, ±inf where a state has none) and their weight; where the
+    problem holds a part that this module's emitter cannot write, what that
+    part is (``dsl_error``: the problem then takes the traced route of
+    ops/codegen_fx.py); where neither emitter can, what that is
+    (``cost_error``: an implicit integrator, algebraic states, a free final
+    time); and the dtype and device of the problem functions' closures, in
+    which the traced route traces them."""
     model: object
     spec: IntegratorSpec
     off_rs: int
@@ -111,6 +121,10 @@ class OCPSource:
     # the Δu augmentation: u_prev rides in the state after the model's
     # states and the control is Δu
     augment_du: bool = False
+    dsl_error: Optional[str] = None
+    n_theta: Optional[int] = None
+    dtype: object = None
+    device: object = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -285,9 +299,9 @@ def emit_model(model) -> tuple:
             body.append(f"  out[{i}] = S({' + '.join(terms) or _lit(0.0)});")
     else:
         raise NotImplementedError(
-            "the model's equations are a Python callable: only models given "
-            "in the equation DSL or by state-space matrices can be emitted as "
-            "C++ (a torch.fx emitter is the later extension, ROADMAP.md §C)")
+            "the model's equations are a Python callable: this emitter writes "
+            "models given in the equation DSL or by state-space matrices "
+            "(ops/codegen_fx.py traces the others)")
     text = ("  template <typename T, typename S>\n"
             "  HM_HD static void rhs(const S* x, const S* u, const T* p, T t, "
             "S* out) {\n"
@@ -492,19 +506,66 @@ def _emit_soft(src: OCPSource, prm: _Prm, nx: int) -> tuple:
     return val, grad, hess, ops
 
 
-def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> EmittedProblem:
+def _struct_head(nx, nu, N, n_theta, masks, RS, RT, tmask, cross, p_row,
+                 p_trow, region) -> str:
+    """The head of the problem struct, shared by both emitters: the sizes,
+    the tiles, the row pattern and where the row offsets sit in prm."""
+    runs = _runs(masks)
+    k0, _, m_last, s_last = runs[-1]
+    mask_fn = "".join(f"    if (k < {k1}) return {m}u;\n" for _, k1, m, _ in runs[:-1])
+    mask_fn += f"    return {m_last}u;"
+    off_fn = "".join(f"    if (k < {k1}) return {s0} + (k - {k0}) * "
+                     f"{bin(m).count('1')};\n" for k0, k1, m, s0 in runs[:-1])
+    off_fn += f"    return {s_last} + (k - {k0}) * {bin(m_last).count('1')};"
+    return f"""struct Problem {{
+  static constexpr int NX = {nx}, NU = {nu}, N = {N}, NT = {n_theta};
+  static constexpr int RS = {RS}, RT = {RT};
+  static constexpr int TB = {WIP_TB}, MINB_F32 = {WIP_MIN_BLOCKS[0]},
+                       MINB_F64 = {WIP_MIN_BLOCKS[1]}, E = {region};
+  static constexpr unsigned TERM_MASK = {tmask}u;
+  static constexpr bool CROSS = {"true" if cross else "false"};
+  static constexpr int P_TOL = 0, P_TOL10 = 1, P_REG = 2, P_SMIN = 3,
+                       P_KEPS = 4, P_KMU = 5, P_TMU = 6, P_TAUMIN = 7,
+                       P_MAXIT = 8, P_ROW = {p_row}, P_TROW = {p_trow};
+
+  // active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, and the slot
+  // of the first of them
+  HM_HD static unsigned row_mask(int k) {{
+{mask_fn}
+  }}
+  HM_HD static int row_off(int k) {{
+{off_fn}
+  }}
+
+"""
+
+
+def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options,
+                 funcs=None) -> EmittedProblem:
     """The C++ problem struct for csrc/whole_ip.cuh and its numbers.
     ``bounds`` are numpy arrays (lbx, ubx, lbu, ubu) in solver coordinates;
-    ``options`` the IPOptions whose constants go into prm."""
+    ``options`` the IPOptions whose constants go into prm. A problem this
+    module's emitter takes (a model in the DSL or by state-space matrices,
+    quadratic terms on states, inputs and input changes, soft state bounds)
+    is written here; every other one from a trace of ``funcs``
+    (ops/codegen_fx.py). What neither can write raises
+    NotImplementedError."""
     nx, nu, N = dims.nx, dims.nu, dims.N
     if 2 * nu + 2 * nx > MAX_ROWS:
         raise NotImplementedError(
             f"2·nu + 2·nx = {2 * nu + 2 * nx} candidate box rows per stage; the "
-            f"whole-solve kernel takes at most {MAX_ROWS}")
+            f"whole-solve kernel takes at most {MAX_ROWS} (ROADMAP.md §B)")
     if src.cost_error is not None:
         raise NotImplementedError(
-            f"the whole-solve kernel's emitter cannot write {src.cost_error} as "
-            f"C++ (a torch.fx emitter is the later extension, ROADMAP.md §C)")
+            f"the whole-solve kernel cannot take {src.cost_error} "
+            f"(ROADMAP.md §B)")
+    why = src.dsl_error or model_emit_error(src.model)
+    if why is not None:
+        if funcs is None:
+            raise NotImplementedError(
+                f"{why}: the traced route needs the problem functions")
+        from .codegen_fx import emit_fx_problem
+        return emit_fx_problem(funcs, dims, bounds, n_theta, options)
     rhs, model_ops, model_calls = emit_model(src.model)
     nxm = src.model.n_x
     aug = src.augment_du
@@ -544,13 +605,6 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
     prm.add(0.0)                  # keeps P_ROW and P_TROW inside the array
     step, n_rhs, n_comb = _emit_step(src.spec, nxm)
 
-    runs = _runs(masks)
-    k0, _, m_last, s_last = runs[-1]
-    mask_fn = "".join(f"    if (k < {k1}) return {m}u;\n" for _, k1, m, _ in runs[:-1])
-    mask_fn += f"    return {m_last}u;"
-    off_fn = "".join(f"    if (k < {k1}) return {s0} + (k - {k0}) * "
-                     f"{bin(m).count('1')};\n" for k0, k1, m, s0 in runs[:-1])
-    off_fn += f"    return {s_last} + (k - {k0}) * {bin(m_last).count('1')};"
     scale_in = "\n".join(
         [f"    T x[{nx}], u[{nu}];"]
         + [f"    x[{i}] = xs[{i}] * prm[{p_sx + i}];" for i in range(nx)]
@@ -572,31 +626,13 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options) -> Emitted
     dyn_out = (f"\n    for (int j = 0; j < {nu}; ++j) out[{nxm} + j] = u[j] / prm[{p_su} + j];"
                if aug else "")
     region = whole_ip_region(nx, nu, N, n_theta, len(offs), len(toffs))
+    head = _struct_head(nx, nu, N, n_theta, masks, len(offs), len(toffs), tmask,
+                        cross, p_row, p_trow, region)
     text = f"""// Generated by hilo_mpc_tpu_torch/ops/codegen_cuda.py: one NMPC problem
 // for the whole-solve interior point of csrc/whole_ip.cuh.
 #include "whole_ip.cuh"
 
-struct Problem {{
-  static constexpr int NX = {nx}, NU = {nu}, N = {N}, NT = {n_theta};
-  static constexpr int RS = {len(offs)}, RT = {len(toffs)};
-  static constexpr int TB = {WIP_TB}, MINB_F32 = {WIP_MIN_BLOCKS[0]},
-                       MINB_F64 = {WIP_MIN_BLOCKS[1]}, E = {region};
-  static constexpr unsigned TERM_MASK = {tmask}u;
-  static constexpr bool CROSS = {"true" if cross else "false"};
-  static constexpr int P_TOL = 0, P_TOL10 = 1, P_REG = 2, P_SMIN = 3,
-                       P_KEPS = 4, P_KMU = 5, P_TMU = 6, P_TAUMIN = 7,
-                       P_MAXIT = 8, P_ROW = {p_row}, P_TROW = {p_trow};
-
-  // active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, and the slot
-  // of the first of them
-  HM_HD static unsigned row_mask(int k) {{
-{mask_fn}
-  }}
-  HM_HD static int row_off(int k) {{
-{off_fn}
-  }}
-
-{rhs}
+{head}{rhs}
   // x_next of the solver-scaled (xs, us) at the stage parameters th
   template <typename T, typename S>
   HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
@@ -692,6 +728,13 @@ def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
     step = (n_rhs * (model_ops * (1 + 3 * D) + model_calls * (2 + 2 * D))
             + n_comb * nx * (1 + 2 * (1 + D)) + (2 * nx + nu) * (1 + D))
     grad = cost_ops + 2 * (nx + nu) + 2
+    return int(N * (step + grad) + _solver_flops(nx, nu, N, RS, RT, cross))
+
+
+def _solver_flops(nx, nu, N, RS, RT, cross=False) -> int:
+    """The solver algebra's share of ``_iteration_flops``: per stage the KKT
+    terms, the condensation, the Riccati step, the forward pass and the
+    candidate; per active row its terms; the terminal stage."""
     kkt = nu * (2 * nx + 3) + nx * (2 * nx + 3) + nx + 2 * nx
     rows_kkt = 8                                      # per active row
     cond = 6 + 2 * nx * nx + 2 * nu * nu              # Hessians, per stage
@@ -705,7 +748,7 @@ def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
     fwd = 2 * nu * nx + nu + 2 * nx * nx + 2 * nx * nu + 2 * nx + 2 * nx * nx + nx
     rows_step = 12 + 14                               # direction + candidate
     cand = 2 * (nx + nu)
-    per_stage = step + grad + kkt + cond + riccati + fwd + cand
+    per_stage = kkt + cond + riccati + fwd + cand
     per_row = rows_kkt + rows_cond + rows_step
     tail = 20 + nx * (nx + 4) + RT * per_row
-    return int(N * per_stage + RS * per_row + tail)
+    return N * per_stage + RS * per_row + tail

@@ -3,16 +3,22 @@
 Counterpart of ``hilo_mpc_tpu/ops/pallas_ip.py``: ``solve_ocp_full_cuda``
 replaces ``solve_ocp_pallas_full`` (line 143), whose ``pallas_call`` (line
 842) runs the entire box-constrained pure-Newton interior point, dynamics
-linearization included, in one kernel. Here ops/codegen_cuda.py writes the
-problem (model, integrator, quadratic cost, active box rows) as C++, it is
-compiled together with the solver template csrc/whole_ip.cuh by ``nvcc`` at
-its first use (ops/_build.py, cached by the text's hash under
+linearization included, in one kernel. Here the problem (model, integrator,
+cost, active box rows) is written as C++: by ops/codegen_cuda.py for a
+model in the equation DSL or by state-space matrices with quadratic terms
+and soft state bounds, and otherwise (a callable model, a generic cost, a
+measurement term, a soft generic constraint, a path-following reference)
+by ops/codegen_fx.py from a ``torch.fx`` trace of the problem functions. It
+is compiled together with the solver template csrc/whole_ip.cuh by ``nvcc``
+at its first use (ops/_build.py, cached by the text's hash under
 ``_build/gen/``), and one launch solves every scenario of the batch, one
 thread per scenario, until each has converged, diverged or reached
-``max_iter``. ``whole_ip_supported`` is the gate (``pallas_full_supported``
-plus an emittable model); ``NMPC.solve_batch_fn`` reads ``pallas_full`` and
-takes this path for eligible problems, through a ``WholeIPLaunch`` it
-prepares once per controller, dtype and device.
+``max_iter``. ``whole_ip_gate`` is the gate (``pallas_full_supported`` and
+an emission: no implicit integrator, algebraic states or free final time,
+no op outside the trace's table, at most ``MAX_ROWS`` candidate rows per
+stage); ``NMPC.solve_batch_fn`` reads ``pallas_full`` and takes this path
+for eligible problems, through a ``WholeIPLaunch`` it prepares once per
+controller, dtype and device.
 
 The plain version, ``solve_ocp_full_reference``, is the port's ``solve_ocp``
 with the kernel's options and the plain LQ sweeps, the counterpart of what
@@ -23,50 +29,80 @@ own per-scenario code, compiled for the host, on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .codegen_cuda import (MAX_ROWS, WIP_TB, EmittedProblem, emit_problem,
-                           model_emit_error)
+from .codegen_cuda import MAX_ROWS, WIP_TB, EmittedProblem, emit_problem
 from .ip_solver import IPOptions, OCPSolution, solve_ocp
 from .riccati import make_plain_lq_solver
 
 
-def whole_ip_supported(dims, bounds, options: IPOptions, fix_x0: bool,
-                       model) -> bool:
-    """True iff the whole-solve kernel covers this problem: the conditions of
-    ``hilo_mpc_tpu/ops/pallas_ip.py:pallas_full_supported`` (box constraints
-    only, fix_x0, pure Newton steps, no iterate recording or parallel
-    Riccati, no pinned controls) and a model that ops/codegen_cuda.py can
-    emit as C++."""
-    if dims.n_h or dims.n_hN or dims.n_e or dims.n_eN:
-        return False
+def _options_decline(dims, bounds, options: IPOptions, fix_x0: bool) -> Optional[str]:
+    """Why ``hilo_mpc_tpu/ops/pallas_ip.py:pallas_full_supported`` declines
+    this problem, or None: hard generic or equality rows, a free x0, other
+    than pure Newton steps, iterate recording or parallel Riccati, pinned
+    controls; and here more than ``MAX_ROWS`` candidate rows per stage."""
+    if dims.n_h or dims.n_hN:
+        return "hard generic inequality rows"
+    if dims.n_e or dims.n_eN:
+        return "equality rows"
     if not fix_x0:
-        return False
-    if options.mehrotra or options.convexify or options.n_linesearch > 1:
-        return False
+        return "a free initial state"
+    if options.mehrotra:
+        return "Mehrotra steps (mehrotra)"
+    if options.convexify:
+        return "convexified Hessians (convexify)"
+    if options.n_linesearch > 1:
+        return "a line search of more than one candidate (n_linesearch)"
     if options.record_iterates or options.parallel_riccati:
-        return False
+        return "record_iterates or parallel_riccati"
     lbu = bounds.lbu.detach().cpu().double().numpy()
     ubu = bounds.ubu.detach().cpu().double().numpy()
     if (np.isfinite(lbu) & np.isfinite(ubu) & (ubu - lbu < 1e-9)).any():
-        return False
+        return "pinned controls (lbu = ubu)"
     if 2 * dims.nu + 2 * dims.nx > MAX_ROWS:
-        return False
-    return model is not None and model_emit_error(model) is None
+        return (f"{2 * dims.nu + 2 * dims.nx} candidate box rows per stage (at most "
+                f"{MAX_ROWS})")
+    return None
+
+
+def whole_ip_gate(funcs, dims, bounds, options: IPOptions, fix_x0: bool,
+                  n_theta: Optional[int] = None):
+    """(the emitted problem, None) if the whole-solve kernel takes this
+    problem, else (None, why). What neither emitter can write is checked
+    first (``OCPSource.cost_error``), then the conditions of
+    ``pallas_full_supported``, then the emission itself, DSL or traced
+    (ops/codegen_cuda.py:emit_problem), for ``n_theta`` (default: the
+    problem's own theta width); a refused op or a branch on a value in the
+    trace is named in ``why``. Nothing is compiled."""
+    src = funcs.source
+    if src is None:
+        return None, "no problem source (OCPFunctions.source, which NMPC.setup attaches)"
+    if src.cost_error is not None:
+        return None, src.cost_error
+    why = _options_decline(dims, bounds, options, fix_x0)
+    if why is not None:
+        return None, why
+    try:
+        return whole_ip_problem(funcs, dims, bounds, n_theta or src.n_theta,
+                                options), None
+    except NotImplementedError as e:
+        return None, str(e)
 
 
 def whole_ip_problem(funcs, dims, bounds, n_theta: int,
                      options: IPOptions) -> EmittedProblem:
-    """The problem as C++ and its numbers (ops/codegen_cuda.py)."""
+    """The problem as C++ and its numbers (ops/codegen_cuda.py, or the trace
+    of ops/codegen_fx.py)."""
     if funcs.source is None:
         raise NotImplementedError(
             "the whole-solve kernel needs the problem's source "
             "(OCPFunctions.source, which NMPC.setup attaches)")
     bnd = tuple(b.detach().cpu().double().numpy() for b in bounds)
-    return emit_problem(funcs.source, dims, bnd, n_theta, options)
+    return emit_problem(funcs.source, dims, bnd, n_theta, options, funcs)
 
 
 def solve_ocp_full_reference(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
@@ -192,7 +228,7 @@ def solve_ocp_full_cuda(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
     float32 or float64, one dtype, contiguous, one CUDA device; bounds shared
     by the batch; the initial barrier is ``options.mu_init``. Returns a
     batched OCPSolution (leading dim B) with the slacks and duals in the full
-    row layout. The problem must pass ``whole_ip_supported`` and ``funcs``
+    row layout. The problem must pass ``whole_ip_gate`` and ``funcs``
     carry its source (``NMPC.setup`` attaches it). Launches on the current
     stream without synchronizing; the first call for a problem builds it
     (seconds, cached by the generated text). Each call gates, emits and
@@ -201,11 +237,10 @@ def solve_ocp_full_cuda(funcs, dims, bounds, theta_B, x0_B, X_B, U_B,
     if not any(t.is_cuda for t in args):
         return solve_ocp_full_reference(funcs, dims, bounds, *args, options)
     _check(dims, *args)
-    model = funcs.source.model if funcs.source is not None else None
-    if not whole_ip_supported(dims, bounds, options, True, model):
-        raise ValueError("this problem is not eligible for the whole-solve kernel "
-                         "(ops/whole_ip.py:whole_ip_supported)")
-    problem = whole_ip_problem(funcs, dims, bounds, theta_B.shape[2], options)
+    problem, why = whole_ip_gate(funcs, dims, bounds, options, True, theta_B.shape[2])
+    if problem is None:
+        raise ValueError(f"this problem is not eligible for the whole-solve kernel: "
+                         f"{why} (ops/whole_ip.py:whole_ip_gate)")
     return WholeIPLaunch(problem, dims, theta_B.dtype, theta_B.device)(
         *args, options.mu_init)
 
@@ -244,3 +279,24 @@ def dyn_lin_host(funcs, dims, bounds, xs, us, th):
     fn(xs.data_ptr(), us.data_ptr(), th.data_ptr(), prm.data_ptr(),
        F.data_ptr(), AB.data_ptr(), R)
     return F, AB
+
+
+def cost_derivs_host(funcs, dims, bounds, xs, us, th):
+    """The stage and terminal costs' gradients and Hessians as the emitted
+    problem computes them, compiled for the host: xs (R, nx), us (R, nu),
+    th (R, n_theta) float64 CPU tensors -> (g (R, nx+nu), H (R, nx+nu,
+    nx+nu), gN (R, nx), HN (R, nx, nx)) over the solver-scaled variables
+    (the x-u block is zero where the problem has no CROSS)."""
+    problem = whole_ip_problem(funcs, dims, bounds, th.shape[1], IPOptions())
+    fn = _build.load_host(problem.text).cost_derivs_host_f64
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
+        fn.restype = ctypes.c_int
+    xs, us, th = (t.to(torch.float64).contiguous() for t in (xs, us, th))
+    prm = torch.as_tensor(problem.prm, dtype=torch.float64)
+    R, nx, D = xs.shape[0], dims.nx, dims.nx + dims.nu
+    out = [torch.empty(shape, dtype=torch.float64)
+           for shape in ((R, D), (R, D, D), (R, nx), (R, nx, nx))]
+    fn(xs.data_ptr(), us.data_ptr(), th.data_ptr(), prm.data_ptr(),
+       *[t.data_ptr() for t in out], R)
+    return tuple(out)

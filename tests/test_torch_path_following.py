@@ -12,9 +12,13 @@ calls them on a scalar.
 - The twins of tests/test_nmpc_advanced.py ``TestPathFollowing`` and of
   tests/test_nmpc_reference_matrix.py ``TestPathFollowingMatrix``
   (pf_v2..v5 on the point mass), each one step against JAX's.
-- The whole-solve gate declines path following with a warning naming why.
+- The whole-solve gate takes path following under pure Newton steps (the
+  traced route of ops/codegen_fx.py): no warning, the kernel's path, and
+  its host build against the plain version.
 """
 import os
+import shutil
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -238,17 +242,29 @@ def test_path_following_matrix_matches_jax(case):
         assert pred["x"][-1, 2] > 0.01        # the constant reference pulls y up
 
 
-def test_whole_solve_gate_declines_path_following():
-    """pallas_full on a path-following controller (JAX's gate takes it, the
-    port's emitter has no path reference): a warning naming the reason,
-    and the general path's answer."""
+def test_whole_solve_gate_takes_path_following():
+    """pallas_full on a path-following controller (JAX's gate takes it too):
+    the path reference sends it to the traced route, no warning; on CPU the
+    kernel's plain version, and the host build of the traced problem against
+    it (float64, equal iterations, 1e-12)."""
+    from hilo_mpc_tpu_torch.ops import whole_ip as W
+    if shutil.which("c++") is None and shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler on PATH")
     opts = {"dt": 0.1, "convexify": False, "mehrotra": False, "n_linesearch": 1,
             "pallas_full": True}
     tn = _pf_nmpc("pf_v2_stage_and_terminal_path", False, options=opts)
-    assert "path-following reference" in tn._funcs.source.cost_error
+    assert tn._funcs.source.cost_error is None
+    assert "path-following reference" in tn._funcs.source.dsl_error
     args = tn.prepare_batch(np.zeros((2, 4)))
-    with pytest.warns(UserWarning, match="path-following reference"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         fn = tn.solve_batch_fn()
-    ref = tn._solve(*args, tn._mu_cold)
+    assert tn._wip["eligible"] and "codegen_fx.py" in tn._wip["problem"].text
+    f = (tn._funcs, tn._dims, tn._bounds)
+    ref = W.solve_ocp_full_reference(*f, *args, tn._ip_opts)
     for a, b in zip(fn(*args), ref):
         assert torch.equal(a, b)
+    k = W.solve_ocp_full_host(*f, *args, tn._ip_opts)
+    assert torch.equal(k.iterations, ref.iterations)
+    torch.testing.assert_close(k.U, ref.U, rtol=0, atol=1e-12)
+    torch.testing.assert_close(k.X, ref.X, rtol=0, atol=1e-12)

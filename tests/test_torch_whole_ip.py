@@ -176,21 +176,22 @@ def _pinned(b):
 
 
 GATE_CASES = {
-    # name: (options, dims change, fix_x0, bounds change, expected)
-    "flagship": ({}, {}, True, None, True),
-    "mehrotra": ({"mehrotra": True}, {}, True, None, False),
-    "n_linesearch": ({"n_linesearch": 6}, {}, True, None, False),
-    "convexify": ({"convexify": True}, {}, True, None, False),
-    "generic_rows": ({}, {"n_h": 1}, True, None, False),
-    "equality_rows": ({}, {"n_e": 1}, True, None, False),
-    "free_x0": ({}, {}, False, None, False),
-    "pinned_controls": ({}, {}, True, _pinned, False),
+    # name: (options, dims change, fix_x0, bounds change, the reason the
+    # port's gate gives, None where both gates take the problem)
+    "flagship": ({}, {}, True, None, None),
+    "mehrotra": ({"mehrotra": True}, {}, True, None, "Mehrotra steps"),
+    "n_linesearch": ({"n_linesearch": 6}, {}, True, None, "n_linesearch"),
+    "convexify": ({"convexify": True}, {}, True, None, "convexify"),
+    "generic_rows": ({}, {"n_h": 1}, True, None, "hard generic inequality rows"),
+    "equality_rows": ({}, {"n_e": 1}, True, None, "equality rows"),
+    "free_x0": ({}, {}, False, None, "a free initial state"),
+    "pinned_controls": ({}, {}, True, _pinned, "pinned controls"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GATE_CASES))
 def test_supported_gate(case):
-    opts, dims_kw, fix_x0, bnd_fn, expected = GATE_CASES[case]
+    opts, dims_kw, fix_x0, bnd_fn, reason = GATE_CASES[case]
     tn = _port(4, opts)
     jn = _nmpc(JaxNMPC, jax_cstr(), 4, opts)
     tdims = dataclasses.replace(tn._dims, **dims_kw)
@@ -198,16 +199,20 @@ def test_supported_gate(case):
     tb = tn._bounds if bnd_fn is None else bnd_fn(tn._bounds)
     jb = jn._bounds if bnd_fn is None else jip.OCPBounds(
         *[jnp.asarray(v) for v in to_numpy(tuple(tb))])
-    got = W.whole_ip_supported(tdims, tb, tn._ip_opts, fix_x0, tn._model)
-    assert got is expected
-    assert pallas_full_supported(jdims, jb, jn._ip_opts, fix_x0) is expected
+    problem, why = W.whole_ip_gate(tn._funcs, tdims, tb, tn._ip_opts, fix_x0)
+    if reason is None:
+        assert problem is not None and why is None, why
+    else:
+        assert problem is None and reason in why, why
+    assert pallas_full_supported(jdims, jb, jn._ip_opts, fix_x0) is (reason is None)
 
 
 @pytest.mark.parametrize("option", ["record_iterates", "parallel_riccati"])
 def test_supported_gate_options(option):
     tn = _port(4)
     opts = dataclasses.replace(tn._ip_opts, **{option: True})
-    assert not W.whole_ip_supported(tn._dims, tn._bounds, opts, True, tn._model)
+    problem, why = W.whole_ip_gate(tn._funcs, tn._dims, tn._bounds, opts, True)
+    assert problem is None and why == "record_iterates or parallel_riccati"
 
 
 def _callable_cstr():
@@ -236,14 +241,19 @@ UNEMITTABLE = {
 
 @pytest.mark.parametrize("case", sorted(UNEMITTABLE))
 def test_unemittable_models(case):
+    """The DSL emitter refuses these models; the gate takes the callable one
+    through the trace (ops/codegen_fx.py)."""
     model = UNEMITTABLE[case]()
     with pytest.raises(NotImplementedError):
         codegen_cuda.emit_model(model)
     assert codegen_cuda.model_emit_error(model)
     if case == "callable":
         tn = _port(4, model=model)
-        assert not W.whole_ip_supported(tn._dims, tn._bounds, tn._ip_opts, True,
-                                        tn._model)
+        problem, why = W.whole_ip_gate(tn._funcs, tn._dims, tn._bounds, tn._ip_opts,
+                                       True)
+        assert problem is not None and "codegen_fx.py" in problem.text, why
+        problem = W.whole_ip_problem(tn._funcs, tn._dims, tn._bounds, 8, tn._ip_opts)
+        assert "codegen_fx.py" in problem.text
 
 
 def test_dsl_table_is_covered():

@@ -254,7 +254,8 @@ def test_control_horizon_pins_du_and_both_gates_decline():
     tn.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
     tn.set_parameters(CSTR_P)
     tn.setup(options={**KERNEL_OPTS, "pallas_full": True}, device=CPU, dtype=F64)
-    assert not W.whole_ip_supported(tn._dims, tn._bounds, tn._ip_opts, True, tn._model)
+    problem, why = W.whole_ip_gate(tn._funcs, tn._dims, tn._bounds, tn._ip_opts, True)
+    assert problem is None and why == "pinned controls (lbu = ubu)"
     args = _args(tn, 3, 6)
     with pytest.warns(UserWarning, match="pallas_full"):
         fn = tn.solve_batch_fn()

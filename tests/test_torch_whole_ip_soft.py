@@ -11,8 +11,10 @@ sends every other non-quadratic cost to the general path (CPU).
   equal iterations, float32 to 5e-4.
 - The emitted source: the flagship's Problem holds no soft code; the soft
   one's numbers sit in prm, so weights and bounds share one build.
-- The gate: a generic cost, a measurement term, a soft callable constraint
-  and a hard generic row each warn under ``pallas_full`` and give the
+- The gate: a generic cost, a measurement term and a soft callable
+  constraint take the whole-solve path through the trace
+  (ops/codegen_fx.py) without a warning, its host build against the plain
+  version; a hard generic row warns under ``pallas_full`` and gives the
   general path's answer; soft state bounds take the whole-solve path, and
   the launch cache keys on their numbers.
 - ``cuda``: the soft-box kernel against its plain version on the card.
@@ -166,26 +168,49 @@ def _soft_callable(n):
     n.add_terminal_constraint(lambda x: x[..., 0], ub=0.28, n=1, is_soft=True)
 
 
-GATE = {"generic_cost": (_generic_cost, "generic"),
-        "measurement_term": (_measurement, "measurement"),
-        "soft_callable_constraint": (_soft_callable, "soft generic"),
-        "hard_generic_row": (_hard_row, None)}
+TRACED = {"generic_cost": _generic_cost, "measurement_term": _measurement,
+          "soft_callable_constraint": _soft_callable}
+GATE = {"hard_generic_row": _hard_row}
+
+
+@pytest.mark.parametrize("case", sorted(TRACED))
+def test_gate_takes_traced_costs_to_the_kernel(case):
+    """pallas_full with a cost part the DSL emitter cannot write: no warning,
+    the whole-solve path (on CPU its plain version, bit for bit; no Riccati
+    launch), a traced build whose host run matches the plain version
+    (float64, equal iterations, 1e-12)."""
+    _need_cxx()
+    tn = _port(4, bounds=dict(u_lb=[-5.0], u_ub=[5.0]), options={"pallas_full": True},
+               configure=TRACED[case])
+    args = tn.prepare_batch(_x0s(3, 5))
+    n_ric = riccati_lq_cuda.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fn = tn.solve_batch_fn()
+    assert tn._wip["eligible"] and "codegen_fx.py" in tn._wip["problem"].text
+    sol, r = fn(*args), _plain(tn, args)
+    for a, b in zip(sol, r):
+        assert torch.equal(a, b)
+    assert riccati_lq_cuda.launches == n_ric
+    k = W.solve_ocp_full_host(tn._funcs, tn._dims, tn._bounds, *args, tn._ip_opts)
+    assert bool(r.converged.all()) and torch.equal(k.iterations, r.iterations)
+    torch.testing.assert_close(k.U, r.U, rtol=0, atol=1e-12)
+    torch.testing.assert_close(k.X, r.X, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("case", sorted(GATE))
 def test_gate_sends_other_costs_to_the_general_path(case):
-    configure, why = GATE[case]
+    """A hard generic row: both gates decline it, the warning names it and
+    the answer is the general path's."""
+    configure = GATE[case]
     tn = _port(4, bounds=dict(u_lb=[-5.0], u_ub=[5.0]), options={"pallas_full": True},
                configure=configure)
     args = tn.prepare_batch(_x0s(3, 5))
-    with pytest.warns(UserWarning, match="pallas_full" if why is None else why):
+    with pytest.warns(UserWarning, match="hard generic inequality rows"):
         fn = tn.solve_batch_fn()
     ref = _port(4, bounds=dict(u_lb=[-5.0], u_ub=[5.0]), configure=configure)
     for a, b in zip(fn(*args), ref.solve_batch_fn()(*args)):
         assert torch.equal(a, b)
-    if why is not None:
-        with pytest.raises(NotImplementedError, match=why):
-            _problem(tn)
 
 
 def test_soft_bounds_take_the_whole_solve_path():
