@@ -27,7 +27,12 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          per block, threads) for each n phase 1 checks above 128; the FGM
          register design (csrc/fgm_boxqp_reg.cuh) for each n up to 64 that
          phases 1 and 4 run or time, with its registers, spills (none where
-         the router takes it) and blocks per SM; the whole-solve kernel on
+         the router takes it) and blocks per SM; the FGM tensor-core design
+         (csrc/fgm_boxqp_tc.cuh) for each n padded to 8 that phases 1 and 4
+         run or time (8..128), with its registers, spills (none asserted),
+         warps, shared memory, blocks per SM and the tensor-core
+         instructions of its SASS (cuobjdump -sass: HGMMA TF32); the
+         whole-solve kernel on
          the traced problems of phases 1, 11(b) and 14 (ops/codegen_fx.py:
          the msd, golden pathfollow_soft's controller, the CSTR with a
          generic cost and a measurement term, the flagship), each build's
@@ -38,8 +43,10 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          16-byte aligned; the wide variant at (9, 2), (16, 4), (16, 8) and
          its cap (32, 16) on a ragged batch; the FGM kernels up to n = 512,
          through all three designs, with and without u0 and with infinite
-         bounds; at the flagship FGM shape the register design against the
-         resident kernel too; the whole-solve kernel in four row patterns,
+         bounds, the tensor-core design also against its emulation
+         (ops/cuda_kernels.py:fgm_boxqp_tf32x3, printed); at the flagship FGM
+         shape the two n <= 128 designs against each other too; the
+         whole-solve kernel in four row patterns,
          soft state bounds among them, its CROSS build on phase 11(a)'s
          problem and its traced build on phase 14(a)'s msd (whole_ip_traced,
          with the build's registers and spills): on 1024 scenarios float64
@@ -51,12 +58,16 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          and float32, at B=16384, and in every group size at (9, 2),
          (16, 8) and the cap in both dtypes; the FGM
          kernel's cluster design at phase 4's n = 160, B=1024 and
-         B=131072; the register design and the resident kernel against each
-         other at n in FGM_CROSSOVER_NS, B=131072, which sets FGM_REG_MAX_N,
-         the resident kernel's own row at n = 64),
+         B=131072; the register design and the tensor-core design against
+         each other at n in FGM_CROSSOVER_NS, B=131072, which sets
+         FGM_REG_MAX_N (the router's pick within FGM_ROUTER_SLACK of the
+         faster, asserted), the tensor-core design's own row at n = 64,
+         named fgm_boxqp_resident as its first design was),
          beside the least time the card could take for the same work (the
          Riccati kernel in float32 and float64, with its share of the bound
-         and the bytes/s it reaches). Each kernel is timed as one call alone,
+         and the bytes/s it reaches; the tensor-core design's bound is its
+         three TF32 passes at PEAK_TF32, its float32-SIMT bound printed
+         beside). Each kernel is timed as one call alone,
          its enqueue included (the "ms" of the kernels line), and as calls
          back to back, where the enqueue hides behind the previous call
          ("back_to_back_ms"); the whole-solve kernel also through the NMPC
@@ -85,8 +96,10 @@ Phase 4  the linear-MPC path at full width: a discrete double integrator
          through the FGM kernel's cluster design, each against its plain
          counterpart and the two against each other. A third: four
          double integrators over 16 stages, whose FGM path (n = 64,
-         B=131072) runs the resident kernel. For the first two models the
-         FGM call's wall is split into the copies (x0 in, cast to float32
+         B=131072) runs the tensor-core design, and a fourth, the first
+         integrator over 16 stages (n = 16, B=131072), the register design
+         (the flagship's own n = 20 now goes to the tensor cores). For each
+         model the FGM call's wall is split into the copies (x0 in, cast to float32
          on the host and copied once; u out), the kernel and the rest, the
          rest by part (configuration key, checks, allocation, device
          context, the ctypes launch).
@@ -270,7 +283,8 @@ GOLDEN_MT = os.path.join(ROOT, "tests", "golden", "mintime.npz")
 GOLDEN_DAE = os.path.join(ROOT, "tests", "golden", "dae_colloc.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
-           "riccati_lq_wide_free_x0", "whole_ip_cross", "whole_ip_traced")
+           "riccati_lq_wide_free_x0", "whole_ip_cross", "whole_ip_traced",
+           "fgm_boxqp_registers")
 # the tiled Riccati instances phase 1 checks; phase 11 runs (3, 1) (the
 # Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time)
 RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3), (1, 1))
@@ -291,14 +305,25 @@ N_DI = 8
 B_WIDE = 1024
 B_FLEET = 16384
 # the FGM sizes phase 1 checks above 128 (the cluster design) and up to 128
-# (the register design up to FGM_REG_MAX_N, the resident kernel above), the
-# sizes at which it times the two n <= 128 designs against each other, and
-# the size of the resident kernel's own row in the kernels line, which
-# phase 4's third model reaches (four double integrators, N=16)
+# (the register design up to FGM_REG_MAX_N, the tensor-core design above),
+# the sizes at which it times the two n <= 128 designs against each other,
+# and the size of the tensor-core design's own row in the kernels line
+# (named fgm_boxqp_resident since its first design), which phase 4's third
+# model reaches (four double integrators, N=16)
 FGM_WIDE_NS = (129, 160, 256, 512)
-FGM_NARROW_NS = (1, 6, 20, 24, 32, 64, 128)
+FGM_NARROW_NS = (1, 6, 20, 24, 25, 32, 40, 64, 100, 128)
 FGM_CROSSOVER_NS = tuple(range(1, 29)) + (32, 48, 64, 96, 128)
 FGM_RESIDENT_N = 64
+# phase 4's fourth linear model: the flagship integrator over this many
+# stages (n = 16), whose FGM path the register design takes
+N_REGISTERS = 16
+# the router's pick must be the faster of the two n <= 128 designs back to
+# back, or within this share of it. The router has one threshold: at
+# n = 16, below it, the tensor-core design read 1.6-4.0% faster back to back
+# in four runs (PERF.md §6), and at 19 the two lay 1.2-2.2% apart; one
+# threshold off, at 20, the register design read 9.3-11% slower, which
+# this share refuses
+FGM_ROUTER_SLACK = 0.06
 N_DI_RESIDENT = 4
 N_RESIDENT = 16
 # back-to-back timings run this many calls between two events, so the
@@ -306,8 +331,9 @@ N_RESIDENT = 16
 INNER = 10
 FGM_ITERS = 100
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
-# outside the tensor cores, and HBM3 bandwidth
+# outside the tensor cores, dense TF32 on them, float64, and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 
@@ -368,6 +394,26 @@ def fgm_work(Bt, n, nx, iters, with_u0=False):
     iteration H y (2n²) and the gradient step, clip and momentum (8n)."""
     nbytes = 4 * (n * n + n * nx + 2 * n + Bt * nx + Bt * n * (2 if with_u0 else 1))
     return nbytes, Bt * (2 * n * nx + iters * (2 * n * n + 8 * n))
+
+
+def fgm_bound(Bt, n, nx, iters, design, with_u0=False):
+    """(bound ms, what bounds it, float32-SIMT bound ms) of one batched FGM
+    solve in `design`. The register and cluster designs run on float32
+    FFMAs: fgm_work over PEAK_FP32, or the bytes. The tensor-core design
+    runs the product H y as three TF32 passes (3xTF32): the larger of
+    3·2n² per scenario-iteration at PEAK_TF32, the rest of the work (g and
+    the 8n update) at PEAK_FP32 on other pipes, and the bytes; the
+    float32-SIMT bound is returned beside it, so old and new read on one
+    scale."""
+    nbytes, flops = fgm_work(Bt, n, nx, iters, with_u0)
+    simt_ms, simt_by = bound_ms(nbytes, flops)
+    if design != "tensor":
+        return simt_ms, simt_by, simt_ms
+    t_tensor = 3 * 2 * n * n * Bt * iters / PEAK_TF32 * 1e3
+    t_rest = Bt * (2 * n * nx + 8 * n * iters) / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    ms = max(t_tensor, t_rest, t_bytes)
+    return ms, "bytes" if ms == t_bytes else "operations", simt_ms
 
 
 def whole_ip_work(problem, dims, Bt, nt, iterations, itemsize=4):
@@ -612,6 +658,7 @@ def phase1(report):
     phase1_riccati_free_x0(report)
     report.setdefault("fgm_boxqp", {})
     report.setdefault("fgm_boxqp_resident", {})
+    report.setdefault("fgm_boxqp_registers", {})
     phase1_fgm(report)
     phase1_fgm_cluster(report.setdefault("fgm_boxqp_column_blocks", {}))
     phase1_whole_ip(report.setdefault("whole_ip", {}))
@@ -805,22 +852,35 @@ def fgm_dev(a):
                            device="cuda").contiguous()
 
 
+def fgm_tensor_distance(args, u, iters, u0=None, constants=None):
+    """max|u - emulation| of a tensor-core design's answer u on the first
+    1024 scenarios of args, the emulation being ops/cuda_kernels.py:
+    fgm_boxqp_tf32x3 (its split and three float32 products)."""
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import fgm_boxqp_tf32x3
+    sub = args[:2] + (args[2][:1024],) + args[3:5]
+    emu = fgm_boxqp_tf32x3(*sub, iters, None if u0 is None else u0[:1024],
+                           constants=constants)
+    return float((u[:1024] - emu).abs().max())
+
+
 def phase1_fgm(report):
     """The FGM kernels against the plain version at n in FGM_NARROW_NS (the
-    register design and the resident kernel), FGM_WIDE_NS and FGM_MAX_N (the
-    cluster kernel), with and without u0 and infinite bounds, to 1e-4; the
-    flagship (phase 4's QP, n=20, B=131072) timed; the two n <= 128 designs
-    timed against each other (fgm_crossover); the resident kernel's own row
-    at n = FGM_RESIDENT_N, B=131072. Fills report["fgm_boxqp"] and
+    register design and the tensor-core design), FGM_WIDE_NS and FGM_MAX_N
+    (the cluster kernel), with and without u0 and infinite bounds, to 1e-4
+    (the tensor-core design also against its emulation, printed); phase
+    4's flagship QP (n=20, B=131072) and its register-design model (n=16)
+    timed (fgm_lmpc_row); the two n <= 128 designs timed against each other
+    (fgm_crossover); the tensor-core design's own row at n = FGM_RESIDENT_N,
+    B=131072. Fills report["fgm_boxqp"], report["fgm_boxqp_registers"] and
     report["fgm_boxqp_resident"]."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
-        FGM_MAX_N, fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_launch,
-        fgm_boxqp_reference, fgm_constants)
+        FGM_MAX_N, fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_reference)
 
-    max_err = {"registers": 0.0, "resident": 0.0, "cluster": 0.0}
+    max_err = {"registers": 0.0, "tensor": 0.0, "cluster": 0.0}
     for n in sorted({*FGM_NARROW_NS, *FGM_WIDE_NS, FGM_MAX_N}):
+        design = fgm_boxqp_design(n)[0]
         for with_u0 in (False, True):
             for inf in (False, True):
                 H, G, lb, ub = random_qp(n)
@@ -831,108 +891,152 @@ def phase1_fgm(report):
                 u0 = fgm_dev(0.1 * rng.normal(size=(1000, n))) if with_u0 else None
                 args = (fgm_dev(H), fgm_dev(G), fgm_dev(x0), fgm_dev(lb), fgm_dev(ub),
                         200, u0)
-                err = float((fgm_boxqp_cuda(*args)
-                             - fgm_boxqp_reference(*args)).abs().max())
+                out = fgm_boxqp_cuda(*args)
+                err = float((out - fgm_boxqp_reference(*args)).abs().max())
+                emu = (f", max|kernel-emulation| = "
+                       f"{fgm_tensor_distance(args[:5], out, 200, u0):.3e}"
+                       if design == "tensor" else "")
                 torch.cuda.synchronize()
-                log(f"phase1 fgm_boxqp B=1000 n={n} ({fgm_boxqp_design(n)[0]}) "
-                    f"iters=200 u0={with_u0} inf_bounds={inf}: max|kernel-plain| "
-                    f"= {err:.3e}")
+                log(f"phase1 fgm_boxqp B=1000 n={n} ({design}) iters=200 u0={with_u0} "
+                    f"inf_bounds={inf}: max|kernel-plain| = {err:.3e}{emu}")
                 assert err <= 1e-4, err
-                design = fgm_boxqp_design(n)[0]
                 max_err[design] = max(max_err[design], err)
-    # the flagship shape: phase 4's condensed QP (n = N·nu = 20, nx = 2),
-    # with the constants from its float64 H as LMPC.optimize_batch_fgm takes them
-    H, G, lb, ub = build_di_lmpc(torch.float32, {}, setup=False).condensed_qp()
+    # phase 4's condensed QPs: the flagship (n = N·nu = 20, nx = 2) and the
+    # same integrator over N_REGISTERS stages, whose n the register design
+    # takes
+    fgm_lmpc_row(report["fgm_boxqp"], N, max_err)
+    fgm_lmpc_row(report["fgm_boxqp_registers"], N_REGISTERS, max_err)
+    report["fgm_boxqp_resident"]["max_abs_err"] = max_err["tensor"]
+    fgm_crossover(report)
+
+
+def fgm_lmpc_row(row, horizon, max_err):
+    """Phase 4's double-integrator QP over `horizon` stages (n = horizon) at
+    B=131072, 100 iterations, with the constants from its float64 H as
+    LMPC.optimize_batch_fgm takes them, in the design the router picks:
+    against the plain version (1e-4) and the other n <= 128 design; timed
+    one call, back to back and through the wrapper, beside the plain
+    version and the bound. Fills `row`."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (
+        fgm_boxqp_cuda, fgm_boxqp_design, fgm_boxqp_launch, fgm_boxqp_reference,
+        fgm_constants)
+    H, G, lb, ub = build_di_lmpc(torch.float32, {}, setup=False,
+                                 horizon=horizon).condensed_qp()
     n = H.shape[0]
+    design = fgm_boxqp_design(n)[0]
+    other = "tensor" if design == "registers" else "registers"
     consts = fgm_constants(H)
     x0 = np.random.default_rng(0).standard_normal((B_MAIN, 2))
     args = (fgm_dev(H), fgm_dev(G), fgm_dev(x0), fgm_dev(lb), fgm_dev(ub), FGM_ITERS)
     out = fgm_boxqp_cuda(*args, constants=consts)
     err = float((out - fgm_boxqp_reference(*args, constants=consts)).abs().max())
-    resident = fgm_boxqp_launch(*args, None, *consts, design="resident")
+    same = float((out - fgm_boxqp_launch(*args, None, *consts, design=other)).abs().max())
     torch.cuda.synchronize()
-    same = float((out - resident).abs().max())
     log(f"phase1 fgm_boxqp B={B_MAIN} n={n} iters={FGM_ITERS} (phase 4's QP, "
-        f"{fgm_boxqp_design(n)[0]}): max|kernel-plain| = {err:.3e}, "
-        f"max|registers - resident| = {same:.3e}")
+        f"{design}): max|kernel-plain| = {err:.3e}, max|{design} - {other}| = {same:.3e}")
     assert err <= 1e-4, err
     kernel = lambda: fgm_boxqp_launch(*args, None, *consts)  # noqa: E731
     ms = cuda_time_ms(kernel)
     b2b_ms = cuda_time_ms(kernel, inner=INNER)
     wrapper_ms = cuda_time_ms(lambda: fgm_boxqp_cuda(*args, constants=consts))
     plain_ms = cuda_time_ms(lambda: fgm_boxqp_reference(*args, constants=consts))
-    b_ms, b_by = bound_ms(*fgm_work(B_MAIN, n, 2, FGM_ITERS))
+    b_ms, b_by, simt_ms = fgm_bound(B_MAIN, n, 2, FGM_ITERS, design)
     log(f"phase1 fgm_boxqp B={B_MAIN} n={n} nx=2 iters={FGM_ITERS} float32 "
-        f"({fgm_boxqp_design(n)[0]}): kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms "
+        f"({design}): kernel {ms:.4f} ms one call, {b2b_ms:.4f} ms "
         f"back to back ({INNER} calls per run), wrapper {wrapper_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (median of 10 runs, CUDA events); bound {b_ms:.4f} ms "
         f"({b_by}): {b_ms / ms:.1%} of the bound one call, {b_ms / b2b_ms:.1%} back "
-        f"to back")
-    report["fgm_boxqp"].update(max_abs_err=max(max_err["registers"], err), ms=ms,
-                               back_to_back_ms=b2b_ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by)
-    report["fgm_boxqp_resident"]["max_abs_err"] = max_err["resident"]
-    fgm_crossover(report)
+        f"to back; float32-SIMT bound {simt_ms:.4f} ms")
+    row.update(max_abs_err=max(max_err[design], err), ms=ms, back_to_back_ms=b2b_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, design=design)
 
 
 def fgm_crossover(report=None):
     """The two designs for n <= 128 (the register design up to
-    FGM_REG_BUILD_MAX_N, and the resident kernel) at each n of
-    FGM_CROSSOVER_NS, B=131072, 100
-    iterations, on random_qp(n): each against the plain version on the first
-    1024 scenarios (1e-4), timed one call (median of 5) and back to back
-    (median of 3 runs of INNER calls), beside the bound; the router's pick
-    must be the faster back to back. With a report, the resident kernel's
-    row at FGM_RESIDENT_N."""
+    FGM_REG_BUILD_MAX_N, and the tensor-core design) at each n of
+    FGM_CROSSOVER_NS, B=131072, 100 iterations, on random_qp(n): each
+    against the plain version on the first 1024 scenarios (1e-4; where the
+    router takes the tensor-core design also with u0, with infinite bounds
+    and with both, 200 iterations), timed one call (median of 5) and back to
+    back (median of 3 runs of INNER calls), beside its bound; the router's
+    pick must be the faster back to back at every n, or within
+    FGM_ROUTER_SLACK of it (checked after all are printed). With a report,
+    the tensor-core design's row at FGM_RESIDENT_N."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
         FGM_REG_BUILD_MAX_N, FGM_REG_MAX_N, fgm_boxqp_design, fgm_boxqp_launch,
         fgm_boxqp_reference, fgm_constants)
 
+    wrong = []
     for n in FGM_CROSSOVER_NS:
         # the register design builds up to FGM_REG_BUILD_MAX_N only
-        designs = (["registers"] if n <= FGM_REG_BUILD_MAX_N else []) + ["resident"]
+        designs = (["registers"] if n <= FGM_REG_BUILD_MAX_N else []) + ["tensor"]
         H, G, lb, ub = random_qp(n, seed=n)
         consts = fgm_constants(H)
         x0 = np.random.default_rng(n).standard_normal((B_MAIN, 2))
         args = (fgm_dev(H), fgm_dev(G), fgm_dev(x0), fgm_dev(lb), fgm_dev(ub), FGM_ITERS)
         sub = args[:2] + (args[2][:1024],) + args[3:]
         ref = fgm_boxqp_reference(*sub, constants=consts)
-        b_ms, b_by = bound_ms(*fgm_work(B_MAIN, n, 2, FGM_ITERS))
         times = {}
         for design in designs:
             kernel = lambda d=design: fgm_boxqp_launch(  # noqa: E731
                 *args, None, *consts, design=d)
-            err = float((kernel()[:1024] - ref).abs().max())
+            out = kernel()
+            err = float((out[:1024] - ref).abs().max())
+            extra = ""
+            if design == "tensor" and n > FGM_REG_MAX_N:
+                lb_i, ub_i = lb.copy(), ub.copy()
+                lb_i[::2], ub_i[1::3] = -np.inf, np.inf
+                u0 = fgm_dev(0.1 * np.random.default_rng(n).normal(size=(1024, n)))
+                for tag, bnd, u0_ in (("u0", (lb, ub), u0), ("inf", (lb_i, ub_i), None),
+                                      ("u0+inf", (lb_i, ub_i), u0)):
+                    case = sub[:3] + (fgm_dev(bnd[0]), fgm_dev(bnd[1]), 200)
+                    e = float((fgm_boxqp_launch(*case, u0_, *consts, design=design)
+                               - fgm_boxqp_reference(*case, u0_, constants=consts))
+                              .abs().max())
+                    err = max(err, e)
+                    extra += f" {tag} {e:.3e}"
+                extra = (f"; with 200 iterations{extra}; max|kernel-emulation| "
+                         f"{fgm_tensor_distance(args[:5], out, FGM_ITERS, None, consts):.3e}")
             torch.cuda.synchronize()
             assert err <= 1e-4, (n, design, err)
             one = cuda_time_ms(kernel, reps=5, warmup=1)
             b2b = cuda_time_ms(kernel, reps=3, warmup=1, inner=INNER)
             times[design] = (one, b2b)
+            b_ms, b_by, simt_ms = fgm_bound(B_MAIN, n, 2, FGM_ITERS, design)
             log(f"phase1 fgm_boxqp crossover B={B_MAIN} n={n} {design}: "
-                f"max|kernel-plain| on the first 1024 = {err:.3e}; {one:.4f} ms one "
-                f"call, {b2b:.4f} ms back to back; bound {b_ms:.4f} ms ({b_by}): "
-                f"{b_ms / one:.1%} one call, {b_ms / b2b:.1%} back to back")
-            if report is not None and design == "resident" and n == FGM_RESIDENT_N:
+                f"max|kernel-plain| on the first 1024 = {err:.3e}{extra}; {one:.4f} ms "
+                f"one call, {b2b:.4f} ms back to back; bound {b_ms:.4f} ms ({b_by}): "
+                f"{b_ms / one:.1%} one call, {b_ms / b2b:.1%} back to back; "
+                f"float32-SIMT bound {simt_ms:.4f} ms")
+            if report is not None and design == "tensor" and n == FGM_RESIDENT_N:
                 plain_ms = cuda_time_ms(
                     lambda: fgm_boxqp_reference(*args, constants=consts), reps=3)
                 row = report["fgm_boxqp_resident"]
                 row.update(max_abs_err=max(row.get("max_abs_err", 0.0), err), ms=one,
                            back_to_back_ms=b2b, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+                           bound_by=b_by, float32_simt_bound_ms=simt_ms)
         fastest = min(times, key=lambda k: times[k][1])
         picked = fgm_boxqp_design(n)[0]
+        behind = times[picked][1] / times[fastest][1] - 1.0
         log(f"phase1 fgm_boxqp crossover n={n}: fastest back to back {fastest}; "
-            f"the router takes {picked} (FGM_REG_MAX_N = {FGM_REG_MAX_N})")
+            f"the router takes {picked} (FGM_REG_MAX_N = {FGM_REG_MAX_N}), "
+            f"{behind:.1%} behind the fastest")
+        if behind > FGM_ROUTER_SLACK:
+            wrong.append((n, picked, times))
+    assert not wrong, (f"the router's pick is more than {FGM_ROUTER_SLACK:.0%} behind "
+                       f"the faster design back to back: {wrong}")
 
 
 def phase1_fgm_cluster(report):
     """The FGM kernel above n = 128 (H resident over a thread-block cluster)
     at phase 4's second model (n = N·nu = 160, nx=16, 100 iterations),
     against its plain version: at B=1024, then at B=131072 (the plain
-    comparison on the first 1024 scenarios). Timed as the resident design
-    is at n=20."""
+    comparison on the first 1024 scenarios). Timed as the flagship is at
+    n=20."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
@@ -1413,16 +1517,17 @@ def di_model():
     return m.set_state_space(A=np.array(DI_A), B=np.array(DI_B))
 
 
-def build_di_lmpc(dtype, options, setup=True):
+def build_di_lmpc(dtype, options, setup=True, horizon=N):
     """The LMPC of tools/tpu_validation.py:249-260 (discrete double
     integrator, dt 0.1, N=20, Q=diag(2, 0.5), R=0.1, |u| <= 1) with the
     terminal weight P = Q: without P the condensed QP weights x_N by Q while
     the interior point has no terminal cost, and the two answers differ by
-    3.4e-3 (ROADMAP.md §C)."""
+    3.4e-3 (ROADMAP.md §C). `horizon` in place of N gives phase 4's
+    register-design model."""
     import numpy as np
     from hilo_mpc_tpu_torch import LMPC
     lmpc = LMPC(di_model())
-    lmpc.horizon = N
+    lmpc.horizon = horizon
     lmpc.Q = np.array(DI_Q)
     lmpc.R = np.array(DI_R)
     lmpc.P = lmpc.Q
@@ -1498,6 +1603,10 @@ def fgm_wall_split(label, lmpc, x0s, reps=20, host_reps=200):
     if name == "registers":
         fn = ck._fgm_reg_entry(n, False)
         call = lambda: fn(*ptrs, Bt, nx, FGM_ITERS, consts[0], consts[1],  # noqa: E731
+                          stream)
+    elif name == "tensor":
+        fn = ck._fgm_tc_entry(ck.fgm_boxqp_tc_pad(n))
+        call = lambda: fn(*ptrs, Bt, n, nx, FGM_ITERS, consts[0], consts[1],  # noqa: E731
                           stream)
     else:
         fn = ck._fgm_fn()
@@ -1583,6 +1692,7 @@ def phase4(report):
 
     phase4_wide(report)
     phase4_resident(report)
+    phase4_registers(report)
 
     lqr = LQR(di_model())
     lqr.horizon = None
@@ -1690,19 +1800,17 @@ def decoupled_di_lmpc(copies, horizon, dtype, options):
     return lmpc
 
 
-def phase4_resident(report):
-    """The third linear model: N_DI_RESIDENT decoupled double integrators
-    over N_RESIDENT stages, so n = FGM_RESIDENT_N lies above the register
-    design's range and the FGM path runs the resident kernel, at B=131072,
-    against the plain version on its first 1024 scenarios."""
+def phase4_fgm_model(report, label, fgm, x0s, n, design, key):
+    """optimize_batch_fgm of one more linear model at B=131072: design (the
+    router's pick for its n) launched once, the answer against the plain
+    version on its first 1024 scenarios (1e-4), its launches into
+    report[key], and the call's wall split."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import fgm_boxqp_cuda, fgm_boxqp_design
 
-    fgm = decoupled_di_lmpc(N_DI_RESIDENT, N_RESIDENT, torch.float32, {})
-    n = N_RESIDENT * N_DI_RESIDENT
-    assert n == FGM_RESIDENT_N and fgm_boxqp_design(n)[0] == "resident"
-    x0s = np.random.default_rng(7).standard_normal((B_MAIN, 2 * N_DI_RESIDENT))
+    assert fgm_boxqp_design(n)[0] == design, (n, design)
+    nu = n // fgm.horizon
     fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS)     # untimed warm-up
     torch.cuda.synchronize()
     fgm_boxqp_cuda.launches = 0
@@ -1710,16 +1818,41 @@ def phase4_resident(report):
     u = fgm.optimize_batch_fgm(x0s, iters=FGM_ITERS)
     t_fgm = time.perf_counter() - t0
     ran = fgm_boxqp_cuda.launches
-    assert u.shape == (B_MAIN, N_DI_RESIDENT) and np.isfinite(u).all()
+    assert u.shape == (B_MAIN, nu) and np.isfinite(u).all()
     assert np.abs(u).max() <= 1.0 + 1e-6
     ref = fgm.optimize_batch_fgm(x0s[:1024], iters=FGM_ITERS, backend="xla")
     dev = float(np.abs(u[:1024] - ref).max())
-    log(f"phase4 third model optimize_batch_fgm n={n} {fgm_boxqp_design(n)} "
+    log(f"phase4 {label} optimize_batch_fgm n={n} {fgm_boxqp_design(n)} "
         f"B={B_MAIN} iters={FGM_ITERS} float32: {B_MAIN / t_fgm:.1f} solves/s "
         f"({t_fgm * 1e3:.3f} ms wall), fgm_boxqp launches {ran}; first 1024 "
         f"scenarios: max|u_kernel - u_plain| = {dev:.3e}")
     assert ran == 1 and dev <= 1e-4, (ran, dev)
-    report["fgm_boxqp_resident"]["launches"] = ran
+    report[key]["launches"] = ran
+    fgm_wall_split(f"phase4 {label}", fgm, x0s)
+
+
+def phase4_resident(report):
+    """The third linear model: N_DI_RESIDENT decoupled double integrators
+    over N_RESIDENT stages, so n = FGM_RESIDENT_N lies above the register
+    design's range and the FGM path runs the tensor-core design."""
+    import numpy as np
+    import torch
+    fgm = decoupled_di_lmpc(N_DI_RESIDENT, N_RESIDENT, torch.float32, {})
+    assert N_RESIDENT * N_DI_RESIDENT == FGM_RESIDENT_N
+    x0s = np.random.default_rng(7).standard_normal((B_MAIN, 2 * N_DI_RESIDENT))
+    phase4_fgm_model(report, "third model", fgm, x0s, FGM_RESIDENT_N, "tensor",
+                     "fgm_boxqp_resident")
+
+
+def phase4_registers(report):
+    """The fourth linear model: the flagship integrator over N_REGISTERS
+    stages, so n = N_REGISTERS lies in the register design's range."""
+    import numpy as np
+    import torch
+    fgm = build_di_lmpc(torch.float32, {}, horizon=N_REGISTERS)
+    x0s = np.random.default_rng(0).standard_normal((B_MAIN, 2))
+    phase4_fgm_model(report, "fourth model", fgm, x0s, N_REGISTERS, "registers",
+                     "fgm_boxqp_registers")
 
 
 def phase5():
@@ -3620,14 +3753,36 @@ def whole_ip_registers(log_path):
     return out
 
 
+def sass_mma(lib):
+    """The tensor-core instructions in a built library's SASS, by opcode
+    and count (cuobjdump -sass), or why they could not be read."""
+    from hilo_mpc_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "cuobjdump not found beside nvcc, not read"
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        return f"cuobjdump failed ({proc.stderr.strip()[:200]})"
+    ops = {}
+    for line in proc.stdout.splitlines():
+        if "MMA" in line and "/*" in line:
+            op = line.split("*/")[1].split()[0] if "*/" in line else "?"
+            ops[op] = ops.get(op, 0) + 1
+    return ", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "no MMA instruction"
+
+
 def build_jobs():
     """(label, build function, its argument) for every kernel the phases
     launch."""
     import torch
     from hilo_mpc_tpu_torch.ops import _build
-    from hilo_mpc_tpu_torch.ops.cuda_kernels import (FGM_REG_BUILD_MAX_N,
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (FGM_NARROW_MAX_N,
+                                                     FGM_REG_BUILD_MAX_N,
                                                      RICCATI_WIDE_GROUPS,
                                                      fgm_boxqp_source,
+                                                     fgm_boxqp_tc_pad,
+                                                     fgm_boxqp_tc_source,
                                                      riccati_lq_source,
                                                      riccati_lq_wide_source)
     from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
@@ -3647,6 +3802,12 @@ def build_jobs():
     jobs += [(f"fgm_boxqp_reg n={n}", _build.source_library_path, fgm_boxqp_source(n))
              for n in sorted({*FGM_NARROW_NS, *FGM_CROSSOVER_NS})
              if n <= FGM_REG_BUILD_MAX_N]
+    # the tensor-core design at every padded n phases 1 and 4 run or time
+    jobs += [(f"fgm_boxqp_tc n_pad={p}", _build.source_library_path,
+              fgm_boxqp_tc_source(p))
+             for p in sorted({fgm_boxqp_tc_pad(n) for n in (*FGM_NARROW_NS,
+                                                            *FGM_CROSSOVER_NS)
+                              if n <= FGM_NARROW_MAX_N})]
     for name, bounds in WHOLE_IP_BOUNDS.items():
         nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32, bounds)
         nt = nmpc.prepare_batch(flagship_x0s(1))[0].shape[2]
@@ -3676,6 +3837,7 @@ def main():
     from hilo_mpc_tpu_torch.ops.cuda_kernels import (
         FGM_REG_MAX_N, fgm_boxqp_cluster_rows,
         fgm_boxqp_cluster_smem_bytes, fgm_boxqp_design, fgm_boxqp_reg_layout,
+        fgm_boxqp_tc_built_layout, fgm_boxqp_tc_layout,
         riccati_lq_layout, riccati_lq_wide_layout)
     device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3746,6 +3908,15 @@ def main():
             log(f"    {tpb} threads and {spb} scenarios per block, {per_sm} blocks "
                 f"resident per SM; at B={B_MAIN} {blocks} blocks, "
                 f"{blocks / sms:.2f} per SM ({blocks / (sms * per_sm):.2f} rounds)")
+        elif label.startswith("fgm_boxqp_tc"):
+            n_pad = int(label.split("n_pad=")[1])
+            lay = fgm_boxqp_tc_built_layout(ctypes.CDLL(lib))
+            assert lay[:3] == fgm_boxqp_tc_layout(n_pad), (lay, n_pad)
+            blocks = -(-B_MAIN // lay[1])
+            log(f"    {lay[0]} warps ({lay[0] // 4} warpgroups), {lay[1]} scenarios "
+                f"and {lay[2]} bytes of dynamic shared memory per block, {lay[3]} "
+                f"blocks resident per SM; at B={B_MAIN} {blocks} blocks; SASS: "
+                f"{sass_mma(lib)}")
         elif label == "fgm_boxqp":
             for n in FGM_WIDE_NS:
                 _, c, t = fgm_boxqp_design(n)
@@ -3780,6 +3951,7 @@ def main():
                 "riccati_lq_free_x0": free_x0, "riccati_lq_wide_free_x0": free_x0,
                 "fgm_boxqp": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_resident": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
+                "fgm_boxqp_registers": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "fgm_boxqp_column_blocks": "hilo_mpc_tpu/ops/pallas_kernels.py:26",
                 "whole_ip": "hilo_mpc_tpu/ops/pallas_ip.py:143",
                 "whole_ip_cross": "hilo_mpc_tpu/ops/pallas_ip.py:143 with the cost's "
@@ -3789,7 +3961,11 @@ def main():
     sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
                "riccati_lq_free_x0": "riccati_lq.cuh",
                "riccati_lq_wide_free_x0": "riccati_lq_wide.cuh",
-               "fgm_boxqp": "fgm_boxqp_reg.cuh", "fgm_boxqp_resident": "fgm_boxqp.cu",
+               # the flagship (n = 20) in the design the router gives it
+               "fgm_boxqp": {"registers": "fgm_boxqp_reg.cuh",
+                             "tensor": "fgm_boxqp_tc.cuh"}[report["fgm_boxqp"]["design"]],
+               "fgm_boxqp_resident": "fgm_boxqp_tc.cuh",
+               "fgm_boxqp_registers": "fgm_boxqp_reg.cuh",
                "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
                "whole_ip": "whole_ip.cuh", "whole_ip_cross": "whole_ip.cuh",
                "whole_ip_traced": "whole_ip.cuh"}
@@ -3809,9 +3985,11 @@ def main():
                         **{k: v for k, v in r.items()
                            if k.startswith(("soft_box", "float32_registers",
                                             "float64", "phase11", "phase12",
-                                            "phase13"))},
+                                            "phase13", "float32_simt"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
-                        # n = 128, its name kept from its first design)
+                        # n = 128, "fgm_boxqp_resident" the tensor-core
+                        # design up to 128, names kept from their first
+                        # designs)
                         # no single PyTorch call computes any of them:
                         # a batched LQ solve, a projected gradient method, a
                         # batched NLP

@@ -12,56 +12,43 @@
 // spectrum of H and passed in, as the TPU kernel bakes them in.
 //
 // Bound. Per scenario and iteration the method does 2n² FLOPs for H y plus
-// ~8n for the update, on one H and a few vectors per tile: at the flagship
-// shape (B=131072, n=20, nx=2, 100 iterations) ~1.2e10 FLOPs against ~11 MB
-// of compulsory traffic, so it is bound by fp32 operations, not bytes; the
-// same holds at every n. Tensor cores (with the TF32 question) and a larger
-// register tile are later work.
+// ~8n for the update, on one H and a few vectors per tile: at n = 160,
+// B = 1024, 100 iterations ~5.3e9 FLOPs against ~1 MB of compulsory
+// traffic, so it is bound by operations, not bytes; the same holds at
+// every n.
 //
-// Two designs, chosen by n (the TPU kernel pads n to 128 lanes and keeps H
-// resident in VMEM whatever n; Hopper's 227 KB of shared memory per block
-// hold Hᵀ only up to n = 128).
+// Three designs, chosen by n in ops/cuda_kernels.py:fgm_boxqp_design (the
+// TPU kernel pads n to 128 lanes and keeps H resident in VMEM whatever n):
+// up to FGM_REG_MAX_N the register design (csrc/fgm_boxqp_reg.cuh), up to
+// FGM_NARROW_MAX_N = 128 the tensor-core design (csrc/fgm_boxqp_tc.cuh:
+// 3xTF32 wgmma, H in one block's shared memory), each built per n at
+// first use; above 128 this file's cluster kernel, since Hopper's 227 KB
+// of shared memory per block no longer hold H.
 //
-// n <= 128 (fgm_boxqp_kernel). One thread block owns a tile of TILE_B = 64
-// scenarios and keeps Hᵀ in shared memory for all iterations. Thread (tx, ty)
-// of a (32, ceil(n/4)) block owns ROWS = 4 consecutive rows (4ty .. 4ty+3) of
-// SCEN = 2 scenarios (2tx, 2tx+1): its u and g stay in registers for the
-// whole solve. The tile's y is kept in shared memory, scenario-minor and
-// double-buffered: iteration k reads buffer k%2 and writes k%2^1, so one
-// barrier per iteration suffices. In the product H y, a thread reads per
-// column j one float4 of Hᵀ (its four rows; every lane of a warp shares ty, so
-// it is a broadcast) and one float2 of y (its two scenarios; neighbouring
-// lanes, no bank conflict), then does 8 FMAs. Its own limit is shared-memory
-// bandwidth: 3 shared wavefronts per 8 FMA instructions of a warp.
-//
-// 128 < n <= FGM_MAX_N (fgm_boxqp_cluster_kernel). Hᵀ no longer fits one
-// block, so it is split by rows over the C blocks (CTAs) of a thread-block
-// cluster and stays resident for the whole solve: block q of a cluster
-// keeps rows q·R .. q·R + R - 1 (R = ceil(n / C) rounded up to 4) as a
-// column-major slice Ht[j*R + i] in its shared memory, loaded once. A
-// cluster owns a tile of TB scenarios (32, or 16 where the slice and y's two
-// buffers would pass 227 KB); every block of it keeps the tile's whole y,
-// double-buffered. Thread (tx, ty) owns 4 rows (4ty..4ty+3 of the slice)
-// of 2 scenarios (2tx, 2tx+1) and keeps their u, g and bounds in registers;
-// its product reads per column j one float4 of the slice (a broadcast: the
-// lanes of a warp share few ty) and one float2 of y, for 8 FMAs, as the
-// n <= 128 design does. Each iteration a block updates its rows of u and
+// 128 < n <= FGM_MAX_N (fgm_boxqp_cluster_kernel). H is split by rows over
+// the C blocks (CTAs) of a thread-block cluster and stays resident for the
+// whole solve: block q of a cluster keeps rows q·R .. q·R + R - 1
+// (R = ceil(n / C) rounded up to 4) as a column-major slice Ht[j*R + i] in
+// its shared memory, loaded once. A cluster owns a tile of TB scenarios (32,
+// or 16 where the slice and y's two buffers would pass 227 KB); every block
+// of it keeps the tile's whole y, double-buffered. Thread (tx, ty) owns 4
+// rows (4ty..4ty+3 of the slice) of 2 scenarios (2tx, 2tx+1) and keeps their
+// u, g and bounds in registers; its product reads per column j one float4
+// of the slice (a broadcast: the lanes of a warp share few ty) and one
+// float2 of y, for 8 FMAs. Each iteration a block updates its rows of u and
 // writes its rows of the next y into the next buffer of EVERY block of the
 // cluster through distributed shared memory (map_shared_rank), then one
 // cluster barrier (barrier.cluster arrive/wait: it also makes those writes
 // visible) ends the iteration. ops/cuda_kernels.py:fgm_boxqp_design picks
 // (C, TB) per n, the first of (4, 32), (8, 32), (8, 16) whose block fits
 // (portable cluster sizes; each puts at least 128 blocks on the card at
-// B = 1024); the entry point builds those three. The products are
-// plain float32 FMAs in the order of the n <= 128 design (no tensor cores,
-// no TF32: FGM's accuracy after a fixed iteration count is its result).
+// B = 1024); the entry point builds those three. The products are plain
+// float32 FMAs (no tensor cores here yet).
 //
 // Non-finite bounds become ∓FGM_INF (1e30) as a kernel loads them (the JAX
-// kernel's padding, pallas_kernels.py:67-68). For n <= FGM_REG_MAX_N the
-// router sends the QP to the register design of csrc/fgm_boxqp_reg.cuh in
-// place of fgm_boxqp_kernel. Rows past n are never stored; scenarios past
-// B compute on zeros and are never stored: no padding reaches device
-// memory. Limits: 1 <= n <= FGM_MAX_N
+// kernel's padding, pallas_kernels.py:67-68). Rows past n are never
+// stored; scenarios past B compute on zeros and are never stored: no
+// padding reaches device memory. Limits: FGM_NARROW_MAX_N < n <= FGM_MAX_N
 // (= 512; at n = 512 a cluster of 8 keeps 64 rows, 128 KB, and a tile of 16
 // scenarios, 192 KB per block in all), nx >= 1. The
 // launcher takes PyTorch's current stream, allocates nothing and never
@@ -79,104 +66,6 @@ namespace {
 
 __device__ __forceinline__ float lower_bound(float v) { return isfinite(v) ? v : -FGM_INF; }
 __device__ __forceinline__ float upper_bound(float v) { return isfinite(v) ? v : FGM_INF; }
-
-constexpr int TILE_B = 64;   // scenarios per block
-constexpr int SCEN = 2;      // scenarios per thread
-constexpr int ROWS = 4;      // rows of u per thread
-
-__global__ void __launch_bounds__(1024)
-fgm_boxqp_kernel(const float* __restrict__ H, const float* __restrict__ G,
-                 const float* __restrict__ x0, const float* __restrict__ lb,
-                 const float* __restrict__ ub, const float* __restrict__ u0,
-                 float* __restrict__ out, int B, int n, int nx, int iters,
-                 float inv_L, float beta) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldh = ROWS * blockDim.y;            // padded row count of Hᵀ
-  float* Ht = smem;                             // (n, ldh): Ht[j*ldh + i] = H[i][j]
-  float* ys = Ht + static_cast<size_t>(n) * ldh;  // 2 x (n, TILE_B)
-  float* lbs = ys + 2 * n * TILE_B;
-  float* ubs = lbs + n;
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int idx = tid; idx < n * ldh; idx += nthreads) {
-    const int j = idx / ldh, i = idx - j * ldh;
-    Ht[idx] = i < n ? H[static_cast<size_t>(i) * n + j] : 0.0f;
-  }
-  for (int i = tid; i < n; i += nthreads) {
-    lbs[i] = lower_bound(lb[i]);
-    ubs[i] = upper_bound(ub[i]);
-  }
-
-  const int row0 = ROWS * threadIdx.y;
-  const int s0 = SCEN * threadIdx.x;
-  const long long b0 = static_cast<long long>(blockIdx.x) * TILE_B + s0;
-  float u[ROWS][SCEN], g[ROWS][SCEN];
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const int i = row0 + k;
-#pragma unroll
-    for (int c = 0; c < SCEN; ++c) {
-      const long long b = b0 + c;
-      float gv = 0.0f, uv = 0.0f;
-      if (i < n && b < B) {
-        for (int m = 0; m < nx; ++m)
-          gv = fmaf(G[static_cast<size_t>(i) * nx + m],
-                    x0[static_cast<size_t>(b) * nx + m], gv);
-        if (u0 != nullptr) uv = u0[static_cast<size_t>(b) * n + i];
-      }
-      g[k][c] = gv;
-      u[k][c] = uv;
-      if (i < n) ys[i * TILE_B + s0 + c] = uv;
-    }
-  }
-  __syncthreads();
-
-  for (int it = 0; it < iters; ++it) {
-    const float* cur = ys + (it & 1) * n * TILE_B;
-    float* nxt = ys + ((it & 1) ^ 1) * n * TILE_B;
-    float acc[ROWS][SCEN];
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k)
-#pragma unroll
-      for (int c = 0; c < SCEN; ++c) acc[k][c] = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      const float4 h = *reinterpret_cast<const float4*>(Ht + j * ldh + row0);
-      const float2 y = *reinterpret_cast<const float2*>(cur + j * TILE_B + s0);
-      const float hk[ROWS] = {h.x, h.y, h.z, h.w};
-      const float yc[SCEN] = {y.x, y.y};
-#pragma unroll
-      for (int k = 0; k < ROWS; ++k)
-#pragma unroll
-        for (int c = 0; c < SCEN; ++c) acc[k][c] = fmaf(hk[k], yc[c], acc[k][c]);
-    }
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) {
-      const int i = row0 + k;
-      if (i < n) {
-#pragma unroll
-        for (int c = 0; c < SCEN; ++c) {
-          const float yv = cur[i * TILE_B + s0 + c];
-          const float grad = acc[k][c] + g[k][c];
-          const float un = fminf(fmaxf(yv - inv_L * grad, lbs[i]), ubs[i]);
-          nxt[i * TILE_B + s0 + c] = un + beta * (un - u[k][c]);
-          u[k][c] = un;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const int i = row0 + k;
-#pragma unroll
-    for (int c = 0; c < SCEN; ++c) {
-      const long long b = b0 + c;
-      if (i < n && b < B) out[static_cast<size_t>(b) * n + i] = u[k][c];
-    }
-  }
-}
 
 constexpr int CL_ROWS = 4;   // rows per thread of the cluster design
 constexpr int CL_SCEN = 2;   // scenarios per thread
@@ -333,17 +222,17 @@ cudaError_t launch_cluster(const float* H, const float* G, const float* x0,
 
 // Plain C entry point (bound with ctypes). Returns the cudaError_t of the
 // launch; 0 means the kernel was enqueued on `stream`. u0 may be null (start
-// from zero). n <= FGM_NARROW_MAX_N takes fgm_boxqp_kernel (cluster and tile
-// are ignored), larger n fgm_boxqp_cluster_kernel with `cluster` blocks per
-// tile of `tile` scenarios, (4, 32), (8, 32) or (8, 16) as
-// ops/cuda_kernels.py:fgm_boxqp_design chooses them (any other pair is
-// refused). FGM_MAX_N and FGM_NARROW_MAX_N are mirrored there.
+// from zero). It takes FGM_NARROW_MAX_N < n <= FGM_MAX_N, with `cluster`
+// blocks per tile of `tile` scenarios, (4, 32), (8, 32) or (8, 16) as
+// ops/cuda_kernels.py:fgm_boxqp_design chooses them (any other pair, and
+// any smaller n, is refused: those go to the register and tensor-core
+// designs). FGM_MAX_N and FGM_NARROW_MAX_N are mirrored there.
 extern "C" int fgm_boxqp_f32(const void* H, const void* G, const void* x0,
                              const void* lb, const void* ub, const void* u0,
                              void* out, int B, int n, int nx, int iters,
                              double inv_L, double beta, int cluster, int tile,
                              void* stream) {
-  if (B <= 0 || n <= 0 || n > FGM_MAX_N || nx <= 0 || iters < 0)
+  if (B <= 0 || n <= FGM_NARROW_MAX_N || n > FGM_MAX_N || nx <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* Hf = static_cast<const float*>(H);
   const float* Gf = static_cast<const float*>(G);
@@ -354,29 +243,14 @@ extern "C" int fgm_boxqp_f32(const void* H, const void* G, const void* x0,
   float* of = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float il = static_cast<float>(inv_L), bt = static_cast<float>(beta);
-  if (n > FGM_NARROW_MAX_N) {
-    if (cluster == 4 && tile == 32)
-      return static_cast<int>(launch_cluster<4, 32>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
-                                                    n, nx, iters, il, bt, st));
-    if (cluster == 8 && tile == 32)
-      return static_cast<int>(launch_cluster<8, 32>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
-                                                    n, nx, iters, il, bt, st));
-    if (cluster == 8 && tile == 16)
-      return static_cast<int>(launch_cluster<8, 16>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
-                                                    n, nx, iters, il, bt, st));
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int rows_threads = (n + ROWS - 1) / ROWS;
-  const dim3 block(TILE_B / SCEN, rows_threads);
-  const dim3 grid(static_cast<unsigned>((static_cast<long long>(B) + TILE_B - 1) / TILE_B));
-  const size_t smem = sizeof(float) * (static_cast<size_t>(n) * ROWS * rows_threads
-                                       + 2 * static_cast<size_t>(n) * TILE_B + 2 * n);
-  cudaError_t err = cudaFuncSetAttribute(
-      fgm_boxqp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fgm_boxqp_kernel<<<grid, block, smem, st>>>(
-      Hf, Gf, xf, lbf, ubf, u0f, of, B, n, nx, iters, static_cast<float>(inv_L),
-      static_cast<float>(beta));
-  return static_cast<int>(cudaGetLastError());
+  if (cluster == 4 && tile == 32)
+    return static_cast<int>(launch_cluster<4, 32>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
+                                                  n, nx, iters, il, bt, st));
+  if (cluster == 8 && tile == 32)
+    return static_cast<int>(launch_cluster<8, 32>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
+                                                  n, nx, iters, il, bt, st));
+  if (cluster == 8 && tile == 16)
+    return static_cast<int>(launch_cluster<8, 16>(Hf, Gf, xf, lbf, ubf, u0f, of, B,
+                                                  n, nx, iters, il, bt, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

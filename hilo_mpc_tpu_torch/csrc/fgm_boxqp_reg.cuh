@@ -4,8 +4,9 @@
 //
 // Replaces the Pallas kernel hilo_mpc_tpu/ops/pallas_kernels.py:
 // fgm_boxqp_batch (pallas_call at line 98) for n <= FGM_REG_MAX_N; the
-// resident-Hᵀ kernel of csrc/fgm_boxqp.cu takes the n above, up to 128, and
-// its cluster kernel the n above 128. Same iteration as the JAX kernel body
+// tensor-core design of csrc/fgm_boxqp_tc.cuh takes the n above, up to 128,
+// and the cluster kernel of csrc/fgm_boxqp.cu the n above 128. Same
+// iteration as the JAX kernel body
 // (lines 78-95):
 //   g  = G x0
 //   repeat iters times:
@@ -19,11 +20,6 @@
 // update, on one H shared by all scenarios: at the flagship (B=131072,
 // n=20, nx=2, 100 iterations) 1.259e10 FLOPs against ~11 MB of compulsory
 // traffic, so the bound is float32 issue: one FFMA per lane and clock.
-// The resident kernel of csrc/fgm_boxqp.cu keeps the tile's y in shared
-// memory: per column of H y a warp reads a broadcast float4 of Hᵀ and a
-// float2 of y for 8 FFMAs, plus the update's reads and writes of y and one
-// block barrier per iteration, so shared-memory wavefronts, not FFMAs, set
-// its pace (30-32% of the bound on an H100).
 //
 // Design. FGM's scenarios are independent and H is the same for all of
 // them. So a thread owns one scenario and keeps its u, y, g and the next y
@@ -40,20 +36,17 @@
 // previous launch of the same library (an event) before it overwrites it.
 // What caps it is registers: ~4n per thread plus the product's
 // temporaries. On an H100 ptxas took at most 168 up to n = 24 (6 blocks of
-// 64 threads per SM) and the design was ahead of the resident kernel at
-// every n from 2 to 24 (0.34 against 0.57 ms at n = 20); at 25, 27 and 28
-// it took 211-223 (4 blocks per SM) and fell behind, and at n = 32 (4 KB of
-// H, the same 4 blocks) it took 4.8x its time at n = 28, 4.7x the resident
-// kernel's. FGM_REG_MAX_N = 24 is that crossover. A variant with H in
-// shared memory, read as broadcast float4s, was 35% slower at n = 20 and
-// 7-12% ahead of the resident kernel at n = 32 and 48 only; it is gone
-// (PERF.md). The bounds, mapped to finite values, sit in shared
-// memory as one float2 per row, read the same uniform way once per row and
-// iteration.
-// Each element keeps the order of the resident kernel (fgm_boxqp.cu:
-// 134-155): acc from 0 over j = 0..n-1 by fmaf, then + g, then the clip and
-// the momentum, written here as the fmaf nvcc contracts them to there, so
-// the two designs give the same bits.
+// 64 threads per SM); at 25, 27 and 28 it took 211-223 (4 blocks per SM),
+// and at n = 32 (4 KB of H, the same 4 blocks) it took 4.8x its time at
+// n = 28. Against the tensor-core design (csrc/fgm_boxqp_tc.cuh, whose time
+// steps with n padded to 8) it is ahead up to n = 15 and at 17-19; from
+// 20 on, and at 16 by a few percent, the tensor cores are faster:
+// FGM_REG_MAX_N = 19 (PERF.md). A variant with H in shared memory, read as
+// broadcast float4s, was 35% slower at n = 20; it is gone. The bounds,
+// mapped to finite values, sit in shared memory as one float2 per row,
+// read the same uniform way once per row and iteration. Each element sums
+// acc from 0 over j = 0..n-1 by fmaf, then + g, then the clip and the
+// momentum as fmaf.
 //
 // Blocks of FGMR_TPB threads; the grid covers B. The per-scenario code is
 // __host__ __device__: compiled with the host C++ compiler
@@ -82,10 +75,10 @@ using std::isfinite;
 #endif
 
 // the largest n the router sends to this design (ops/cuda_kernels.py
-// mirrors it): above it the resident kernel measured faster on an H100;
+// mirrors it): above it the tensor-core design measured faster on an H100;
 // and the largest n it builds for (ptxas needs minutes beyond it: 577 s
 // for n = 96 on the H100 host, with 50-140 KB of spills per thread)
-#define FGM_REG_MAX_N 24
+#define FGM_REG_MAX_N 19
 #define FGM_REG_BUILD_MAX_N 64
 #define FGM_REG_INF 1e30f
 // threads per block
@@ -131,7 +124,7 @@ FGMR_HD void solve(const HM hm, float (&u)[N], const float (&g)[N], int iters,
   }
 }
 
-// g = G x0 and u = u0 (or zero) of scenario b, in the resident kernel's order
+// g = G x0 and u = u0 (or zero) of scenario b
 template <int N>
 FGMR_HD void start(const float* G, const float* x0, const float* u0, long long b,
                    int nx, float (&g)[N], float (&u)[N], bool live) {

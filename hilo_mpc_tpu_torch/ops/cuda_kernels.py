@@ -15,7 +15,8 @@ Sources live in ``hilo_mpc_tpu_torch/csrc/`` and are built by ``nvcc`` at first
 use (ops/_build.py); the Riccati kernel is a template there, instantiated for
 each (nx, nu) a caller needs: the tiled kernel up to (8, 4), a variant with a
 group of warps per scenario above (``riccati_lq_wide_cuda``, up to
-(32, 16)). The whole-solve interior point is in ops/whole_ip.py.
+(32, 16)); the FGM kernel's register design is built per n, its tensor-core
+design per n padded to 8. The whole-solve interior point is in ops/whole_ip.py.
 """
 from __future__ import annotations
 
@@ -49,22 +50,27 @@ RICCATI_SMEM_MAX = 232448
 RICCATI_SMEM_TARGET = 48 * 1024
 RICCATI_TILE = 32
 RICCATI_CHUNKS = (8, 4, 2, 1)
-# largest QP size n of csrc/fgm_boxqp.cu (FGM_MAX_N), and the largest n of its
-# first design, which keeps Hᵀ resident in one block's shared memory
-# (FGM_NARROW_MAX_N); above it H is split by rows over the blocks of a
-# thread-block cluster, resident too: the (blocks per cluster, scenarios per
-# tile) designs csrc/fgm_boxqp.cu builds, in the order fgm_boxqp_design
-# tries them. Up to FGM_REG_MAX_N the register design of
-# csrc/fgm_boxqp_reg.cuh (one scenario per thread, its iterate in
-# registers, H in the constant bank) takes the place of the resident one;
-# that header builds for n up to FGM_REG_BUILD_MAX_N (chip_smoke.py times
-# the two designs there), with FGM_REG_TPB threads per block
+# largest QP size n of the FGM kernels (FGM_MAX_N), and the largest n whose
+# H one block keeps in shared memory (FGM_NARROW_MAX_N): up to it the
+# tensor-core design of csrc/fgm_boxqp_tc.cuh (3xTF32 wgmma with the
+# iterate as the register A operand, H split into hi and lo tiles in shared
+# memory; one build per n padded to FGM_TC_STEP, at most FGM_TC_MAX_WARPS
+# warps per block within RICCATI_SMEM_MAX bytes); above it csrc/fgm_boxqp.cu splits H by rows over
+# the blocks of a thread-block cluster: the (blocks per cluster, scenarios
+# per tile) designs it builds, in the order fgm_boxqp_design tries them. Up
+# to FGM_REG_MAX_N the register design of csrc/fgm_boxqp_reg.cuh (one
+# scenario per thread, its iterate in registers, H in the constant bank)
+# takes the place of the tensor-core one; that header builds for n up to
+# FGM_REG_BUILD_MAX_N (chip_smoke.py times the two designs there), with
+# FGM_REG_TPB threads per block
 FGM_MAX_N = 512
 FGM_NARROW_MAX_N = 128
 FGM_CLUSTER_DESIGNS = ((4, 32), (8, 32), (8, 16))
-FGM_REG_MAX_N = 24
+FGM_REG_MAX_N = 19
 FGM_REG_BUILD_MAX_N = 64
 FGM_REG_TPB = 64
+FGM_TC_STEP = 8
+FGM_TC_MAX_WARPS = 8
 # what an infinite FGM bound becomes (hilo_mpc_tpu/ops/pallas_kernels.py:67-68)
 FGM_INF = 1e30
 
@@ -479,6 +485,53 @@ def fgm_boxqp_reference(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
     return u
 
 
+def round_tf32(x):
+    """float32 rounded to TF32 (10 explicit mantissa bits) as PTX's
+    ``cvt.rna.tf32.f32`` does: to nearest, ties away from zero, on the bits
+    (subnormals included; a magnitude that rounds past the largest finite
+    value becomes ±inf); ±inf and NaN pass through unchanged. Returns a
+    float32 tensor whose low 13 mantissa bits are 0."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    bits = x.view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    rounded = ((mag + 0x1000) & ~0x1FFF) | (bits & -0x80000000)
+    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
+
+
+def fgm_boxqp_tf32x3(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
+                     constants=None):
+    """The arithmetic of the tensor-core design (csrc/fgm_boxqp_tc.cuh) in
+    plain PyTorch, for tests and ``chip_smoke.py`` (no path of the package
+    calls it): H and, every iteration, y split as a = hi + lo with
+    hi = rna_tf32(a), lo = rna_tf32(a − hi); H y + g as g + y_lo·H_hiᵀ +
+    y_hi·H_loᵀ + y_hi·H_hiᵀ, three float32 products (lo·lo dropped); the
+    float32 update. Not bit-equal to the card, whose tensor cores sum each
+    k-block of 8 in their own order. Same arguments and return as
+    ``fgm_boxqp_reference``."""
+    inv_L, beta = fgm_constants(H) if constants is None else constants
+    kw = dict(dtype=torch.float32, device=x0_batch.device)
+    H, G = H.to(**kw), G.to(**kw)
+    lb, ub = _fgm_bounds(lb.to(**kw), ub.to(**kw))
+    h_hi = round_tf32(H)
+    h_lo = round_tf32(H - h_hi)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = x0_batch.to(**kw) @ G.T
+        u = torch.zeros_like(g) if u0_batch is None else u0_batch.to(**kw)
+        y = u
+        for _ in range(iters):
+            y_hi = round_tf32(y)
+            y_lo = round_tf32(y - y_hi)
+            acc = g + y_lo @ h_hi.T + y_hi @ h_lo.T + y_hi @ h_hi.T
+            u_new = torch.clamp(y - inv_L * acc, lb, ub)
+            y = u_new + beta * (u_new - u)
+            u = u_new
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return u
+
+
 def _fgm_fn():
     lib = _build.load("fgm_boxqp")
     fn = lib.fgm_boxqp_f32
@@ -521,8 +574,9 @@ def fgm_boxqp_cuda(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
     by ``iters`` projected fast-gradient steps from u0 (or zero), as ONE CUDA
     kernel, replacing ``hilo_mpc_tpu/ops/pallas_kernels.py:fgm_boxqp_batch``:
     for n <= ``FGM_REG_MAX_N`` the register design (csrc/fgm_boxqp_reg.cuh,
-    built per n at first use), above it csrc/fgm_boxqp.cu
-    (``fgm_boxqp_design``).
+    built per n at first use), up to 128 the tensor-core design
+    (csrc/fgm_boxqp_tc.cuh, built per padded n), above it the cluster
+    kernel of csrc/fgm_boxqp.cu (``fgm_boxqp_design``).
 
     Shapes: H (n, n), G (n, nx), x0_batch (B, nx), lb and ub (n,) (infinite
     entries allowed: the kernel takes them as ∓``FGM_INF``), u0_batch (B, n)
@@ -561,24 +615,97 @@ def fgm_boxqp_design(n: int) -> tuple:
     """The design that takes a QP of n variables, as (name, blocks per
     tile, scenarios per tile): ("registers", 1, ``FGM_REG_TPB``) for
     n <= ``FGM_REG_MAX_N`` (csrc/fgm_boxqp_reg.cuh: a scenario per thread,
-    its iterate in registers); ("resident", 1, 64) up to
-    ``FGM_NARROW_MAX_N`` (csrc/fgm_boxqp.cu, Hᵀ in one block's shared
-    memory); else ("cluster", C, TB): H split by rows over a cluster of C
-    blocks, the first of ``FGM_CLUSTER_DESIGNS`` whose block fits
-    ``RICCATI_SMEM_MAX`` (227 KB): (4, 32) up to n = 368, (8, 32) up to 468,
-    (8, 16) above. Each puts at least 128 blocks on the card at B = 1024.
-    Raises ValueError outside 1 <= n <= ``FGM_MAX_N``."""
+    its iterate in registers); ("tensor", 1, scenarios per block) up to
+    ``FGM_NARROW_MAX_N`` (csrc/fgm_boxqp_tc.cuh: 3xTF32 on the tensor
+    cores, H in one block's shared memory, ``fgm_boxqp_tc_layout``); else
+    ("cluster", C, TB): H split by rows over a cluster of C blocks, the
+    first of ``FGM_CLUSTER_DESIGNS`` whose block fits ``RICCATI_SMEM_MAX``
+    (227 KB): (4, 32) up to n = 368, (8, 32) up to 468, (8, 16) above. Each
+    puts at least 128 blocks on the card at B = 1024. Raises ValueError
+    outside 1 <= n <= ``FGM_MAX_N``."""
     if not 1 <= n <= FGM_MAX_N:
         raise ValueError(f"fgm_boxqp_cuda takes 1 <= n <= FGM_MAX_N = {FGM_MAX_N} "
                          f"QP variables, got n={n}")
     if n <= FGM_REG_MAX_N:
         return "registers", 1, FGM_REG_TPB
     if n <= FGM_NARROW_MAX_N:
-        return "resident", 1, 64
+        return "tensor", 1, fgm_boxqp_tc_layout(fgm_boxqp_tc_pad(n))[1]
     for cluster, tile in FGM_CLUSTER_DESIGNS:
         if fgm_boxqp_cluster_smem_bytes(n, cluster, tile) <= RICCATI_SMEM_MAX:
             return "cluster", cluster, tile
     raise AssertionError(f"no cluster design fits n={n}")
+
+
+def fgm_boxqp_tc_pad(n: int) -> int:
+    """n padded to the tensor-core design's k-blocks of ``FGM_TC_STEP``: the
+    NPAD of the build that takes n."""
+    if not 1 <= n <= FGM_NARROW_MAX_N:
+        raise ValueError(f"the FGM tensor-core design takes 1 <= n <= "
+                         f"FGM_NARROW_MAX_N = {FGM_NARROW_MAX_N}, got n={n}")
+    return -(-n // FGM_TC_STEP) * FGM_TC_STEP
+
+
+def fgm_boxqp_tc_layout(n_pad: int) -> tuple:
+    """(warps per block, scenarios per block, dynamic shared memory per
+    block) of the tensor-core build for ``n_pad``, as csrc/fgm_boxqp_tc.cuh
+    computes them: H as hi and lo (8·n_pad² bytes), lb and ub, and per warp
+    its 16 scenarios' u and g (128·n_pad bytes); as many whole warpgroups
+    (4 warps) as ``RICCATI_SMEM_MAX`` holds, at most ``FGM_TC_MAX_WARPS``
+    warps."""
+    fixed = 8 * n_pad * n_pad + 8 * n_pad
+    warps = min(FGM_TC_MAX_WARPS, (RICCATI_SMEM_MAX - fixed) // (128 * n_pad)) // 4 * 4
+    return warps, 16 * warps, fixed + warps * 128 * n_pad
+
+
+def _wgmma_text(n_pad: int) -> str:
+    """The device function fgm_tc_wgmma(d, a, desc) the header calls: one
+    wgmma.mma_async m64n<n_pad>k8 TF32 with A from registers, D += A·B, its
+    n_pad/2 accumulators per thread written out as asm operands."""
+    nd = n_pad // 2
+    outs = ", ".join(f'"+f"(d[{i // 4}][{i % 4}])' for i in range(nd))
+    regs = ", ".join(f"%{i}" for i in range(nd))
+    a = ", ".join(f"%{nd + i}" for i in range(4))
+    return ("#include <stdint.h>\n"
+            f"__device__ __forceinline__ void fgm_tc_wgmma(float (&d)[{n_pad // 8}][4], "
+            "const uint32_t (&a)[4], uint64_t desc) {\n"
+            '  asm volatile("{\\n.reg .pred p;\\n'
+            f'setp.ne.b32 p, %{nd + 5}, 0;\\n'
+            f"wgmma.mma_async.sync.aligned.m64n{n_pad}k8.f32.tf32.tf32 "
+            f'{{{regs}}}, {{{a}}}, %{nd + 4}, p, 1, 1;\\n}}\\n"\n'
+            f"      : {outs}\n"
+            '      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));\n'
+            "}\n")
+
+
+def fgm_boxqp_tc_source(n_pad: int) -> str:
+    """Source of the tensor-core design (csrc/fgm_boxqp_tc.cuh) for n padded
+    to ``n_pad``, with the wgmma call it needs; built at first use, one
+    library per n_pad."""
+    if n_pad % FGM_TC_STEP or not FGM_TC_STEP <= n_pad <= FGM_NARROW_MAX_N:
+        raise ValueError(f"n_pad must be a multiple of {FGM_TC_STEP} in "
+                         f"{FGM_TC_STEP}..{FGM_NARROW_MAX_N}, got {n_pad}")
+    return (f"#define FGM_TC_NPAD {int(n_pad)}\n" + _wgmma_text(int(n_pad))
+            + '#include "fgm_boxqp_tc.cuh"\n')
+
+
+@functools.lru_cache(maxsize=None)
+def _fgm_tc_entry(n_pad: int):
+    """``fgm_tc_f32`` of the tensor-core build for ``n_pad``, bound with
+    ctypes and built at first use."""
+    fn = _build.load_source(fgm_boxqp_tc_source(n_pad)).fgm_tc_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fgm_boxqp_tc_built_layout(lib) -> tuple:
+    """(warps per block, scenarios per block, shared memory per block,
+    resident blocks per SM) of a built tensor-core library, as its
+    ``fgm_tc_layout_f32`` reports them."""
+    out = (ctypes.c_int * 4)()
+    lib.fgm_tc_layout_f32(out)
+    return tuple(out)
 
 
 def _check_reg_size(n: int):
@@ -643,13 +770,13 @@ def fgm_boxqp_host(H, G, x0_batch, lb, ub, iters: int, u0_batch=None,
 def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta,
                      design=None):
     """The bare launch behind ``fgm_boxqp_cuda``, in the design
-    ``fgm_boxqp_design`` picks (``design`` = "registers" or "resident"
+    ``fgm_boxqp_design`` picks (``design`` = "registers" or "tensor"
     overrides it for n <= 128): inputs already checked, constants given.
     Not counted; ``chip_smoke.py`` times the kernels alone through it."""
     Bt, n, nx = x0_batch.shape[0], H.shape[0], G.shape[1]
     name, cluster, tile = fgm_boxqp_design(n)
     if design is not None:
-        if n > FGM_NARROW_MAX_N or design not in ("registers", "resident"):
+        if n > FGM_NARROW_MAX_N or design not in ("registers", "tensor"):
             raise ValueError(f"design {design!r} does not take n={n}")
         name = design
     out = torch.empty((Bt, n), dtype=torch.float32, device=x0_batch.device)
@@ -661,6 +788,9 @@ def fgm_boxqp_launch(H, G, x0_batch, lb, ub, iters, u0_batch, inv_L, beta,
         if name == "registers":
             rc = _fgm_reg_entry(n, False)(*ptrs, Bt, nx, int(iters), inv_L, beta,
                                           stream)
+        elif name == "tensor":
+            rc = _fgm_tc_entry(fgm_boxqp_tc_pad(n))(*ptrs, Bt, n, nx, int(iters),
+                                                    inv_L, beta, stream)
         else:
             rc = _fgm_fn()(*ptrs, Bt, n, nx, int(iters), inv_L, beta, cluster, tile,
                            stream)

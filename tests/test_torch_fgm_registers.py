@@ -3,7 +3,7 @@ scenario per thread, its iterate in registers), which takes the QPs of
 n <= FGM_REG_MAX_N on the card.
 
 - the host build of its per-scenario code (``fgm_boxqp_host``) against the
-  plain version at n in {1, 3, 20, FGM_REG_MAX_N} on ragged batches (B = 37
+  plain version at n in {1, 3, FGM_REG_MAX_N, 20, 24} on ragged batches (B = 37
   and 1000), with and without u0, with and without infinite bounds, float32
   to 1e-5 (a sequential fmaf per element against the plain version's
   matrix product, which sums in another order);
@@ -15,7 +15,8 @@ n <= FGM_REG_MAX_N on the card.
   design takes on a ragged batch, the CUDA route with ``_fgm_bounds``
   made to raise (the kernels map infinite bounds themselves), and the
   launch counter.
-Four host builds in all (n = 1, 3, 20 and 32), about half a second each.
+Five host builds in all (n = 1, 3, FGM_REG_MAX_N, 20 and 24), about half
+a second each.
 """
 import os
 import re
@@ -36,7 +37,7 @@ from hilo_mpc_tpu_torch.ops.cuda_kernels import (
 from test_torch_lmpc import _t, make_qp, report
 
 torch.set_num_threads(1)
-HOST_NS = (1, 3, 20, FGM_REG_MAX_N)
+HOST_NS = (1, 3, FGM_REG_MAX_N, 20, 24)
 
 
 def _problem(n, Bt, u0, inf, seed=0):
@@ -147,7 +148,7 @@ def test_host_entry_refuses_u0_iterations_and_sizes():
 
 def test_design_for_every_n():
     """1..FGM_REG_MAX_N the register design (blocks of FGM_REG_TPB
-    scenarios), up to 128 the resident kernel, up to 512 a cluster; the
+    scenarios), up to 128 the tensor-core design, up to 512 a cluster; the
     chooser's names change only at those two sizes."""
     assert FGM_REG_MAX_N <= FGM_REG_BUILD_MAX_N < FGM_NARROW_MAX_N < FGM_MAX_N == 512
     names = []
@@ -157,7 +158,8 @@ def test_design_for_every_n():
         if n <= FGM_REG_MAX_N:
             assert (name, blocks, tile) == ("registers", 1, FGM_REG_TPB)
         elif n <= FGM_NARROW_MAX_N:
-            assert (name, blocks, tile) == ("resident", 1, 64)
+            assert (name, blocks, tile) == ("tensor", 1, ck.fgm_boxqp_tc_layout(
+                ck.fgm_boxqp_tc_pad(n))[1])
         else:
             assert name == "cluster" and (blocks, tile) in ck.FGM_CLUSTER_DESIGNS
     changes = [n for n in range(2, FGM_MAX_N + 1) if names[n - 1] != names[n - 2]]
@@ -168,7 +170,7 @@ def test_launch_refuses_a_design_override_above_128():
     with pytest.raises(ValueError, match="does not take"):
         ck.fgm_boxqp_launch(*(_t(np.zeros(s)) for s in ((160, 160), (160, 2),
                                                         (4, 2), (160,), (160,))),
-                            10, None, 1.0, 0.5, design="resident")
+                            10, None, 1.0, 0.5, design="registers")
 
 
 # -- on the card ----------------------------------------------------------------

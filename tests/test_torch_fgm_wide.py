@@ -31,7 +31,7 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("n,design", [(1, ("registers", 1, 64)),
-                                      (128, ("resident", 1, 64)),
+                                      (128, ("tensor", 1, 64)),
                                       (129, ("cluster", 4, 32)),
                                       (256, ("cluster", 4, 32)),
                                       (257, ("cluster", 4, 32)),

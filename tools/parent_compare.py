@@ -2,7 +2,7 @@
 """Time another checkout's kernel beside this checkout's, in one process on
 one NVIDIA GPU, in turns (other, this, this, other).
 
-    PYTHONPATH=. python3 tools/parent_compare.py fgm _work/parent
+    PYTHONPATH=. python3 tools/parent_compare.py fgm _work/parent [--n 25,64]
     PYTHONPATH=. python3 tools/parent_compare.py riccati _work/parent
 
 The other checkout (for example the parent commit, unpacked with
@@ -10,9 +10,12 @@ The other checkout (for example the parent commit, unpacked with
 built here with this checkout's nvcc flags and called through its own C
 entry point:
 
-- ``fgm``: ``csrc/fgm_boxqp.cu`` (``fgm_boxqp_f32``) at the flagship FGM
-  shape (chip_smoke.py phase 4's condensed QP: n=20, nx=2, B=131072, 100
-  iterations);
+- ``fgm``: ``csrc/fgm_boxqp.cu`` (``fgm_boxqp_f32``; up to n = 128 the
+  SIMT resident kernel in checkouts that still have it) at B=131072, nx=2,
+  100 iterations, at each n of ``--n`` (a comma-separated list): n = 20
+  (the default) is the flagship FGM shape (chip_smoke.py phase 4's
+  condensed QP), another n chip_smoke.py's crossover problem
+  (``random_qp(n, seed=n)``, x0 from ``default_rng(n)``);
 - ``riccati``: the tiled Riccati kernel ``csrc/riccati_lq.cuh``
   (``riccati_lq_f32`` / ``_f64``), instantiated with this checkout's tiles,
   with a fixed initial state: at the flagship ((nx, nu) = (2, 1), N=20,
@@ -100,13 +103,17 @@ def in_turns(label, other, this):
                f"({cs.INNER} calls per run; medians of 10 runs, CUDA events)")
 
 
-def compare_fgm(root):
-    H, G, lb, ub = cs.build_di_lmpc(torch.float32, {}, setup=False).condensed_qp()
+def compare_fgm(n, fn):
+    if n == 20:
+        H, G, lb, ub = cs.build_di_lmpc(torch.float32, {}, setup=False).condensed_qp()
+        seed = 0
+    else:
+        H, G, lb, ub = cs.random_qp(n, seed=n)
+        seed = n
     n, nx = G.shape
     inv_L, beta = fgm_constants(H)
-    x0 = np.random.default_rng(0).standard_normal((cs.B_MAIN, nx))
+    x0 = np.random.default_rng(seed).standard_normal((cs.B_MAIN, nx))
     dev = [cs.fgm_dev(a) for a in (H, G, x0, lb, ub)]
-    fn = other_fgm(root)
     _, cluster, tile = fgm_boxqp_design(n)
 
     def other():
@@ -154,7 +161,7 @@ def compare_riccati(root):
         del args
 
 
-def main(kernel, root):
+def main(kernel, root, ns=(20,)):
     if not torch.cuda.is_available():
         print("parent_compare: no CUDA device", file=sys.stderr)
         return 2
@@ -162,11 +169,22 @@ def main(kernel, root):
     cs.log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip())
-    {"fgm": compare_fgm, "riccati": compare_riccati}[kernel](root)
+    if kernel == "fgm":
+        fn = other_fgm(root)
+        for n in ns:
+            compare_fgm(n, fn)
+    else:
+        compare_riccati(root)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3 or sys.argv[1] not in ("fgm", "riccati"):
-        sys.exit("usage: tools/parent_compare.py {fgm,riccati} <checkout>")
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    import argparse
+    ap = argparse.ArgumentParser(description="time another checkout's kernel "
+                                 "beside this checkout's")
+    ap.add_argument("kernel", choices=("fgm", "riccati"))
+    ap.add_argument("checkout")
+    ap.add_argument("--n", type=lambda v: [int(x) for x in v.split(",")], default=[20],
+                    help="the FGM QP sizes, comma-separated (fgm only)")
+    a = ap.parse_args()
+    sys.exit(main(a.kernel, a.checkout, a.n))
