@@ -35,8 +35,9 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          whole-solve kernel on
          the traced problems of phases 1, 11(b) and 14 (ops/codegen_fx.py:
          the msd, golden pathfollow_soft's controller, the CSTR with a
-         generic cost and a measurement term, the flagship), each build's
-         registers and spills printed.
+         generic cost and a measurement term, the flagship, and phase 15's
+         hybrid physics + ANN problems), each build's registers and spills
+         printed.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
@@ -257,9 +258,39 @@ Phase 14 the whole-solve kernel on traced problems (ops/codegen_fx.py: the
          (ops/codegen_cuda.py and the trace): equal iterations and U within
          1e-5 in float32, each build's kernel ms, registers and spills.
 
+Phase 15 discrete inputs and the first half of machine learning (no
+         kernel added): (a) phase 2's controller with E the output of golden
+         hybrid_ann's frozen 2-8-1 tanh network (its weights rebuilt here from
+         default_rng(42)), B=131072, float32, through the general path (the
+         Riccati kernel) and pallas_full (the traced whole-solve kernel, the
+         network emitted as C++), cold and warm: solves/s, converged >= 0.97,
+         iterations, each kernel's launches (2 whole-solve, 0 Riccati on the
+         kernel route), the routes within the general path's float32 stray
+         + 5e-4, the kernel against its plain version on 1024 scenarios,
+         kernel ms beside its bound, registers and spills; (b) the same with
+         a 2-16-16-1 network: the traced build's kernel ms, bound, operations,
+         registers and spills against (a)'s; (c) golden hybrid_ann (N=15,
+         float64) replayed on the card through the general path (< 1e-4; the
+         CPU's replay within 1e-9) and through the whole-solve kernel's
+         float64 instance (< 1e-4, one launch per step); (d)
+         tests/test_minlp.py's double integrator with u in {-1, 0, 1} (N=12,
+         float64), a 25-step loop through optimize: ms per step (relaxed
+         solve, the candidate batch: one solve_ocp of all 44 candidates on
+         the Riccati kernel), candidates, feasible, mi_gap, Riccati launches
+         per step; every move on a level and the final state within 1e-4 of
+         [1, 0]; card against CPU the same picks and moves (1e-9); the exact
+         mode at N=5 (243 candidates); (e) learned MPC: the teacher
+         (optimize_batch of 65,536 CSTR states around the equilibrium, N=10,
+         float32), a 2-32-32-1 tanh student trained on the card (batch 1024,
+         50 epochs; epochs/s, median imitation error on 1,024 held-out
+         states < 0.05), the student as a 40-step SimpleControlLoop policy
+         (final error < 0.02), and predict at B=131072 (policies/s beside the
+         teacher's solves/s).
+
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
-prints no result. The second-to-last line is the kernels JSON object, the last line
+prints no result. Each phase prints its time, and the script its total, before
+the kernels JSON object (the second-to-last line); the last line is
 {"ok": true, "device": {...}}.
 """
 import ctypes
@@ -281,6 +312,7 @@ GOLDEN_DU = os.path.join(ROOT, "tests", "golden", "du_tracking.npz")
 GOLDEN_PF = os.path.join(ROOT, "tests", "golden", "pathfollow_soft.npz")
 GOLDEN_MT = os.path.join(ROOT, "tests", "golden", "mintime.npz")
 GOLDEN_DAE = os.path.join(ROOT, "tests", "golden", "dae_colloc.npz")
+GOLDEN_HYBRID = os.path.join(ROOT, "tests", "golden", "hybrid_ann.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
            "riccati_lq_wide_free_x0", "whole_ip_cross", "whole_ip_traced",
@@ -336,6 +368,9 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
+
+
+T_START = time.perf_counter()
 
 
 def log(*a):
@@ -3736,6 +3771,403 @@ def phase14_two_emitters(report):
     report["phase14(d) two emitters"] = out
 
 
+# the hybrid flagship's network for E (tests/golden_configs.py:152-170): a
+# 2-8-1 tanh net whose weights are 0.3·N(0,1), biases 0.1·N(0,1) from
+# default_rng(42), the output bias shifted by 1.0; phase 15(b) the same
+# construction at 2-16-16-1
+HYBRID_HIDDEN = {"a": (8,), "b": (16, 16)}
+# phase 15's closed loops: the discrete-input double integrator's steps and
+# horizon (tests/test_minlp.py), learned MPC's teacher batch, horizon,
+# training and loop (tests/test_learned_mpc.py at fleet size)
+MI_STEPS, MI_N, MI_LEVELS = 25, 12, (-1.0, 0.0, 1.0)
+LEARNED_B, LEARNED_N, LEARNED_BATCH, LEARNED_EPOCHS, LEARNED_HELD_OUT = (
+    65536, 10, 1024, 50, 1024)
+
+
+def fixed_ann(hidden, device="cuda"):
+    """The golden hybrid_ann's frozen network (weights rebuilt here from
+    default_rng(42), as tests/golden_configs.py:_fixed_ann makes them),
+    float64; ``hidden`` the widths of its tanh layers."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import ANN, Dense
+    ann = ANN(["x_1", "x_2"], ["E"])
+    ann.add_layers([Dense(h, activation="tanh") for h in hidden])
+    ann.setup(normalize=False, device=device, dtype=torch.float64)
+    rng = np.random.default_rng(42)
+    params = [{"W": 0.3 * rng.standard_normal(tuple(p["W"].shape)),
+               "b": 0.1 * rng.standard_normal(tuple(p["b"].shape))}
+              for p in ann._params]
+    params[-1]["b"] = params[-1]["b"] + 1.0
+    ann._params = params
+    return ann
+
+
+def hybrid_nmpc(options, dtype, hidden=HYBRID_HIDDEN["a"], horizon=N, device="cuda"):
+    """Phase 2's controller on the hybrid CSTR: E is the network's output,
+    the other five parameters as before."""
+    from hilo_mpc_tpu_torch import NMPC
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    nmpc = NMPC(cstr_schaffner_and_zeitz() + fixed_ann(hidden, device))
+    nmpc.horizon = horizon
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=[0.3, 0.18055])
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    nmpc.set_parameters([1.0] * 5)
+    nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **options},
+               device=device, dtype=dtype)
+    return nmpc
+
+
+# golden hybrid_ann's options (tests/golden_configs.py:build_hybrid_ann); the
+# whole-solve kernel takes them with pure Newton steps
+HYBRID_GOLDEN = {"tol": 1e-9, "max_iter": 80}
+HYBRID_GOLDEN_NEWTON = {**HYBRID_GOLDEN, "convexify": False, "n_linesearch": 1,
+                        "mehrotra": False}
+
+
+def hybrid_problems(device="cuda"):
+    """{label: the emitted problem} of phase 15's traced builds: (a) the
+    hybrid flagship, (b) its 2-16-16-1 variant (float32 controllers), (c)
+    golden hybrid_ann's controller under pure Newton steps (N=15)."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
+    f32 = torch.float32
+    builders = {"hybrid_2-8-1": lambda: hybrid_nmpc(FLAGSHIP, f32, device=device),
+                "hybrid_2-16-16-1": lambda: hybrid_nmpc(FLAGSHIP, f32, HYBRID_HIDDEN["b"],
+                                                        device=device),
+                "hybrid_golden": lambda: hybrid_nmpc(HYBRID_GOLDEN_NEWTON, f32,
+                                                     horizon=15, device=device)}
+    out = {}
+    for name, build in builders.items():
+        nmpc = build()
+        out[name] = whole_ip_problem(nmpc._funcs, nmpc._dims, nmpc._bounds,
+                                     nmpc._funcs.source.n_theta, nmpc._ip_opts)
+    return out
+
+
+def phase15(report):
+    """Discrete inputs and the first half of machine learning (module
+    docstring)."""
+    for part in (phase15_hybrid, phase15_wide_net, phase15_golden, phase15_discrete,
+                 phase15_learned):
+        t = time.perf_counter()
+        part(report)
+        log(f"{part.__name__} took {time.perf_counter() - t:.1f} s")
+
+
+def phase15_hybrid(report):
+    """(a) The hybrid flagship at B=131072, float32, through the general path
+    and pallas_full, cold and warm."""
+    import warnings
+
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
+    f32, f64 = torch.float32, torch.float64
+    general = hybrid_nmpc(FLAGSHIP, f32)
+    whole = hybrid_nmpc({**FLAGSHIP, "pallas_full": True}, f32)
+    x0s = flagship_x0s()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        whole.solve_batch_fn()(*whole.prepare_batch(x0s[:256]))   # untimed warm-up
+    general.solve_batch_fn()(*general.prepare_batch(x0s[:256]))
+    torch.cuda.synchronize()
+    runs = {}
+    for name, ctl in (("general path", general), ("whole-solve kernel", whole)):
+        riccati_lq_cuda.launches = solve_ocp_full_cuda.launches = 0
+        args, sol, sol_w, (t_prep, t_cold, t_warm) = timed_batch(ctl, x0s, warm=True)
+        counts = (riccati_lq_cuda.launches, solve_ocp_full_cuda.launches)
+        runs[name] = (args, sol, counts, t_cold)
+        for kind, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
+            assert bool(torch.isfinite(s_.U).all()) and bool(torch.isfinite(s_.X).all())
+            conv = float(s_.converged.float().mean())
+            log(f"phase15(a) hybrid flagship (2-8-1 tanh for E) {name} B={B_MAIN} "
+                f"N={N} float32 {kind}: {B_MAIN / t:.1f} solves/s ({t:.4f} s wall), "
+                f"converged {conv:.4f}, iterations p50 "
+                f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}")
+            assert conv >= 0.97, (name, kind, conv)
+        log(f"phase15(a) {name}: prepare_batch {t_prep:.4f} s; riccati_lq launches "
+            f"{counts[0]}, whole_ip launches {counts[1]}")
+    (ga, gs, (g_ric, g_full), tg), (_, ws, (w_ric, w_full), tw) = runs.values()
+    assert g_ric > 0 and g_full == 0, (g_ric, g_full)
+    assert (w_ric, w_full) == (0, 2), (w_ric, w_full)
+    # the routes are held as phase 11 holds them: the kernel within the
+    # general path's float32 stray from the float64 answer plus 5e-4
+    both = gs.converged & ws.converged
+    dev = float((ws.U - gs.U).abs()[both].max())
+    g64 = hybrid_nmpc(FLAGSHIP, f64)
+    s64 = g64.solve_batch_fn()(*[a.double() for a in ga])
+    torch.cuda.synchronize()
+    j = both & s64.converged
+    stray = float((gs.U.double() - s64.U).abs()[j].max())
+    off = float((ws.U.double() - s64.U).abs()[j].max())
+    log(f"phase15(a): max|U_whole - U_general| on the jointly converged {dev:.3e} "
+        f"({float(both.float().mean()):.4f}); against the float64 general path: "
+        f"general {stray:.3e}, whole-solve {off:.3e}; the kernel route "
+        f"{tg / tw:.1f}x the general path's cold solves/s")
+    assert off <= stray + 5e-4, (off, stray)
+    problem = whole._wip["problem"]
+    err = traced_kernel_vs_plain("phase15(a) kernel vs plain", problem,
+                                 {f32: whole, f64: g64}, ga)
+    k_ms, bound, by = traced_kernel_ms(whole, ga, ws.iterations)
+    regs = build_registers(problem)
+    log(f"phase15(a) the traced hybrid build: kernel {k_ms:.4f} ms one call (cold "
+        f"inputs), bound {bound:.4f} ms ({by}; {bound / k_ms:.1%}), "
+        f"{problem.flops} operations per scenario-iteration; registers "
+        f"float32 {regs['float32'][0]} ({regs['float32'][1]} bytes spilled), float64 "
+        f"{regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
+    report["riccati_lq"].setdefault("phase15_launches", {})["hybrid_general"] = g_ric
+    report["whole_ip_traced"]["phase15_launches"] = {"hybrid": w_full}
+    report["phase15(a)"] = dict(kernel_ms=k_ms, bound_ms=bound, flops=problem.flops,
+                                registers=regs["float32"], max_abs_err=err)
+
+
+def traced_kernel_ms(ctl, args, iterations):
+    """(kernel ms one call, bound ms, what bounds it) of a controller's
+    prepared whole-solve launch on ``args``, the bound from the operations
+    of the iterations this run's scenarios took."""
+    launch = next(iter(ctl._wip["launch"].values()))
+    k_ms = cuda_time_ms(lambda: launch.launch(*args, ctl._mu_cold), reps=5)
+    nbytes, flops = whole_ip_work(ctl._wip["problem"], ctl._dims, args[0].shape[0],
+                                  args[0].shape[2], int(iterations.sum()))
+    return (k_ms,) + bound_ms(nbytes, flops)
+
+
+def phase15_wide_net(report):
+    """(b) The same controller with a 2-16-16-1 network for E: the traced
+    build's kernel ms, registers and spills beside (a)'s."""
+    import warnings
+
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    whole = hybrid_nmpc({**FLAGSHIP, "pallas_full": True}, f32, HYBRID_HIDDEN["b"])
+    args = whole.prepare_batch(flagship_x0s())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        sol = whole.solve_batch_fn()(*args)
+    torch.cuda.synchronize()
+    conv = float(sol.converged.float().mean())
+    problem = whole._wip["problem"]
+    k_ms, bound, by = traced_kernel_ms(whole, args, sol.iterations)
+    regs = build_registers(problem)
+    a = report["phase15(a)"]
+    log(f"phase15(b) hybrid flagship with a 2-16-16-1 tanh net, B={B_MAIN} float32: "
+        f"converged {conv:.4f}, iterations p50 {float(sol.iterations.float().median()):g} "
+        f"max {int(sol.iterations.max())}; kernel {k_ms:.4f} ms one call against (a)'s "
+        f"{a['kernel_ms']:.4f} ({k_ms / a['kernel_ms']:.2f}x), bound {bound:.4f} ms ({by}; "
+        f"{bound / k_ms:.1%}) against {a['bound_ms']:.4f}; {problem.flops} "
+        f"operations per scenario-iteration against {a['flops']} "
+        f"({problem.flops / a['flops']:.2f}x); registers float32 {regs['float32'][0]} "
+        f"({regs['float32'][1]} bytes spilled) against {a['registers'][0]} "
+        f"({a['registers'][1]}), float64 {regs['float64'][0]} ({regs['float64'][1]} "
+        f"bytes spilled)")
+    assert conv >= 0.97, conv
+    g64 = hybrid_nmpc(FLAGSHIP, f64, HYBRID_HIDDEN["b"])
+    traced_kernel_vs_plain("phase15(b) kernel vs plain", problem, {f32: whole, f64: g64},
+                           args)
+    report["phase15(b)"] = dict(kernel_ms=k_ms, flops=problem.flops,
+                                registers=regs["float32"])
+
+
+def phase15_golden(report):
+    """(c) Golden hybrid_ann (N=15, tol 1e-9, float64) replayed on the card
+    through the general path and through the whole-solve kernel's float64
+    instance; the general path's replay on the CPU too."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda,
+                                                 whole_ip_gate)
+    data = np.load(GOLDEN_HYBRID)
+    f64 = torch.float64
+
+    def replay(ctl):
+        us, its = [], []
+        for k in range(data["U_gold"].shape[0]):
+            us.append(ctl.optimize(data["X_meas"][k]))
+            assert ctl.stats["converged"], (k, ctl.stats)
+            its.append(ctl.stats["iterations"])
+        return np.array(us), its
+    walls, us = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        us[dev], its = replay(hybrid_nmpc(HYBRID_GOLDEN, f64, horizon=15, device=dev))
+        walls[dev] = time.perf_counter() - t0
+    gold = float(np.abs(us["cuda"] - data["U_gold"]).max())
+    cpu = float(np.abs(us["cuda"] - us["cpu"]).max())
+    log(f"phase15(c) golden hybrid_ann (N=15, float64) general path: card "
+        f"{walls['cuda']:.2f} s, CPU {walls['cpu']:.2f} s for {len(us['cuda'])} steps; "
+        f"max|u - u_gold| {gold:.3e}, max|u_card - u_cpu| {cpu:.3e}; iterations {its}")
+    assert gold < 1e-4 and cpu <= 1e-9, (gold, cpu)
+    tn = hybrid_nmpc(HYBRID_GOLDEN_NEWTON, f64, horizon=15)
+    problem, why = whole_ip_gate(tn._funcs, tn._dims, tn._bounds, tn._ip_opts, True)
+    assert problem is not None, why
+    launch = WholeIPLaunch(problem, tn._dims, f64, tn._bounds.lbx.device)
+    tn._solve = lambda th, x0, X, U, mu0, options=None: launch(th, x0, X, U, mu0)
+    solve_ocp_full_cuda.launches = 0
+    u_k = replay(tn)[0]
+    dev_k = float(np.abs(u_k - data["U_gold"]).max())
+    log(f"phase15(c) golden hybrid_ann through the whole-solve kernel's float64 "
+        f"instance: max|u - u_gold| {dev_k:.3e}, {solve_ocp_full_cuda.launches} "
+        f"launches, max|u_kernel - u_general| {float(np.abs(u_k - us['cuda']).max()):.3e}")
+    assert dev_k < 1e-4 and solve_ocp_full_cuda.launches == len(u_k), dev_k
+    report["phase15(c)"] = dict(golden_max_abs_err=gold, kernel_golden_max_abs_err=dev_k,
+                                card_vs_cpu=cpu)
+
+
+def di_discrete_nmpc(device, horizon=MI_N, levels=MI_LEVELS, **opts):
+    """tests/test_minlp.py's double integrator (dt 0.2) with u on the
+    levels, float64."""
+    import torch
+    from hilo_mpc_tpu_torch import NMPC, Model
+    m = Model()
+    m.set_dynamical_states(["p", "v"])
+    m.set_inputs("u")
+    m.set_dynamical_equations(lambda x, u: torch.stack([x[..., 1], u[..., 0]], -1))
+    c = NMPC(m)
+    c.horizon = horizon
+    c.quad_stage_cost.add_states(["p", "v"], weights=[10.0, 1.0], ref=[1.0, 0.0])
+    c.quad_stage_cost.add_inputs("u", weights=0.1)
+    c.quad_terminal_cost.add_states(["p", "v"], weights=[50.0, 5.0], ref=[1.0, 0.0])
+    c.set_box_constraints(u_lb=min(levels), u_ub=max(levels))
+    c.set_discrete_inputs("u", levels=list(levels))
+    return c.setup(options={"dt": 0.2, "tol": 1e-6, **opts}, device=device,
+                   dtype=torch.float64)
+
+
+def discrete_loop(ctl, steps=MI_STEPS, timed=False):
+    """The closed loop of tests/test_minlp.py (the plant the exact double
+    integrator): moves, picks, stats per step, and (on the card) the wall
+    of each step's candidate solve and its Riccati launches."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    refine, cand = ctl._mi_refine, []
+
+    def timed_refine(*a):
+        n0 = riccati_lq_cuda.launches
+        out, t = synced(lambda: refine(*a))
+        cand.append((t, riccati_lq_cuda.launches - n0))
+        return out
+    if timed:
+        ctl._mi_refine = timed_refine
+    x, us, stats, walls, launches = np.zeros(2), [], [], [], []
+    for _ in range(steps):
+        n0 = riccati_lq_cuda.launches
+        u, t = synced(lambda: ctl.optimize(x)) if timed else (ctl.optimize(x), 0.0)
+        walls.append(t)
+        launches.append(riccati_lq_cuda.launches - n0)
+        us.append(u)
+        stats.append(dict(ctl.stats))
+        x = np.array([x[0] + 0.2 * x[1] + 0.02 * u[0], x[1] + 0.2 * u[0]])
+    return np.array(us), stats, x, walls, cand, launches
+
+
+def phase15_discrete(report):
+    """(d) Discrete inputs on the card: the 25-step loop (relaxed solve, then
+    every candidate in one batched solve on the Riccati kernel), card
+    against CPU; the exact mode at N=5."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    di_discrete_nmpc("cuda", horizon=4).optimize(np.zeros(2))        # untimed warm-up
+    torch.cuda.synchronize()
+    card = di_discrete_nmpc("cuda")
+    us, stats, x, walls, cand, launches = discrete_loop(card, timed=True)
+    us_cpu, stats_cpu, _, _, _, _ = discrete_loop(di_discrete_nmpc("cpu"))
+    on_level = float(np.min(np.abs(us[:, :, None] - np.array(MI_LEVELS)), axis=2).max())
+    picks = [s["mi_pick"] for s in stats]
+    same = picks == [s["mi_pick"] for s in stats_cpu]
+    du = float(np.abs(us - us_cpu).max())
+    t_cand = np.array([c[0] for c in cand])
+    relaxed = np.array(walls) - t_cand
+    log(f"phase15(d) discrete inputs (levels {MI_LEVELS}, N={MI_N}, float64) "
+        f"{MI_STEPS}-step loop on the card: {np.median(walls) * 1e3:.2f} ms per step "
+        f"(median; relaxed solve {np.median(relaxed) * 1e3:.2f}, candidate solve "
+        f"{np.median(t_cand) * 1e3:.2f}); C = {stats[0]['mi_candidates']}, feasible "
+        f"{[s['mi_feasible'] for s in stats]}, mi_gap max "
+        f"{max(s['mi_gap'] for s in stats):.3e}; riccati_lq launches per step "
+        f"{launches} (the candidate solve's {[c[1] for c in cand]})")
+    log(f"phase15(d): every move on a level (max distance {on_level:.1e}); final state "
+        f"{x}; card against CPU: the same picks {same} ({picks}), max|Δu| {du:.3e}")
+    assert on_level < 1e-12 and np.abs(x - [1.0, 0.0]).max() < 1e-4, (on_level, x)
+    assert same and du <= 1e-9, (picks, du)
+    assert all(c[1] > 0 for c in cand), cand
+    exact = di_discrete_nmpc("cuda", horizon=5, levels=(-1.0, 0.0, 1.0))
+    assert exact._mi["cand_enum"].shape == (243, 5, 1)
+    n0 = riccati_lq_cuda.launches
+    u, t = synced(lambda: exact.optimize(np.zeros(2)))
+    log(f"phase15(d) exact mode N=5: {exact.stats['mi_candidates']} candidates, "
+        f"{exact.stats['mi_feasible']} feasible, pick {exact.stats['mi_pick']}, u0 "
+        f"{u[0]:g}, {t * 1e3:.1f} ms, riccati_lq launches {riccati_lq_cuda.launches - n0}")
+    assert exact.stats["mi_candidates"] == 243 and u[0] in MI_LEVELS
+    report["riccati_lq"].setdefault("phase15_launches", {})["discrete_loop"] = int(
+        sum(launches))
+    report["phase15(d)"] = dict(ms_per_step=float(np.median(walls)) * 1e3,
+                                candidate_ms=float(np.median(t_cand)) * 1e3)
+
+
+def phase15_learned(report):
+    """(e) Learned MPC on the card: the teacher's batched solves, the student
+    trained on the card, the student as a closed-loop policy, and its
+    predictions at B=131072."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import ANN, NMPC, Dense, SimpleControlLoop
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    f32 = torch.float32
+    eq = np.array(X_EQ)
+    teacher = NMPC(cstr_schaffner_and_zeitz())
+    teacher.horizon = LEARNED_N
+    teacher.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=list(X_EQ))
+    teacher.quad_stage_cost.add_inputs(weights=0.1)
+    teacher.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    teacher.set_parameters([1.0] * 6)
+    teacher.setup(options={"dt": 0.1}, device="cuda", dtype=f32)
+    rng = np.random.default_rng(0)
+    X_train = eq + rng.uniform(-0.15, 0.15, size=(LEARNED_B, 2))
+    X_test = eq + rng.uniform(-0.1, 0.1, size=(LEARNED_HELD_OUT, 2))
+    teacher.optimize_batch(X_train[:256])                            # untimed warm-up
+    n0 = riccati_lq_cuda.launches
+    (U_train, sol), t_teach = synced(lambda: teacher.optimize_batch(X_train))
+    n_teach = riccati_lq_cuda.launches - n0
+    conv = float(sol.converged.float().mean())
+    U_test, _ = teacher.optimize_batch(X_test)
+    ann = ANN(["x_1", "x_2"], ["u"])
+    ann.add_layers([Dense(32, activation="tanh"), Dense(32, activation="tanh")])
+    ann.setup(device="cuda", dtype=f32)
+    _, t_train = synced(lambda: ann.train(batch_size=LEARNED_BATCH, epochs=LEARNED_EPOCHS,
+                                          X=X_train, y=U_train, patience=60))
+    err = float(np.median(np.abs(ann.predict(X_test) - U_test)))
+    plant = cstr_plant(torch.float64)
+    plant.set_initial_conditions([0.25, 0.12])
+    plant.set_initial_parameter_values([1.0] * 6)
+    _, t_loop = synced(lambda: SimpleControlLoop(plant, ann).run(40))
+    final = float(np.linalg.norm(plant.solution["x:f"] - eq))
+    X_big = eq + rng.uniform(-0.15, 0.15, size=(B_MAIN, 2))
+    ann.predict(X_big[:256])
+    _, t_pred = synced(lambda: ann.predict(X_big))
+    fn, X_dev = ann.predict_fn(), torch.as_tensor(X_big, dtype=f32, device="cuda")
+    with torch.no_grad():
+        ms_dev = cuda_time_ms(lambda: fn(X_dev), reps=10)
+    log(f"phase15(e) learned MPC: teacher optimize_batch B={LEARNED_B} N={LEARNED_N} "
+        f"float32 {LEARNED_B / t_teach:.1f} solves/s ({t_teach:.4f} s), converged "
+        f"{conv:.4f}, riccati_lq launches {n_teach}")
+    log(f"phase15(e) student 2-32-32-1 tanh trained on the card: {LEARNED_EPOCHS} epochs "
+        f"(batch {LEARNED_BATCH}, {max(1, int(LEARNED_B * 0.8) // LEARNED_BATCH)} steps "
+        f"each) in {t_train:.2f} s, {LEARNED_EPOCHS / t_train:.2f} epochs/s; median "
+        f"imitation error on {LEARNED_HELD_OUT} held-out states {err:.4f}; final loss "
+        f"{float(ann.history['loss'][-1]):.3e}")
+    log(f"phase15(e) the student as a 40-step SimpleControlLoop policy: {t_loop:.2f} s, "
+        f"final |x - x_eq| {final:.4f}; predict at B={B_MAIN}: {B_MAIN / t_pred:.1f} "
+        f"policies/s (numpy in and out, {t_pred * 1e3:.2f} ms), the network alone "
+        f"{ms_dev:.4f} ms ({B_MAIN / ms_dev * 1e3:.3e} policies/s) against the "
+        f"teacher's {LEARNED_B / t_teach:.1f} solves/s")
+    assert conv > 0.98 and err < 0.05 and final < 0.02, (conv, err, final)
+    report["riccati_lq"].setdefault("phase15_launches", {})["learned_teacher"] = n_teach
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -3823,6 +4255,10 @@ def build_jobs():
                  _build.source_library_path, problem.text))
     # the traced route (ops/codegen_fx.py): phases 1, 11(b) and 14
     for label, problem in traced_problems().items():
+        jobs.append((f"whole_ip traced {label} ({problem.region} values per scenario)",
+                     _build.source_library_path, problem.text))
+    # the hybrid physics + ANN problems of phase 15 (traced as well)
+    for label, problem in hybrid_problems().items():
         jobs.append((f"whole_ip traced {label} ({problem.region} values per scenario)",
                      _build.source_library_path, problem.text))
     return jobs
@@ -3940,10 +4376,11 @@ def main():
 
     report = {}
     for phase in (phase1, phase2, phase3, phase4, phase5, phase6, phase7, phase8,
-                  phase9, phase10, phase11, phase12, phase13, phase14):
+                  phase9, phase10, phase11, phase12, phase13, phase14, phase15):
         t = time.perf_counter()
         phase(report) if phase.__code__.co_argcount else phase()
         log(f"{phase.__name__} took {time.perf_counter() - t:.1f} s")
+    log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s (builds included)")
     free_x0 = ("hilo_mpc_tpu/ops/pallas_kernels.py:169 with the free-x0 solve at "
                "hilo_mpc_tpu/ops/ip_solver.py:633-642")
     replaces = {"riccati_lq": "hilo_mpc_tpu/ops/pallas_kernels.py:169",
@@ -3981,11 +4418,11 @@ def main():
                         "bound_by": r["bound_by"],
                         # the whole-solve kernel's soft-box problem, the
                         # CROSS build's float64 instance, phases 11-13's
-                        # launches
+                        # and 15's launches
                         **{k: v for k, v in r.items()
                            if k.startswith(("soft_box", "float32_registers",
                                             "float64", "phase11", "phase12",
-                                            "phase13", "float32_simt"))},
+                                            "phase13", "phase15", "float32_simt"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, "fgm_boxqp_resident" the tensor-core
                         # design up to 128, names kept from their first

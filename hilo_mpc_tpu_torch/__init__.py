@@ -2,10 +2,12 @@
 
 Same flat names as the JAX package for the ported slices (the batched NMPC
 solve, with the whole-solve interior point behind ``pallas_full``, and its
-real-time iteration; the open-loop OCP; linear models, LMPC with its
-condensed fast-gradient path, LQR, PID; moving-horizon estimation, the
-Kalman filters and the particle filter; ``SimpleControlLoop`` and the
-batched closed loops of ``parallel``); every Pallas kernel
+real-time iteration and discrete inputs; the open-loop OCP; linear models,
+LMPC with its condensed fast-gradient path, LQR, PID; moving-horizon
+estimation, the Kalman filters and the particle filter; ``SimpleControlLoop``
+and the batched closed loops of ``parallel``; neural networks (``ANN``),
+hybrid physics+ANN models, data sets and the TensorBoard event writer);
+every Pallas kernel
 of the JAX package is a CUDA kernel written by hand for Hopper
 (ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
 ``Model.setup``, ``NMPC.setup``, ``LMPC.setup``, ``LQR.setup`` and each
@@ -26,8 +28,11 @@ from .estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
                             UnscentedKalmanFilter)
 from .estimation.mhe import MovingHorizonEstimator
 from .estimation.pf import ParticleFilter
+from .ml.nn import ArtificialNeuralNetwork, Dense, Dropout, Layer
 from .ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                             OCPSolution)
+from .utils.data import DataGenerator, DataSet
+from .utils.tb_events import EventFileWriter, TensorBoardSupervisor
 
 LQR = LinearQuadraticRegulator
 MHE = MovingHorizonEstimator
@@ -35,6 +40,7 @@ KF = KalmanFilter
 EKF = ExtendedKalmanFilter
 UKF = UnscentedKalmanFilter
 PF = ParticleFilter
+ANN = ArtificialNeuralNetwork
 
 __version__ = "0.8.3"
 
@@ -43,4 +49,6 @@ __all__ = ["Model", "NMPC", "OCP", "OptimalControlProblem", "PID",
            "MHE", "MovingHorizonEstimator", "KF", "KalmanFilter", "EKF",
            "ExtendedKalmanFilter", "UKF", "UnscentedKalmanFilter", "PF",
            "ParticleFilter", "TimeSeries", "library", "IPOptions", "OCPBounds",
-           "OCPDims", "OCPFunctions", "OCPSolution"]
+           "OCPDims", "OCPFunctions", "OCPSolution", "ANN",
+           "ArtificialNeuralNetwork", "Layer", "Dense", "Dropout", "DataSet",
+           "DataGenerator", "EventFileWriter", "TensorBoardSupervisor"]

@@ -15,8 +15,10 @@ count, wrapping around); real-time iteration (``rti_prepare`` /
 ``rti_feedback`` and their batched forms: a solve at the predicted state
 ahead of the measurement, then the first move corrected by the first-stage
 Riccati gain, a host-side matvec and clip); the solver's iterate history
-(``ipopt_debugger``); and the open-loop ``OptimalControlProblem``. The
-multiple-shooting structure is
+(``ipopt_debugger``); discrete (mixed-integer) inputs (a relaxed solve,
+then every rounding candidate, the discrete inputs pinned, in one batched
+solve; the best converged candidate wins); and the open-loop
+``OptimalControlProblem``. The multiple-shooting structure is
 kept stagewise and solved by the batched interior point of ops/ip_solver.py,
 whose Riccati step runs as a hand-written CUDA kernel on CUDA tensors. With
 the ``pallas_full`` option, ``solve_batch_fn`` sends eligible problems to the
@@ -36,14 +38,14 @@ The model may be a DAE, integrated by any method of core/integrators.py
 zeros. Such problems, and any implicit integrator, take the general path
 under ``pallas_full`` (with a warning naming the reason).
 
-Not ported yet (NotImplementedError at the setter): discrete inputs
-(ROADMAP.md §A.5.5); plotting (``plot_iterations``, ROADMAP.md §A.10). There
-is no trace registry: PyTorch runs eagerly, so there is nothing to trace or
-share.
+Not ported yet: plotting (``plot_iterations`` raises, ROADMAP.md §A.10).
+There is no trace registry: PyTorch runs eagerly, so there is nothing to
+trace or share.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time as _time
 import warnings
 from typing import Optional
@@ -57,7 +59,7 @@ from ..core.model import Model, one_row_last, resolve_device
 from ..core.series import TimeSeries
 from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
-                             _check_supported, solve_ocp)
+                             OCPSolution, _check_supported, solve_ocp)
 from ..ops.riccati import backward_sweep
 from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_gate,
                             whole_ip_problem)
@@ -113,6 +115,8 @@ class NMPC:
         self._path_speed = None
         self._min_time = None
         self._augment_du = False
+        self._discrete_inputs: dict = {}   # input name -> levels array | None
+        self._mi = None                    # resolved at setup()
 
         self._setup_done = False
         self._opts: dict = {}
@@ -288,10 +292,39 @@ class NMPC:
         self._tvp_values = arr
         return self
 
-    # -- features of later slices ---------------------------------------------
-    def set_discrete_inputs(self, *args, **kwargs):
-        raise NotImplementedError("discrete (mixed-integer) inputs are not ported to "
-                                  "the PyTorch package yet — ROADMAP.md §A.5.5")
+    def set_discrete_inputs(self, inputs, levels=None):
+        """Declare inputs that may only take values from a finite set
+        (mixed-integer NMPC): ``optimize`` solves the relaxed problem, then a
+        batch of rounding/neighbourhood candidates with the discrete inputs
+        pinned (lbu == ubu), all in ONE batched solve; the best converged
+        candidate wins.
+
+        :param inputs: input name(s) or index(es) into model.inputs
+        :param levels: allowed values — one array applied to every declared
+            input, or a list of arrays (one per input). ``None`` derives the
+            integer lattice from the box bounds at setup() (finite u bounds
+            needed)."""
+        if isinstance(inputs, (str, int)):
+            inputs = [inputs]
+        inputs = list(inputs)
+        if levels is None:
+            per_input = [None] * len(inputs)
+        elif isinstance(levels, (list, tuple)) and len(levels) and \
+                isinstance(levels[0], (list, tuple, np.ndarray)):
+            if len(levels) != len(inputs):
+                raise ValueError(f"{len(inputs)} inputs but {len(levels)} level sets")
+            per_input = [np.asarray(lv, dtype=float).ravel() for lv in levels]
+        else:
+            per_input = [np.asarray(levels, dtype=float).ravel()] * len(inputs)
+        names = self._model.inputs
+        for inp, lv in zip(inputs, per_input):
+            name = names[inp] if isinstance(inp, int) else inp
+            if name not in names:
+                raise ValueError(f"unknown input {name!r} (have {names})")
+            if lv is not None and lv.size < 2:
+                raise ValueError(f"input {name!r}: need >= 2 levels, got {lv}")
+            self._discrete_inputs[name] = None if lv is None else np.unique(lv)
+        return self
 
     # -- setup ----------------------------------------------------------------
     def setup(self, options: Optional[dict] = None, solver_options: Optional[dict]
@@ -331,6 +364,11 @@ class NMPC:
                   or np.any(np.isfinite(self._du_lb))
                   or np.any(np.isfinite(self._du_ub)) or Nc < N)
         aug = self._augment_du = bool(has_du and nu > 0)
+        if self._discrete_inputs and aug:
+            raise ValueError(
+                "discrete inputs are incompatible with the Δu formulation "
+                "(Δu penalties/bounds or control_horizon < horizon): the solver's "
+                "control variable would be the input increment, not the input")
         path = self._path_following = self._path_following or any(
             t.path_following for t in stage_terms + term_terms)
         mt = self._min_time is not None
@@ -610,8 +648,11 @@ class NMPC:
             v_ub[0] = self._min_time["dt_max"] - self._dt
             lbu.append(v_lb)
             ubu.append(v_ub)
+        lbu, ubu = np.concatenate(lbu, axis=1), np.concatenate(ubu, axis=1)
+        self._mi = self._setup_discrete(options, N, lbu, ubu)
         self._bounds = OCPBounds(*(torch.as_tensor(np.concatenate(b, axis=1), **kw)
-                                   for b in (lbx, ubx, lbu, ubu)))
+                                   for b in (lbx, ubx)),
+                                 *(torch.as_tensor(b, **kw) for b in (lbu, ubu)))
         self._dims = dims
         self._funcs = funcs
         f64 = dtype == torch.float64
@@ -664,6 +705,44 @@ class NMPC:
         self._rti = self._rti_pending = self._rti_batch = None
         self._rti_batch_warm = self._rti_batch_u_old = None
         return self
+
+    def _setup_discrete(self, options, N, lbu, ubu):
+        """The discrete inputs' levels in solver units, each relaxed bound
+        (``lbu``/``ubu``, edited in place) spanning its level range, the
+        neighbourhood size and, if the assignment lattice has at most
+        ``mi_max_enum`` points, every assignment (exact mode)."""
+        if not self._discrete_inputs:
+            return None
+        su = self._u_scaling
+        mi_dims, mi_levels = [], []
+        for name, lv in self._discrete_inputs.items():
+            d = self._model.inputs.index(name)
+            if lv is None:
+                lo, hi = self._u_lb[d], self._u_ub[d]
+                if not (np.isfinite(lo) and np.isfinite(hi)):
+                    raise ValueError(
+                        f"discrete input {name!r}: no levels given and box "
+                        f"bounds are not finite — cannot derive the lattice")
+                lv = np.arange(np.ceil(lo), np.floor(hi) + 1.0)
+            else:
+                lv = lv[(lv >= self._u_lb[d]) & (lv <= self._u_ub[d])]
+            if lv.size < 2:
+                raise ValueError(f"discrete input {name!r}: fewer than 2 "
+                                 f"levels remain within the box bounds")
+            mi_dims.append(d)
+            mi_levels.append(lv / su[d])       # the solver works in scaled units
+            # the relaxed problem spans exactly the level range
+            lbu[:, d] = lv.min() / su[d]
+            ubu[:, d] = lv.max() / su[d]
+        mi = {"dims": mi_dims, "levels": mi_levels,
+              "neighbors": int(options.get("mi_neighbors", 12)), "cand_enum": None}
+        max_enum = int(options.get("mi_max_enum", 512))
+        log_count = N * float(sum(np.log(lv.size) for lv in mi_levels))
+        if max_enum > 0 and log_count <= np.log(max_enum) + 1e-9:
+            entry_levels = [mi_levels[j] for _k in range(N) for j in range(len(mi_dims))]
+            cand = np.array(list(itertools.product(*entry_levels)), dtype=float)
+            mi["cand_enum"] = cand.reshape(-1, N, len(mi_dims))
+        return mi
 
     def is_setup(self) -> bool:
         return self._setup_done
@@ -843,11 +922,12 @@ class NMPC:
         return self._widen(self._narrow_cold_U())
 
     def _rollout_guess(self, xs0_B, theta, U):
-        """Hold U, roll the dynamics out from every xs0: (B, N+1, nx)."""
+        """Hold U (N, nu), or each scenario's own (B, N, nu), and roll the
+        dynamics out from every xs0: (B, N+1, nx)."""
         Bn = xs0_B.shape[0]
         X = [xs0_B]
         for k in range(self._dims.N):
-            X.append(self._funcs.dyn(X[-1], U[k].expand(Bn, -1),
+            X.append(self._funcs.dyn(X[-1], U[..., k, :].expand(Bn, -1),
                                      theta[k].expand(Bn, -1)))
         X = torch.stack(X, dim=1)
         return torch.nan_to_num(X, nan=0.0, posinf=1e3, neginf=-1e3)
@@ -938,6 +1018,14 @@ class NMPC:
                     sol, best_obj = sol_r, scalar(sol_r.objective)
                     X, U = sol.X[0].cpu().numpy(), sol.U[0].cpu().numpy()
 
+        mi_info = {}
+        if self._mi is not None:
+            relaxed_obj = scalar(sol.objective)
+            sol, X, U, mi_info = self._mi_refine(theta, xs0, U)
+            # integrality gap: the discrete-feasible objective against the
+            # relaxed lower bound
+            mi_info["mi_gap"] = scalar(sol.objective) - relaxed_obj
+
         nx, nu = self._model.n_x, self._model.n_u
         # under the Δu augmentation u_k rides in x_{k+1}'s u_prev component
         U_applied = X[1:, nx:nx + nu] if self._augment_du else U[:, :nu]
@@ -963,6 +1051,7 @@ class NMPC:
             "converged": bool(scalar(sol.converged)),
             "status": int(scalar(sol.status)),
             "extime": _time.perf_counter() - t_wall,
+            **mi_info,
         }
         if self.solution is not None:
             self.solution.append(
@@ -972,6 +1061,118 @@ class NMPC:
                                 self.stats["extime"] * 1e3,
                                 float(self.stats["converged"])]))
         return u0
+
+    # -- mixed-integer refinement ---------------------------------------------
+    def _mi_candidates(self, U_rel: np.ndarray) -> np.ndarray:
+        """Rounding candidates for the discrete inputs from a relaxed
+        solution, as the JAX package makes them (host-side numpy, the same
+        sorts). Returns (C, N, n_d) level assignments. Exact mode (small
+        lattice, see mi_max_enum): every assignment. Heuristic mode: nearest
+        rounding, floor- and ceil-biased roundings, the top-K most fractional
+        entries flipped to their second-nearest level one at a time and in
+        pairs, and all K flipped together. C is fixed (duplicates repeat the
+        nearest rounding)."""
+        mi = self._mi
+        if mi["cand_enum"] is not None:
+            return mi["cand_enum"]
+        N = self._dims.N
+        n_d = len(mi["dims"])
+        near = np.zeros((N, n_d))
+        second = np.zeros((N, n_d))
+        floor_c = np.zeros((N, n_d))
+        ceil_c = np.zeros((N, n_d))
+        frac = np.zeros((N, n_d))
+        for j, (d, lv) in enumerate(zip(mi["dims"], mi["levels"])):
+            u = np.asarray(U_rel[:, d], dtype=float)
+            dist = np.abs(u[:, None] - lv[None, :])          # (N, L)
+            order = np.argsort(dist, axis=1)
+            rows = np.arange(N)
+            near[:, j] = lv[order[:, 0]]
+            second[:, j] = lv[order[:, 1]]
+            # fractionality: how close the relaxed value sits to the midpoint
+            # between its two nearest levels (1 = exactly between, 0 = on-level)
+            frac[:, j] = dist[rows, order[:, 0]] / np.maximum(
+                dist[rows, order[:, 1]], 1e-12)
+            below = u[:, None] >= lv[None, :] - 1e-12
+            floor_c[:, j] = np.where(below.any(axis=1),
+                                     lv[np.maximum(below.sum(axis=1) - 1, 0)],
+                                     lv[0])
+            above = u[:, None] <= lv[None, :] + 1e-12
+            ceil_c[:, j] = np.where(above.any(axis=1),
+                                    lv[np.minimum(lv.size - above.sum(axis=1),
+                                                  lv.size - 1)],
+                                    lv[-1])
+        K_cfg = mi["neighbors"]
+        K = min(K_cfg, N * n_d)
+        cands = [near, floor_c, ceil_c]
+        flat = frac.ravel()
+        top = np.argsort(-flat)[:K]
+        all_flipped = near.copy()
+        for idx in top:
+            k, j = np.unravel_index(idx, (N, n_d))
+            flip = near.copy()
+            flip[k, j] = second[k, j]
+            cands.append(flip)
+            all_flipped[k, j] = second[k, j]
+        # pairwise flips of the most fractional entries cover
+        # Hamming-distance-2 optima that single flips miss
+        P = min(K_cfg, 8)
+        for ia, ib in itertools.combinations(top[:min(K, 8)], 2):
+            ka, ja = np.unravel_index(ia, (N, n_d))
+            kb, jb = np.unravel_index(ib, (N, n_d))
+            flip = near.copy()
+            flip[ka, ja] = second[ka, ja]
+            flip[kb, jb] = second[kb, jb]
+            cands.append(flip)
+        cands.append(all_flipped)
+        C_total = 4 + K_cfg + P * (P - 1) // 2
+        while len(cands) < C_total:    # keep C the same at every step
+            cands.append(near)
+        return np.stack(cands[:C_total], axis=0)
+
+    def _mi_refine(self, theta, xs0, U_rel):
+        """Pin each rounding candidate (lbu == ubu on the discrete dims) and
+        solve the whole candidate batch in ONE batched ``solve_ocp`` (per
+        candidate input bounds, the shared state bounds; on CUDA tensors
+        every Newton step one Riccati kernel launch). Each candidate starts
+        from its U and the rollout of it. Returns (the picked candidate's
+        solution as a batch of one, X, U with the discrete entries snapped
+        to their levels, stats): the best converged objective, else the
+        least KKT error, the first index on ties."""
+        mi = self._mi
+        cand = self._mi_candidates(np.asarray(U_rel))        # (C, N, n_d)
+        C = cand.shape[0]
+        b = self._bounds_np
+        lbu = np.broadcast_to(b.lbu, (C,) + b.lbu.shape).astype(float)
+        ubu = np.broadcast_to(b.ubu, (C,) + b.ubu.shape).astype(float)
+        U_c = np.broadcast_to(U_rel, (C,) + U_rel.shape).astype(float)
+        for j, d in enumerate(mi["dims"]):
+            lbu[:, :, d] = cand[:, :, j]
+            ubu[:, :, d] = cand[:, :, j]
+            U_c[:, :, d] = cand[:, :, j]
+        th_t, xs0_t, U_t = self._tensor(theta), self._tensor(xs0), self._tensor(U_c)
+        X_c = self._rollout_guess(xs0_t.expand(C, -1), th_t, U_t)
+        bounds = OCPBounds(self._bounds.lbx, self._bounds.ubx, self._tensor(lbu),
+                           self._tensor(ubu))
+        opts = dataclasses.replace(self._ip_opts,
+                                   mu_init=min(self._ip_opts.mu_init, 1e-2),
+                                   record_iterates=False)
+        sols = solve_ocp(self._funcs, self._dims, bounds,
+                         th_t.expand((C,) + tuple(th_t.shape)), xs0_t.expand(C, -1),
+                         X_c, U_t, options=opts, fix_x0=True)
+        conv = sols.converged.cpu().numpy()
+        obj = sols.objective.cpu().numpy().astype(float)
+        if conv.any():
+            i = int(np.argmin(np.where(conv, obj, np.inf)))
+        else:
+            i = int(np.argmin(sols.kkt_error.cpu().numpy()))
+        sol = OCPSolution(*[v[i:i + 1] for v in sols])
+        X = sol.X[0].cpu().numpy()
+        U = sol.U[0].cpu().numpy()
+        for j, d in enumerate(mi["dims"]):
+            U[:, d] = cand[i, :, j]    # snap: the pin is a stiff quadratic, not exact
+        info = {"mi_candidates": C, "mi_feasible": int(conv.sum()), "mi_pick": i}
+        return sol, X, U, info
 
     # -- real-time iteration (prepare / feedback split) ----------------------
     def rti_gain(self, X, U, theta):
@@ -1014,7 +1215,7 @@ class NMPC:
     def _check_rti(self, what="RTI mode"):
         if not self._setup_done:
             raise RuntimeError("call setup() first")
-        if self._path_following or self._min_time is not None:
+        if self._path_following or self._min_time is not None or self._mi is not None:
             raise NotImplementedError(
                 f"{what} supports the standard and Δu-augmented NMPC "
                 f"formulations (no path following, minimum time or discrete "

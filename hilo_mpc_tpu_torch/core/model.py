@@ -16,8 +16,10 @@ with a Python loop over time, every scenario at once. ``linearize``,
 ``linearize_trajectory``, ``discretize`` and ``jacobians`` derive linear and
 discrete models by ``torch.func`` forward-mode Jacobians.
 
-Not ported yet: ``generate_data`` (ROADMAP.md §A.10) and the composition
-with learned components, ``__add__`` and ``substitute_from`` (§A.7).
+A trained network whose labels are model parameters composes into the
+model: ``model + ann`` (a new hybrid model) and ``substitute_from(ann)``
+(in place), ml/hybrid.py. ``generate_data`` excites the model and returns a
+``DataSet`` (utils/data.py).
 """
 from __future__ import annotations
 
@@ -867,6 +869,30 @@ class Model:
         disc._ode = disc_map
         disc._ode_origin, disc._dsl = "callable", None
         return disc
+
+    # -- data generation ------------------------------------------------------
+    def generate_data(self, kind: str = "random_uniform", steps: int = 100, **kwargs):
+        """A ``DataSet`` of ``steps`` steps under the input signal ``kind``
+        (``random_uniform``, ``random_normal``, ``chirp``): features the
+        states and inputs, labels the next states."""
+        from ..utils.data import DataGenerator
+        gen = DataGenerator(self, steps=steps, **kwargs)
+        getattr(gen, kind)(**{k: v for k, v in kwargs.items()
+                              if k in ("lb", "ub", "mean", "std", "seed")})
+        gen.run()
+        return gen.data
+
+    # -- composition with learned components ---------------------------------
+    def __add__(self, other):
+        from ..ml.hybrid import hybridize
+        return hybridize(self, other)
+
+    def substitute_from(self, learned):
+        """Replace the parameters named by the learned component's labels
+        by its predictions."""
+        from ..ml.hybrid import substitute_from as _sub
+        _sub(self, learned)
+        return self
 
     # -- misc -----------------------------------------------------------------
     def copy(self, name: Optional[str] = None, keep_solution: bool = False) -> "Model":

@@ -90,8 +90,9 @@ class OCPDims:
 
 
 class OCPBounds(NamedTuple):
-    """±inf-padded box bounds, shared by every scenario.
-    Shapes: lbx/ubx (N+1, nx), lbu/ubu (N, nu)."""
+    """±inf-padded box bounds. Shapes: lbx/ubx (N+1, nx), shared by every
+    scenario; lbu/ubu (N, nu), shared, or (B, N, nu), one set per scenario
+    (the candidates of a mixed-integer step pin different inputs)."""
     lbx: torch.Tensor
     ubx: torch.Tensor
     lbu: torch.Tensor
@@ -300,9 +301,11 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
     is its start, as in the JAX solver): its bound rows stay, its
     stationarity row joins the KKT test and each LQ step gets dx0=None."""
     _check_supported(funcs, dims, options)
-    if bounds.lbx.dim() != 2 or bounds.lbu.dim() != 2:
-        raise ValueError("bounds are shared by all scenarios: lbx/ubx (N+1, nx), "
-                         "lbu/ubu (N, nu)")
+    if (bounds.lbx.dim() != 2 or bounds.ubx.dim() != 2 or bounds.lbu.dim() not in (2, 3)
+            or bounds.ubu.shape != bounds.lbu.shape
+            or (bounds.lbu.dim() == 3 and bounds.lbu.shape[0] != X_init.shape[0])):
+        raise ValueError("lbx/ubx are shared by all scenarios, (N+1, nx); lbu/ubu "
+                         "are (N, nu), or (B, N, nu) with one set per scenario")
     # the Riccati/Newton arithmetic needs full float32 products: the JAX
     # solver measured batch convergence falling to 12% with reduced-precision
     # matmuls, so TF32 is off for every product the solver issues, and the
@@ -341,7 +344,10 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     lbxN_c, ubxN_c = safe_b(bounds.lbx[-1]), safe_b(bounds.ubx[-1])
 
     # pinned (equality-bounded) controls: removed from the barrier, held by a
-    # stiff quadratic in the Riccati blocks and excluded from the stationarity test
+    # stiff quadratic in the Riccati blocks and excluded from the stationarity
+    # test; with input bounds per scenario the pins, and the stage masks below,
+    # are per scenario too: (B, N, ·) in place of (N, ·)
+    per_scenario = bounds.lbu.dim() == 3
     pin = (torch.isfinite(bounds.ubu) & torch.isfinite(bounds.lbu)
            & (bounds.ubu - bounds.lbu < 1e-9))
     pin_f = pin.to(dtype)
@@ -357,23 +363,29 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     if fix_x0:
         m_x[0] = False
         m_lx[0] = False
+    shared = [m_x, m_lx] + ([torch.ones(N, n_h, dtype=torch.bool, device=device)]
+                            if n_h else [])
+    if per_scenario:
+        shared = [m.expand((Bn,) + tuple(m.shape)) for m in shared]
     mask = torch.cat([torch.isfinite(bounds.ubu) & ~pin,
-                      torch.isfinite(bounds.lbu) & ~pin, m_x, m_lx]
-                     + ([torch.ones(N, n_h, dtype=torch.bool, device=device)]
-                        if n_h else []), dim=1)
+                      torch.isfinite(bounds.lbu) & ~pin] + shared, dim=-1)
     maskN = torch.cat([torch.isfinite(bounds.ubx[-1]), torch.isfinite(bounds.lbx[-1])]
                       + ([torch.ones(n_hN, dtype=torch.bool, device=device)]
                          if n_hN else []))
     mask_f = mask.to(dtype)
     maskN_f = maskN.to(dtype)
 
-    # the box rows have constant ±selector jacobians; masked rows are zeroed
+    # the box rows have constant ±selector jacobians; masked rows are zeroed.
+    # They meet only vectors that are zero on masked rows (sigma, the
+    # multipliers) or results masked afterwards (the slack step), so with
+    # per-scenario masks a row valid in any scenario keeps its selector
+    mask_C = (mask.any(dim=0) if per_scenario else mask).to(dtype)
     eye_x = torch.eye(nx, **kw)
     eye_u = torch.eye(nu, **kw)
     Cx = (torch.cat([torch.zeros(2 * nu, nx, **kw), eye_x, -eye_x])
-          * mask_f[:, :m_box, None])
+          * mask_C[:, :m_box, None])
     Cu = (torch.cat([eye_u, -eye_u, torch.zeros(2 * nx, nu, **kw)])
-          * mask_f[:, :m_box, None])
+          * mask_C[:, :m_box, None])
     CxN = torch.cat([eye_x, -eye_x]) * maskN_f[:mN_box, None]
 
     th_s, th_N = theta[:, :-1], theta[:, -1]
@@ -641,7 +653,7 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         sg = box_h(sigma, m_box)[0] if n_h else sigma
         Qb = Hxx + torch.einsum("kmi,bkm,kmj->bkij", Cx, sg, Cx)
         Rb = (Huu + torch.einsum("kmi,bkm,kmj->bkij", Cu, sg, Cu)
-              + torch.einsum("km,mn->kmn", w_pin * pin_f, eye_u))
+              + torch.einsum("...km,mn->...kmn", w_pin * pin_f, eye_u))
         Sb = Hux + torch.einsum("kmi,bkm,kmj->bkij", Cu, sg, Cx)
         if n_h:
             Hx, Hu = Hj
@@ -691,7 +703,9 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
             _, ds_a, dz_a, dsN_a, dzN_a = newton_step(torch.zeros_like(mu), 0.0, 0.0)
             a_p = torch.minimum(_step_cap(s, ds_a, mask), _step_cap(sN, dsN_a, maskN))
             a_d = torch.minimum(_step_cap(z, dz_a, mask), _step_cap(zN, dzN_a, maskN))
-            m_tot = torch.clamp(mask_f.sum() + maskN_f.sum(), min=1.0)
+            # the rows of each scenario (its own pins with per-scenario bounds)
+            m_tot = torch.clamp((mask_f.sum(dim=(-2, -1)) if per_scenario
+                                 else mask_f.sum()) + maskN_f.sum(), min=1.0)
             gap = ((s * z * mask_f).sum(dim=(1, 2))
                    + (sN * zN * maskN_f).sum(dim=1)) / m_tot
             a_p3, a_d3 = a_p[:, None, None], a_d[:, None, None]

@@ -11,8 +11,9 @@ this module needs no JAX: a test hands both solvers identical inputs.
 state-space model, LMPC or LQR in the port from its numpy matrices, names,
 weights and bounds (read by attribute, again without importing JAX), so both
 sides of a test start from the same numbers; ``model_from`` a model declared
-by equation text or matrices, ``estimator_from`` an MHE, KF, EKF, UKF or
-PF, and ``pid_from`` a PID.
+by equation text or matrices (with ``learned=``, a hybrid model: the
+physics model composed with networks), ``estimator_from`` an MHE, KF,
+EKF, UKF or PF, ``pid_from`` a PID, and ``ann_from`` a network.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ..estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
                              UnscentedKalmanFilter)
 from ..estimation.mhe import MovingHorizonEstimator
 from ..estimation.pf import ParticleFilter
+from ..ml.nn import ArtificialNeuralNetwork, Layer
 from ..ops.ip_solver import OCPBounds, OCPSolution
 from ..ops.riccati import LQSolution
 
@@ -103,18 +105,46 @@ def lqr_from(src) -> LinearQuadraticRegulator:
     return dst
 
 
-def model_from(src) -> Model:
+def model_from(src, learned=()) -> Model:
     """The port's twin of a JAX-side model declared by the equation DSL (its
-    text) or by state-space matrices. A model given as Python callables
-    cannot be carried across: build the port's twin by hand."""
+    text) or by state-space matrices. ``learned``: JAX-side networks (one or
+    a sequence) substituted into the twin in order (``ann_from`` each), as
+    ``substitute_from`` made a hybrid model of ``src``; a JAX hybrid model
+    keeps no record of its parts, so pass its physics model and networks.
+    A model given as Python callables cannot be carried across: build the
+    port's twin by hand."""
     text = getattr(src, "_equations_src", None)
     if text is None:
         if src.A is None:
-            raise ValueError(f"{src!r} was given as callables; pass the port's "
-                             f"twin of the model instead")
-        return linear_model_from(src)
-    m = Model(name=src.name, discrete=src.discrete, time_unit=src.time_unit)
-    return m.set_equations(text)
+            raise ValueError(f"{src!r} was given as callables (or is a hybrid "
+                             f"model); pass the port's twin of the model, or the "
+                             f"physics model and learned=, instead")
+        m = linear_model_from(src)
+    else:
+        m = Model(name=src.name, discrete=src.discrete, time_unit=src.time_unit)
+        m.set_equations(text)
+    for net in ([learned] if hasattr(learned, "_layers") else learned):
+        m.substitute_from(ann_from(net, device="cpu"))
+    return m
+
+
+def ann_from(src, device="cuda", dtype=torch.float64) -> ArtificialNeuralNetwork:
+    """The port's twin of a JAX-side ANN, set up on ``device`` in ``dtype``:
+    its features, labels, name, seed, layers, weights, scalers and
+    history (``src`` must be set up)."""
+    if src._params is None:
+        raise ValueError(f"{src.name!r} is not set up")
+    dst = ArtificialNeuralNetwork(list(src.features), list(src.labels), name=src.name,
+                                  seed=int(src._seed))
+    dst.add_layers([Layer(kind=l.kind, units=l.units, activation=l.activation,
+                          rate=l.rate) for l in src._layers])
+    dst.setup(normalize=bool(src._normalize), device=device, dtype=dtype)
+    dst._params = [{k: np.asarray(p[k]) for k in ("W", "b")} for p in src._params]
+    for k in ("_scaler_mean", "_scaler_scale", "_label_mean", "_label_scale"):
+        v = getattr(src, k)
+        setattr(dst, k, None if v is None else np.array(v, dtype=float))
+    dst.history = {k: list(v) for k, v in src.history.items()}
+    return dst
 
 
 _ESTIMATORS = {cls.__name__: cls for cls in (

@@ -323,10 +323,11 @@ def test_loop_with_callable_and_refusals():
         loop.plot()
 
     class Policy:
+        """A trained policy (ported since): ``predict`` of the whole state."""
         def predict(self, X):
-            return np.zeros((1, 1))
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        SimpleControlLoop(plant, Policy()).run(1)
+            assert np.asarray(X).shape == (1, 2)
+            return np.full((1, 1), 0.25)
+    assert SimpleControlLoop(plant, Policy()).run(1)["u"][0, -1] == 0.25
     with pytest.raises(RuntimeError, match="set up"):
         SimpleControlLoop(cstr_schaffner_and_zeitz(), lambda x: np.zeros(1))
 
