@@ -35,9 +35,10 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          whole-solve kernel on
          the traced problems of phases 1, 11(b) and 14 (ops/codegen_fx.py:
          the msd, golden pathfollow_soft's controller, the CSTR with a
-         generic cost and a measurement term, the flagship, and phase 15's
-         hybrid physics + ANN problems), each build's registers and spills
-         printed.
+         generic cost and a measurement term, the flagship, phase 15's
+         hybrid physics + ANN problems and phase 16's GP hybrid), each
+         build's registers and spills printed; the Riccati instances include
+         phase 16's (6, 1) (the SMPC surrogate).
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
@@ -286,6 +287,30 @@ Phase 15 discrete inputs and the first half of machine learning (no
          states < 0.05), the student as a 40-step SimpleControlLoop policy
          (final error < 0.02), and predict at B=131072 (policies/s beside the
          teacher's solves/s).
+Phase 16 Gaussian processes and stochastic MPC (no kernel added): (a)
+         golden smpc_chance's SMPC (the 2-state model, its 25-point exact GP
+         of a disturbance on x2 from x1, N=10, x1 <= 0.9 at level 0.95, |u|
+         <= 2; the surrogate over [mu; vec(P)] has nx = 6) at B=131072,
+         float32 (tol 5e-4: float32 stalls at KKT ~1.2e-4 on this problem),
+         x0 = [0.3, 0] + [0.2, 0.1]·N(0,1) from default_rng(16) with P0 =
+         1e-4·I, cold and warm through the Riccati kernel at (6, 1):
+         solves/s, converged >= 0.97, iterations, launches; the (6, 1)
+         kernel against its plain version on this path's first LQ step
+         (B=4096); B=512 in float64 (tol 1e-9) card against CPU (U to 1e-9
+         where the iterations agree, >= 0.95 of them). (b)
+         examples/05_stochastic_smpc.py: its 30-point GP fitted on the card
+         (L-BFGS-B) against the CPU's fit (float64, NLL to 1e-8 relative),
+         then its feedback-gain SMPC (K = [1.0, 0.8], N=12, chance x1 <=
+         0.85) through optimize_batch at B=131072, float32. (c) golden
+         smpc_chance replayed in float64 on the card (< 1e-4), its first 10
+         steps on the CPU too (1e-9, equal iterations). (d) phase 2's
+         controller with E a 16-point exact SE GP's posterior mean, both
+         routes as phase 15(a) (the GP mean emitted as C++ by the trace).
+         (e) exact predict at 131,072 queries card against CPU (float64,
+         1e-10); GPArray.fit_model_batched (L-BFGS, 4 outputs x 256 points,
+         50 iterations, float64) card against CPU (final NLLs to 1e-8
+         relative); an SVGP minibatch Adam fit (4096 points, 32 inducing,
+         batches of 256, 200 steps) on the card: time and ELBO.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -318,8 +343,10 @@ KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "riccati_lq_wide_free_x0", "whole_ip_cross", "whole_ip_traced",
            "fgm_boxqp_registers")
 # the tiled Riccati instances phase 1 checks; phase 11 runs (3, 1) (the
-# Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time)
-RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3), (1, 1))
+# Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time), phase 16
+# (6, 1) (the SMPC surrogate of a 2-state model)
+RICCATI_SIZES = ((2, 1), (3, 2), (2, 3), (4, 1), (8, 4), (3, 1), (3, 3), (1, 1),
+                 (6, 1))
 # the free-x0 mode (MHE's nu = nx): the CSTR's (2, 2), with two estimated
 # parameters (4, 2), the tiled cap (8, 4); the wide variant at (9, 9) and
 # phase 7's (16, 16); phase 7's horizon and batches
@@ -3829,11 +3856,13 @@ HYBRID_GOLDEN_NEWTON = {**HYBRID_GOLDEN, "convexify": False, "n_linesearch": 1,
 def hybrid_problems(device="cuda"):
     """{label: the emitted problem} of phase 15's traced builds: (a) the
     hybrid flagship, (b) its 2-16-16-1 variant (float32 controllers), (c)
-    golden hybrid_ann's controller under pure Newton steps (N=15)."""
+    golden hybrid_ann's controller under pure Newton steps (N=15); and phase
+    16(d)'s GP hybrid flagship."""
     import torch
     from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_problem
     f32 = torch.float32
     builders = {"hybrid_2-8-1": lambda: hybrid_nmpc(FLAGSHIP, f32, device=device),
+                "gp_hybrid": lambda: gp_hybrid_nmpc(FLAGSHIP, f32, device=device),
                 "hybrid_2-16-16-1": lambda: hybrid_nmpc(FLAGSHIP, f32, HYBRID_HIDDEN["b"],
                                                         device=device),
                 "hybrid_golden": lambda: hybrid_nmpc(HYBRID_GOLDEN_NEWTON, f32,
@@ -3859,14 +3888,29 @@ def phase15(report):
 def phase15_hybrid(report):
     """(a) The hybrid flagship at B=131072, float32, through the general path
     and pallas_full, cold and warm."""
+    g_ric, w_full, out = hybrid_routes(
+        "phase15(a)", "hybrid flagship (2-8-1 tanh for E)",
+        lambda options, dtype: hybrid_nmpc(options, dtype))
+    report["riccati_lq"].setdefault("phase15_launches", {})["hybrid_general"] = g_ric
+    report["whole_ip_traced"]["phase15_launches"] = {"hybrid": w_full}
+    report["phase15(a)"] = out
+
+
+def hybrid_routes(tag, what, build):
+    """A hybrid flagship (``build(options, dtype)``) at B=131072, float32,
+    through the general path and pallas_full, cold and warm: solves/s,
+    converged >= 0.97, launches, the routes within the general path's
+    float32 stray + 5e-4, the kernel against its plain version, kernel ms
+    beside its bound, registers and spills. Returns (Riccati launches of
+    the general path, whole-solve launches, the kernel's figures)."""
     import warnings
 
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
     from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
     f32, f64 = torch.float32, torch.float64
-    general = hybrid_nmpc(FLAGSHIP, f32)
-    whole = hybrid_nmpc({**FLAGSHIP, "pallas_full": True}, f32)
+    general = build(FLAGSHIP, f32)
+    whole = build({**FLAGSHIP, "pallas_full": True}, f32)
     x0s = flagship_x0s()
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -3882,12 +3926,12 @@ def phase15_hybrid(report):
         for kind, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
             assert bool(torch.isfinite(s_.U).all()) and bool(torch.isfinite(s_.X).all())
             conv = float(s_.converged.float().mean())
-            log(f"phase15(a) hybrid flagship (2-8-1 tanh for E) {name} B={B_MAIN} "
+            log(f"{tag} {what} {name} B={B_MAIN} "
                 f"N={N} float32 {kind}: {B_MAIN / t:.1f} solves/s ({t:.4f} s wall), "
                 f"converged {conv:.4f}, iterations p50 "
                 f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}")
             assert conv >= 0.97, (name, kind, conv)
-        log(f"phase15(a) {name}: prepare_batch {t_prep:.4f} s; riccati_lq launches "
+        log(f"{tag} {name}: prepare_batch {t_prep:.4f} s; riccati_lq launches "
             f"{counts[0]}, whole_ip launches {counts[1]}")
     (ga, gs, (g_ric, g_full), tg), (_, ws, (w_ric, w_full), tw) = runs.values()
     assert g_ric > 0 and g_full == 0, (g_ric, g_full)
@@ -3896,31 +3940,29 @@ def phase15_hybrid(report):
     # general path's float32 stray from the float64 answer plus 5e-4
     both = gs.converged & ws.converged
     dev = float((ws.U - gs.U).abs()[both].max())
-    g64 = hybrid_nmpc(FLAGSHIP, f64)
+    g64 = build(FLAGSHIP, f64)
     s64 = g64.solve_batch_fn()(*[a.double() for a in ga])
     torch.cuda.synchronize()
     j = both & s64.converged
     stray = float((gs.U.double() - s64.U).abs()[j].max())
     off = float((ws.U.double() - s64.U).abs()[j].max())
-    log(f"phase15(a): max|U_whole - U_general| on the jointly converged {dev:.3e} "
+    log(f"{tag}: max|U_whole - U_general| on the jointly converged {dev:.3e} "
         f"({float(both.float().mean()):.4f}); against the float64 general path: "
         f"general {stray:.3e}, whole-solve {off:.3e}; the kernel route "
         f"{tg / tw:.1f}x the general path's cold solves/s")
     assert off <= stray + 5e-4, (off, stray)
     problem = whole._wip["problem"]
-    err = traced_kernel_vs_plain("phase15(a) kernel vs plain", problem,
+    err = traced_kernel_vs_plain(f"{tag} kernel vs plain", problem,
                                  {f32: whole, f64: g64}, ga)
     k_ms, bound, by = traced_kernel_ms(whole, ga, ws.iterations)
     regs = build_registers(problem)
-    log(f"phase15(a) the traced hybrid build: kernel {k_ms:.4f} ms one call (cold "
+    log(f"{tag} the traced build: kernel {k_ms:.4f} ms one call (cold "
         f"inputs), bound {bound:.4f} ms ({by}; {bound / k_ms:.1%}), "
         f"{problem.flops} operations per scenario-iteration; registers "
         f"float32 {regs['float32'][0]} ({regs['float32'][1]} bytes spilled), float64 "
         f"{regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
-    report["riccati_lq"].setdefault("phase15_launches", {})["hybrid_general"] = g_ric
-    report["whole_ip_traced"]["phase15_launches"] = {"hybrid": w_full}
-    report["phase15(a)"] = dict(kernel_ms=k_ms, bound_ms=bound, flops=problem.flops,
-                                registers=regs["float32"], max_abs_err=err)
+    return g_ric, w_full, dict(kernel_ms=k_ms, bound_ms=bound, flops=problem.flops,
+                               registers=regs["float32"], max_abs_err=err)
 
 
 def traced_kernel_ms(ctl, args, iterations):
@@ -4168,6 +4210,379 @@ def phase15_learned(report):
     report["riccati_lq"].setdefault("phase15_launches", {})["learned_teacher"] = n_teach
 
 
+# phase 16: Gaussian processes and stochastic MPC. The golden smpc_chance
+# problem (tests/golden_configs.py:build_smpc_chance), its spread of initial
+# states, the card-against-CPU batch, the msd of examples/05_stochastic_smpc.py,
+# the GP hybrid's training set and phase 16(e)'s GP work
+SMPC_B_CHECK = 512
+SMPC_GOLDEN_CPU_STEPS = 10
+SMPC_X0, SMPC_SPREAD = (0.3, 0.0), (0.2, 0.1)
+SMPC_GOLDEN = {"dt": 0.1, "tol": 1e-9, "max_iter": 80}
+# float32 reaches no KKT error below ~1.2e-4 on this problem (the slow
+# scenarios stall there on the CPU too), so its tol is 5e-4
+SMPC_F32 = {"dt": 0.1, "max_iter": 25, "tol": 5e-4}
+GP_ARRAY_G, GP_ARRAY_N, GP_ARRAY_ITERS = 4, 256, 50
+SVGP_N, SVGP_M, SVGP_BATCH, SVGP_STEPS = 4096, 32, 256, 200
+
+
+def smpc_lin_model():
+    """The golden's nominal model: a damped oscillator, callable, batch-first."""
+    import torch
+    from hilo_mpc_tpu_torch import Model
+    m = Model(name="lin")
+    m.set_dynamical_states(["x1", "x2"])
+    m.set_inputs("u")
+    m.set_dynamical_equations(lambda x, u: torch.stack(
+        [x[..., 1], -0.5 * x[..., 0] - 0.4 * x[..., 1] + u[..., 0]], dim=-1))
+    return m
+
+
+def smpc_golden_gp(device):
+    """The golden's 25-point exact GP of the disturbance on x2 from x1."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import GP
+    rng = np.random.default_rng(3)
+    X = np.linspace(-1.5, 1.5, 25)[:, None]
+    y = 0.05 * np.sin(2 * X[:, 0]) + 0.02 * rng.standard_normal(25)
+    gp = GP(["x1"], ["d"], noise_variance=0.02, device=device, dtype=torch.float64)
+    gp.set_training_data(X, y)
+    return gp.setup()
+
+
+def smpc_chance_ctl(options, dtype, device="cuda"):
+    """Golden smpc_chance's controller: N=10, x1 <= 0.9 at level 0.95, |u| <= 2."""
+    import numpy as np
+    from hilo_mpc_tpu_torch import SMPC
+    smpc = SMPC(smpc_lin_model(), gps={"x2": smpc_golden_gp(device)}, dt=0.1)
+    smpc.horizon = 10
+    smpc.quad_stage_cost.add_states(names=["x1", "x2"], weights=[5.0, 1.0],
+                                    ref=[0.85, 0.0])
+    smpc.quad_stage_cost.add_inputs(weights=0.05)
+    smpc.set_box_constraints(u_lb=[-2.0], u_ub=[2.0])
+    smpc.set_box_chance_constraints(x_ub=[0.9, np.inf], level=0.95)
+    return smpc.setup(options=options, device=device, dtype=dtype)
+
+
+def smpc_x0s(B, seed=16):
+    """Initial states around the golden's x0, with P0 = 1e-4·I: (B, 6)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.asarray(SMPC_X0) + np.asarray(SMPC_SPREAD) * rng.standard_normal((B, 2))
+    return np.concatenate([x, np.tile(1e-4 * np.eye(2).ravel(), (B, 1))], axis=1)
+
+
+def phase16(report):
+    """Gaussian processes and stochastic MPC (module docstring)."""
+    for part in (phase16_smpc, phase16_feedback, phase16_golden, phase16_gp_hybrid,
+                 phase16_gp_work):
+        t = time.perf_counter()
+        part(report)
+        log(f"{part.__name__} took {time.perf_counter() - t:.1f} s")
+
+
+def lq_of_solve(ctl, args):
+    """The arguments of the first Riccati launch of one solve of ``args``
+    (a spy in place of the kernel's wrapper, its launches not counted)."""
+    import torch
+    from hilo_mpc_tpu_torch.ops import cuda_kernels as ck
+    kernel, seen = ck.riccati_lq_cuda, []
+
+    def spy(*a, **kw):
+        if not seen:
+            seen.append([t.clone() if torch.is_tensor(t) else t for t in a])
+        return kernel(*a, **kw)
+
+    spy.launches = spy.free_x0_launches = 0
+    ck.riccati_lq_cuda = spy
+    try:
+        ctl.solve_batch_fn()(*args)
+    finally:
+        ck.riccati_lq_cuda = kernel
+    return seen[0]
+
+
+def phase16_smpc(report):
+    """(a) Golden smpc_chance's SMPC at B=131072, float32: the surrogate
+    (nx = 6, nu = 1) through the Riccati kernel, cold and warm; the (6, 1)
+    kernel against its plain version on this path's own LQ data; the
+    card against the CPU at B=512 in float64."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import (riccati_lq_cuda,
+                                                     riccati_lq_reference)
+    f32, f64 = torch.float32, torch.float64
+    ctl = smpc_chance_ctl(SMPC_F32, f32)
+    x0s = smpc_x0s(B_MAIN)
+    lq = lq_of_solve(ctl, ctl.prepare_batch(x0s[:4096]))
+    riccati_lq_cuda.launches = 0
+    args, sol, sol_w, (t_prep, t_cold, t_warm) = timed_batch(ctl, x0s, warm=True)
+    launches = riccati_lq_cuda.launches
+    for kind, s_, t in (("cold", sol, t_cold), ("warm", sol_w, t_warm)):
+        assert bool(torch.isfinite(s_.U).all()), kind
+        conv = float(s_.converged.float().mean())
+        log(f"phase16(a) SMPC golden smpc_chance (surrogate nx=6, N=10, chance "
+            f"x1 <= 0.9 at 0.95) B={B_MAIN} float32 {kind}: {B_MAIN / t:.1f} solves/s "
+            f"({t:.4f} s wall), converged {conv:.4f}, iterations p50 "
+            f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}")
+        assert conv >= 0.97, (kind, conv)
+    log(f"phase16(a) prepare_batch {t_prep:.4f} s; riccati_lq launches {launches} "
+        f"(cold + warm)")
+    assert launches > 0
+    P = sol.X[..., 2:].reshape(*sol.X.shape[:-1], 2, 2)
+    assert bool((torch.diagonal(P, dim1=-2, dim2=-1)[sol.converged] >= -1e-6).all())
+    ref = riccati_lq_reference(*lq, reg=1e-8)
+    out = riccati_lq_cuda(*lq, reg=1e-8)
+    torch.cuda.synchronize()
+    names = ("dX", "dU", "lam", "K", "kff", "cost_red")
+    errs = {}
+    for name, a, b in zip(names, out, ref):
+        torch.testing.assert_close(a, b, **lq_tol(name, True))
+        errs[name] = float((a - b).abs().max())
+    err = max(errs.values())
+    Bt = lq[0].shape[0]
+    ms = cuda_time_ms(lambda: riccati_lq_cuda(*lq, reg=1e-8))
+    plain_ms = cuda_time_ms(lambda: riccati_lq_reference(*lq, reg=1e-8))
+    b_ms, b_by = bound_ms(*riccati_lq_work(Bt, 10, 6, 1))
+    log(f"phase16(a) riccati_lq (6, 1) on this path's first LQ step, B={Bt} N=10 "
+        f"float32: max|kernel - plain| " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+        + f" (phase 1's tolerances); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%})")
+    smpc_card_vs_cpu(x0s[:SMPC_B_CHECK])
+    report["riccati_lq"].setdefault("phase16_launches", {})["smpc"] = launches
+    report["phase16(a)"] = dict(riccati_6x1_max_abs_err=err, riccati_6x1_ms=ms)
+
+
+def smpc_card_vs_cpu(x0s):
+    """Golden smpc_chance's controller (tol 1e-9, float64) on the card and
+    on the CPU from the same prepared inputs: every scenario converged in
+    both, U within 1e-9 where the iteration counts agree; a scenario whose
+    KKT error lands on the tolerance on one side stops one iteration apart,
+    and there U is held to 1e-7 (the share printed)."""
+    import torch
+    sols, walls = {}, {}
+    for dev in ("cpu", "cuda"):
+        ctl = smpc_chance_ctl(SMPC_GOLDEN, torch.float64, dev)
+        t0 = time.perf_counter()
+        sols[dev] = ctl.solve_batch_fn()(*ctl.prepare_batch(x0s))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+    c, k = sols["cpu"], sols["cuda"]
+    same = k.iterations.cpu() == c.iterations
+    du = (k.U.cpu() - c.U).abs().flatten(1).amax(dim=1)
+    eq = float(du[same].max())
+    off = float(du[~same].max()) if bool((~same).any()) else 0.0
+    log(f"phase16(a) SMPC card vs CPU float64 B={x0s.shape[0]}: card {walls['cuda']:.3f} "
+        f"s, CPU {walls['cpu']:.3f} s; converged card "
+        f"{float(k.converged.float().mean()):.4f} CPU {float(c.converged.float().mean()):.4f}, "
+        f"iterations p50 {float(c.iterations.float().median()):g} max "
+        f"{int(c.iterations.max())}; equal iterations on {float(same.float().mean()):.4f}, "
+        f"max|U_card - U_cpu| there {eq:.3e}, elsewhere {off:.3e}")
+    assert bool(c.converged.all()) and bool(k.converged.all())
+    assert float(same.float().mean()) >= 0.95 and eq <= 1e-9 and off <= 1e-7, (eq, off)
+
+
+def msd_smpc_gp(device):
+    """examples/05_stochastic_smpc.py's 30-point GP of a friction residual,
+    float64 (not fitted)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import GP
+    rng = np.random.default_rng(0)
+    V = rng.uniform(-1.5, 1.5, size=(30, 1))
+    resid = -0.08 * np.tanh(3.0 * V[:, 0]) + 0.01 * rng.standard_normal(30)
+    gp = GP(["vel"], ["d_vel"], noise_variance=1e-4, device=device, dtype=torch.float64)
+    gp.set_training_data(V, resid)
+    return gp.setup()
+
+
+def phase16_feedback(report):
+    """(b) examples/05_stochastic_smpc.py: the GP fitted on the card against
+    the CPU (float64), then the feedback-gain SMPC (N=12) on B=131072 (float32
+    at (a)'s options)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import SMPC, Model
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    gps, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        gps[dev] = msd_smpc_gp(dev)
+        t0 = time.perf_counter()
+        gps[dev].fit_model()
+        walls[dev] = time.perf_counter() - t0
+    nll = {d: -g.log_marginal_likelihood for d, g in gps.items()}
+    rel = abs(nll["cuda"] - nll["cpu"]) / abs(nll["cpu"])
+    hp = max(float(np.abs(a.value - b.value).max()) for a, b in
+             zip(gps["cuda"].hyperparameters, gps["cpu"].hyperparameters))
+    log(f"phase16(b) GP fit (30 points, SE, L-BFGS-B on torch's gradient) float64: "
+        f"card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s; NLL card "
+        f"{nll['cuda']:.12g} CPU {nll['cpu']:.12g} (relative {rel:.3e}), "
+        f"hyperparameters max|Δ| {hp:.3e}")
+    assert rel <= 1e-8, rel
+    m = Model(name="msd")
+    m.set_dynamical_states(["pos", "vel"])
+    m.set_inputs("f")
+    m.set_dynamical_equations(lambda x, u: torch.stack(
+        [x[..., 1], -0.6 * x[..., 0] - 0.4 * x[..., 1] + u[..., 0]], dim=-1))
+    smpc = SMPC(m, gps={"vel": gps["cuda"]}, feedback_gain=np.array([[1.0, 0.8]]),
+                dt=0.1)
+    smpc.horizon = 12
+    smpc.quad_stage_cost.add_states(names=["pos", "vel"], weights=[5.0, 1.0],
+                                    ref=[0.8, 0.0])
+    smpc.quad_stage_cost.add_inputs(weights=0.1)
+    smpc.set_box_constraints(u_lb=-2.0, u_ub=2.0)
+    smpc.set_box_chance_constraints(x_ub=[0.85, np.inf], level=0.95)
+    smpc.set_initial_covariance(np.eye(2) * 1e-4)
+    smpc.setup(options=SMPC_F32, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    x0s = np.zeros((B_MAIN, 6))
+    x0s[:, :2] = rng.normal([0.0, 0.0], [0.2, 0.1], size=(B_MAIN, 2))
+    x0s[:, 2:] = np.tile(np.eye(2).ravel() * 1e-4, (B_MAIN, 1))
+    smpc.optimize_batch(x0s[:256])
+    riccati_lq_cuda.launches = 0
+    t0 = time.perf_counter()
+    u, sol = smpc.optimize_batch(x0s)
+    t = time.perf_counter() - t0
+    conv = float(sol.converged.float().mean())
+    log(f"phase16(b) feedback-gain SMPC (K = [1.0, 0.8], N=12) optimize_batch "
+        f"B={B_MAIN} float32: {B_MAIN / t:.1f} solves/s ({t:.4f} s wall), converged "
+        f"{conv:.4f}, iterations p50 {float(sol.iterations.float().median()):g} max "
+        f"{int(sol.iterations.max())}; riccati_lq launches {riccati_lq_cuda.launches}")
+    assert np.all(np.isfinite(u)) and conv >= 0.9, conv
+    report["riccati_lq"].setdefault("phase16_launches", {})[
+        "smpc_feedback"] = riccati_lq_cuda.launches
+
+
+def phase16_golden(report):
+    """(c) Golden smpc_chance replayed in float64 on the card (25 steps) and
+    its first SMPC_GOLDEN_CPU_STEPS steps on the CPU."""
+    import numpy as np
+    import torch
+    data = np.load(os.path.join(ROOT, "tests", "golden", "smpc_chance.npz"))
+    us, walls, its = {}, {}, {}
+    for dev, steps in (("cuda", data["U_gold"].shape[0]), ("cpu", SMPC_GOLDEN_CPU_STEPS)):
+        ctl = smpc_chance_ctl(SMPC_GOLDEN, torch.float64, dev)
+        t0 = time.perf_counter()
+        u_dev, it = [], []
+        for k in range(steps):
+            u_dev.append(ctl.optimize(data["X_meas"][k]))
+            assert ctl.stats["converged"], (dev, k, ctl.stats)
+            it.append(ctl.stats["iterations"])
+        walls[dev], us[dev], its[dev] = time.perf_counter() - t0, np.array(u_dev), it
+    n_cpu = SMPC_GOLDEN_CPU_STEPS
+    gold = float(np.abs(us["cuda"] - data["U_gold"]).max())
+    cpu = float(np.abs(us["cuda"][:n_cpu] - us["cpu"]).max())
+    same = its["cuda"][:n_cpu] == its["cpu"]
+    log(f"phase16(c) golden smpc_chance (N=10, float64): card {walls['cuda']:.2f} s for "
+        f"{len(us['cuda'])} steps, max|u - u_gold| {gold:.3e}; the CPU's first {n_cpu} "
+        f"steps {walls['cpu']:.2f} s, max|u_card - u_cpu| {cpu:.3e}, iterations equal "
+        f"{same}")
+    assert gold < 1e-4 and cpu <= 1e-9 and same, (gold, cpu)
+    report["phase16(c)"] = dict(golden_max_abs_err=gold, card_vs_cpu=cpu)
+
+
+def gp_hybrid_gp(device="cuda"):
+    """An exact SE-kernel GP of the CSTR's E from the states (16 points,
+    float64)."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import GP
+    rng = np.random.default_rng(5)
+    X = rng.uniform([0.0, 0.0], [0.6, 0.4], (16, 2))
+    y = 1.0 + 0.1 * np.sin(4.0 * X[:, 0]) - 0.05 * X[:, 1]
+    gp = GP(["x_1", "x_2"], ["E"], noise_variance=0.01, device=device,
+            dtype=torch.float64)
+    gp.set_training_data(X, y)
+    return gp.setup()
+
+
+def gp_hybrid_nmpc(options, dtype, device="cuda"):
+    """Phase 2's controller on the CSTR whose E is the GP's posterior mean."""
+    from hilo_mpc_tpu_torch import NMPC
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    nmpc = NMPC(cstr_schaffner_and_zeitz() + gp_hybrid_gp(device))
+    nmpc.horizon = N
+    nmpc.quad_stage_cost.add_states(weights=[10.0, 10.0], ref=[0.3, 0.18055])
+    nmpc.quad_stage_cost.add_inputs(weights=0.1)
+    nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
+    nmpc.set_parameters([1.0] * 5)
+    return nmpc.setup(options={"dt": 0.1, "integration_method": "rk4", **options},
+                      device=device, dtype=dtype)
+
+
+def phase16_gp_hybrid(report):
+    """(d) The CSTR flagship with E the GP's posterior mean, through the
+    general path and through pallas_full (the traced whole-solve kernel)."""
+    g_ric, w_full, out = hybrid_routes("phase16(d)", "GP hybrid flagship (E a 16-point "
+                                       "SE GP's mean)", gp_hybrid_nmpc)
+    report["riccati_lq"].setdefault("phase16_launches", {})["gp_hybrid_general"] = g_ric
+    report["whole_ip_traced"]["phase16_launches"] = {"gp_hybrid": w_full}
+    report["phase16(d)"] = out
+
+
+def phase16_gp_work(report):
+    """(e) Exact predict at B=131072 queries, GPArray's batched L-BFGS fit
+    and an SVGP minibatch fit, each on the card (float64), the first two
+    against the CPU."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import GP, GPArray
+    rng = np.random.default_rng(17)
+    Xq = rng.uniform([0.0, 0.0], [0.6, 0.4], (B_MAIN, 2))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gp = gp_hybrid_gp(dev)
+        gp.predict(Xq[:1024])
+        t0 = time.perf_counter()
+        out[dev] = gp.predict(Xq)
+        out[dev + "_s"] = time.perf_counter() - t0
+    dmu = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    dvar = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    log(f"phase16(e) exact predict B={B_MAIN} float64: card {out['cuda_s']:.4f} s "
+        f"({B_MAIN / out['cuda_s']:.0f} queries/s), CPU {out['cpu_s']:.4f} s; "
+        f"max|Δmu| {dmu:.3e}, max|Δvar| {dvar:.3e}")
+    assert dmu <= 1e-10 and dvar <= 1e-10, (dmu, dvar)
+
+    X = rng.uniform(-2.0, 2.0, (GP_ARRAY_N, 2))
+    ys = [np.sin((g + 1) * X[:, 0]) + 0.3 * X[:, 1] ** 2
+          + 0.05 * rng.standard_normal(GP_ARRAY_N) for g in range(GP_ARRAY_G)]
+    fits, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        arr = GPArray(GP_ARRAY_G)
+        for g, y in enumerate(ys):
+            arr[g] = GP(["a", "b"], ["y"], noise_variance=0.3, device=dev,
+                        dtype=torch.float64)
+            arr[g].set_training_data(X, y)
+        t0 = time.perf_counter()
+        arr.fit_model_batched(max_iter=GP_ARRAY_ITERS, solver="lbfgs")
+        walls[dev], fits[dev] = time.perf_counter() - t0, arr.last_fit_nll
+    rel = float(np.abs(fits["cuda"] / fits["cpu"] - 1.0).max())
+    log(f"phase16(e) GPArray.fit_model_batched lbfgs {GP_ARRAY_G} outputs x "
+        f"{GP_ARRAY_N} points, {GP_ARRAY_ITERS} iterations float64: card "
+        f"{walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s; final NLLs card "
+        f"{np.round(fits['cuda'], 6).tolist()}, relative to the CPU's {rel:.3e}")
+    assert rel <= 1e-8, rel
+
+    Xs = rng.uniform(-3.0, 3.0, (SVGP_N, 1))
+    ysv = np.sin(2.0 * Xs[:, 0]) + 0.1 * rng.standard_normal(SVGP_N)
+    gp = GP(["a"], ["y"], noise_variance=0.3, inference="svgp", device="cuda",
+            dtype=torch.float64,
+            inference_options={"n_inducing": SVGP_M, "batch_size": SVGP_BATCH,
+                               "fit_seed": 0})
+    gp.set_training_data(Xs, ysv)
+    elbo0 = gp.log_marginal_likelihood
+    t0 = time.perf_counter()
+    gp.fit_model(max_iter=SVGP_STEPS, learning_rate=5e-2)
+    t = time.perf_counter() - t0
+    elbo = gp.log_marginal_likelihood
+    log(f"phase16(e) SVGP minibatch Adam fit (n={SVGP_N}, m={SVGP_M}, batch "
+        f"{SVGP_BATCH}, {SVGP_STEPS} steps) float64 on the card: {t:.3f} s "
+        f"({SVGP_STEPS / t:.1f} steps/s); full-batch ELBO {elbo0:.6g} -> {elbo:.6g}")
+    assert np.isfinite(elbo) and elbo > elbo0, (elbo0, elbo)
+    report["phase16(e)"] = dict(predict_s=out["cuda_s"], gparray_s=walls["cuda"],
+                                svgp_s=t)
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -4257,7 +4672,8 @@ def build_jobs():
     for label, problem in traced_problems().items():
         jobs.append((f"whole_ip traced {label} ({problem.region} values per scenario)",
                      _build.source_library_path, problem.text))
-    # the hybrid physics + ANN problems of phase 15 (traced as well)
+    # the hybrid physics + ANN problems of phase 15 and phase 16's GP hybrid
+    # (traced as well)
     for label, problem in hybrid_problems().items():
         jobs.append((f"whole_ip traced {label} ({problem.region} values per scenario)",
                      _build.source_library_path, problem.text))
@@ -4297,17 +4713,24 @@ def main():
     for label, lib, secs in built:
         log(f"  {label}: {os.path.relpath(lib, ROOT)} in {secs:.1f} s")
         with open(lib + ".log") as fh:
+            entry = ""
             for line in fh:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("    " + line.strip())
+                if "Compiling entry function" in line:
+                    entry = line
                 # the Riccati and FGM kernels are built to spill nothing
                 # (the register design where the router takes it; the tiled
                 # Riccati kernel but at its cap (8, 4), which only phase 1
-                # runs and which spills in both dtypes)
+                # runs and which spills in both dtypes, and (6, 1)'s float64
+                # instance, 8 bytes, which phase 16 runs for its float64
+                # checks; its float32 instance, the SMPC flagship's, spills
+                # nothing)
                 reg_n = (int(label.split("n=")[1]) if label.startswith("fgm_boxqp_reg")
                          else 0)
+                f64_6x1 = label == "riccati_lq nx=6 nu=1" and "kernelIdLi6" in entry
                 if (label.startswith(("riccati_lq", "fgm_boxqp"))
-                        and label != "riccati_lq nx=8 nu=4"
+                        and label != "riccati_lq nx=8 nu=4" and not f64_6x1
                         and reg_n <= FGM_REG_MAX_N and "spill stores" in line):
                     assert line.split("bytes spill stores")[0].split(",")[-1].strip() == "0", \
                         (label, line)
@@ -4376,7 +4799,8 @@ def main():
 
     report = {}
     for phase in (phase1, phase2, phase3, phase4, phase5, phase6, phase7, phase8,
-                  phase9, phase10, phase11, phase12, phase13, phase14, phase15):
+                  phase9, phase10, phase11, phase12, phase13, phase14, phase15,
+                  phase16):
         t = time.perf_counter()
         phase(report) if phase.__code__.co_argcount else phase()
         log(f"{phase.__name__} took {time.perf_counter() - t:.1f} s")
@@ -4417,12 +4841,13 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         # the whole-solve kernel's soft-box problem, the
-                        # CROSS build's float64 instance, phases 11-13's
-                        # and 15's launches
+                        # CROSS build's float64 instance, phases 11-13's,
+                        # 15's and 16's launches
                         **{k: v for k, v in r.items()
                            if k.startswith(("soft_box", "float32_registers",
                                             "float64", "phase11", "phase12",
-                                            "phase13", "phase15", "float32_simt"))},
+                                            "phase13", "phase15", "phase16",
+                                            "float32_simt"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, "fgm_boxqp_resident" the tensor-core
                         # design up to 128, names kept from their first

@@ -7,11 +7,13 @@ LMPC with its condensed fast-gradient path, LQR, PID; moving-horizon
 estimation, the Kalman filters and the particle filter; ``SimpleControlLoop``
 and the batched closed loops of ``parallel``; neural networks (``ANN``),
 hybrid physics+ANN models, data sets and the TensorBoard event writer);
+Gaussian processes (kernels, means, likelihoods, the seven inference
+methods, ``GPArray``'s batched fit) and stochastic MPC (``SMPC``);
 every Pallas kernel
 of the JAX package is a CUDA kernel written by hand for Hopper
 (ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
-``Model.setup``, ``NMPC.setup``, ``LMPC.setup``, ``LQR.setup`` and each
-estimator's ``setup``; the device
+``Model.setup``, ``NMPC.setup``, ``LMPC.setup``, ``LQR.setup``, each
+estimator's ``setup`` and the ``GaussianProcess`` constructor; the device
 is ``"cuda"`` unless the caller passes ``device="cpu"``, and a missing card is
 an error. Importing the package needs neither a GPU nor ``nvcc``. See
 README.md, "PyTorch / H100 port".
@@ -21,6 +23,7 @@ from .control.lmpc import LMPC
 from .control.lqr import LinearQuadraticRegulator
 from .control.nmpc import NMPC, OCP, OptimalControlProblem
 from .control.pid import PID
+from .control.smpc import SMPC
 from .control_loop import SimpleControlLoop
 from .core.model import Model
 from .core.series import TimeSeries
@@ -28,6 +31,17 @@ from .estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
                             UnscentedKalmanFilter)
 from .estimation.mhe import MovingHorizonEstimator
 from .estimation.pf import ParticleFilter
+from .ml.gp import (ConstantKernel, ConstantMean, DotProductKernel,
+                    ExactInference, ExpectationPropagation, ExponentialKernel,
+                    GammaExponentialKernel, Gaussian, GaussianProcess, GPArray,
+                    Kernel, KullbackLeibler, Laplace, Laplacian, Likelihood,
+                    LinearKernel, LinearMean, Logistic, Matern32Kernel,
+                    Matern52Kernel, MaternKernel, Mean, NeuralNetworkKernel,
+                    OneMean, PeriodicKernel, PiecewisePolynomialKernel,
+                    PolynomialKernel, PolynomialMean, Probit,
+                    RationalQuadraticKernel, SparseFITC, SparseVFE,
+                    SquaredExponentialKernel, StochasticVariational, StudentsT,
+                    VariationalBayes, Warp, ZeroMean)
 from .ml.nn import ArtificialNeuralNetwork, Dense, Dropout, Layer
 from .ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                             OCPSolution)
@@ -41,6 +55,7 @@ EKF = ExtendedKalmanFilter
 UKF = UnscentedKalmanFilter
 PF = ParticleFilter
 ANN = ArtificialNeuralNetwork
+GP = GaussianProcess
 
 __version__ = "0.8.3"
 
@@ -51,4 +66,15 @@ __all__ = ["Model", "NMPC", "OCP", "OptimalControlProblem", "PID",
            "ParticleFilter", "TimeSeries", "library", "IPOptions", "OCPBounds",
            "OCPDims", "OCPFunctions", "OCPSolution", "ANN",
            "ArtificialNeuralNetwork", "Layer", "Dense", "Dropout", "DataSet",
-           "DataGenerator", "EventFileWriter", "TensorBoardSupervisor"]
+           "DataGenerator", "EventFileWriter", "TensorBoardSupervisor", "SMPC",
+           "GP", "GaussianProcess", "GPArray", "Mean", "ZeroMean", "OneMean",
+           "ConstantMean", "LinearMean", "PolynomialMean", "Kernel",
+           "ConstantKernel", "SquaredExponentialKernel", "MaternKernel",
+           "Matern32Kernel", "Matern52Kernel", "ExponentialKernel",
+           "GammaExponentialKernel", "RationalQuadraticKernel",
+           "PiecewisePolynomialKernel", "DotProductKernel", "PolynomialKernel",
+           "LinearKernel", "NeuralNetworkKernel", "PeriodicKernel", "Warp",
+           "ExactInference", "ExpectationPropagation", "KullbackLeibler",
+           "Laplace", "SparseFITC", "SparseVFE", "StochasticVariational",
+           "VariationalBayes", "Likelihood", "Gaussian", "Logistic", "Probit",
+           "StudentsT", "Laplacian"]

@@ -4,14 +4,15 @@ PyTorch port of ``hilo_mpc_tpu/control_loop.py``: ``SimpleControlLoop``
 steps the plant (a set-up ``Model``) with the controller's move and feeds
 the observer's estimate, or else the true state, back. Controllers: NMPC,
 LMPC and OCP (``optimize``, or NMPC's real-time iteration with
-``run(rti=True)``), PID and LQR (``optimize``/``call``), a trained ANN
-(``predict`` on the whole plant state, a policy), or any callable.
+``run(rti=True)``), PID and LQR (``optimize``/``call``), a trained ANN or GP
+(``predict`` on the whole plant state, a policy; a GP acts by its posterior
+mean), or any callable.
 The controller sees the plant states its own model names (a name-based
 index map); with other names it sees the whole state. Observers: MHE, KF,
 EKF, UKF, PF (``estimate(y=, u=)``).
 
 Not ported yet: the live figure (``live_plot``) and ``plot`` (ROADMAP.md
-§A.10), and GP policies (the GP part of §A.7: the port has no GP yet).
+§A.10).
 """
 from __future__ import annotations
 
@@ -72,7 +73,8 @@ class SimpleControlLoop:
         if hasattr(c, "call"):
             return np.atleast_1d(np.asarray(c.call(x0)))
         if hasattr(c, "predict"):
-            # a trained policy (an ANN), on the whole plant state
+            # a trained policy (an ANN, or a GP: its mean), on the whole
+            # plant state
             out = np.asarray(c.predict(np.atleast_2d(x0)))
             return np.atleast_1d(out[0] if out.ndim > 1 else out)
         if callable(c):

@@ -12,8 +12,11 @@ wherever the model ran: simulation, the general interior point, and the
 whole-solve kernel's traced route (ops/codegen_fx.py writes the network's
 products and activations as C++, its weights into prm).
 
-Gaussian processes (``GaussianProcess``, ``GPArray``) are not ported yet
-(ROADMAP.md §A.7, the GP part); passing one raises NotImplementedError.
+A Gaussian process substitutes its posterior mean, m(x) + k(x, X)·α with
+the weights solved once (``GaussianProcess.mean_fn``: no triangular solve,
+so it traces to the emitter's ops), and a ``GPArray`` one GP after another.
+The learned component must be the port's own (``ArtificialNeuralNetwork``,
+``GaussianProcess``, ``GPArray``; utils/interop.py carries JAX ones across).
 """
 from __future__ import annotations
 
@@ -21,19 +24,27 @@ import torch
 
 
 def _predict_fn_of(learned):
-    if type(learned).__name__ in ("GaussianProcess", "GPArray"):
-        raise NotImplementedError(
-            "Gaussian processes are not ported to the PyTorch package yet — "
-            "ROADMAP.md §A.7 (the GP part: ml/gp/)")
-    if (hasattr(learned, "predict_fn") and hasattr(learned, "labels")
-            and hasattr(learned, "features")):
+    from .gp.gp import GaussianProcess
+    from .nn import ArtificialNeuralNetwork
+
+    if isinstance(learned, GaussianProcess):
+        mean = learned.mean_fn()
+        return ((lambda x: mean(x)[..., None]), list(learned.features),
+                list(learned.labels))
+    if isinstance(learned, ArtificialNeuralNetwork):
         return learned.predict_fn(), list(learned.features), list(learned.labels)
     raise TypeError(f"cannot compose model with {type(learned).__name__}; expected "
-                    "a trained ANN")
+                    "a trained ANN or GaussianProcess (or GPArray) of this package")
 
 
 def substitute_from(model, learned) -> None:
     """In-place substitution of model parameters by learned predictions."""
+    from .gp.gp import GPArray
+
+    if isinstance(learned, GPArray):
+        for gp in learned:
+            substitute_from(model, gp)
+        return
     fn, features, labels = _predict_fn_of(learned)
     x_names = model.dynamical_states
     z_names = model.algebraic_states

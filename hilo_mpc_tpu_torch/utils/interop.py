@@ -12,8 +12,11 @@ state-space model, LMPC or LQR in the port from its numpy matrices, names,
 weights and bounds (read by attribute, again without importing JAX), so both
 sides of a test start from the same numbers; ``model_from`` a model declared
 by equation text or matrices (with ``learned=``, a hybrid model: the
-physics model composed with networks), ``estimator_from`` an MHE, KF,
-EKF, UKF or PF, ``pid_from`` a PID, and ``ann_from`` a network.
+physics model composed with networks or GPs), ``estimator_from`` an MHE,
+KF, EKF, UKF or PF, ``pid_from`` a PID, ``ann_from`` a network and
+``gp_from`` a Gaussian process or a ``GPArray`` (kernel tree, mean,
+likelihood, inference and its options, hyperparameter values with their
+flags, bounds and priors, training data).
 """
 from __future__ import annotations
 
@@ -28,6 +31,11 @@ from ..estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
                              UnscentedKalmanFilter)
 from ..estimation.mhe import MovingHorizonEstimator
 from ..estimation.pf import ParticleFilter
+from ..ml import priors as _priors
+from ..ml.gp import kernels as _kernels
+from ..ml.gp import likelihood as _likelihoods
+from ..ml.gp import means as _means
+from ..ml.gp.gp import GaussianProcess, GPArray
 from ..ml.nn import ArtificialNeuralNetwork, Layer
 from ..ops.ip_solver import OCPBounds, OCPSolution
 from ..ops.riccati import LQSolution
@@ -107,10 +115,11 @@ def lqr_from(src) -> LinearQuadraticRegulator:
 
 def model_from(src, learned=()) -> Model:
     """The port's twin of a JAX-side model declared by the equation DSL (its
-    text) or by state-space matrices. ``learned``: JAX-side networks (one or
-    a sequence) substituted into the twin in order (``ann_from`` each), as
-    ``substitute_from`` made a hybrid model of ``src``; a JAX hybrid model
-    keeps no record of its parts, so pass its physics model and networks.
+    text) or by state-space matrices. ``learned``: JAX-side networks, GPs or
+    GP arrays (one or a sequence) substituted into the twin in order
+    (``ann_from`` / ``gp_from`` each), as ``substitute_from`` made a hybrid
+    model of ``src``; a JAX hybrid model keeps no record of its parts, so
+    pass its physics model and learned components.
     A model given as Python callables cannot be carried across: build the
     port's twin by hand."""
     text = getattr(src, "_equations_src", None)
@@ -123,8 +132,11 @@ def model_from(src, learned=()) -> Model:
     else:
         m = Model(name=src.name, discrete=src.discrete, time_unit=src.time_unit)
         m.set_equations(text)
-    for net in ([learned] if hasattr(learned, "_layers") else learned):
-        m.substitute_from(ann_from(net, device="cpu"))
+    # one network, GP or GP array, or a sequence of them
+    single = any(hasattr(learned, a) for a in ("_layers", "kernel", "_gps"))
+    for part in ([learned] if single else learned):
+        m.substitute_from(ann_from(part, device="cpu") if hasattr(part, "_layers")
+                          else gp_from(part, device="cpu"))
     return m
 
 
@@ -223,4 +235,131 @@ def pid_from(src) -> PID:
     if src.is_setup():
         dst.setup(dt=src._dt)
     dst.set_point = src.set_point
+    return dst
+
+
+def _hp_from(src, dst):
+    """Copy a hyperparameter's value, flags, bounds and prior."""
+    dst.positive = bool(src.positive)
+    dst.value = np.array(src.value, dtype=float)
+    dst.fixed = bool(src.fixed)
+    dst.bounds = None if src.bounds is None else tuple(src.bounds)
+    prior = src.prior
+    if prior is not None:
+        cls = getattr(_priors, type(prior).__name__)
+        dst.prior = cls.__new__(cls)
+        dst.prior.__dict__.update(vars(prior))
+    else:
+        dst.prior = None
+
+
+def _copy_hps(src, dst):
+    for a, b in zip(src._hyperparameters, dst._hyperparameters):
+        _hp_from(a, b)
+    return dst
+
+
+_TORCH_WARPS = ("log1p", "log", "exp", "expm1", "tanh", "sin", "cos", "sqrt",
+                "sinh", "arcsinh", "asinh", "sigmoid", "abs")
+
+
+def _warp_from(fn, warps):
+    if warps:
+        return warps.pop(0)
+    name = getattr(fn, "__name__", "")
+    if name in _TORCH_WARPS:
+        return getattr(torch, {"arcsinh": "asinh"}.get(name, name))
+    raise ValueError(f"the warp {fn!r} cannot be carried across: pass the port's "
+                     f"batch-first warp functions as warps=[...], in tree order")
+
+
+def _kernel_from(src, warps):
+    name = type(src).__name__
+    cls = getattr(_kernels, name, None)
+    if cls is None or not isinstance(cls, type):
+        raise TypeError(f"no kernel of the port mirrors {name}")
+    ad = src.active_dims
+    if name in ("Sum", "Product"):
+        dst = cls(_kernel_from(src.kernel_1, warps), _kernel_from(src.kernel_2, warps))
+    elif name == "Scale":
+        dst = cls(_kernel_from(src.kernel_1, warps), float(np.ravel(src.scale.value)[0]))
+    elif name == "Power":
+        dst = cls(_kernel_from(src.kernel_1, warps), src.power)
+    elif name == "Warp":
+        dst = cls(_kernel_from(src.kernel_1, warps), _warp_from(src.warp, warps))
+    elif name == "MaternKernel":
+        dst = cls(nu=src.nu, active_dims=ad)
+    elif name == "PiecewisePolynomialKernel":
+        dst = cls(q=src.q, active_dims=ad)
+    elif name == "PolynomialKernel":
+        dst = cls(src.degree, active_dims=ad)
+    elif name == "GammaExponentialKernel":
+        dst = cls(active_dims=ad, gamma=float(np.ravel(src.gamma.value)[0]))
+    else:
+        dst = cls(active_dims=ad)
+    return _copy_hps(src, dst)
+
+
+def _mean_from(src):
+    name = type(src).__name__
+    cls = getattr(_means, name, None)
+    if cls is None or not isinstance(cls, type):
+        raise TypeError(f"no mean of the port mirrors {name}")
+    if name in ("MeanSum", "MeanProduct"):
+        dst = cls(_mean_from(src.mean_1), _mean_from(src.mean_2))
+    elif name == "MeanScale":
+        dst = cls(_mean_from(src.mean_1), src.scale)
+    elif name == "MeanPower":
+        dst = cls(_mean_from(src.mean_1), src.power)
+    elif name == "PolynomialMean":
+        dst = cls(degree=src.degree, active_dims=src.active_dims)
+    else:
+        dst = cls(active_dims=src.active_dims)
+    return _copy_hps(src, dst)
+
+
+def _likelihood_from(src):
+    name = type(src).__name__
+    cls = getattr(_likelihoods, name, None)
+    if cls is None or not isinstance(cls, type):
+        raise TypeError(f"no likelihood of the port mirrors {name}")
+    return cls(src.df) if name == "StudentsT" else cls()
+
+
+def gp_from(src, device="cuda", dtype=torch.float64, warps=None):
+    """The port's twin of a JAX-side GaussianProcess, or of a GPArray (each
+    GP carried across), on ``device`` in ``dtype``: its features, labels,
+    kernel tree (composites and ``Warp``), mean, likelihood, inference and
+    options, solver, name, hyperparameters (values, fixed flags, bounds,
+    priors; the inducing points and SVGP variational parameters too) and
+    training data, set up if ``src`` is. A warp that is a numpy/JAX
+    elementwise function (``log1p``, ``tanh``, ...) becomes torch's; any
+    other warp needs the port's function in ``warps`` (a list in the
+    order the tree is walked, kernel_1 before kernel_2)."""
+    if type(src).__name__ == "GPArray":
+        dst = GPArray(len(src))
+        for i, gp in enumerate(src):
+            dst[i] = gp_from(gp, device=device, dtype=dtype, warps=warps)
+        return dst
+    if type(src).__name__ != "GaussianProcess":
+        raise TypeError(f"no GP of the port mirrors {type(src).__name__}")
+    warps = list(warps or [])
+    dst = GaussianProcess(list(src.features), list(src.labels),
+                          kernel=_kernel_from(src.kernel, warps),
+                          mean=_mean_from(src.mean),
+                          noise_variance=float(np.ravel(src.noise_variance.value)[0]),
+                          inference=src.inference,
+                          likelihood=_likelihood_from(src.likelihood),
+                          solver=src.solver,
+                          inference_options=dict(src.inference_options),
+                          name=src.name, device=device, dtype=dtype)
+    _hp_from(src.noise_variance, dst.noise_variance)
+    if src.X_train is not None:
+        dst.set_training_data(np.array(src.X_train), np.array(src.y_train))
+        for key in ("_z_hp", "_svgp_mv", "_svgp_lraw"):
+            if getattr(src, key, None) is not None:
+                _hp_from(getattr(src, key), getattr(dst, key))
+        if src._state is not None or src._setup_done:
+            dst.setup()
+            dst._setup_done = bool(src._setup_done)
     return dst

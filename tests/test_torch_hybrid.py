@@ -24,7 +24,8 @@ from hilo_mpc_tpu.ml.hybrid import substitute_from as jax_substitute
 from hilo_mpc_tpu_torch import NMPC, Model
 from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
 from hilo_mpc_tpu_torch.ops import whole_ip as W
-from hilo_mpc_tpu_torch.utils.interop import ann_from, model_from, to_numpy, to_torch
+from hilo_mpc_tpu_torch.utils.interop import (ann_from, gp_from, model_from, to_numpy,
+                                             to_torch)
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -117,7 +118,14 @@ def test_composition_errors():
     with pytest.raises(ValueError, match="not a model variable"):
         bio(False).substitute_from(ann)
     from hilo_mpc_tpu import GP
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    # a port GP (carried across) substitutes; a JAX GP itself does not
+    # compose with a port model
+    gp = GP(["S"], ["mu"])
+    gp.set_training_data(np.linspace(0.0, 4.0, 5), 0.3 + 0.01 * np.arange(5))
+    assert bio(False).substitute_from(gp_from(gp, device=CPU)).n_p == 1
+    with pytest.raises(RuntimeError, match="set_training_data"):
+        bio(False).substitute_from(gp_from(GP(["S"], ["mu"]), device=CPU))
+    with pytest.raises(TypeError, match="cannot compose"):
         bio(False).substitute_from(GP(["S"], ["mu"]))
     with pytest.raises(TypeError, match="cannot compose"):
         bio(False) + object()
