@@ -312,6 +312,38 @@ Phase 16 Gaussian processes and stochastic MPC (no kernel added): (a)
          relative); an SVGP minibatch Adam fit (4096 points, 32 inducing,
          batches of 256, 200 steps) on the card: time and ELBO.
 
+Phase 17 dense programs, batches over devices and processes, the embedded
+         export (no kernel added): (a) ops/programs.py on the card in
+         float64: the constrained program of tests/test_programs_data.py:
+         26-38 shifted by p (min |x - p|^2, x0 + x1 >= 1, |x| <= 5) at
+         B=131072 values of p from default_rng(17), and a dense QP (n = 64,
+         m = 32 rows A x <= 1, |x| <= 1; H SPD and A shared, c per program,
+         default_rng(17)) at B=1024 (cut from 8192: cuSOLVER's batched eigh
+         takes the 64 x 64 matrices one at a time, timed here at 1024 x
+         32, 1024 x 64 and 8192 x 64); programs/s, converged >= 0.99,
+         iterations; the first 256 of each card against CPU (the sweep:
+         equal iterations, x to 1e-9; the QP at tol 1e-8: equal iterations
+         on >= 0.95, x to 1e-6, its barrier systems' conditioning
+         amplifying the two eigh's rounding, with the CPU against itself
+         at c moved by 1e-15 logged beside; the QP at tol 1e-11: x to 1e-9,
+         iterations equal on >= 0.9 and at most one apart); 16
+         sweep programs against SciPy's SLSQP (1e-5). (b) parallel/: a
+         mesh over the visible cards; phase 2's flagship and inputs through
+         sharded_solve_fn(with_stats=True), in turns with the unsharded
+         solve (U against phase 2's, equal bits on one card; the in-solve
+         stats against convergence_stats; Riccati launches); phase 7's
+         windows through estimate_batch(mesh=) against no mesh (free-x0
+         launches); fused_closed_loop_fn on a sharded x0 (B=8192, 5 steps,
+         __graft_entry__.py:163-192's controller), converged > 0.97; a
+         world-size-1 NCCL group on a loopback TCP store (initialize,
+         local_slice, global_batch, the all-reduced batch_stats and the
+         all-gathered U against the host's), destroyed at the end. (c)
+         embedded/: the CSTR NMPC (N=20) exported to C and compiled by the
+         host's compiler, 12 steps against NMPC.optimize on the card in
+         float64 (< 2e-4); the EKF (2e-5) and MHE (5e-4) exports against the
+         port's filters on the card; PID, LQR and LMPC at
+         tests/test_embedded.py's bars; the C and card times per step.
+
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result. Each phase prints its time, and the script its total, before
@@ -4583,6 +4615,481 @@ def phase16_gp_work(report):
                                 svgp_s=t)
 
 
+# phase 17: dense programs (float64), the batch split over the visible
+# cards, a world-size-1 NCCL group and the embedded C export
+# the dense QP's batch: above n = 32 cuSOLVER's batched eigh takes the
+# matrices one at a time (0.75 ms per 64 x 64 float64 matrix on the H100,
+# phase 17(a)), so every iteration costs 0.77 s at 1024 and ~6 s at 8192
+B_QP = 1024
+N_QP, M_QP = 64, 32
+B_FUSED, STEPS_FUSED = 8192, 5
+B_GROUP = 16384
+GRAFT_OPTS = {"tol": 1e-3, "max_iter": 8, "convexify": False, "n_linesearch": 1,
+              "mu_init": 1e-2, "mehrotra": False}
+CSTR_DSL = """
+dx_1/dt = -a_1*x_1(t) + b_1*r
+dx_2/dt = -a_2*x_2(t) + b_2*r + g*u(k)
+y(k) = x_2(t)
+r = (1 - x_1(t))*exp(-E/(1 + x_2(t)))
+"""
+
+
+def phase17(report):
+    """Dense programs, batches over devices and processes, the embedded
+    export (module docstring)."""
+    for part in (phase17_programs, phase17_sharded, phase17_group, phase17_embedded):
+        t = time.perf_counter()
+        part(report)
+        log(f"{part.__name__} took {time.perf_counter() - t:.1f} s")
+
+
+def sweep_program(device):
+    """min |x - p|^2 s.t. x0 + x1 >= 1 (tests/test_programs_data.py:26-38
+    shifted by p), float64."""
+    import torch
+    from hilo_mpc_tpu_torch import NLP
+    nlp = NLP()
+    nlp.set_decision_variables(2).set_parameters(2)
+    nlp.set_objective(lambda x, p: torch.sum((x - p) ** 2))
+    nlp.set_constraints(lambda x: x[0] + x[1], lb=1.0)
+    return nlp.setup(device=device)
+
+
+def dense_qp(device, tol=1e-8):
+    """min 1/2 x'Hx + c'x s.t. |x| <= 1, A x <= 1: H (SPD) and A shared,
+    from default_rng(17), c the program's parameter; and the B_QP values
+    of c from the same stream. ``tol`` the interior point's KKT tolerance."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import QP
+    rng = np.random.default_rng(17)
+    M = rng.standard_normal((N_QP, N_QP))
+    H = M @ M.T / N_QP + np.eye(N_QP)
+    A = rng.standard_normal((M_QP, N_QP))
+    C = rng.standard_normal((B_QP, N_QP))
+    Ht = torch.as_tensor(H, dtype=torch.float64, device=device)
+    qp = QP()
+    qp.set_decision_variables(N_QP).set_parameters(N_QP)
+    qp.set_objective(lambda x, p: 0.5 * x @ Ht @ x + p @ x)
+    qp.set_linear_constraints(A=A, ub=1.0)
+    return qp.setup(options={"tol": tol}, device=device), C
+
+
+def program_check(label, sol, cpu, seconds, x_tol, f_tol):
+    """Log programs/s, the converged share, iterations and the first
+    programs card against CPU (x, f, iterations); assert the bars: x within
+    ``x_tol``, f within ``f_tol`` relative, equal iterations on >= 0.95 of them
+    (a program whose KKT error lands within rounding of tol stops one
+    iteration apart on the two devices)."""
+    B = sol.x.shape[0]
+    conv = float(sol.converged.double().mean())
+    it = sol.iterations.float()
+    n = cpu.x.shape[0]
+    same = sol.iterations[:n].cpu() == cpu.iterations
+    err = (sol.x[:n].cpu() - cpu.x).abs().amax(dim=1)
+    dev_same = float(err[same].max()) if bool(same.any()) else 0.0
+    dev_rest = float(err[~same].max()) if not bool(same.all()) else 0.0
+    f_rel = float(((sol.f[:n].cpu() - cpu.f).abs() / cpu.f.abs().clamp(min=1.0)).max())
+    share = float(same.double().mean())
+    log(f"phase17(a) {label} B={B} float64: {B / seconds:.1f} programs/s ({seconds:.4f} s "
+        f"wall), converged {conv:.5f}, iterations p50 {float(it.median()):g} max "
+        f"{int(it.max())}; first {n} card vs CPU: equal iterations on {share:.4f}, "
+        f"max|x_card - x_cpu| {dev_same:.3e} there and {dev_rest:.3e} on the rest, "
+        f"max|f_card - f_cpu| / max(1, |f|) {f_rel:.3e}")
+    assert conv >= 0.99 and share >= 0.95 and max(dev_same, dev_rest) <= x_tol, (
+        conv, share, dev_same, dev_rest)
+    assert f_rel <= f_tol, f_rel
+    return B / seconds, share
+
+
+def phase17_programs(report):
+    """(a) The parameter sweep at B=131072 and the dense QP (n = 64, m = 32)
+    on the card in float64, card against CPU, the sweep against SLSQP."""
+    import numpy as np
+    from scipy.optimize import minimize
+    P = np.random.default_rng(17).uniform(-2.0, 2.0, (B_MAIN, 2))
+    box = dict(lbx=[-5.0, -5.0], ubx=[5.0, 5.0])
+    card, cpu = sweep_program("cuda"), sweep_program("cpu")
+    card.solve_batch(x0=np.zeros((256, 2)), p=P[:256], **box)       # untimed warm-up
+    sol, t = synced(lambda: card.solve_batch(x0=np.zeros((B_MAIN, 2)), p=P, **box))
+    ref = cpu.solve_batch(x0=np.zeros((B_CHECK, 2)), p=P[:B_CHECK], **box)
+    sweep_rate, sweep_same = program_check("parameter sweep (n=2, m=1)", sol, ref, t, 1e-9,
+                                            1e-12)
+    assert sweep_same == 1.0, sweep_same
+    dev = 0.0
+    for i in range(16):
+        p = P[i]
+        # SLSQP's default ftol (1e-6) left it 3.7e-4 off the projection
+        # here (H100 host); at 1e-12 it is a reference
+        res = minimize(lambda x: float(np.sum((x - p) ** 2)), np.zeros(2), method="SLSQP",
+                       bounds=[(-5.0, 5.0)] * 2, options={"ftol": 1e-12, "maxiter": 200},
+                       constraints=[{"type": "ineq", "fun": lambda x: x[0] + x[1] - 1.0}])
+        dev = max(dev, float(np.abs(sol.x[i].cpu().numpy() - res.x).max()))
+    log(f"phase17(a) first 16 programs against SciPy's SLSQP (ftol 1e-12): max|x - "
+        f"x_slsqp| {dev:.3e}")
+    assert dev <= 1e-5, dev
+    (card, C), (cpu, _) = dense_qp("cuda"), dense_qp("cpu")
+    box = dict(lbx=-np.ones(N_QP), ubx=np.ones(N_QP))
+    card.solve_batch(x0=np.zeros((8, N_QP)), p=C[:8], **box)        # untimed warm-up
+    sol, t = synced(lambda: card.solve_batch(x0=np.zeros((B_QP, N_QP)), p=C, **box))
+    x0c = np.zeros((B_CHECK, N_QP))
+    ref = cpu.solve_batch(x0=x0c, p=C[:B_CHECK], **box)
+    # the QP's barrier Newton systems near the solution have condition
+    # numbers ~1e10 (z/s of the active rows), so at the KKT tolerance 1e-8
+    # the card's and the CPU's eigh rounding leaves x ~3e-8 apart; held
+    # here to 1e-6 (f to 1e-7 relative), and to 1e-9 at tol 1e-11 below
+    qp_rate, qp_same = program_check(f"dense QP (n={N_QP}, m={M_QP})", sol, ref, t, 1e-6,
+                                     1e-7)
+    # two witnesses that the gap is rounding: the CPU against itself with c
+    # moved by 1e-15 relative, and both devices at the tighter tol 1e-11
+    C_moved = C[:B_CHECK] * (1.0 + 1e-15 * np.random.default_rng(1).standard_normal(
+        (B_CHECK, N_QP)))
+    moved, t_moved = synced(lambda: cpu.solve_batch(x0=x0c, p=C_moved, **box))
+    same = moved.iterations == ref.iterations
+    log(f"phase17(a) dense QP tol 1e-8, the CPU against itself with c moved by 1e-15 "
+        f"relative: equal iterations on {float(same.double().mean()):.4f}, max|dx| "
+        f"{float((moved.x - ref.x).abs().max()):.3e} ({t_moved:.2f} s)")
+    (card, _), (cpu, _) = dense_qp("cuda", 1e-11), dense_qp("cpu", 1e-11)
+    tight, t_card = synced(lambda: card.solve_batch(x0=x0c, p=C[:B_CHECK], **box))
+    tight_ref, t_cpu = synced(lambda: cpu.solve_batch(x0=x0c, p=C[:B_CHECK], **box))
+    d_it = (tight.iterations.cpu() - tight_ref.iterations).abs()
+    dx = float((tight.x.cpu() - tight_ref.x).abs().max())
+    df = float(((tight.f.cpu() - tight_ref.f).abs() / tight_ref.f.abs().clamp(min=1.0)).max())
+    tight_same = float((d_it == 0).double().mean())
+    log(f"phase17(a) dense QP tol 1e-11, first {B_CHECK} card vs CPU: converged "
+        f"{float(tight.converged.double().mean()):.4f}/"
+        f"{float(tight_ref.converged.double().mean()):.4f}, equal iterations on "
+        f"{tight_same:.4f} (max |d it| {int(d_it.max())}), max|x_card - x_cpu| {dx:.3e}, "
+        f"max|f_card - f_cpu| / max(1, |f|) {df:.3e} (card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s)")
+    # a program whose KKT error lands within rounding of tol stops one
+    # iteration apart, with x still within the bar (the extra iteration
+    # moves it by less than the rounding between the devices)
+    assert bool(tight.converged.all()) and bool(tight_ref.converged.all())
+    assert dx <= 1e-9 and df <= 1e-12 and int(d_it.max()) <= 1 and tight_same >= 0.9, (
+        dx, df, tight_same)
+    # the eigenvalue clip's library call at the QP's shapes: above n = 32
+    # cuSOLVER's batched eigh takes the matrices one at a time, so a batch
+    # of 8192 (the QP's batch before the cut) costs 8x that of B_QP
+    import torch
+    from hilo_mpc_tpu_torch.ops.ip_solver import _eigh
+    eigh_s = {}
+    for B, n in ((B_QP, 32), (B_QP, N_QP), (8 * B_QP, N_QP)):
+        M = torch.randn(B, n, n, dtype=torch.float64, device="cuda")
+        M = M @ M.transpose(1, 2)
+        _eigh(M[:8])
+        eigh_s[f"{B}x{n}"] = synced(lambda: _eigh(M))[1]
+    log(f"phase17(a) batched eigh of float64 matrices: " + ", ".join(
+        f"{k} {v:.4f} s ({v / int(k.split('x')[0]) * 1e3:.4f} ms per matrix)"
+        for k, v in eigh_s.items()))
+    report["phase17(a)"] = dict(sweep_programs_per_s=sweep_rate, qp_programs_per_s=qp_rate,
+                                qp_equal_iterations=qp_same, qp_tight_dx=dx,
+                                qp_tight_equal_iterations=tight_same, eigh_s=eigh_s)
+
+
+def phase17_sharded(report):
+    """(b) The batch split over the visible cards: phase 2's flagship
+    through sharded_solve_fn (U against phase 2's, the in-solve stats
+    against the host's), phase 7's MHE windows through
+    estimate_batch(mesh=), the fused loop on a sharded x0."""
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.parallel import (convergence_stats, fused_closed_loop_fn,
+                                             make_mesh, shard_batch, sharded_solve_fn)
+    f32 = torch.float32
+    mesh = make_mesh()
+    log(f"phase17(b) mesh over the visible cards: {mesh.size} "
+        f"({', '.join(torch.cuda.get_device_name(d) for d in mesh.devices.flat)})")
+    nmpc = build_cstr_nmpc(FLAGSHIP, f32)
+    args = nmpc.prepare_batch(flagship_x0s())
+    one, split = nmpc.solve_batch_fn(), sharded_solve_fn(nmpc, mesh, with_stats=True)
+    small = [a[:256 * mesh.size] for a in args]
+    one(*small)
+    split(*small)                                                    # untimed warm-ups
+    walls, launches = {"one": [], "sharded": []}, {}
+    for kind in ("one", "sharded", "sharded", "one"):
+        riccati_lq_cuda.launches = 0
+        out, t = synced(lambda: (one if kind == "one" else split)(*args))
+        walls[kind].append(t)
+        launches[kind] = riccati_lq_cuda.launches
+        if kind == "sharded":
+            sol, stats = out
+    U = torch.cat([u.to(args[0].device) for u in sol.U.shards])
+    U2 = report["phase2"].U
+    same = bool(torch.equal(U, U2))
+    dev = float((U - U2).abs().max())
+    host = convergence_stats(sol)
+    pairs = {k: (float(stats[k]), float(host[k])) for k in host}
+    log(f"phase17(b) sharded flagship B={B_MAIN} float32 over {mesh.size} shard(s): "
+        f"{B_MAIN / min(walls['sharded']):.1f} solves/s (walls "
+        f"{', '.join(f'{w:.4f}' for w in walls['sharded'])} s) against the unsharded "
+        f"solve's {B_MAIN / min(walls['one']):.1f} (walls "
+        f"{', '.join(f'{w:.4f}' for w in walls['one'])} s), in turns; riccati_lq launches "
+        f"{launches['sharded']} (unsharded {launches['one']}); U against phase 2's: equal "
+        f"bits {same}, max|dU| {dev:.3e}")
+    log(f"phase17(b) batch_stats against convergence_stats: " + ", ".join(
+        f"{k} {a:g}/{b:g}" for k, (a, b) in pairs.items()))
+    assert launches["sharded"] > 0
+    if mesh.size == 1:
+        assert same and launches["sharded"] == launches["one"], (dev, launches)
+    for k, (a, b) in pairs.items():
+        assert a == b or (k == "kkt_p50" and abs(a - b) <= 1e-6 * abs(b)), (k, a, b)
+
+    mhe = build_mhe(cstr_schaffner_and_zeitz(), f32, 1e-4, 1e-3, 0.1 * np.eye(2),
+                    p=[1.0] * 6)
+    Ys, Us, x_arr, _ = mhe_cstr_windows(B_MAIN)
+    w = 256 * mesh.size
+    mhe.estimate_batch(Ys[:w], Us[:w], x_arrivals=x_arr[:w], mesh=mesh)   # warm-up
+    runs, mhe_walls = {}, {"one": [], "mesh": []}
+    for kind in ("one", "mesh", "mesh", "one"):
+        riccati_lq_cuda.launches = riccati_lq_cuda.free_x0_launches = 0
+        runs[kind] = synced(lambda: mhe.estimate_batch(
+            Ys, Us, x_arrivals=x_arr, mesh=mesh if kind == "mesh" else None))
+        runs[kind] += (riccati_lq_cuda.free_x0_launches,)
+        mhe_walls[kind].append(runs[kind][1])
+    (x1, s1), _, l1 = runs["one"]
+    (x2, s2), _, l2 = runs["mesh"]
+    t2 = min(mhe_walls["mesh"])
+    conv = float(np.asarray(s2.converged).mean())
+    mdev = float(np.abs(x2 - x1).max())
+    log(f"phase17(b) MHE estimate_batch(mesh=) B={B_MAIN} float32: walls "
+        f"{', '.join(f'{w:.4f}' for w in mhe_walls['mesh'])} s against "
+        f"{', '.join(f'{w:.4f}' for w in mhe_walls['one'])} s without a mesh, in turns; "
+        f"free-x0 launches {l2} ({l1}); converged {conv:.4f}; max|x_est_mesh - x_est| "
+        f"{mdev:.3e}")
+    assert l2 > 0 and conv >= 0.97, (l2, conv)
+    if mesh.size == 1:
+        assert mdev == 0.0 and l1 == l2, (mdev, l1, l2)
+
+    ctrl = build_cstr_nmpc(GRAFT_OPTS, f32, horizon=4)
+    run = fused_closed_loop_fn(ctrl, cstr_plant(f32), STEPS_FUSED, plant_p=np.ones(6))
+    x0s = np.array([0.2, 0.1]) + 0.05 * np.random.default_rng(17).standard_normal(
+        (B_FUSED, 2))
+    x0t = torch.as_tensor(x0s, dtype=f32, device="cuda")
+    run(shard_batch(x0t[:256 * mesh.size], mesh))                  # untimed warm-up
+    riccati_lq_cuda.launches = 0
+    res, t = synced(lambda: run(shard_batch(x0t, mesh)))
+    loop_l = riccati_lq_cuda.launches
+    ref, t1 = synced(lambda: run(x0t))
+    conv = float(np.asarray(res.converged).mean())
+    X = torch.cat([x.to(x0t.device) for x in res.X.shards])
+    ldev = float((X - ref.X).abs().max())
+    log(f"phase17(b) fused_closed_loop_fn on a sharded x0, B={B_FUSED}, {STEPS_FUSED} "
+        f"steps, N=4 float32: {t:.4f} s wall ({t1:.4f} s unsharded), riccati_lq "
+        f"launches {loop_l}, converged {conv:.5f}, max|X_sharded - X| {ldev:.3e}")
+    assert conv > 0.97 and loop_l > 0, (conv, loop_l)
+    if mesh.size == 1:
+        assert ldev == 0.0, ldev
+    report["riccati_lq"].setdefault("phase17_launches", {}).update(
+        sharded_flagship=launches["sharded"], fused_loop=loop_l)
+    report["riccati_lq_free_x0"].setdefault("phase17_launches", {})["sharded_mhe"] = l2
+    report["phase17(b)"] = dict(sharded_s=min(walls["sharded"]), one_s=min(walls["one"]),
+                                mhe_s=t2, loop_s=t)
+
+
+def phase17_group(report):
+    """(b) A world-size-1 NCCL group on a loopback TCP store: initialize,
+    local_slice, global_batch and the all-reduced batch_stats against the
+    host's figures; the group destroyed at the end."""
+    import socket
+    import torch
+    import torch.distributed
+    from hilo_mpc_tpu_torch.parallel import convergence_stats, sharded_solve_fn
+    from hilo_mpc_tpu_torch.parallel import distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    multi = dist.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout_s=60)
+    t_init = time.perf_counter() - t0
+    try:
+        assert multi is False and dist.in_group() and dist.initialize() is False
+        assert torch.distributed.get_backend() == "nccl"
+        sl = dist.local_slice(B_GROUP)
+        assert sl == slice(0, B_GROUP), sl
+        mesh = dist.global_mesh()
+        nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
+        args = dist.global_batch(nmpc.prepare_batch(flagship_x0s(B_GROUP)[sl]), mesh)
+        assert args[1].in_group and args[1].offset == 0 and args[1].global_rows == B_GROUP
+        (sol, stats), t = synced(lambda: sharded_solve_fn(nmpc, mesh, with_stats=True)(*args))
+        host = convergence_stats(sol)
+        gathered = dist.all_gather_rows(torch.cat(sol.U.shards))
+        same_u = bool(torch.equal(gathered, torch.cat(sol.U.shards)))
+        bad = [k for k in host if float(stats[k]) != float(host[k])
+               and not (k == "kkt_p50" and abs(float(stats[k]) - host[k]) <= 1e-6 * host[k])]
+        log(f"phase17(b) NCCL group of 1 on 127.0.0.1:{port} (set up in {t_init:.2f} s): "
+            f"local_slice {sl}, global batch {args[1].global_rows} rows at offset "
+            f"{args[1].offset}; solve {t:.4f} s; all-reduced stats "
+            f"{ {k: float(v) for k, v in stats.items()} } against the host's: differing "
+            f"{bad}; all-gathered U equal {same_u}")
+        assert not bad and same_u, (bad, same_u)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert not dist.in_group()
+
+
+def cstr_dsl_model():
+    from hilo_mpc_tpu_torch import Model
+    m = Model(name="cstr")
+    m.set_equations(CSTR_DSL)
+    return m
+
+
+def phase17_embedded(report):
+    """(c) The embedded C export compiled by the host's compiler, each
+    against the port's controller or estimator on the card (float64)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hilo_mpc_tpu_torch import EKF, LMPC, LQR, MHE, PID
+    from hilo_mpc_tpu_torch.embedded import (compile_shared, find_c_compiler,
+                                             generate_ekf_c, generate_mhe_c,
+                                             generate_nmpc_c, load_ekf, load_mhe,
+                                             load_nmpc, setup_solver)
+    f64 = torch.float64
+    cc = find_c_compiler()
+    work = tempfile.mkdtemp(prefix="chip_smoke_embedded_")
+    out = {}
+    nmpc = build_cstr_nmpc({}, f64)
+    t0 = time.perf_counter()
+    src = generate_nmpc_c(nmpc, os.path.join(work, "nmpc.c"))
+    t1 = time.perf_counter()
+    cstep = load_nmpc(compile_shared(src), 2, 1)
+    t2 = time.perf_counter()
+    plant = cstr_plant(f64, "cpu")
+    plant.set_initial_conditions([0.2, 0.1])
+    plant.set_initial_parameter_values([1.0] * 6)
+    x, du, tc, tg = np.array([0.2, 0.1]), 0.0, [], []
+    for _ in range(12):
+        a = time.perf_counter()
+        u_c = cstep(x)
+        b = time.perf_counter()
+        u_g = np.asarray(nmpc.optimize(x)).ravel()
+        c = time.perf_counter()
+        tc.append(b - a)
+        tg.append(c - b)
+        du = max(du, abs(float(u_c[0]) - float(u_g[0])))
+        x = plant.simulate(u=u_g, steps=1)["x"][-1]
+    log(f"phase17(c) NMPC (CSTR, N=20) exported to C ({t1 - t0:.3f} s) and compiled by "
+        f"{cc} ({t2 - t1:.3f} s); 12 steps: C {np.median(tc) * 1e3:.3f} ms per step, "
+        f"NMPC.optimize on the card {np.median(tg) * 1e3:.2f} ms per step (medians); "
+        f"max|u_C - u_card| {du:.3e}")
+    assert du < 2e-4, du
+    out.update(nmpc_c_ms=np.median(tc) * 1e3, nmpc_card_ms=np.median(tg) * 1e3, nmpc_du=du)
+
+    ekf = EKF(cstr_dsl_model())
+    ekf.Q, ekf.R = np.diag([1e-4, 2e-4]), np.array([[1e-4]])
+    ekf.set_initial_parameter_values([1.0] * 6)
+    ekf.setup(dt=0.1, device="cuda", dtype=f64)
+    step_c = load_ekf(compile_shared(generate_ekf_c(ekf, os.path.join(work, "ekf.c"))),
+                      nx=2, ny=1, nu=1)
+    step = ekf.step_fn()
+    g = lambda a: torch.as_tensor(np.asarray(a, float), dtype=f64, device="cuda")  # noqa: E731
+    rng = np.random.default_rng(0)
+    xh, Ph = np.array([0.25, 0.08]), 0.05 * np.eye(2)
+    xc, Pc, xt, dev, tc, tg = xh.copy(), Ph.copy(), np.array([0.2, 0.1]), 0.0, [], []
+    for k in range(30):
+        u = np.array([0.3 * np.sin(0.2 * k)])
+        xt = plant.simulate(x0=xt, u=u, steps=1)["x"][-1]
+        y = np.array([xt[1] + 0.002 * rng.standard_normal()])
+        a = time.perf_counter()
+        x_n, P_n, _ = step(g(xh), g(Ph), g(u), g(np.ones(6)), g(y), k * 0.1)
+        xh, Ph = x_n.cpu().numpy(), P_n.cpu().numpy()
+        b = time.perf_counter()
+        xc, Pc = step_c(xc, Pc, u, y, t=k * 0.1)
+        c = time.perf_counter()
+        tg.append(b - a)
+        tc.append(c - b)
+        dev = max(dev, float(np.abs(xc - xh).max()), float(np.abs(Pc - Ph).max()))
+    log(f"phase17(c) EKF exported to C, 30 steps against the EKF on the card: max|x, P "
+        f"deviation| {dev:.3e}; C {np.median(tc) * 1e3:.4f} ms per step, the card's "
+        f"step {np.median(tg) * 1e3:.3f} ms")
+    assert dev < 2e-5, dev
+    out.update(ekf_dev=dev, ekf_c_ms=np.median(tc) * 1e3, ekf_card_ms=np.median(tg) * 1e3)
+
+    Nw = 6
+    mhe = MHE(cstr_dsl_model())
+    mhe.horizon = Nw
+    mhe.Q, mhe.R, mhe.P0 = 1e-3 * np.eye(2), np.array([[1e-3]]), 0.05 * np.eye(2)
+    mhe.set_initial_parameter_values([1.0] * 6)
+    mhe.setup(dt=0.1, options={"tol": 1e-9, "max_iter": 60}, device="cuda", dtype=f64)
+    mhe.set_initial_guess([0.25, 0.08])
+    solve_c = load_mhe(compile_shared(generate_mhe_c(mhe, os.path.join(work, "mhe.c"))),
+                       nx=2, ny=1, nu=1, N=Nw)
+    rng = np.random.default_rng(0)
+    xt, Us, Ys = np.array([0.2, 0.1]), [], []
+    for k in range(16):
+        u = np.array([0.3 * np.sin(0.25 * k)])
+        Ys.append([xt[1] + 0.003 * rng.standard_normal()])
+        xt = plant.simulate(x0=xt, u=u, steps=1)["x"][-1]
+        Us.append(u)
+    Us, Ys = np.array(Us), np.array(Ys)
+    x_card, tg = [], []
+    for k in range(len(Us)):
+        a = time.perf_counter()
+        est = mhe.estimate(y=Ys[k], u=Us[k])
+        tg.append(time.perf_counter() - a)
+        if est is not None:
+            x_card.append(np.asarray(est, dtype=float))
+    x_c, x_arr, tc = [], np.array([0.25, 0.08]), []
+    for k in range(Nw, len(Us)):
+        a = time.perf_counter()
+        xe, x_arr = solve_c(Ys[k - Nw:k + 1], Us[k - Nw + 1:k + 1], x_arr, t=(k - Nw) * 0.1)
+        tc.append(time.perf_counter() - a)
+        x_c.append(xe)
+    dev = float(np.abs(np.array(x_c) - np.array(x_card)).max())
+    log(f"phase17(c) MHE (N=6) exported to C, {len(x_c)} windows against the MHE on the "
+        f"card: max|x_C - x_card| {dev:.3e}; C {np.median(tc) * 1e3:.3f} ms per window, "
+        f"the card's estimate {np.median(tg[Nw:]) * 1e3:.2f} ms")
+    assert len(x_c) == len(x_card) and dev < 5e-4, dev
+    out.update(mhe_dev=dev, mhe_c_ms=np.median(tc) * 1e3,
+               mhe_card_ms=np.median(tg[Nw:]) * 1e3)
+
+    pid = PID(k_p=1.3, t_i=0.7, t_d=0.05)
+    pid.set_output_limits(-2.0, 2.0)
+    pid.setup(dt=0.1)
+    pid.set_point = [1.0]
+    pid_c = setup_solver(pid, workdir=work)
+    rng = np.random.default_rng(0)
+    d_pid = max(float(np.abs(pid_c([pv]) - pid.call([pv])).max())
+                for pv in rng.normal(size=20))
+    lqr = LQR(embedded_di_model())
+    lqr.horizon = 20
+    lqr.Q, lqr.R = np.eye(2), 0.1 * np.eye(1)
+    lqr.setup(device="cuda", dtype=f64)
+    lqr_c = setup_solver(lqr, workdir=work)
+    d_lqr = max(float(np.abs(lqr_c(x) - lqr.call(x)).max())
+                for x in ([1.0, 0.0], [-0.5, 0.3], [0.2, -0.7]))
+    lmpc = LMPC(embedded_di_model())
+    lmpc.horizon = 10
+    lmpc.Q, lmpc.R = np.diag([5.0, 1.0]), np.array([[0.5]])
+    lmpc.set_box_constraints(u_lb=-1.0, u_ub=1.0)
+    lmpc.setup(options={"dt": 0.1, "tol": 1e-10}, device="cuda", dtype=f64)
+    lmpc_c = setup_solver(lmpc, fgm_iters=300)
+    d_lmpc = 0.0
+    for x in ([1.0, 0.0], [2.0, -1.0], [-1.5, 0.5]):
+        u_c = lmpc_c(np.asarray(x))
+        u_g = lmpc.optimize(np.asarray(x))
+        lmpc._warm = None
+        lmpc._u_old[:] = 0
+        d_lmpc = max(d_lmpc, float(np.abs(u_c - u_g).max()))
+    log(f"phase17(c) PID, LQR and LMPC exported to C against the port's controllers (LQR "
+        f"and LMPC on the card): max|du| {d_pid:.3e}, {d_lqr:.3e}, {d_lmpc:.3e} (bars "
+        f"1e-12, 1e-12, 2e-4)")
+    assert d_pid < 1e-12 and d_lqr < 1e-12 and d_lmpc < 2e-4, (d_pid, d_lqr, d_lmpc)
+    report["phase17(c)"] = out
+
+
+def embedded_di_model(dt=0.1):
+    """tests/test_embedded.py's double integrator measured in position."""
+    from hilo_mpc_tpu_torch import Model
+    m = Model(discrete=True)
+    return m.set_state_space(A=[[1.0, dt], [0.0, 1.0]], B=[[0.5 * dt ** 2], [dt]],
+                             C=[[1.0, 0.0]])
+
+
 def whole_ip_registers(log_path):
     """{"float32"|"float64": [registers per thread, spill store bytes]} of
     the whole-solve kernel in a build's ptxas log."""
@@ -4800,7 +5307,7 @@ def main():
     report = {}
     for phase in (phase1, phase2, phase3, phase4, phase5, phase6, phase7, phase8,
                   phase9, phase10, phase11, phase12, phase13, phase14, phase15,
-                  phase16):
+                  phase16, phase17):
         t = time.perf_counter()
         phase(report) if phase.__code__.co_argcount else phase()
         log(f"{phase.__name__} took {time.perf_counter() - t:.1f} s")
@@ -4846,7 +5353,7 @@ def main():
                         **{k: v for k, v in r.items()
                            if k.startswith(("soft_box", "float32_registers",
                                             "float64", "phase11", "phase12",
-                                            "phase13", "phase15", "phase16",
+                                            "phase13", "phase15", "phase16", "phase17",
                                             "float32_simt"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, "fgm_boxqp_resident" the tensor-core

@@ -8,7 +8,10 @@ estimation, the Kalman filters and the particle filter; ``SimpleControlLoop``
 and the batched closed loops of ``parallel``; neural networks (``ANN``),
 hybrid physics+ANN models, data sets and the TensorBoard event writer);
 Gaussian processes (kernels, means, likelihoods, the seven inference
-methods, ``GPArray``'s batched fit) and stochastic MPC (``SMPC``);
+methods, ``GPArray``'s batched fit) and stochastic MPC (``SMPC``); dense
+programs (``LP``, ``QP``, ``NLP``, batched over programs); batches over
+devices and processes (``parallel``: meshes, sharded solves, process
+groups); the embedded C99 export (``embedded``); ``OptimizationSeries``;
 every Pallas kernel
 of the JAX package is a CUDA kernel written by hand for Hopper
 (ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
@@ -26,7 +29,7 @@ from .control.pid import PID
 from .control.smpc import SMPC
 from .control_loop import SimpleControlLoop
 from .core.model import Model
-from .core.series import TimeSeries
+from .core.series import OptimizationSeries, TimeSeries
 from .estimation.kf import (ExtendedKalmanFilter, KalmanFilter,
                             UnscentedKalmanFilter)
 from .estimation.mhe import MovingHorizonEstimator
@@ -45,6 +48,8 @@ from .ml.gp import (ConstantKernel, ConstantMean, DotProductKernel,
 from .ml.nn import ArtificialNeuralNetwork, Dense, Dropout, Layer
 from .ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                             OCPSolution)
+from .ops.programs import (LinearProgram, NonlinearProgram,
+                           QuadraticProgram)
 from .utils.data import DataGenerator, DataSet
 from .utils.tb_events import EventFileWriter, TensorBoardSupervisor
 
@@ -56,6 +61,9 @@ UKF = UnscentedKalmanFilter
 PF = ParticleFilter
 ANN = ArtificialNeuralNetwork
 GP = GaussianProcess
+LP = LinearProgram
+QP = QuadraticProgram
+NLP = NonlinearProgram
 
 __version__ = "0.8.3"
 
@@ -77,4 +85,5 @@ __all__ = ["Model", "NMPC", "OCP", "OptimalControlProblem", "PID",
            "ExactInference", "ExpectationPropagation", "KullbackLeibler",
            "Laplace", "SparseFITC", "SparseVFE", "StochasticVariational",
            "VariationalBayes", "Likelihood", "Gaussian", "Logistic", "Probit",
-           "StudentsT", "Laplacian"]
+           "StudentsT", "Laplacian", "LP", "QP", "NLP", "LinearProgram",
+           "QuadraticProgram", "NonlinearProgram", "OptimizationSeries"]

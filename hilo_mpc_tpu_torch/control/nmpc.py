@@ -55,7 +55,7 @@ import torch
 from torch.func import hessian, jacrev, vmap
 
 from ..core.integrators import IMPLICIT_METHODS, IntegratorSpec, make_step
-from ..core.model import Model, one_row_last, resolve_device
+from ..core.model import Model, one_row_last, records_setup, resolve_device
 from ..core.series import TimeSeries
 from ..ops.codegen_cuda import OCPSource
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
@@ -327,6 +327,7 @@ class NMPC:
         return self
 
     # -- setup ----------------------------------------------------------------
+    @records_setup
     def setup(self, options: Optional[dict] = None, solver_options: Optional[dict]
               = None, nlp_opts: Optional[dict] = None, device="cuda",
               dtype=torch.float32):

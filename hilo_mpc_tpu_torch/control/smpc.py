@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.integrators import IntegratorSpec, make_step
-from ..core.model import Model, _device_matrix
+from ..core.model import Model, _device_matrix, records_setup
 from ..ops.ip_solver import _jacobian
 from .nmpc import NMPC
 
@@ -213,6 +213,7 @@ class SMPC(NMPC):
         self._chance_specs.append((lb, ub, level))
         return self
 
+    @records_setup
     def setup(self, options: Optional[dict] = None, **kwargs):
         """NMPC.setup of the surrogate, rebuilt first when ``options['dt']``
         differs from the dt it was built with (the mean step bakes dt in)."""

@@ -24,6 +24,7 @@ model: ``model + ann`` (a new hybrid model) and ``substitute_from(ann)``
 from __future__ import annotations
 
 import copy as _copy
+import functools
 import inspect
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -46,6 +47,18 @@ def resolve_device(device) -> torch.device:
             f"device={str(device)!r}, but PyTorch sees no CUDA device; pass "
             f"device='cpu' to run on the CPU")
     return dev
+
+
+def records_setup(setup: Callable) -> Callable:
+    """Keep the arguments of the last ``setup`` call on the object
+    (``_setup_call``): ``parallel/sharding.py:on_device`` sets up a copy on
+    another device with them."""
+    @functools.wraps(setup)
+    def wrapper(self, *args, **kwargs):
+        out = setup(self, *args, **kwargs)
+        self._setup_call = (args, kwargs)
+        return out
+    return wrapper
 
 
 def _device_matrix(M: np.ndarray):
@@ -463,6 +476,7 @@ class Model:
             return False
 
     # -- setup ----------------------------------------------------------------
+    @records_setup
     def setup(self, dt: float = 1.0, integration_method: Optional[str] = None,
               degree: int = 3, scheme: str = "radau", substeps: int = 1,
               newton_iters: int = 8, options: Optional[dict] = None,

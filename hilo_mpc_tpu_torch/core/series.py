@@ -3,7 +3,8 @@
 PyTorch port of ``hilo_mpc_tpu/core/series.py``. Storage is host numpy (device
 tensors are brought to the host before appending); per-variable access
 supports ``'x'``, a state name, ``'x:f'`` (final) and ``'x:0'`` (initial).
-Plotting is not ported yet (ROADMAP.md §A.10).
+``OptimizationSeries`` keeps per-solve solver statistics. Plotting is not
+ported yet (ROADMAP.md §A.10).
 """
 from __future__ import annotations
 
@@ -127,9 +128,124 @@ class TimeSeries:
         for kind in self._data:
             self._data[kind] = np.zeros((len(self._kinds[kind]), 0))
 
+    def sort(self, by: str = "t") -> "TimeSeries":
+        """Reorder samples by a column (default: time)."""
+        key = self._time if by == "t" else self[by].ravel()
+        order = np.argsort(key)
+        self._time = self._time[order]
+        for kind in self._data:
+            self._data[kind] = self._data[kind][:, order]
+        return self
+
     def copy(self) -> "TimeSeries":
         ts = TimeSeries(self.time_unit)
         ts._kinds = {k: list(v) for k, v in self._kinds.items()}
         ts._data = {k: np.array(v) for k, v in self._data.items()}
         ts._time = np.array(self._time)
         return ts
+
+    def interpolate(self, t_new, kind: Optional[str] = None):
+        """Resample onto a new time grid by per-variable linear interpolation.
+
+        NaN gaps (samples where a kind was not appended) are skipped per
+        variable, so irregularly-logged kinds interpolate over their own
+        valid samples. Returns a new TimeSeries (or the (n, len(t_new))
+        array when ``kind`` is given)."""
+        t_new = np.atleast_1d(np.asarray(t_new, dtype=float))
+
+        def interp_rows(arr):
+            out = np.full((arr.shape[0], t_new.shape[0]), np.nan)
+            for i in range(arr.shape[0]):
+                ok = np.isfinite(arr[i])
+                if ok.sum() >= 2:
+                    out[i] = np.interp(t_new, self._time[ok], arr[i, ok])
+                elif ok.sum() == 1:
+                    out[i] = arr[i, ok][0]
+            return out
+
+        if kind is not None:
+            return interp_rows(self._data[kind])
+        ts = TimeSeries(self.time_unit)
+        ts._kinds = {k: list(v) for k, v in self._kinds.items()}
+        ts._time = t_new.copy()
+        ts._data = {k: interp_rows(v) for k, v in self._data.items()}
+        return ts
+
+    def merge(self, other: "TimeSeries", interpolate: bool = False
+              ) -> "TimeSeries":
+        """Combine two series.
+
+        The result carries the union of kinds; samples are the union of
+        both time grids, sorted. Kinds present in only one side are NaN at
+        the other side's instants — unless ``interpolate=True``, which fills
+        them by linear interpolation over the union grid."""
+        out = self.copy()
+        for kind, names in other._kinds.items():
+            if kind in out._kinds:
+                if list(names) != out._kinds[kind]:
+                    raise ValueError(
+                        f"kind {kind!r} has different variables: "
+                        f"{out._kinds[kind]} vs {list(names)}")
+            else:
+                out._kinds[kind] = list(names)
+                out._data[kind] = np.full((len(names), out.n_samples), np.nan)
+        n_other = other.n_samples
+        out._time = np.concatenate([out._time, other._time])
+        for kind in out._kinds:
+            pad = (other._data[kind] if kind in other._data
+                   else np.full((len(out._kinds[kind]), n_other), np.nan))
+            out._data[kind] = np.concatenate([out._data[kind], pad], axis=1)
+        out.sort()
+        if interpolate:
+            filled = out.interpolate(out._time)
+            out._data = filled._data
+        return out
+
+    def to_mat(self, path: str) -> None:
+        """Export to a MATLAB .mat file (SciPy's ``savemat``)."""
+        from scipy.io import savemat
+
+        savemat(path, {k.replace(":", "_"): v for k, v in self.to_dict().items()})
+
+
+class OptimizationSeries(TimeSeries):
+    """TimeSeries specialized for per-solve optimizer telemetry: the ``stats`` kind
+    (iterations, kkt_error, extime_ms, converged) is pre-registered, and the
+    usual queries are properties. NMPC/MHE solutions use the same stats
+    layout, so a plain controller solution can be wrapped via ``adopt``."""
+
+    STAT_NAMES = ["iterations", "kkt_error", "extime_ms", "converged"]
+
+    def __init__(self, time_unit: str = "s"):
+        super().__init__(time_unit)
+        self.register("stats", list(self.STAT_NAMES))
+
+    @classmethod
+    def adopt(cls, ts: TimeSeries) -> "OptimizationSeries":
+        out = cls(ts.time_unit)
+        out._kinds = {k: list(v) for k, v in ts._kinds.items()}
+        out._data = {k: np.array(v) for k, v in ts._data.items()}
+        out._time = np.array(ts._time)
+        if "stats" not in out._kinds:
+            out.register("stats", list(cls.STAT_NAMES))
+            out._data["stats"] = np.full((len(cls.STAT_NAMES),
+                                          out.n_samples), np.nan)
+        return out
+
+    @property
+    def iterations(self) -> np.ndarray:
+        return self["iterations"].ravel()
+
+    @property
+    def kkt_errors(self) -> np.ndarray:
+        return self["kkt_error"].ravel()
+
+    @property
+    def solve_times_ms(self) -> np.ndarray:
+        return self["extime_ms"].ravel()
+
+    @property
+    def convergence_rate(self) -> float:
+        conv = self["converged"].ravel()
+        ok = np.isfinite(conv)
+        return float(np.mean(conv[ok])) if ok.any() else float("nan")

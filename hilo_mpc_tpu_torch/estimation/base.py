@@ -105,9 +105,11 @@ class Estimator:
         return self._setup_done
 
     def _tensor(self, a):
-        """``a`` as a tensor in the dtype and on the device given to setup."""
-        return torch.as_tensor(np.asarray(a, dtype=float), dtype=self._dtype,
-                               device=self._device)
+        """``a`` (numpy or a tensor) as a tensor in the dtype and on the
+        device given to setup."""
+        if not torch.is_tensor(a):
+            a = np.asarray(a, dtype=float)
+        return torch.as_tensor(a, dtype=self._dtype, device=self._device)
 
     def _p_or_default(self, p):
         if p is not None:

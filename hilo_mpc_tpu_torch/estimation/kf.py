@@ -17,7 +17,7 @@ import torch
 from torch.func import jacfwd
 
 from ..core.integrators import IntegratorSpec, make_step
-from ..core.model import resolve_device
+from ..core.model import records_setup, resolve_device
 from ..ops.smallalg import chol_small, solve_psd_small
 from .base import Estimator
 
@@ -27,6 +27,7 @@ class _KalmanFilterBase(Estimator):
         super().__init__(model, **kwargs)
         self._P: Optional[np.ndarray] = None
 
+    @records_setup
     def setup(self, dt: Optional[float] = None, integration_method: str = "rk4",
               device="cuda", dtype=torch.float32, **options):
         """Build the filter step on ``device`` in ``dtype``. A CUDA device

@@ -14,9 +14,9 @@ error terms. Every problem function is batch-first over windows and stages.
 Entry points: ``setup(dt, options, device=..., dtype=...)`` (explicit device
 and dtype, ``"cuda"`` unless the caller passes ``device="cpu"``);
 ``estimate`` for one closed-loop step (``runs > 1``: multi-start, all runs
-as one batch); ``estimate_batch`` for B independent windows. There is no
-trace registry: PyTorch runs eagerly, so there is nothing to trace or share.
-``estimate_batch(mesh=...)`` is not ported (ROADMAP.md §A item 9).
+as one batch); ``estimate_batch`` for B independent windows, with
+``mesh=`` split over devices (parallel/sharding.py). There is no trace
+registry: PyTorch runs eagerly, so there is nothing to trace or share.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 from torch.func import jacfwd, jacrev
 
 from ..core.integrators import IntegratorSpec, make_step
-from ..core.model import resolve_device
+from ..core.model import records_setup, resolve_device
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
 from .base import Estimator, _as_cov
@@ -172,6 +172,7 @@ class MovingHorizonEstimator(Estimator):
         return True
 
     # -- setup ----------------------------------------------------------------
+    @records_setup
     def setup(self, dt: Optional[float] = None, options: Optional[dict] = None,
               device="cuda", dtype=torch.float32):
         """Build the window problem on ``device`` in ``dtype``. A CUDA device
@@ -388,11 +389,13 @@ class MovingHorizonEstimator(Estimator):
         like estimate(): row k's input is the one whose application produced
         row k's measurement. x_arrivals: (B, nx) arrival means.
         Returns (x_est (B, nx) numpy, OCPSolution of tensors on the
-        estimator's device)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "estimate_batch(mesh=...) is not ported to the PyTorch package "
-                "yet — ROADMAP.md §A item 9")
+        estimator's device).
+
+        With ``mesh`` (``parallel/sharding.py:make_mesh``; its first axis
+        splits the batch) each shard of windows is solved on its own device
+        (this estimator set up there, ``on_device``); the solution's fields
+        are then ShardedTensors and x_est is gathered in the windows'
+        order."""
         if not self._setup_done:
             raise RuntimeError("call setup() first")
         m = self._model
@@ -413,8 +416,25 @@ class MovingHorizonEstimator(Estimator):
         xs0 = np.concatenate(
             [x_arrivals, np.tile(self._p_arrival[:n_pe], (B, 1))], axis=1)
         X_init = np.tile(xs0[:, None, :], (1, N + 1, 1))
-        sol = self._solve(theta, xs0, X_init, np.zeros((B, N, nx)))
+        U_init = np.zeros((B, N, nx))
+        if mesh is not None:
+            return self._estimate_sharded(mesh, theta, xs0, X_init, U_init)
+        sol = self._solve(theta, xs0, X_init, U_init)
         x_est = sol.X[:, -1, :nx].detach().cpu().numpy()
+        return x_est, sol
+
+    def _estimate_sharded(self, mesh, *windows):
+        """The window solves split over the mesh's first axis, each shard on
+        its device."""
+        from ..parallel.sharding import map_shards, on_device, shard_batch
+
+        args = shard_batch(tuple(torch.as_tensor(a, dtype=self._dtype) for a in windows),
+                           mesh, mesh.axis_names[0])
+        sol = map_shards(lambda theta, xs0, X_init, U_init, device: on_device(
+            self, device)._solve(theta, xs0, X_init, U_init), args, args[1])
+        nx = self._model.n_x
+        x_est = np.concatenate([x[:, -1, :nx].detach().cpu().numpy()
+                                for x in sol.X.shards])
         return x_est, sol
 
     # -- solve -----------------------------------------------------------------

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core.integrators import IntegratorSpec, make_step
-from ..core.model import resolve_device
+from ..core.model import records_setup, resolve_device
 from ..ops.smallalg import chol_small, solve_small
 from .base import Estimator
 
@@ -67,6 +67,7 @@ class ParticleFilter(Estimator):
         self._pdf = lhsnorm
         self._transpose_pdf: Optional[bool] = None
 
+    @records_setup
     def setup(self, dt: Optional[float] = None, integration_method: str = "rk4",
               device="cuda", dtype=torch.float32, **options):
         """Build the filter step on ``device`` in ``dtype`` and seed its

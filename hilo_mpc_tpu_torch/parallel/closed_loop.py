@@ -19,6 +19,12 @@ every step: references and parameters are held over the run.
 Noise takes one ``torch.Generator`` on the loop's device (``generator=``) in
 place of the JAX loops' per-scenario PRNG keys; a noise std without a
 generator is refused, as JAX refuses one without a key.
+
+A batch from ``parallel/sharding.py:shard_batch`` runs shard by shard:
+each shard's loop on its own device, with the controller, the plant and
+the observer set up there (``on_device``), and the result's fields are
+ShardedTensors in the batch's order. With noise, ``generator`` is then
+one generator per shard (a list), or one shared by shards on one device.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from torch.func import vmap
 
 from ..core.model import one_row_last
 from ..ops.ip_solver import solve_ocp
+from .sharding import (ShardedTensor, _norm, on_device, regroup, run_shards,
+                       shard_batch)
 
 
 class ClosedLoopResult(NamedTuple):
@@ -160,6 +168,41 @@ def _shift(V):
     return torch.cat([V[:, 1:], V[:, -1:]], dim=1)
 
 
+def _placed(device, *objs):
+    """The loop's objects, or their copies set up on ``device``."""
+    return objs if device is None else tuple(on_device(o, device) for o in objs)
+
+
+def _shardable(build, n_batch):
+    """The run function of a loop built by ``build(device)`` (None: the
+    objects as given). A ShardedTensor first argument runs each shard's
+    loop on its device: the first ``n_batch(args)`` arguments are the
+    batch, split like it; the result's fields are ShardedTensors."""
+    run0 = build(None)
+    runs = {}
+
+    def run(*args, generator=None):
+        if not isinstance(args[0], ShardedTensor):
+            return run0(*args, generator=generator)
+        like = args[0]
+        nb = n_batch(args)
+        batch = [shard_batch(a, like.mesh) for a in args[:nb]]
+        n = len(like.shards)
+        gens = (list(generator) if isinstance(generator, (list, tuple))
+                else [generator] * n)
+
+        def one(i):
+            d = _norm(like.devices[i])
+            if d not in runs:
+                runs[d] = build(d)
+            return runs[d](*[a.shards[i] for a in batch], *args[nb:], generator=gens[i])
+
+        outs = run_shards(one, n, like.devices)
+        return type(outs[0])(*(regroup(parts, like) for parts in zip(*outs)))
+
+    return run
+
+
 def fused_closed_loop_fn(nmpc, plant_model, steps: int,
                          plant_p: Optional[np.ndarray] = None,
                          process_noise_std: Optional[np.ndarray] = None):
@@ -169,30 +212,33 @@ def fused_closed_loop_fn(nmpc, plant_model, steps: int,
     previous shifted solution) and steps its plant with the first move.
     ``x0_batch`` (B, nx), numpy or a tensor; the results are tensors on the
     controller's device."""
-    c = _Controller(nmpc, plant_model, plant_p)
-    w_std = None if process_noise_std is None else c.tensor(process_noise_std)
+    def build(device):
+        c = _Controller(*_placed(device, nmpc, plant_model), plant_p)
+        w_std = None if process_noise_std is None else c.tensor(process_noise_std)
 
-    def run(x0_batch, generator=None) -> ClosedLoopResult:
-        _check_generator(generator, w_std is not None)
-        x = c.tensor(x0_batch)
-        B = x.shape[0]
-        Xw, Uw = c.start(x)
-        u_old = x.new_zeros(B, c.nu)
-        X, U, conv, iters = [x], [], [], []
-        for k in range(steps):
-            sol, u_old, (Xw, Uw) = c.solve(x, u_old, Xw, Uw)
-            x = c.plant(x, u_old, k)
-            if w_std is not None:
-                x = c.noise(w_std, x, generator)
-            X.append(x)
-            U.append(u_old)
-            conv.append(sol.converged)
-            iters.append(sol.iterations)
-        return ClosedLoopResult(X=torch.stack(X, 1), U=torch.stack(U, 1),
-                                converged=torch.stack(conv, 1),
-                                iterations=torch.stack(iters, 1))
+        def run(x0_batch, generator=None) -> ClosedLoopResult:
+            _check_generator(generator, w_std is not None)
+            x = c.tensor(x0_batch)
+            B = x.shape[0]
+            Xw, Uw = c.start(x)
+            u_old = x.new_zeros(B, c.nu)
+            X, U, conv, iters = [x], [], [], []
+            for k in range(steps):
+                sol, u_old, (Xw, Uw) = c.solve(x, u_old, Xw, Uw)
+                x = c.plant(x, u_old, k)
+                if w_std is not None:
+                    x = c.noise(w_std, x, generator)
+                X.append(x)
+                U.append(u_old)
+                conv.append(sol.converged)
+                iters.append(sol.iterations)
+            return ClosedLoopResult(X=torch.stack(X, 1), U=torch.stack(U, 1),
+                                    converged=torch.stack(conv, 1),
+                                    iterations=torch.stack(iters, 1))
 
-    return run
+        return run
+
+    return _shardable(build, lambda args: 1)
 
 
 def fused_closed_loop_mhe_fn(nmpc, plant_model, mhe, steps: int,
@@ -211,66 +257,70 @@ def fused_closed_loop_mhe_fn(nmpc, plant_model, mhe, steps: int,
 
     Returns run(x0_true, y_window0, u_window0, x_arrival0, generator=None)
     -> ClosedLoopMHEResult."""
-    c = _Controller(nmpc, plant_model, plant_p)
-    if not mhe.is_setup():
-        raise RuntimeError("mhe must be set up")
-    if mhe._est_params:
-        raise NotImplementedError(
-            "fused MHE loop supports state estimation only (no estimated "
-            "parameters); use the host-driven loop for joint estimation")
-    m_opts = dataclasses.replace(mhe._ip_opts, record_iterates=False)
-    meas_fn = plant_model.meas_fn()
-    p_mhe = c.tensor(mhe._p_or_default(None))
-    nx, nu = c.nx, c.nu
-    ny = len(plant_model.measurements)
-    Nw = mhe.horizon
-    w_std = None if process_noise_std is None else c.tensor(process_noise_std)
-    v_std = None if meas_noise_std is None else c.tensor(meas_noise_std)
+    def build(device):
+        nmpc_d, plant_d, mhe_d = _placed(device, nmpc, plant_model, mhe)
+        c = _Controller(nmpc_d, plant_d, plant_p)
+        if not mhe_d.is_setup():
+            raise RuntimeError("mhe must be set up")
+        if mhe_d._est_params:
+            raise NotImplementedError(
+                "fused MHE loop supports state estimation only (no estimated "
+                "parameters); use the host-driven loop for joint estimation")
+        m_opts = dataclasses.replace(mhe_d._ip_opts, record_iterates=False)
+        meas_fn = plant_d.meas_fn()
+        p_mhe = c.tensor(mhe_d._p_or_default(None))
+        nx, nu = c.nx, c.nu
+        ny = len(plant_d.measurements)
+        Nw = mhe_d.horizon
+        w_std = None if process_noise_std is None else c.tensor(process_noise_std)
+        v_std = None if meas_noise_std is None else c.tensor(meas_noise_std)
 
-    def run(x0_true, y_window0, u_window0, x_arrival0, generator=None):
-        _check_generator(generator, w_std is not None or v_std is not None)
-        x_true, Ys, Us, x_arr = (c.tensor(a) for a in (x0_true, y_window0, u_window0,
-                                                       x_arrival0))
-        B = x_true.shape[0]
-        x_est = x_arr
-        Xc, Uc = c.start(x_est)
-        Xm = x_arr[:, None, :].expand(B, Nw + 1, nx).contiguous()
-        Wm = x_arr.new_zeros(B, Nw, mhe._dims.nu)
-        t_m = torch.zeros((), **c.kw)
-        u_old = x_true.new_zeros(B, nu)
-        X, Xe, U, conv, conv_m, iters, iters_m = [x_true], [], [], [], [], [], []
-        for k in range(steps):
-            sol, u_old, (Xc, Uc) = c.solve(x_est, u_old, Xc, Uc)
-            x_true = c.plant(x_true, u_old, k)
-            if w_std is not None:
-                x_true = c.noise(w_std, x_true, generator)
-            y = one_row_last(meas_fn(x_true, x_true.new_zeros(B, c.nz), u_old,
-                                     c.p_plant.expand(B, -1), c.time(k + 1)),
-                             x_true, ny)
-            if v_std is not None:
-                y = c.noise(v_std, y, generator)
-            Ys = torch.cat([Ys[:, 1:], y[:, None]], dim=1)
-            Us = torch.cat([Us[:, 1:], u_old[:, None]], dim=1)
-            th_m = mhe._theta_batch(Ys, Us, x_arr, p_mhe, t0=t_m)
-            sol_m = solve_ocp(mhe._funcs, mhe._dims, mhe._bounds, th_m, x_arr,
-                              _shift(Xm), _shift(Wm), options=m_opts, fix_x0=False)
-            x_est, x_arr = sol_m.X[:, -1, :nx], sol_m.X[:, 1, :nx]
-            Xm, Wm = sol_m.X, sol_m.U
-            t_m = t_m + c.dt
-            X.append(x_true)
-            Xe.append(x_est)
-            U.append(u_old)
-            conv.append(sol.converged)
-            conv_m.append(sol_m.converged)
-            iters.append(sol.iterations)
-            iters_m.append(sol_m.iterations)
-        return ClosedLoopMHEResult(X=torch.stack(X, 1), X_est=torch.stack(Xe, 1),
-                                   U=torch.stack(U, 1), converged=torch.stack(conv, 1),
-                                   mhe_converged=torch.stack(conv_m, 1),
-                                   iterations=torch.stack(iters, 1),
-                                   mhe_iterations=torch.stack(iters_m, 1))
+        def run(x0_true, y_window0, u_window0, x_arrival0, generator=None):
+            _check_generator(generator, w_std is not None or v_std is not None)
+            x_true, Ys, Us, x_arr = (c.tensor(a) for a in (x0_true, y_window0, u_window0,
+                                                           x_arrival0))
+            B = x_true.shape[0]
+            x_est = x_arr
+            Xc, Uc = c.start(x_est)
+            Xm = x_arr[:, None, :].expand(B, Nw + 1, nx).contiguous()
+            Wm = x_arr.new_zeros(B, Nw, mhe_d._dims.nu)
+            t_m = torch.zeros((), **c.kw)
+            u_old = x_true.new_zeros(B, nu)
+            X, Xe, U, conv, conv_m, iters, iters_m = [x_true], [], [], [], [], [], []
+            for k in range(steps):
+                sol, u_old, (Xc, Uc) = c.solve(x_est, u_old, Xc, Uc)
+                x_true = c.plant(x_true, u_old, k)
+                if w_std is not None:
+                    x_true = c.noise(w_std, x_true, generator)
+                y = one_row_last(meas_fn(x_true, x_true.new_zeros(B, c.nz), u_old,
+                                         c.p_plant.expand(B, -1), c.time(k + 1)),
+                                 x_true, ny)
+                if v_std is not None:
+                    y = c.noise(v_std, y, generator)
+                Ys = torch.cat([Ys[:, 1:], y[:, None]], dim=1)
+                Us = torch.cat([Us[:, 1:], u_old[:, None]], dim=1)
+                th_m = mhe_d._theta_batch(Ys, Us, x_arr, p_mhe, t0=t_m)
+                sol_m = solve_ocp(mhe_d._funcs, mhe_d._dims, mhe_d._bounds, th_m, x_arr,
+                                  _shift(Xm), _shift(Wm), options=m_opts, fix_x0=False)
+                x_est, x_arr = sol_m.X[:, -1, :nx], sol_m.X[:, 1, :nx]
+                Xm, Wm = sol_m.X, sol_m.U
+                t_m = t_m + c.dt
+                X.append(x_true)
+                Xe.append(x_est)
+                U.append(u_old)
+                conv.append(sol.converged)
+                conv_m.append(sol_m.converged)
+                iters.append(sol.iterations)
+                iters_m.append(sol_m.iterations)
+            return ClosedLoopMHEResult(X=torch.stack(X, 1), X_est=torch.stack(Xe, 1),
+                                       U=torch.stack(U, 1), converged=torch.stack(conv, 1),
+                                       mhe_converged=torch.stack(conv_m, 1),
+                                       iterations=torch.stack(iters, 1),
+                                       mhe_iterations=torch.stack(iters_m, 1))
 
-    return run
+        return run
+
+    return _shardable(build, lambda args: 4)
 
 
 def fused_closed_loop_ekf_fn(nmpc, plant_model, ekf, steps: int,
@@ -286,42 +336,46 @@ def fused_closed_loop_ekf_fn(nmpc, plant_model, ekf, steps: int,
     ``torch.func.vmap``. Returns run(x0_batch, x_est0, P0, generator=None)
     -> ClosedLoopEKFResult; x0_batch is the TRUE initial state batch, P0
     (nx, nx) shared or (B, nx, nx)."""
-    c = _Controller(nmpc, plant_model, plant_p)
-    meas_fn = plant_model.meas_fn()
-    ekf_step = vmap(ekf.step_fn(), in_dims=(0, 0, 0, None, 0, None))
-    p_ekf = c.tensor(ekf._p_or_default(None))
-    nx, nu = c.nx, c.nu
-    ny = len(plant_model.measurements)
-    w_std = None if process_noise_std is None else c.tensor(process_noise_std)
-    v_std = None if meas_noise_std is None else c.tensor(meas_noise_std)
+    def build(device):
+        nmpc_d, plant_d, ekf_d = _placed(device, nmpc, plant_model, ekf)
+        c = _Controller(nmpc_d, plant_d, plant_p)
+        meas_fn = plant_d.meas_fn()
+        ekf_step = vmap(ekf_d.step_fn(), in_dims=(0, 0, 0, None, 0, None))
+        p_ekf = c.tensor(ekf_d._p_or_default(None))
+        nx, nu = c.nx, c.nu
+        ny = len(plant_d.measurements)
+        w_std = None if process_noise_std is None else c.tensor(process_noise_std)
+        v_std = None if meas_noise_std is None else c.tensor(meas_noise_std)
 
-    def run(x0_batch, x_est0_batch, P0, generator=None) -> ClosedLoopEKFResult:
-        _check_generator(generator, w_std is not None or v_std is not None)
-        x_true, x_est, P = (c.tensor(a) for a in (x0_batch, x_est0_batch, P0))
-        B = x_true.shape[0]
-        if P.dim() == 2:
-            P = P.expand(B, nx, nx)
-        Xw, Uw = c.start(x_est)
-        u_old = x_true.new_zeros(B, nu)
-        X, Xe, U, conv, iters = [x_true], [], [], [], []
-        for k in range(steps):
-            sol, u_old, (Xw, Uw) = c.solve(x_est, u_old, Xw, Uw)
-            x_true = c.plant(x_true, u_old, k)
-            if w_std is not None:
-                x_true = c.noise(w_std, x_true, generator)
-            y = one_row_last(meas_fn(x_true, x_true.new_zeros(B, c.nz), u_old,
-                                     c.p_plant.expand(B, -1), c.time(k + 1)),
-                             x_true, ny)
-            if v_std is not None:
-                y = c.noise(v_std, y, generator)
-            x_est, P, _ = ekf_step(x_est, P, u_old, p_ekf, y, c.time(k))
-            X.append(x_true)
-            Xe.append(x_est)
-            U.append(u_old)
-            conv.append(sol.converged)
-            iters.append(sol.iterations)
-        return ClosedLoopEKFResult(X=torch.stack(X, 1), X_est=torch.stack(Xe, 1),
-                                   U=torch.stack(U, 1), converged=torch.stack(conv, 1),
-                                   iterations=torch.stack(iters, 1))
+        def run(x0_batch, x_est0_batch, P0, generator=None) -> ClosedLoopEKFResult:
+            _check_generator(generator, w_std is not None or v_std is not None)
+            x_true, x_est, P = (c.tensor(a) for a in (x0_batch, x_est0_batch, P0))
+            B = x_true.shape[0]
+            if P.dim() == 2:
+                P = P.expand(B, nx, nx)
+            Xw, Uw = c.start(x_est)
+            u_old = x_true.new_zeros(B, nu)
+            X, Xe, U, conv, iters = [x_true], [], [], [], []
+            for k in range(steps):
+                sol, u_old, (Xw, Uw) = c.solve(x_est, u_old, Xw, Uw)
+                x_true = c.plant(x_true, u_old, k)
+                if w_std is not None:
+                    x_true = c.noise(w_std, x_true, generator)
+                y = one_row_last(meas_fn(x_true, x_true.new_zeros(B, c.nz), u_old,
+                                         c.p_plant.expand(B, -1), c.time(k + 1)),
+                                 x_true, ny)
+                if v_std is not None:
+                    y = c.noise(v_std, y, generator)
+                x_est, P, _ = ekf_step(x_est, P, u_old, p_ekf, y, c.time(k))
+                X.append(x_true)
+                Xe.append(x_est)
+                U.append(u_old)
+                conv.append(sol.converged)
+                iters.append(sol.iterations)
+            return ClosedLoopEKFResult(X=torch.stack(X, 1), X_est=torch.stack(Xe, 1),
+                                       U=torch.stack(U, 1), converged=torch.stack(conv, 1),
+                                       iterations=torch.stack(iters, 1))
 
-    return run
+        return run
+
+    return _shardable(build, lambda args: 3 if np.ndim(args[2]) == 3 else 2)

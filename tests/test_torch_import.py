@@ -15,6 +15,11 @@ import hilo_mpc_tpu_torch.utils.interop
 import hilo_mpc_tpu_torch.estimation
 from hilo_mpc_tpu_torch import NMPC, Model, TimeSeries, library
 from hilo_mpc_tpu_torch import EKF, KF, MHE, PF, UKF
+import hilo_mpc_tpu_torch.ops.programs
+import hilo_mpc_tpu_torch.parallel.sharding
+import hilo_mpc_tpu_torch.parallel.distributed
+import hilo_mpc_tpu_torch.embedded
+from hilo_mpc_tpu_torch import LP, NLP, QP, OptimizationSeries
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hilo_mpc_tpu", "triton"))
 print("LOADED=" + ",".join(loaded))
@@ -41,3 +46,13 @@ def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_missing_c_compiler_is_an_error(monkeypatch, tmp_path):
+    """The embedded export finds no compiler on an empty PATH and says so."""
+    from hilo_mpc_tpu_torch.embedded import find_c_compiler
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CC", raising=False)
+    with pytest.raises(RuntimeError, match="no C compiler"):
+        find_c_compiler()

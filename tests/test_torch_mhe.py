@@ -336,9 +336,19 @@ def test_batch_state_space_model_matches_jax():
 
 
 def test_estimate_batch_mesh_is_not_ported():
+    """estimate_batch(mesh=) is ported (parallel/sharding.py): the windows
+    split over a 2-shard CPU mesh give the same estimates as no mesh, and a
+    batch the mesh does not divide is refused."""
+    from hilo_mpc_tpu_torch.parallel import make_mesh
+
     mhe = port_golden_mhe()
-    with pytest.raises(NotImplementedError, match="§A item 9"):
-        mhe.estimate_batch(np.zeros((1, 9, 1)), mesh=object())
+    Ys = 0.12 + 0.005 * np.random.default_rng(3).standard_normal((4, 9, 1))
+    x_one, _ = mhe.estimate_batch(Ys)
+    x_mesh, sol = mhe.estimate_batch(Ys, mesh=make_mesh(2, device=CPU))
+    np.testing.assert_array_equal(x_mesh, x_one)
+    assert len(sol.X.shards) == 2
+    with pytest.raises(ValueError, match="divisible"):
+        mhe.estimate_batch(Ys[:3], mesh=make_mesh(2, device=CPU))
 
 
 def test_setup_on_cuda_without_a_card_raises():
