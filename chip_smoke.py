@@ -343,6 +343,27 @@ Phase 17 dense programs, batches over devices and processes, the embedded
          float64 (< 2e-4); the EKF (2e-5) and MHE (5e-4) exports against the
          port's filters on the card; PID, LQR and LMPC at
          tests/test_embedded.py's bars; the C and card times per step.
+Phase 18 the host utilities (no kernel added; the Riccati kernels are
+         registered operators): (a) Session(compilation_cache=) on a fresh
+         directory: the flagship (2, 1) solve builds the Riccati library
+         there (its nvcc time), a second build of the source is a hit (no
+         nvcc), a corrupt library planted at (3, 1)'s path is rebuilt once by
+         the build-cache guard and phase 11(a)'s Δu controller (3, 1) runs
+         on the kernel (one read failure), and U equals the default
+         directory's to the bit; (b) the registry: two flagship controllers
+         at B=131072 float32 on the general path and two with pallas_full,
+         one entry per configuration, U bitwise equal within each pair, the
+         second controller's setup against the first's; (c) trace() around a
+         cold+warm flagship pair: the Riccati kernel's __global__ name and
+         its launches read from the trace (phase 2's 8), SolveTimer's stats
+         over 5 warm solves; (d) export_model_step(batch=131072) on the card
+         against the model's step, and export_nmpc_solver(flagship float64,
+         batch=8192) (its export time, the Riccati operator a node of the
+         exported iteration), reloaded in a child process that builds no
+         controller: max|ΔU| against the live solve_batch_fn, converged
+         share. The kernels line's phase18_launches count the Riccati
+         kernel's launches in (a)'s Δu solve, (c)'s pair and (d)'s live
+         solve, and the child's in its two exported solves (max_iter each).
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -5082,6 +5103,251 @@ def phase17_embedded(report):
     report["phase17(c)"] = out
 
 
+B_AOT = 8192
+# the child process of phase 18(d): the exported solve, reloaded with no
+# model code and no controller
+AOT_CHILD = """
+import sys, time, torch
+from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+from hilo_mpc_tpu_torch.utils.aot import load_function
+t0 = time.perf_counter()
+fn = load_function(sys.argv[1])
+t1 = time.perf_counter()
+args = [a.cuda() for a in torch.load(sys.argv[2])]
+X, U, conv, kkt = fn(*args)
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+X, U, conv, kkt = fn(*args)
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+torch.save({"U": U.cpu(), "converged": conv.cpu()}, sys.argv[3])
+print(f"load {t1 - t0:.3f} s, first solve {t2 - t1:.3f} s, second {t3 - t2:.4f} s, "
+      f"riccati_lq launches {riccati_lq_cuda.launches}")
+"""
+
+
+def phase18(report):
+    """The host utilities on the main path."""
+    phase18_session(report)
+    phase18_registry(report)
+    phase18_profiling(report)
+    phase18_aot(report)
+
+
+def phase18_session(report):
+    """(a) The kernel build cache in a fresh directory and its guard."""
+    import shutil
+    import tempfile
+    import torch
+    from hilo_mpc_tpu_torch import Session
+    from hilo_mpc_tpu_torch.ops import _build
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda, riccati_lq_source
+    from hilo_mpc_tpu_torch.utils.cache_guard import (cache_guard_status,
+                                                      uninstall_cache_crash_guard)
+    x0s = flagship_x0s(B_AOT)
+    ref = build_cstr_nmpc(FLAGSHIP, torch.float32)
+    U_default = ref.solve_batch_fn()(*ref.prepare_batch(x0s)).U
+    cache = tempfile.mkdtemp(prefix="chip_smoke_build_cache_")
+    try:
+        with Session(compilation_cache=cache):
+            nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
+            args = nmpc.prepare_batch(x0s)
+            riccati_lq_cuda.launches = 0
+            sol, t_first = synced(lambda: nmpc.solve_batch_fn()(*args))
+            _, t_second = synced(lambda: nmpc.solve_batch_fn()(*args))
+            lib = _build.source_library_path(riccati_lq_source(2, 1))
+            assert lib.startswith(cache) and riccati_lq_cuda.launches > 0, lib
+            with open(lib + ".log") as fh:
+                nvcc_line = fh.readline()
+            mtime = os.path.getmtime(lib)
+            t0 = time.perf_counter()
+            again = _build.source_library_path(riccati_lq_source(2, 1))
+            t_hit = time.perf_counter() - t0
+            assert again == lib and os.path.getmtime(lib) == mtime
+            same = bool(torch.equal(sol.U, U_default))
+            log(f"phase18(a) Session(compilation_cache={cache}): the flagship (2, 1) "
+                f"solve at B={B_AOT} built {os.path.relpath(lib, cache)} there (first "
+                f"solve {t_first:.2f} s against {t_second:.4f} s warm: nvcc "
+                f"{t_first - t_second:.2f} s; {nvcc_line.split()[0]}); a second build "
+                f"of the source: a hit in {t_hit * 1e3:.2f} ms, the library untouched; "
+                f"U bitwise equal to the default directory's solve: {same}")
+            assert same
+            du = build_du_nmpc(FLAGSHIP, torch.float32)
+            text = riccati_lq_source(3, 1)
+            _, sha = _build._gen_source(text)
+            bad = os.path.join(_build.get_build_dir(), "gen", f"lib{sha}.so")
+            with open(bad, "wb") as fh:
+                fh.write(b"\x7fELF not a library")
+            before = cache_guard_status()
+            riccati_lq_cuda.launches = 0
+            du_args = du.prepare_batch(x0s, u_prev=du_u_prev(B_AOT))
+            sol_du, t_du = synced(lambda: du.solve_batch_fn()(*du_args))
+            status = cache_guard_status()
+            conv = float(sol_du.converged.float().mean())
+            log(f"phase18(a) a corrupt library planted at (3, 1)'s path: the guard "
+                f"rebuilt it ({t_du:.2f} s with the build); status before "
+                f"{before}, after {status}; the Δu solve (3, 1) launched the kernel "
+                f"{riccati_lq_cuda.launches} times, converged {conv:.4f}")
+            assert status["read_failures"] == before["read_failures"] + 1, status
+            assert status["rebuilds"] == before["rebuilds"] + 1, status
+            assert riccati_lq_cuda.launches > 0 and conv >= 0.97
+            report["riccati_lq"].setdefault("phase18_launches", {})["session_du"] = \
+                riccati_lq_cuda.launches
+    finally:
+        _build.set_build_dir(None)
+        uninstall_cache_crash_guard()
+        shutil.rmtree(cache, ignore_errors=True)
+    report["phase18(a)"] = dict(nvcc_s=t_first - t_second, hit_ms=t_hit * 1e3)
+
+
+def phase18_registry(report):
+    """(b) Two controllers per configuration share one registry entry."""
+    import torch
+    from hilo_mpc_tpu_torch import clear_trace_registry, trace_registry_stats
+    from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_cuda
+    clear_trace_registry()
+    x0s = flagship_x0s()
+    out = {}
+    for label, opts in (("general", FLAGSHIP), ("pallas_full", {**FLAGSHIP,
+                                                                 "pallas_full": True})):
+        sols, setups = [], []
+        entries = trace_registry_stats()["entries"]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            nmpc = build_cstr_nmpc(opts, torch.float32)
+            fn = nmpc.solve_batch_fn()
+            setups.append(time.perf_counter() - t0)
+            n0 = solve_ocp_full_cuda.launches
+            sol, t = synced(lambda: fn(*nmpc.prepare_batch(x0s)))
+            sols.append((sol, t, solve_ocp_full_cuda.launches - n0))
+        grown = trace_registry_stats()["entries"] - entries
+        same = bool(torch.equal(sols[0][0].U, sols[1][0].U))
+        log(f"phase18(b) {label}: two flagship controllers at B={B_MAIN} float32: "
+            f"registry entries +{grown}; setup (setup() and solve_batch_fn()) "
+            f"{setups[0]:.4f} s then {setups[1]:.4f} s; solves {sols[0][1]:.4f} s and "
+            f"{sols[1][1]:.4f} s (whole-solve launches {sols[0][2]}, {sols[1][2]}); "
+            f"U bitwise equal {same}")
+        assert grown == 1 and same
+        if label == "pallas_full":
+            assert sols[0][2] == sols[1][2] == 1
+        out[label] = dict(setup_s=setups, solve_s=[s[1] for s in sols])
+    report["phase18(b)"] = out
+
+
+def phase18_profiling(report):
+    """(c) trace() and SolveTimer on the flagship."""
+    import tempfile
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.utils.profiling import SolveTimer, trace
+    nmpc = build_cstr_nmpc(FLAGSHIP, torch.float32)
+    args = nmpc.prepare_batch(flagship_x0s())
+    theta_B, xs0_B, _, _ = args
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    riccati_lq_cuda.launches = 0
+    with trace(log_dir):
+        sol = nmpc.solve_batch_fn()(*args)
+        X_w = torch.cat([sol.X[:, 1:], sol.X[:, -1:]], dim=1)
+        X_w[:, 0] = xs0_B
+        U_w = torch.cat([sol.U[:, 1:], sol.U[:, -1:]], dim=1)
+        nmpc.solve_batch_fn(warm=True)(theta_B, xs0_B, X_w, U_w)
+    launches = riccati_lq_cuda.launches
+    events = trace.last.key_averages()
+    kernel = [e for e in events if "riccati_lq_kernel" in e.key]
+    op = [e for e in events if e.key == "hilo_mpc_tpu_torch::riccati_lq"]
+    n_kernel = sum(e.count for e in kernel)
+    files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    with open(os.path.join(log_dir, files[0])) as fh:
+        in_file = "riccati_lq_kernel" in fh.read()
+    log(f"phase18(c) trace() of a cold+warm flagship pair at B={B_MAIN}: {files[0]} "
+        f"written; CUDA kernel {kernel[0].key[:90] if kernel else None} x{n_kernel} "
+        f"(the kernel's count {launches}, phase 2's {report['riccati_lq'].get('launches')}); "
+        f"operator hilo_mpc_tpu_torch::riccati_lq x{sum(e.count for e in op)}; the kernel "
+        f"named in the trace file: {in_file}")
+    assert n_kernel == launches and in_file and launches > 0
+    if "launches" in report["riccati_lq"]:
+        assert launches == report["riccati_lq"]["launches"], launches
+    timer = SolveTimer()
+    for _ in range(5):
+        held = []
+        with timer.measure(result=held):
+            held.append(nmpc.solve_batch_fn(warm=True)(theta_B, xs0_B, X_w, U_w).U)
+    stats = timer.stats()
+    log(f"phase18(c) SolveTimer over 5 warm solves at B={B_MAIN}: {stats}")
+    assert stats["n"] == 5
+    report["phase18(c)"] = dict(trace_launches=n_kernel, timer=stats)
+    report["riccati_lq"].setdefault("phase18_launches", {})["trace_pair"] = launches
+
+
+def phase18_aot(report):
+    """(d) The exported model step and NMPC solve; the solve reloaded in a
+    child process."""
+    import tempfile
+    import zipfile
+    import torch
+    from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+    from hilo_mpc_tpu_torch.utils.aot import (export_model_step, export_nmpc_solver,
+                                              load_function)
+    work = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    plant = cstr_plant(torch.float32)
+    t0 = time.perf_counter()
+    path = export_model_step(plant, os.path.join(work, "step.pt2"), batch=B_MAIN)
+    t_step = time.perf_counter() - t0
+    fn = load_function(path)
+    g = torch.Generator("cuda").manual_seed(0)
+    x = 0.2 + 0.05 * torch.randn(B_MAIN, 2, device="cuda", generator=g)
+    u = torch.randn(B_MAIN, 1, device="cuda", generator=g)
+    p = torch.ones(B_MAIN, 6, device="cuda")
+    z = x[:, :0]
+    got = fn(x, z, u, p)
+    want = plant.step_fn(x, z, u, p, 0.0, plant.dt)
+    d_step = max(float((a - b).abs().max()) for a, b in zip(got, want) if a.numel())
+    log(f"phase18(d) export_model_step(batch={B_MAIN}) on the card in {t_step:.2f} s; "
+        f"reloaded against the model's step: max|Δ| {d_step:.3e}")
+    assert d_step <= 1e-6, d_step
+
+    nmpc = build_cstr_nmpc(FLAGSHIP, torch.float64)
+    args = nmpc.prepare_batch(flagship_x0s(B_AOT))
+    n0 = riccati_lq_cuda.launches
+    t0 = time.perf_counter()
+    path = export_nmpc_solver(nmpc, os.path.join(work, "solver.zip"), batch=B_AOT)
+    t_export = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as zf:
+        with zipfile.ZipFile(zf.open("step.pt2")) as step:
+            graph = b"".join(step.read(n) for n in step.namelist() if n.endswith(".json"))
+    has_op = b"hilo_mpc_tpu_torch.riccati_lq" in graph
+    log(f"phase18(d) export_nmpc_solver(flagship float64, batch={B_AOT}) in {t_export:.2f} "
+        f"s ({os.path.getsize(path) / 1e6:.2f} MB, {riccati_lq_cuda.launches - n0} kernel "
+        f"launches while exporting); the exported iteration names "
+        f"hilo_mpc_tpu_torch::riccati_lq: {has_op}")
+    assert has_op
+    n0 = riccati_lq_cuda.launches
+    live = nmpc.solve_batch_fn()(*args)
+    report["riccati_lq"].setdefault("phase18_launches", {})["aot_live"] = \
+        riccati_lq_cuda.launches - n0
+    inputs, result = os.path.join(work, "inputs.pt"), os.path.join(work, "result.pt")
+    torch.save([a.cpu() for a in args], inputs)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", AOT_CHILD, path, inputs, result],
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    t_child = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = torch.load(result)
+    dU = float((out["U"] - live.U.cpu()).abs().max())
+    conv = float(out["converged"].float().mean())
+    log(f"phase18(d) the exported solve in a child process that builds no controller "
+        f"({t_child:.1f} s in all: {proc.stdout.strip()}): max|U_exported - U_live| "
+        f"{dU:.3e}, converged {conv:.4f} (live {float(live.converged.float().mean()):.4f})")
+    assert dU <= 1e-10, dU
+    child_launches = int(proc.stdout.rsplit("launches", 1)[1])
+    assert child_launches == 2 * nmpc._ip_opts.max_iter, child_launches
+    report["riccati_lq"]["phase18_launches"]["aot_exported_child"] = child_launches
+    report["phase18(d)"] = dict(step_export_s=t_step, step_dev=d_step,
+                                solver_export_s=t_export, child_s=t_child, dU=dU,
+                                converged=conv)
+
+
 def embedded_di_model(dt=0.1):
     """tests/test_embedded.py's double integrator measured in position."""
     from hilo_mpc_tpu_torch import Model
@@ -5307,7 +5573,7 @@ def main():
     report = {}
     for phase in (phase1, phase2, phase3, phase4, phase5, phase6, phase7, phase8,
                   phase9, phase10, phase11, phase12, phase13, phase14, phase15,
-                  phase16, phase17):
+                  phase16, phase17, phase18):
         t = time.perf_counter()
         phase(report) if phase.__code__.co_argcount else phase()
         log(f"{phase.__name__} took {time.perf_counter() - t:.1f} s")
@@ -5354,6 +5620,7 @@ def main():
                            if k.startswith(("soft_box", "float32_registers",
                                             "float64", "phase11", "phase12",
                                             "phase13", "phase15", "phase16", "phase17",
+                                            "phase18",
                                             "float32_simt"))},
                         # ("fgm_boxqp_column_blocks" is the FGM kernel above
                         # n = 128, "fgm_boxqp_resident" the tensor-core

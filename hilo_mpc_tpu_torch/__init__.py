@@ -12,9 +12,16 @@ methods, ``GPArray``'s batched fit) and stochastic MPC (``SMPC``); dense
 programs (``LP``, ``QP``, ``NLP``, batched over programs); batches over
 devices and processes (``parallel``: meshes, sharded solves, process
 groups); the embedded C99 export (``embedded``); ``OptimizationSeries``;
-every Pallas kernel
-of the JAX package is a CUDA kernel written by hand for Hopper
-(ops/cuda_kernels.py, ops/whole_ip.py, csrc/). Device and dtype are explicit arguments of
+and the host utilities: ``Session`` (the kernel build cache and its guard,
+utils/session.py, utils/cache_guard.py), the registry that same-configuration
+controllers share (``clear_trace_registry``, ``trace_registry_stats``),
+profiling (utils/profiling.py), the export of a model step or a batched NMPC
+solve with ``torch.export`` (utils/aot.py) and plotting
+(``set_plot_backend``, ``get_plot_backend``; matplotlib, bokeh and pgfplots,
+imported only to draw). Every module of the JAX package has its
+counterpart here, and every Pallas kernel of the JAX package is a CUDA
+kernel written by hand for Hopper (ops/cuda_kernels.py, ops/whole_ip.py,
+csrc/), the Riccati kernels registered as operators. Device and dtype are explicit arguments of
 ``Model.setup``, ``NMPC.setup``, ``LMPC.setup``, ``LQR.setup``, each
 estimator's ``setup`` and the ``GaussianProcess`` constructor; the device
 is ``"cuda"`` unless the caller passes ``device="cpu"``, and a missing card is
@@ -51,7 +58,10 @@ from .ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
 from .ops.programs import (LinearProgram, NonlinearProgram,
                            QuadraticProgram)
 from .utils.data import DataGenerator, DataSet
+from .utils.plotting import get_plot_backend, set_plot_backend
+from .utils.session import Session
 from .utils.tb_events import EventFileWriter, TensorBoardSupervisor
+from .utils.trace_cache import clear_trace_registry, trace_registry_stats
 
 LQR = LinearQuadraticRegulator
 MHE = MovingHorizonEstimator
@@ -86,4 +96,6 @@ __all__ = ["Model", "NMPC", "OCP", "OptimalControlProblem", "PID",
            "Laplace", "SparseFITC", "SparseVFE", "StochasticVariational",
            "VariationalBayes", "Likelihood", "Gaussian", "Logistic", "Probit",
            "StudentsT", "Laplacian", "LP", "QP", "NLP", "LinearProgram",
-           "QuadraticProgram", "NonlinearProgram", "OptimizationSeries"]
+           "QuadraticProgram", "NonlinearProgram", "OptimizationSeries", "Session",
+           "set_plot_backend", "get_plot_backend", "clear_trace_registry",
+           "trace_registry_stats"]

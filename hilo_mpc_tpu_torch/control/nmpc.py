@@ -38,9 +38,9 @@ The model may be a DAE, integrated by any method of core/integrators.py
 zeros. Such problems, and any implicit integrator, take the general path
 under ``pallas_full`` (with a warning naming the reason).
 
-Not ported yet: plotting (``plot_iterations`` raises, ROADMAP.md §A.10).
-There is no trace registry: PyTorch runs eagerly, so there is nothing to
-trace or share.
+Same-configuration controllers share what ``setup`` and the whole-solve
+route build (utils/trace_cache.py): the canonical problem objects and, under
+the entry's sites, the whole-solve gate, emission and loaded entry point.
 """
 from __future__ import annotations
 
@@ -63,6 +63,7 @@ from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
 from ..ops.riccati import backward_sweep
 from ..ops.whole_ip import (WholeIPLaunch, solve_ocp_full_cuda, whole_ip_gate,
                             whole_ip_problem)
+from ..utils.trace_cache import arr_key, registry_lookup, registry_store
 from .costs import GenericCost, QuadraticCost, make_constraint
 
 _NLP_OPTION_KEYS = {
@@ -76,6 +77,12 @@ _NLP_OPTION_KEYS = {
     "mi_max_enum",
     "initial_guess",
 }
+
+
+def _snapshot(term):
+    """A copy of a quadratic cost term with its own arrays."""
+    return dataclasses.replace(term, idx=np.array(term.idx), W=np.array(term.W),
+                               ref=None if term.ref is None else np.array(term.ref))
 
 
 class NMPC:
@@ -142,6 +149,7 @@ class NMPC:
         self.stats: dict = {}
         # the whole-solve path prepared for the current problem (_whole_ip_cache)
         self._wip: Optional[dict] = None
+        self._trace_entry = None   # cross-instance registry entry
 
     # -- basic configuration -------------------------------------------------
     @property
@@ -327,6 +335,72 @@ class NMPC:
         return self
 
     # -- setup ----------------------------------------------------------------
+    def _trace_signature(self, spec, aug, path, mt, ip_opts, dims):
+        """Exhaustive hashable key of everything baked into the problem
+        functions (see utils/trace_cache.py): JAX's
+        (``hilo_mpc_tpu/control/nmpc.py:_trace_signature``) with the device
+        and dtype in place of JAX's x64 flag. Returns (sig, keep); sig is
+        None when this configuration must not be shared (discrete inputs, as
+        in JAX)."""
+        keep = []
+        if self._mi is not None:
+            return None, keep
+        msig, mkeep = self._model.trace_signature()
+        keep += mkeep
+
+        def fid(obj):
+            if obj is None:
+                return None
+            keep.append(obj)
+            return ("id", id(obj))
+
+        def term_sig(t):
+            return (t.kind, tuple(int(i) for i in t.idx), arr_key(t.W),
+                    arr_key(t.ref), bool(t.trajectory_tracking),
+                    bool(t.path_following), fid(t.path_fn))
+
+        def con_sig(c):
+            return (fid(c.fn), int(c.n), arr_key(c.lb), arr_key(c.ub),
+                    bool(c.is_soft), float(c.weight), float(c.linear_weight),
+                    arr_key(c.max_violation))
+
+        x_soft = np.asarray(self._x_soft, dtype=bool)
+        sig = (
+            "nmpc", msig, int(dims.N), int(self.control_horizon), float(self._dt),
+            (spec.method, spec.degree, spec.scheme, spec.substeps, spec.newton_iters),
+            bool(aug), bool(path), bool(mt),
+            None if self._min_time is None else (
+                float(self._min_time["weight"]), float(self._min_time["dt_min"]),
+                float(self._min_time["dt_max"])),
+            None if self._path_speed is None else tuple(map(float, self._path_speed)),
+            arr_key(self._x_scaling), arr_key(self._u_scaling),
+            arr_key(x_soft), float(self._soft_weight),
+            ((arr_key(self._x_lb), arr_key(self._x_ub)) if x_soft.any() else None),
+            tuple(term_sig(t) for t in self.quad_stage_cost.terms),
+            tuple(term_sig(t) for t in self.quad_terminal_cost.terms),
+            "empty" if self.stage_cost.is_empty else fid(self.stage_cost.cost),
+            "empty" if self.terminal_cost.is_empty else fid(self.terminal_cost.cost),
+            tuple(con_sig(c) for c in self._stage_constraints),
+            tuple(con_sig(c) for c in self._terminal_constraints),
+            tuple(dataclasses.astuple(ip_opts)),
+            str(self._device), str(self._dtype),
+        )
+        try:
+            hash(sig)
+        except TypeError:
+            return None, keep
+        return sig, keep
+
+    def _shared_site(self, name, build):
+        """Per-configuration lazy cache: same-configuration instances share
+        the object built for ``name`` (no registry entry: private)."""
+        ent = self._trace_entry
+        if ent is None:
+            return build()
+        if name not in ent["sites"]:
+            ent["sites"][name] = build()
+        return ent["sites"][name]
+
     @records_setup
     def setup(self, options: Optional[dict] = None, solver_options: Optional[dict]
               = None, nlp_opts: Optional[dict] = None, device="cuda",
@@ -359,8 +433,12 @@ class NMPC:
         # the augmented formulations: u_prev in the state and Δu as the
         # control; a path parameter and its velocity; the dt-carrying state
         # and its stage-0 adjustment
-        stage_terms = list(self.quad_stage_cost.terms)
-        term_terms = list(self.quad_terminal_cost.terms)
+        # the problem functions keep the cost terms as they are now: a term
+        # edited later reaches the solver through the next setup(), as in
+        # JAX, and controllers that share them (utils/trace_cache.py) share
+        # no mutable term
+        stage_terms = [_snapshot(t) for t in self.quad_stage_cost.terms]
+        term_terms = [_snapshot(t) for t in self.quad_terminal_cost.terms]
         has_du = (any(t.kind == "inputs_change" for t in stage_terms + term_terms)
                   or np.any(np.isfinite(self._du_lb))
                   or np.any(np.isfinite(self._du_ub)) or Nc < N)
@@ -679,6 +757,17 @@ class NMPC:
         )
         _check_supported(funcs, dims, ip_opts)
         self._ip_opts = ip_opts
+        # a configuration set up before in this process: adopt its canonical
+        # objects, so what is keyed on them (the whole-solve route under the
+        # entry's sites) is shared
+        sig, keep = self._trace_signature(spec, aug, path, mt, ip_opts, dims)
+        ent = registry_lookup(sig)
+        if ent is not None:
+            self._funcs, self._dims, self._ip_opts = ent["funcs"], ent["dims"], ent["ip_opts"]
+        elif sig is not None:
+            ent = registry_store(sig, {"funcs": funcs, "dims": dims, "ip_opts": ip_opts,
+                                       "keep": keep})
+        self._trace_entry = ent
         self._warm_start = options.get("warm_start", True)
         guess_mode = options.get("initial_guess", "auto")
         if guess_mode not in ("auto", "rollout", "constant"):
@@ -1331,16 +1420,6 @@ class NMPC:
         self._rti = None
         return u0
 
-    def plot_iterations(self, save_as=None, show=False):
-        """The recorded iterate history as a figure: plotting is not ported
-        (``iteration_history`` holds the numbers)."""
-        if self.iteration_history is None:
-            raise RuntimeError("enable options={'ipopt_debugger': True} and call "
-                               "optimize() first")
-        raise NotImplementedError("plotting is not ported to the PyTorch package "
-                                  "yet — ROADMAP.md §A.10; the numbers are in "
-                                  "iteration_history")
-
     # -- batched solve ---------------------------------------------------------
     def solve_batch_fn(self, warm: bool = False):
         """Return a function (theta_B, xs0_B, X_init_B, U_init_B) -> OCPSolution
@@ -1372,8 +1451,8 @@ class NMPC:
 
     def _weights_key(self):
         """The numbers of the cost terms that the emitted problem bakes into
-        prm, as bytes: a term edited in place after setup() changes it; and
-        the soft state bounds and their weight."""
+        prm, as bytes (those of the last setup(), which the problem
+        functions keep); and the soft state bounds and their weight."""
         src = self._funcs.source
         return tuple((t.kind, np.asarray(t.idx).tobytes(), np.asarray(t.W).tobytes(),
                       None if t.ref is None else np.asarray(t.ref).tobytes(),
@@ -1392,9 +1471,11 @@ class NMPC:
         write is declined here; a problem that is eligible and then fails
         to build or launch raises. Bounds, weights and options reach the
         solver only through setup(), which makes new ``_funcs``,
-        ``_bounds`` and ``_ip_opts``; the cache is keyed on those objects
-        and on the cost terms' numbers, so a new setup() or a weight edited
-        in place drops it, and the traced route traces the problem again:
+        ``_bounds`` and ``_ip_opts`` (or adopts a registry entry's, whose
+        cache under its ``"whole_ip"`` site same-configuration controllers
+        share, one per bound values); the cache is keyed on those objects
+        and on the cost terms' numbers, so a new setup() drops it, and the
+        traced route traces the problem again:
         the constants of the problem functions' closures are read at that
         point, as JAX's ``jit`` reads them at trace time. Cold and warm
         solves share it: they differ only in mu0, a launch argument."""
@@ -1402,13 +1483,18 @@ class NMPC:
         weights = self._weights_key()
         if (c is None or c["funcs"] is not self._funcs or c["bounds"] is not self._bounds
                 or c["opts"] != self._ip_opts or c["weights"] != weights):
-            problem, why = whole_ip_gate(self._funcs, self._dims, self._bounds,
-                                         self._ip_opts, True)
-            c = self._wip = dict(funcs=self._funcs, bounds=self._bounds,
-                                 opts=self._ip_opts, weights=weights,
-                                 eligible=problem is not None, why=why,
-                                 problem=problem, launch={})
-        return c
+            # same-configuration controllers share one per bound values
+            shared = self._shared_site("whole_ip", dict)
+            key = (tuple(arr_key(b) for b in self._bounds_np), weights)
+            c = shared.get(key)
+            if c is None or c["funcs"] is not self._funcs or c["opts"] != self._ip_opts:
+                problem, why = whole_ip_gate(self._funcs, self._dims, self._bounds,
+                                             self._ip_opts, True)
+                c = shared[key] = dict(funcs=self._funcs, opts=self._ip_opts,
+                                       weights=weights, eligible=problem is not None,
+                                       why=why, problem=problem, launch={})
+            self._wip = dict(c, bounds=self._bounds)
+        return self._wip
 
     def _whole_ip_fn(self, cache, mu0):
         """The whole-solve kernel in float32 (the JAX kernel's precision):
@@ -1571,9 +1657,134 @@ class NMPC:
         self._rti_batch = None
         return U0[:, :nu] * self._u_scaling
 
+    def print_stats(self):
+        """Per-step solver statistics summary (p50/p99 solve time, iterations,
+        convergence rate) over the recorded closed-loop run."""
+        st = self.solution.get("stats") if self.solution is not None else None
+        if st is None or st.shape[1] == 0:
+            print("no recorded solves")
+            return
+        it, kkt, ms, conv = st
+        print(f"solves: {it.size} | converged {100 * np.nanmean(conv):.1f}% | "
+              f"iterations p50={np.nanmedian(it):.0f} max={np.nanmax(it):.0f} | "
+              f"solve time p50={np.nanpercentile(ms, 50):.1f} ms "
+              f"p99={np.nanpercentile(ms, 99):.1f} ms | "
+              f"kkt p50={np.nanmedian(kkt):.2e}")
+
     def return_prediction(self):
         """The last solve's predicted {"x", "u", "t"} (unscaled)."""
         return self.last_prediction
+
+    def plot_prediction(self, save_plot=False, plot_dir=None,
+                        name_file="mpc_prediction.png", show_plot=False,
+                        extras=None, extras_names=None, title=None):
+        """Plot the MPC's predicted state/input trajectories from the last
+        solve (reference: plot_prediction, mpc.py:868-1024) on the active
+        plot backend (matplotlib, or bokeh through
+        utils/plotting_bokeh.py), with the extras-overlay contract:
+        ``extras`` maps state/input names to arrays plotted over the
+        prediction."""
+        if self.last_prediction is None:
+            raise RuntimeError("call optimize() before plot_prediction()")
+        from ..utils.plotting import get_plot_backend
+        if get_plot_backend() == "bokeh":
+            from ..utils.plotting_bokeh import plot_prediction_bokeh
+            import os
+            save_as = (os.path.join(plot_dir or "",
+                                    str(name_file).replace(".png", ".html"))
+                       if save_plot else None)
+            return plot_prediction_bokeh(
+                self.last_prediction, self._model.dynamical_states,
+                self._model.inputs, extras=extras,
+                extras_names=extras_names, save_as=save_as, title=title,
+                time_unit=self._model.time_unit)
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        pred = self.last_prediction
+        x_names = list(self._model.dynamical_states)
+        u_names = list(self._model.inputs)
+        t = np.asarray(pred["t"])
+        n_panels = len(x_names) + len(u_names)
+        fig, axes = plt.subplots(n_panels, 1, figsize=(8, 2.2 * n_panels),
+                                 sharex=True, squeeze=False)
+        axes = axes.ravel()
+        extras = extras or {}
+        extras_names = list(extras_names or [])
+        # tolerate a short extras_names list: fall back to the extras key
+        keys = list(extras)
+        extras_names += keys[len(extras_names):]
+
+        def _extra_label(nm):
+            return extras_names[keys.index(nm)]
+        for i, nm in enumerate(x_names):
+            axes[i].plot(t, np.asarray(pred["x"])[:, i], "-o", ms=3,
+                         label="prediction")
+            if nm in extras:
+                e = np.asarray(extras[nm]).ravel()
+                axes[i].plot(t[:e.size], e, "--",
+                             label=_extra_label(nm))
+            axes[i].set_ylabel(nm)
+            axes[i].legend(loc="best", fontsize=8)
+        for j, nm in enumerate(u_names):
+            ax = axes[len(x_names) + j]
+            u = np.asarray(pred["u"])[:, j]
+            ax.step(t[:u.size], u, where="post", label="prediction")
+            if nm in extras:
+                e = np.asarray(extras[nm]).ravel()
+                ax.step(t[:e.size], e, "--", where="post",
+                        label=_extra_label(nm))
+            ax.set_ylabel(nm)
+            ax.legend(loc="best", fontsize=8)
+        axes[-1].set_xlabel(f"time [{self._model.time_unit}]")
+        if title:
+            fig.suptitle(title)
+        fig.tight_layout()
+        if save_plot:
+            import os
+            path = (os.path.join(plot_dir, name_file) if plot_dir
+                    else name_file)
+            fig.savefig(path, dpi=120)
+        if show_plot:  # pragma: no cover - interactive
+            plt.show()
+        return fig
+
+    def plot_iterations(self, save_as=None, show=False):
+        """Visualize the recorded IP iterate history (reference: plot_iterations,
+        optimizer.py:1562 + IpoptDebugger): ``iteration_history`` of the
+        last ``optimize``, which ``setup(options={'ipopt_debugger': True})``
+        records."""
+        hist = getattr(self, "iteration_history", None)
+        if hist is None:
+            raise RuntimeError("enable options={'ipopt_debugger': True} and call "
+                               "optimize() first")
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        n = int(hist["n"])
+        fig, axes = plt.subplots(3, 1, figsize=(8, 9))
+        its = np.arange(n)
+        axes[0].semilogy(its, np.maximum(hist["kkt"][:n], 1e-16), "-o", ms=3)
+        axes[0].set_ylabel("KKT error")
+        axes[1].semilogy(its, np.maximum(hist["mu"][:n], 1e-16), "-o", ms=3)
+        axes[1].set_ylabel("barrier mu")
+        nu = self._model.n_u
+        for it in range(0, n, max(1, n // 8)):
+            axes[2].plot(hist["U"][it, :, :nu].ravel(), alpha=0.4)
+        axes[2].plot(hist["U"][max(n - 1, 0), :, :nu].ravel(), "k", lw=2,
+                     label="final")
+        axes[2].set_ylabel("u trajectory per iterate")
+        axes[2].legend()
+        for ax in axes:
+            ax.grid(alpha=0.3)
+        fig.tight_layout()
+        if save_as:
+            fig.savefig(save_as, dpi=120)
+        if show:
+            plt.show()
+        return fig
 
     def __str__(self):
         feats = []

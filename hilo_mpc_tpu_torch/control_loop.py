@@ -9,10 +9,10 @@ LMPC and OCP (``optimize``, or NMPC's real-time iteration with
 mean), or any callable.
 The controller sees the plant states its own model names (a name-based
 index map); with other names it sees the whole state. Observers: MHE, KF,
-EKF, UKF, PF (``estimate(y=, u=)``).
-
-Not ported yet: the live figure (``live_plot``) and ``plot`` (ROADMAP.md
-§A.10).
+EKF, UKF, PF (``estimate(y=, u=)``). ``run(live_plot=...)`` redraws a live
+figure after every step (matplotlib, or bokeh through
+utils/plotting_bokeh.py) and ``plot`` draws the recorded loop
+(utils/plotting.py).
 """
 from __future__ import annotations
 
@@ -22,9 +22,90 @@ from .core.model import Model
 from .core.series import TimeSeries
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"— ROADMAP.md {item}")
+class _LiveLoopPlot:
+    """Incremental closed-loop figure, redrawn after every step.
+
+    Matplotlib analogue of the reference's live animation
+    (reference: control_loop.py:202-285 — bokeh periodic-callback server /
+    mpl animation). One panel per plant state/input; lines are updated in
+    place and the canvas flushed with a short ``plt.pause`` so the figure
+    animates in interactive backends and is a no-op-safe redraw under Agg.
+    """
+
+    def __init__(self, solution, pause: float = 1e-3, refs=None, bounds=None):
+        import matplotlib.pyplot as plt
+
+        self._plt = plt
+        self._solution = solution
+        self._pause = pause
+        panels = [("x", nm, i) for i, nm in enumerate(solution.names("x"))]
+        panels += [("u", nm, i) for i, nm in enumerate(solution.names("u"))]
+        self._panels = panels
+        was_interactive = plt.isinteractive()
+        plt.ion()
+        self._was_interactive = was_interactive
+        self.fig, axes = plt.subplots(len(panels), 1, sharex=True,
+                                      figsize=(8, 2.0 * len(panels)),
+                                      squeeze=False)
+        self._axes = axes.ravel()
+        self._lines = []
+        for ax, (kind, nm, _) in zip(self._axes, panels):
+            style = dict(drawstyle="steps-post") if kind == "u" else {}
+            (line,) = ax.plot([], [], "-o", ms=3, **style)
+            ax.set_ylabel(nm)
+            # static overlays, same contract as the bokeh live backend
+            if refs and nm in refs:
+                ax.axhline(float(np.asarray(refs[nm]).ravel()[0]),
+                           ls="--", lw=1.2, color="tab:green")
+            if bounds and nm in bounds:
+                for v in bounds[nm]:
+                    if v is not None and np.all(np.isfinite(v)):
+                        ax.axhline(float(np.asarray(v).ravel()[0]),
+                                   ls=":", lw=1.2, color="tab:red")
+            self._lines.append(line)
+        self._axes[-1].set_xlabel("t")
+        self.n_draws = 0
+
+    def update(self):
+        t = np.asarray(self._solution["t"]).ravel()
+        for line, ax, (kind, nm, i) in zip(self._lines, self._axes,
+                                           self._panels):
+            ys = np.asarray(self._solution[kind])[i]
+            line.set_data(t[: ys.size], ys)
+            ax.relim()
+            ax.autoscale_view()
+        self.fig.canvas.draw_idle()
+        self._plt.pause(self._pause)
+        self.n_draws += 1
+
+    def finish(self):
+        if not self._was_interactive:
+            self._plt.ioff()
+
+
+def _make_live_plotter(solution, live_plot, **kwargs):
+    """Live-plot dispatch: ``True`` follows the active plot backend; the
+    strings 'matplotlib' / 'bokeh' select explicitly (reference: the loop
+    animation honors the selected plot plugin, control_loop.py:202-285)."""
+    if not live_plot:
+        return None
+    from .utils.plotting import get_plot_backend
+
+    backend = (live_plot if isinstance(live_plot, str)
+               else (get_plot_backend() or "matplotlib"))
+    if backend == "bokeh":
+        from .utils.plotting_bokeh import LiveBokehLoopPlot
+
+        return LiveBokehLoopPlot(solution, **kwargs)
+    mpl_kwargs = {k: kwargs.pop(k) for k in ("refs", "bounds", "pause")
+                  if k in kwargs}
+    if kwargs:
+        import warnings
+
+        warnings.warn(
+            "these live_plot_kwargs are only used by the bokeh live "
+            f"backend; ignored on matplotlib: {sorted(kwargs)}", stacklevel=3)
+    return _LiveLoopPlot(solution, **mpl_kwargs)
 
 
 class SimpleControlLoop:
@@ -88,9 +169,15 @@ class SimpleControlLoop:
         call each step. ``rti=True`` drives an NMPC by real-time iteration:
         each step answers the state with ``rti_feedback`` and then prepares
         the next step ahead (the last step skips that prepare, and the next
-        run prepares at the state it observes)."""
-        if live_plot:
-            raise _not_ported("the live closed-loop figure (live_plot)", "§A.10")
+        run prepares at the state it observes).
+
+        ``live_plot=True`` redraws the loop after every step on the active
+        plot backend: matplotlib (in-place figure updates) or bokeh
+        (ColumnDataSource streaming into a saved auto-refreshing HTML
+        document, or a bokeh server app with ``live_plot_kwargs=
+        {'mode': 'server'}``); the strings ``'matplotlib'`` / ``'bokeh'``
+        select a backend explicitly. With bokeh selected but not installed
+        this raises the backend gate's ImportError."""
         plant = self._plant
         if plant.solution is None or plant.solution.n_samples == 0:
             raise RuntimeError("set plant initial conditions first "
@@ -99,6 +186,8 @@ class SimpleControlLoop:
             raise TypeError("rti=True needs a controller with an RTI mode "
                             f"(NMPC); got {type(self._controller).__name__}")
         self._rti = rti
+        plotter = _make_live_plotter(self.solution, live_plot,
+                                     **(live_plot_kwargs or {}))
         x0 = plant.solution["x:f"]
         for k in range(steps):
             u = self._control(x0, last=(k == steps - 1), **kwargs)
@@ -113,7 +202,13 @@ class SimpleControlLoop:
                 if est is not None:
                     x0 = np.atleast_1d(np.asarray(est))
             self.solution.append(plant.solution["t"][-1], x=x_true, u=u, y=y)
+            if plotter is not None:
+                plotter.update()
+        if plotter is not None:
+            plotter.finish()
         return self.solution
 
     def plot(self, **kwargs):
-        raise _not_ported("plotting", "§A.10")
+        from .utils.plotting import plot_series
+
+        return plot_series(self.solution, **kwargs)

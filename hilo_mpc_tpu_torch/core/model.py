@@ -364,10 +364,17 @@ class Model:
                 return out
             return fn
 
+        def mat_key(m):
+            return None if m is None else (m.shape, m.tobytes())
+
+        # content markers: controllers on models with equal matrices share a
+        # registry entry (trace_signature)
         self._ode = affine(At, Bt, nx)
+        self._ode._hilo_dsl_src = ("ss_ode", mat_key(A_), mat_key(B_))
         self._ode_origin, self._dsl = "state_space", None
         if Ct is not None or Dt is not None:
             self._meas = affine(Ct, Dt, ny)
+            self._meas._hilo_dsl_src = ("ss_meas", mat_key(C_), mat_key(D_))
         return self
 
     @property
@@ -419,6 +426,38 @@ class Model:
 
     def quad_fn(self) -> Optional[Callable]:
         return self._quad
+
+    def trace_signature(self):
+        """Hashable signature of everything that enters the problem functions
+        a controller or estimator builds on this model; returns (sig, keep).
+
+        Two models with equal signatures give behaviorally identical
+        ode/alg/meas/quad functions, so controllers built on them can share
+        one registry entry (utils/trace_cache.py). DSL-built and state-space
+        models hash by content (equation text or matrices, and the
+        variable-name layout); callable-built models by the id of the exact
+        function objects (same objects share, fresh lambdas do not).
+        ``keep`` lists the objects whose ids appear in ``sig`` (the
+        registry holds them so ids cannot be recycled)."""
+        keep = []
+
+        def fn_sig(fn):
+            if fn is None:
+                return None
+            src = getattr(fn, "_hilo_dsl_src", None)
+            if src is not None:
+                return ("dsl", src)
+            keep.append(fn)
+            return ("id", id(fn))
+
+        eq = ("fns", fn_sig(self._ode), fn_sig(self._alg),
+              fn_sig(self._meas), fn_sig(self._quad))
+        sig = (type(self).__name__, self.discrete, eq,
+               tuple(self._x.names), tuple(self._z.names),
+               tuple(self._u.names), tuple(self._p.names),
+               tuple(self.measurements), self.n_q,
+               None if self._z0 is None else tuple(np.asarray(self._z0)))
+        return sig, keep
 
     # -- structural analysis --------------------------------------------------
     def _probe_args(self, seed: int = 0, spread: float = 0.37):

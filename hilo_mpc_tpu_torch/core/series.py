@@ -3,8 +3,8 @@
 PyTorch port of ``hilo_mpc_tpu/core/series.py``. Storage is host numpy (device
 tensors are brought to the host before appending); per-variable access
 supports ``'x'``, a state name, ``'x:f'`` (final) and ``'x:0'`` (initial).
-``OptimizationSeries`` keeps per-solve solver statistics. Plotting is not
-ported yet (ROADMAP.md §A.10).
+``OptimizationSeries`` keeps per-solve solver statistics. ``plot`` draws
+through the active plot backend (utils/plotting.py).
 """
 from __future__ import annotations
 
@@ -206,6 +206,17 @@ class TimeSeries:
         from scipy.io import savemat
 
         savemat(path, {k.replace(":", "_"): v for k, v in self.to_dict().items()})
+
+    def plot(self, kinds=None, names=None, show: bool = False, save_as=None,
+             title=None):
+        """Plot through the active backend (matplotlib/bokeh/latex).
+
+        Reference: Series.plot dispatching to the PlotManager backend
+        (modules/base.py:3458-3530, plugins/plugins.py)."""
+        from ..utils.plotting import plot_series
+
+        return plot_series(self, kinds=kinds, names=names, show=show,
+                           save_as=save_as, title=title)
 
 
 class OptimizationSeries(TimeSeries):

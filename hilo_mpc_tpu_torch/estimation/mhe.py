@@ -15,11 +15,13 @@ Entry points: ``setup(dt, options, device=..., dtype=...)`` (explicit device
 and dtype, ``"cuda"`` unless the caller passes ``device="cpu"``);
 ``estimate`` for one closed-loop step (``runs > 1``: multi-start, all runs
 as one batch); ``estimate_batch`` for B independent windows, with
-``mesh=`` split over devices (parallel/sharding.py). There is no trace
-registry: PyTorch runs eagerly, so there is nothing to trace or share.
+``mesh=`` split over devices (parallel/sharding.py). Same-configuration
+estimators share the canonical problem objects through the registry of
+utils/trace_cache.py (its MHE weights in the key, as in JAX).
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 from typing import List, Optional
 
@@ -31,6 +33,7 @@ from ..core.integrators import IntegratorSpec, make_step
 from ..core.model import records_setup, resolve_device
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              _check_supported, solve_ocp)
+from ..utils.trace_cache import arr_key, registry_lookup, registry_store
 from .base import Estimator, _as_cov
 
 
@@ -306,6 +309,22 @@ class MovingHorizonEstimator(Estimator):
             const_cost_hessian=options.get("const_cost_hessian",
                                            _d["const_cost_hessian"]))
         _check_supported(funcs, dims, self._ip_opts)
+        # same-configuration estimators adopt the canonical objects: the key
+        # holds everything baked into the functions above (JAX's, with the
+        # device and dtype in place of the x64 flag)
+        msig, keep = m.trace_signature()
+        sig = ("mhe", msig, N, float(self._dt),
+               (spec.method, spec.degree, spec.scheme, spec.substeps, spec.newton_iters),
+               tuple(pe_idx), arr_key(W_meas), arr_key(W_noise), arr_key(W_arr_x),
+               arr_key(W_arr_p), tuple(dataclasses.astuple(self._ip_opts)),
+               str(self._device), str(dtype))
+        ent = registry_lookup(sig)
+        if ent is not None:
+            self._funcs, self._dims, self._ip_opts = ent["funcs"], ent["dims"], ent["ip_opts"]
+        else:
+            ent = registry_store(sig, {"funcs": funcs, "dims": dims,
+                                       "ip_opts": self._ip_opts, "keep": keep})
+        self._trace_entry = ent
         self._register_solution()
         self.solution.register("w", [f"w_{n}" for n in m.dynamical_states])
         if n_pe:

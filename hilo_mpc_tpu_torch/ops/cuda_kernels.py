@@ -11,6 +11,13 @@ free-x0 launches, ``<wrapper>.free_x0_launches``). For CPU tensors — and
 only for them — a wrapper returns its plain version instead; for CUDA
 tensors it launches the kernel or raises.
 
+The two Riccati kernels are registered operators (``torch.library.custom_op``):
+``hilo_mpc_tpu_torch::riccati_lq`` and ``hilo_mpc_tpu_torch::riccati_lq_wide``,
+each with its CUDA kernel for CUDA tensors, its plain version for CPU tensors
+(the dispatcher picks by the tensors' device) and a fake kernel that gives
+the output shapes, so ``torch.export`` keeps them as nodes of an exported
+graph (utils/aot.py). Their wrappers call the operators.
+
 Sources live in ``hilo_mpc_tpu_torch/csrc/`` and are built by ``nvcc`` at first
 use (ops/_build.py); the Riccati kernel is a template there, instantiated for
 each (nx, nu) a caller needs: the tiled kernel up to (8, 4), a variant with a
@@ -21,7 +28,7 @@ design per n padded to 8. The whole-solve interior point is in ops/whole_ip.py.
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -166,7 +173,7 @@ _LQ_ARGTYPES = ([ctypes.c_void_p] * 18
                 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int])
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_build_dir
 def _lq_entry(nx: int, nu: int, dtype, host: bool, tiling=None):
     """(entry point bound with ctypes, TB) of the instance for (nx, nu,
     dtype), built at first use: ``riccati_lq_f32`` / ``_f64`` on the card
@@ -237,8 +244,47 @@ def _ptrs(tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
-def _on_card(args) -> bool:
-    return any(t is not None and t.is_cuda for t in args)
+_LQ_OUT = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                torch.Tensor, torch.Tensor]
+
+
+def _lq_fake(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg):
+    """The output shapes of both Riccati operators (dX, dU, lam, K, kff,
+    cost_red) for ``torch.export`` and the other tracers."""
+    Bt, N, nx, nu = A.shape[0], A.shape[1], A.shape[2], B.shape[3]
+    return (A.new_empty((Bt, N + 1, nx)), A.new_empty((Bt, N, nu)),
+            A.new_empty((Bt, N, nx)), A.new_empty((Bt, N, nu, nx)),
+            A.new_empty((Bt, N, nu)), A.new_empty((Bt,)))
+
+
+@torch.library.custom_op("hilo_mpc_tpu_torch::riccati_lq", mutates_args=(),
+                         device_types="cpu")
+def riccati_lq_op(A: torch.Tensor, B: torch.Tensor, Q: torch.Tensor, S: torch.Tensor,
+                  R: torch.Tensor, q: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
+                  P_term: torch.Tensor, p_term: torch.Tensor,
+                  dx0: Optional[torch.Tensor], reg: float) -> _LQ_OUT:
+    """The operator of ``riccati_lq_cuda``; on CPU tensors its plain
+    version."""
+    return riccati_lq_reference(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=reg)
+
+
+@riccati_lq_op.register_kernel("cuda")
+def _riccati_lq_launch(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg):
+    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+    Bt, N, nx, nu = _check_lq(args, host=False)
+    fn, tb = _lq_entry(nx, nu, A.dtype, host=False)
+    bufs = _lq_buffers(args, Bt, N, nx, nu, tb)
+    with torch.cuda.device(A.device):
+        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None),
+                torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"riccati_lq kernel launch failed: cudaError {rc}")
+    riccati_lq_cuda.launches += 1
+    riccati_lq_cuda.free_x0_launches += dx0 is None
+    return bufs[:6]
+
+
+riccati_lq_op.register_fake(_lq_fake)
 
 
 def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
@@ -256,22 +302,10 @@ def riccati_lq_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     where P0 + reg·I is not positive definite), the free-x0 step of
     ``hilo_mpc_tpu/ops/ip_solver.py:633-642``.
     Returns (dX (Bt,N+1,nx), dU (Bt,N,nu), lam (Bt,N,nx), K (Bt,N,nu,nx),
-    kff (Bt,N,nu), cost_red (Bt,)).
+    kff (Bt,N,nu), cost_red (Bt,)). Runs the operator
+    ``hilo_mpc_tpu_torch::riccati_lq``.
     """
-    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
-    if not _on_card(args):
-        return riccati_lq_reference(*args, reg=reg)
-    Bt, N, nx, nu = _check_lq(args, host=False)
-    fn, tb = _lq_entry(nx, nu, A.dtype, host=False)
-    bufs = _lq_buffers(args, Bt, N, nx, nu, tb)
-    with torch.cuda.device(A.device):
-        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None),
-                torch.cuda.current_stream(A.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"riccati_lq kernel launch failed: cudaError {rc}")
-    riccati_lq_cuda.launches += 1
-    riccati_lq_cuda.free_x0_launches += dx0 is None
-    return bufs[:6]
+    return riccati_lq_op(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, float(reg))
 
 
 riccati_lq_cuda.launches = riccati_lq_cuda.free_x0_launches = 0
@@ -361,7 +395,7 @@ def riccati_lq_wide_source(nx: int, nu: int, group=None) -> str:
             f"RICCATI_LQ_WIDE_EXPORTS({nx}, {nu})\n")
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_build_dir
 def _lq_wide_entry(nx: int, nu: int, dtype, host: bool, group=None):
     """(entry point bound with ctypes, stash words per stage) of the wide
     instance for (nx, nu, dtype), built at first use."""
@@ -393,6 +427,39 @@ def _lq_wide_buffers(args, Bt, N, nx, nu, sw):
             torch.empty((Bt, N, sw), **kw))
 
 
+@torch.library.custom_op("hilo_mpc_tpu_torch::riccati_lq_wide", mutates_args=(),
+                         device_types="cpu")
+def riccati_lq_wide_op(A: torch.Tensor, B: torch.Tensor, Q: torch.Tensor,
+                       S: torch.Tensor, R: torch.Tensor, q: torch.Tensor,
+                       r: torch.Tensor, c: torch.Tensor, P_term: torch.Tensor,
+                       p_term: torch.Tensor, dx0: Optional[torch.Tensor], reg: float,
+                       group: int) -> _LQ_OUT:
+    """The operator of ``riccati_lq_wide_cuda`` (``group`` 0: the default
+    warps per scenario); on CPU tensors its plain version."""
+    return riccati_lq_reference(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=reg)
+
+
+@riccati_lq_wide_op.register_kernel("cuda")
+def _riccati_lq_wide_launch(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg, group):
+    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
+    Bt, N, nx, nu = _check_lq(args, host=False, check_size=_check_wide_size)
+    fn, sw = _lq_wide_entry(nx, nu, A.dtype, False, group or None)
+    bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
+    with torch.cuda.device(A.device):
+        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None),
+                torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"riccati_lq_wide kernel launch failed: cudaError {rc}")
+    riccati_lq_wide_cuda.launches += 1
+    riccati_lq_wide_cuda.free_x0_launches += dx0 is None
+    return bufs[:6]
+
+
+riccati_lq_wide_op.register_fake(
+    lambda A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg, group:
+    _lq_fake(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg))
+
+
 def riccati_lq_wide_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
                          reg: float = 1e-8, group=None):
     """The batched stagewise LQ solve of ``riccati_lq_cuda`` for the sizes
@@ -403,21 +470,13 @@ def riccati_lq_wide_cuda(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     (``dx0=None``) included; 1 <= nx <=
     ``RICCATI_WIDE_MAX_NX`` and 1 <= nu <= ``RICCATI_WIDE_MAX_NU`` (each size
     is built at its first use). ``group`` (warps per scenario) overrides
-    ``riccati_lq_wide_group``. Counts its own launches."""
-    args = (A, B, Q, S, R, q, r, c, P_term, p_term, dx0)
-    if not _on_card(args):
-        return riccati_lq_reference(*args, reg=reg)
-    Bt, N, nx, nu = _check_lq(args, host=False, check_size=_check_wide_size)
-    fn, sw = _lq_wide_entry(nx, nu, A.dtype, False, group)
-    bufs = _lq_wide_buffers(args, Bt, N, nx, nu, sw)
-    with torch.cuda.device(A.device):
-        rc = fn(*_ptrs(args), *_ptrs(bufs), Bt, N, float(reg), int(dx0 is None),
-                torch.cuda.current_stream(A.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"riccati_lq_wide kernel launch failed: cudaError {rc}")
-    riccati_lq_wide_cuda.launches += 1
-    riccati_lq_wide_cuda.free_x0_launches += dx0 is None
-    return bufs[:6]
+    ``riccati_lq_wide_group``. Counts its own launches. Runs the operator
+    ``hilo_mpc_tpu_torch::riccati_lq_wide``."""
+    if group is not None and group not in RICCATI_WIDE_GROUPS:
+        raise ValueError(f"riccati_lq_wide groups are {RICCATI_WIDE_GROUPS} warps, "
+                         f"got {group}")
+    return riccati_lq_wide_op(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, float(reg),
+                              int(group or 0))
 
 
 riccati_lq_wide_cuda.launches = riccati_lq_wide_cuda.free_x0_launches = 0
@@ -688,7 +747,7 @@ def fgm_boxqp_tc_source(n_pad: int) -> str:
             + '#include "fgm_boxqp_tc.cuh"\n')
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_build_dir
 def _fgm_tc_entry(n_pad: int):
     """``fgm_tc_f32`` of the tensor-core build for ``n_pad``, bound with
     ctypes and built at first use."""
@@ -721,7 +780,7 @@ def fgm_boxqp_source(n: int) -> str:
     return f'#define FGM_REG_N {int(n)}\n#include "fgm_boxqp_reg.cuh"\n'
 
 
-@functools.lru_cache(maxsize=None)
+@_build.per_build_dir
 def _fgm_reg_entry(n: int, host: bool):
     """The entry point of the register design for n, bound with ctypes and
     built at first use: ``fgm_reg_f32`` on the card (last argument the

@@ -300,6 +300,29 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
     ``solve_lq_parallel``. ``fix_x0=False`` frees x_0 (``x0`` is then unused: X_init[:, 0]
     is its start, as in the JAX solver): its bound rows stay, its
     stationarity row joins the KKT test and each LQ step gets dx0=None."""
+    return _run(funcs, dims, bounds, theta, x0, X_init, U_init, options, fix_x0,
+                mu0, lq_solver, None)
+
+
+def solve_ocp_carry(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
+                    theta: torch.Tensor, x0: torch.Tensor, X_init: torch.Tensor,
+                    U_init: torch.Tensor, options: IPOptions = IPOptions(),
+                    fix_x0: bool = True, carry: Optional[tuple] = None,
+                    steps: int = 0, finish: bool = False):
+    """``solve_ocp`` in pieces, for captured graphs (utils/aot.py): from
+    ``carry`` (the solver state's tensors as this function returns them;
+    None: the cold start of ``solve_ocp``), run ``steps`` iterations, the
+    finished scenarios frozen as in ``solve_ocp``, and return the state's
+    tensors, or with ``finish`` the ``OCPSolution``. The cold start, then
+    ``max_iter`` single steps, then ``finish`` give the X and U of
+    ``solve_ocp``, without its early exit (``options.early_exit`` and
+    ``record_iterates`` are not read)."""
+    return _run(funcs, dims, bounds, theta, x0, X_init, U_init, options, fix_x0,
+                None, make_lq_solver, (carry, steps, finish))
+
+
+def _run(funcs, dims, bounds, theta, x0, X_init, U_init, options, fix_x0, mu0,
+         lq_solver, resume):
     _check_supported(funcs, dims, options)
     if (bounds.lbx.dim() != 2 or bounds.ubx.dim() != 2 or bounds.lbu.dim() not in (2, 3)
             or bounds.ubu.shape != bounds.lbu.shape
@@ -316,13 +339,13 @@ def solve_ocp(funcs: OCPFunctions, dims: OCPDims, bounds: OCPBounds,
     torch.backends.cudnn.allow_tf32 = False
     try:
         return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
-                               options, fix_x0, mu0, lq_solver)
+                               options, fix_x0, mu0, lq_solver, resume)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
-                    fix_x0, mu0_dyn, make_lq) -> OCPSolution:
+                    fix_x0, mu0_dyn, make_lq, resume) -> OCPSolution:
     nx, nu, N = dims.nx, dims.nu, dims.N
     n_h, n_hN = dims.n_h, dims.n_hN
     m_box, mN_box = 2 * nu + 2 * nx, 2 * nx
@@ -473,8 +496,10 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
     const_H = opt.const_cost_hessian and not has_al
     if const_H:
         # quadratic costs: Hessian blocks are point-independent — evaluate once
-        _, _, Hxx_c, Hux_c, Huu_c = cost_terms(X_init[:, :-1], U_init, al0)
-        _, HN_c = term_terms(X_init[:, -1], al0)
+        # (at copies: make_fx's forward-mode derivatives refuse a view of
+        # a graph input as the primal, utils/aot.py)
+        _, _, Hxx_c, Hux_c, Huu_c = cost_terms(X_init[:, :-1].clone(), U_init, al0)
+        _, HN_c = term_terms(X_init[:, -1].clone(), al0)
 
     store_dtype = (getattr(torch, opt.lin_storage_dtype)
                    if opt.lin_storage_dtype is not None and dtype == torch.float32
@@ -793,7 +818,14 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
                            eqv=torch.full((Bn,), float("inf"), **kw))
                       if has_al else {}))
 
-    if opt.record_iterates:
+    n_loop, record = opt.max_iter, opt.record_iterates
+    if resume is not None:
+        # solve_ocp_carry: the given state, a given number of steps
+        vals, n_loop, finish = resume
+        record = False
+        if vals is not None:
+            carry = _Carry(*vals)
+    if record:
         # the per-iteration history ring of the JAX solver, batch-first
         hist = {"X": torch.zeros(Bn, opt.max_iter, N + 1, nx, **kw),
                 "U": torch.zeros(Bn, opt.max_iter, N, nu, **kw),
@@ -801,13 +833,13 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
                 "mu": torch.zeros(Bn, opt.max_iter, **kw),
                 "objective": torch.zeros(Bn, opt.max_iter, **kw)}
 
-    for i in range(opt.max_iter):
+    for i in range(n_loop):
         # finished scenarios freeze themselves, as in the JAX while_loop
         done = carry.converged | carry.diverged
-        if opt.early_exit and bool(done.all()):
+        if opt.early_exit and resume is None and bool(done.all()):
             break
         new = iteration(carry)
-        if opt.record_iterates:
+        if record:
             # a scenario still running is at its own iteration i: its
             # iterate before the update, the KKT error of that iterate and
             # the barrier it started from
@@ -818,6 +850,8 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         carry = _Carry(*[None if a is None else _select(done, a, b)
                          for a, b in zip(carry, new)])
 
+    if resume is not None and not finish:
+        return tuple(v for v in carry if v is not None)
     obj = objective(carry.X, carry.U, theta)
     status = torch.where(carry.converged, 0, torch.where(carry.diverged, 2, 1))
     sol = OCPSolution(
@@ -825,7 +859,7 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, opt,
         zN=carry.zN, mu=carry.mu, kkt_error=carry.kkt, objective=obj,
         iterations=carry.it, converged=carry.converged,
         status=status.to(torch.int32))
-    if opt.record_iterates:
+    if record:
         return sol, {**hist, "n": carry.it}
     return sol
 

@@ -260,17 +260,23 @@ def make_lq_solver(reg: float = 1e-9):
     """The batched LQ solve used by every interior-point iteration; the
     counterpart of ``hilo_mpc_tpu/ops/riccati.py:make_lq_solver_pallas``.
 
-    CPU tensors go to the plain sweeps above. CUDA tensors ALWAYS go to a
-    hand-written kernel, in float32 and float64 alike: (nx, nu) up to (8, 4)
-    to the tiled ``ops/cuda_kernels.py:riccati_lq_cuda``, larger sizes to
-    ``riccati_lq_wide_cuda`` (a group of warps per scenario, up to
-    (32, 16)). Unlike the JAX dispatcher there is no dtype or shape exit to
-    the plain path; the kernel raises on what it does not take.
-    ``dx0=None`` (a free initial state) goes to the kernels' free-x0 mode,
-    which solves for dx_0 from its own P_0 and p_0. The
-    blocks are broadcast to one batch shape (flattened to one batch axis)
-    and made contiguous first, because the kernel reads dense batch-first
-    arrays."""
+    Every call runs a registered Riccati operator
+    (``ops/cuda_kernels.py:riccati_lq_op``, ``riccati_lq_wide_op``), whose
+    kernel the dispatcher picks by the tensors' device: CPU tensors go to the
+    plain sweeps above, CUDA tensors ALWAYS to a hand-written kernel, in
+    float32 and float64 alike: (nx, nu) up to (8, 4) to the tiled
+    ``riccati_lq_cuda``, larger sizes to ``riccati_lq_wide_cuda`` (a group
+    of warps per scenario, up to (32, 16)). Unlike the JAX dispatcher there
+    is no dtype or shape exit to the plain path; the kernel raises on what it
+    does not take. ``dx0=None`` (a free initial state) goes to the kernels'
+    free-x0 mode, which solves for dx_0 from its own P_0 and p_0. The blocks
+    are broadcast to one batch shape (flattened to one batch axis) and made
+    contiguous first, because the kernel reads dense batch-first arrays. The
+    live solve and the solve that utils/aot.py exports are thus one code,
+    the operator a node of the exported graph. Nothing differentiates or
+    ``torch.func``-transforms through this step (the RTI gain and LQR run
+    ``backward_sweep`` itself), so the operators register no autograd or
+    vmap rule."""
     factory_reg = reg
 
     def solve(A, B, Q, S, R, q, r, c, P_term, p_term, dx0, reg=None):
@@ -278,9 +284,6 @@ def make_lq_solver(reg: float = 1e-9):
             raise ValueError(
                 f"make_lq_solver was built with reg={factory_reg}; per-call "
                 f"reg={reg} is not supported — rebuild the solver")
-        if not A.is_cuda:
-            return solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
-                            reg=factory_reg)
         from .cuda_kernels import (riccati_lq_cuda, riccati_lq_tiled_fits,
                                    riccati_lq_wide_cuda)
 

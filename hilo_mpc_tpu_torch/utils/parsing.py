@@ -419,6 +419,11 @@ def apply_parsed_equations(model, text: str) -> None:
                 spec.set_meta(var, **md)
     if parsed.discrete:
         model._discrete = True
+    # content markers: controllers on models built from equal text share a
+    # registry entry (Model.trace_signature, utils/trace_cache.py)
+    for fn in (parsed.ode, parsed.alg, parsed.meas, parsed.quad):
+        if fn is not None:
+            fn._hilo_dsl_src = text
     if parsed.ode is not None:
         model._ode = parsed.ode
         model._ode_origin = "dsl"

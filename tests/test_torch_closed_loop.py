@@ -317,10 +317,16 @@ def test_loop_with_callable_and_refusals():
     assert sol.n_samples == 3
     with pytest.raises(TypeError, match="rti"):
         loop.run(2, rti=True)
-    with pytest.raises(NotImplementedError, match="§A.10"):
-        loop.run(2, live_plot=True)
-    with pytest.raises(NotImplementedError, match="§A.10"):
-        loop.plot()
+    # without bokeh its live plot is refused before a step is taken; the
+    # matplotlib live figure and the loop's plot draw (Agg)
+    with pytest.raises(ImportError, match="bokeh"):
+        loop.run(2, live_plot="bokeh")
+    assert sol.n_samples == 3
+    import matplotlib
+    matplotlib.use("Agg")
+    assert loop.run(2, live_plot=True).n_samples == 5
+    fig = loop.plot(kinds=["x", "u"])
+    assert [ax.get_ylabel() for ax in fig.axes] == plant.dynamical_states + plant.inputs
 
     class Policy:
         """A trained policy (ported since): ``predict`` of the whole state."""

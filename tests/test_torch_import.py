@@ -20,6 +20,12 @@ import hilo_mpc_tpu_torch.parallel.sharding
 import hilo_mpc_tpu_torch.parallel.distributed
 import hilo_mpc_tpu_torch.embedded
 from hilo_mpc_tpu_torch import LP, NLP, QP, OptimizationSeries
+from hilo_mpc_tpu_torch import (Session, clear_trace_registry, get_plot_backend,
+                                set_plot_backend, trace_registry_stats)
+import hilo_mpc_tpu_torch.utils.aot
+import hilo_mpc_tpu_torch.utils.cache_guard
+import hilo_mpc_tpu_torch.utils.plotting_bokeh
+import hilo_mpc_tpu_torch.utils.profiling
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hilo_mpc_tpu", "triton"))
 print("LOADED=" + ",".join(loaded))
@@ -56,3 +62,39 @@ def test_missing_c_compiler_is_an_error(monkeypatch, tmp_path):
     monkeypatch.delenv("CC", raising=False)
     with pytest.raises(RuntimeError, match="no C compiler"):
         find_c_compiler()
+
+
+_BLOCKED = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("matplotlib", "bokeh"):
+            raise ImportError(f"{name} is blocked")
+        return None
+sys.meta_path.insert(0, Block())
+import hilo_mpc_tpu_torch as h
+from hilo_mpc_tpu_torch import (Session, clear_trace_registry, get_plot_backend,
+                                set_plot_backend, trace_registry_stats)
+import hilo_mpc_tpu_torch.utils.plotting_bokeh
+assert get_plot_backend() == "matplotlib" and trace_registry_stats()["entries"] == 0
+assert set(["Session", "set_plot_backend", "get_plot_backend", "clear_trace_registry",
+            "trace_registry_stats"]) <= set(h.__all__)
+try:
+    set_plot_backend("bokeh")
+except ImportError as err:
+    print("GATE", err)
+print("PLOTTING=" + ",".join(sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("matplotlib", "bokeh"))))
+"""
+
+
+def test_import_without_plotting_packages(tmp_path):
+    """The five flat names of the host utilities import with matplotlib and
+    bokeh blocked (the card's host has neither); the bokeh backend's gate
+    then raises its clear error."""
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": ROOT, "HOME": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "PLOTTING=\n" in proc.stdout, proc.stdout
+    assert "GATE plot backend 'bokeh' requires the bokeh package" in proc.stdout

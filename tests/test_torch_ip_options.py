@@ -102,8 +102,15 @@ def test_history_through_optimize():
         assert int(th["n"]) == int(jh["n"]) == tn.stats["iterations"]
         for k in ("X", "U", "kkt", "mu", "objective"):
             np.testing.assert_allclose(th[k], jh[k], rtol=1e-10, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="§A.10"):
-        tn.plot_iterations()
+    # the recorded history draws as the JAX package's figure does
+    import matplotlib
+    matplotlib.use("Agg")
+    fig, jfig = tn.plot_iterations(), jn.plot_iterations()
+    assert len(fig.axes) == len(jfig.axes) == 3
+    for a, b in zip(fig.axes, jfig.axes):
+        assert len(a.get_lines()) == len(b.get_lines())
+        for la, lb in zip(a.get_lines(), b.get_lines()):
+            np.testing.assert_allclose(la.get_xydata(), lb.get_xydata(), atol=1e-10)
 
 
 # -- the parallel Riccati scans --------------------------------------------------

@@ -287,13 +287,15 @@ def test_on_device_and_replicas():
     nmpc = make_nmpc(N=4)
     assert on_device(nmpc, "cpu") is nmpc
     rep = replica_on(nmpc, torch.device("cpu"))
-    assert rep is not nmpc and rep._funcs is not nmpc._funcs
+    # a copy of the same configuration on the same device shares the
+    # registry's problem objects (utils/trace_cache.py)
+    assert rep is not nmpc and rep._funcs is nmpc._funcs
     args = nmpc.prepare_batch(x0_batch(4))
     a = nmpc.solve_batch_fn()(*args)
     b = rep.solve_batch_fn()(*args)
     assert torch.equal(a.U, b.U) and torch.equal(a.iterations, b.iterations)
     # the original's state is untouched by the copy's setup
-    assert nmpc._funcs is not rep._funcs and nmpc.solution is not rep.solution
+    assert nmpc._bounds is not rep._bounds and nmpc.solution is not rep.solution
     mhe = _mhe(4)
     rm = replica_on(mhe, torch.device("cpu"))
     Ys, Us, x_arr = _windows(2, 4)

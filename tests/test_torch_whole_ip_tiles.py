@@ -226,10 +226,15 @@ def test_controller_keeps_one_prepared_path():
     cold(*args)
     warm(*args)
     assert tn._whole_ip_cache() is c
-    # a weight edited in place changes the emitted numbers: dropped
+    # a weight edited in place reaches the solver through setup(), as in
+    # JAX (the problem functions keep the terms of their setup): then the
+    # emitted numbers change and the cache is dropped
     tn.quad_stage_cost.terms[0].W[0, 0] = 11.0
+    assert tn._whole_ip_cache() is c
+    tn.setup(options={**KERNEL_OPTS, "pallas_full": True}, device=CPU, dtype=F64)
     c2 = tn._whole_ip_cache()
     assert c2 is not c and tn._whole_ip_cache() is c2
+    assert not np.array_equal(c2["problem"].prm, c["problem"].prm)
     # new bounds reach the solver through setup(): dropped
     tn.set_box_constraints(u_lb=[-2.0], u_ub=[2.0])
     tn.setup(options={**KERNEL_OPTS, "pallas_full": True}, device=CPU, dtype=F64)
