@@ -37,8 +37,11 @@ Phase 0  card name and power limit; build every CUDA kernel from the
          the msd, golden pathfollow_soft's controller, the CSTR with a
          generic cost and a measurement term, the flagship, phase 15's
          hybrid physics + ANN problems and phase 16's GP hybrid), each
-         build's registers and spills printed; the Riccati instances include
-         phase 16's (6, 1) (the SMPC surrogate).
+         build's registers and spills printed; the whole-solve kernel with
+         an implicit step (csrc/implicit.cuh: phases 1 and 12(a)'s
+         collocation flagship from the DSL, 12(b)'s golden dae_colloc
+         model traced), registers and spills printed; the Riccati
+         instances include phase 16's (6, 1) (the SMPC surrogate).
 Phase 1  each kernel against its plain PyTorch version on the card, at the
          shapes the main paths give it (for the Riccati kernel also a ragged
          last tile and chunk, (8, 4) at N=64 and inputs whose data_ptr is not
@@ -50,8 +53,10 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          shape the two n <= 128 designs against each other too; the
          whole-solve kernel in four row patterns,
          soft state bounds among them, its CROSS build on phase 11(a)'s
-         problem and its traced build on phase 14(a)'s msd (whole_ip_traced,
-         with the build's registers and spills): on 1024 scenarios float64
+         problem, its traced build on phase 14(a)'s msd (whole_ip_traced,
+         with the build's registers and spills) and its implicit build on
+         the collocation flagship (whole_ip_implicit, the same): on 1024
+         scenarios float64
          with equal iterations and U to 1e-12 (1e-9 for the traced build)
          and float32 to 5e-4; at B=131072 float32 within the float32
          plain version's stray from float64 plus 5e-4, both dtypes timed
@@ -147,9 +152,10 @@ Phase 10 the constrained general path: (a) the repo's own check
          scenarios against the plain LQ step, solves/s, and one profiled cold
          solve (device busy time, idle share, launches per iteration);
          (b) the CSTR with the terminal equality x_N[0] = 0.3 (the augmented
-         Lagrangian), N=15, 1024 scenarios, float64 on the card against the
+         Lagrangian), N=15, B_CPU_CHECK scenarios, float64 on the card against the
          CPU, and float32 reported; (c) the golden fixture
-         tests/golden/softcon_active.npz replayed through NMPC.optimize in
+         tests/golden/softcon_active.npz (its first GOLDEN_CARD_STEPS steps,
+         as every golden of phases 11, 12, 15 and 16) replayed through NMPC.optimize in
          float64 on the card.
 Phase 11 the augmented formulations: (a) phase 2's controller with golden
          du_tracking's input-change term (0.5) and Δu bounds ±0.5, the
@@ -168,9 +174,9 @@ Phase 11 the augmented formulations: (a) phase 2's controller with golden
          in float64 against the plain LQ step; under pure Newton steps
          pallas_full takes the whole-solve kernel (the traced route): no
          warning, one launch, no Riccati launch. (c) golden mintime's controller at
-         B=16384, float64, x0 = [-1, 0] + [0.25, 0.15]·N(0,1) from
+         B=4096, float64, x0 = [-1, 0] + [0.25, 0.15]·N(0,1) from
          default_rng(11): the converged fraction and the optimal dt range,
-         the first 1024 against the CPU (equal iterations, <= 1e-9).
+         the first B_CPU_CHECK against the CPU (equal iterations, <= 1e-9).
          (d) goldens du_tracking, pathfollow_soft and mintime replayed in
          float64 on the card (< 1e-4).
 Phase 12 implicit integration (Newton-solved collocation and DAE stages on
@@ -182,16 +188,24 @@ Phase 12 implicit integration (Newton-solved collocation and DAE stages on
          wall by part and one profiled cold solve; max|U_colloc - U_rk4| on
          the jointly converged, held to the RK4 path's float32 stray from
          float64 + 1e-4; the first 1024 in float64 on the card against the
-         CPU (equal iterations, <= 1e-9); pallas_full declines the implicit
-         integrator with a warning naming it and gives the general path's
-         bits. (b) golden dae_colloc's controller (a DAE model given as
-         callables, N=12, Radau d=3, the NMPC defaults) at B=131072, x0 =
+         CPU (equal iterations, <= 1e-9); then through pallas_full: the
+         whole-solve kernel with the emitted collocation step (its Newton
+         in the kernel, csrc/implicit.cuh), cold and warm, one launch per
+         solve and no Riccati launch, solves/s, converged >= 0.97,
+         iterations; U against the general path within the general path's
+         float32 stray from float64 + 5e-4; the first 1024 through the
+         float64 build against its plain version (equal iterations, <=
+         1e-9). (b) golden dae_colloc's controller (a DAE model given as
+         callables, N=12, Radau d=3, the NMPC defaults) at B_DAE_DEFAULTS, x0 =
          0.1 + 0.2·N(0,1) from default_rng(4), float32 at float32's tol
          1e-4 (the golden's 1e-9 is out of float32's reach), the Riccati
          kernel at (1, 1): converged >= 0.97, launches = Newton steps (2 per
-         iteration under Mehrotra); the first 1024 at the golden's options in
+         iteration under Mehrotra); the first B_CPU_CHECK at the golden's options in
          float64, card against CPU (<= 1e-9, equal iterations); the golden
-         replayed in float64 on the card (< 1e-4). (c) Seborg's CSTR
+         replayed in float64 on the card (< 1e-4); its model at
+         FLAGSHIP's pure-Newton options through pallas_full (the traced
+         build: the model's ode and alg traced into the emitted step) and
+         the general path, as (a). (c) Seborg's CSTR
          (tests/test_library.py:24-30's parameters, dt 0.05, Radau d=3) as a
          fleet: 20 steps at T_cr = 300 from x0 = [0.5, 350, 300] + [0.05, 2,
          2]·N(0,1) (default_rng(5)), B=131072, float32, rollouts/s and the
@@ -290,7 +304,7 @@ Phase 15 discrete inputs and the first half of machine learning (no
 Phase 16 Gaussian processes and stochastic MPC (no kernel added): (a)
          golden smpc_chance's SMPC (the 2-state model, its 25-point exact GP
          of a disturbance on x2 from x1, N=10, x1 <= 0.9 at level 0.95, |u|
-         <= 2; the surrogate over [mu; vec(P)] has nx = 6) at B=131072,
+         <= 2; the surrogate over [mu; vec(P)] has nx = 6) at B=B_SMPC,
          float32 (tol 5e-4: float32 stalls at KKT ~1.2e-4 on this problem),
          x0 = [0.3, 0] + [0.2, 0.1]·N(0,1) from default_rng(16) with P0 =
          1e-4·I, cold and warm through the Riccati kernel at (6, 1):
@@ -301,9 +315,10 @@ Phase 16 Gaussian processes and stochastic MPC (no kernel added): (a)
          examples/05_stochastic_smpc.py: its 30-point GP fitted on the card
          (L-BFGS-B) against the CPU's fit (float64, NLL to 1e-8 relative),
          then its feedback-gain SMPC (K = [1.0, 0.8], N=12, chance x1 <=
-         0.85) through optimize_batch at B=131072, float32. (c) golden
-         smpc_chance replayed in float64 on the card (< 1e-4), its first 10
-         steps on the CPU too (1e-9, equal iterations). (d) phase 2's
+         0.85) through optimize_batch at B=B_SMPC, float32. (c) golden
+         smpc_chance's first GOLDEN_CARD_STEPS steps replayed in float64 on
+         the card (< 1e-4), its first
+         SMPC_GOLDEN_CPU_STEPS steps on the CPU too (1e-9, equal iterations). (d) phase 2's
          controller with E a 16-point exact SE GP's posterior mean, both
          routes as phase 15(a) (the GP mean emitted as C++ by the trace).
          (e) exact predict at 131,072 queries card against CPU (float64,
@@ -318,9 +333,9 @@ Phase 17 dense programs, batches over devices and processes, the embedded
          26-38 shifted by p (min |x - p|^2, x0 + x1 >= 1, |x| <= 5) at
          B=131072 values of p from default_rng(17), and a dense QP (n = 64,
          m = 32 rows A x <= 1, |x| <= 1; H SPD and A shared, c per program,
-         default_rng(17)) at B=1024 (cut from 8192: cuSOLVER's batched eigh
-         takes the 64 x 64 matrices one at a time, timed here at 1024 x
-         32, 1024 x 64 and 8192 x 64); programs/s, converged >= 0.99,
+         default_rng(17)) at B=B_QP (cut from 8192: cuSOLVER's batched eigh
+         takes the 64 x 64 matrices one at a time, timed here at B_QP x
+         32, B_QP x 64 and 2·B_QP x 64); programs/s, converged >= 0.99,
          iterations; the first 256 of each card against CPU (the sweep:
          equal iterations, x to 1e-9; the QP at tol 1e-8: equal iterations
          on >= 0.95, x to 1e-6, its barrier systems' conditioning
@@ -358,7 +373,7 @@ Phase 18 the host utilities (no kernel added; the Riccati kernels are
          its launches read from the trace (phase 2's 8), SolveTimer's stats
          over 5 warm solves; (d) export_model_step(batch=131072) on the card
          against the model's step, and export_nmpc_solver(flagship float64,
-         batch=8192) (its export time, the Riccati operator a node of the
+         batch=B_AOT) (its export time, the Riccati operator a node of the
          exported iteration), reloaded in a child process that builds no
          controller: max|ΔU| against the live solve_batch_fn, converged
          share. The kernels line's phase18_launches count the Riccati
@@ -382,6 +397,20 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 131072
 N = 20
+# the scenarios that phases 10(b), 11(c), 12(a) and 12(b) also solve on the
+# host's CPU to hold the card against it
+B_CPU_CHECK = 256
+# the steps of each golden fixture that phases 10(c), 11(d), 12(b), 15(c)
+# and 16(c) replay on the card: the first GOLDEN_CARD_STEPS (the CPU tests
+# replay every step)
+GOLDEN_CARD_STEPS = 10
+# the SMPC batches of phase 16(a), (b)
+B_SMPC = 32768
+
+
+def golden_steps(data):
+    """The golden fixture's steps that the card replays."""
+    return min(GOLDEN_CARD_STEPS, data["U_gold"].shape[0])
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cstr_tracking.npz")
 GOLDEN_LMPC = os.path.join(ROOT, "tests", "golden", "lmpc_di.npz")
 GOLDEN_MHE = os.path.join(ROOT, "tests", "golden", "mhe_cstr.npz")
@@ -394,7 +423,7 @@ GOLDEN_HYBRID = os.path.join(ROOT, "tests", "golden", "hybrid_ann.npz")
 KERNELS = ("riccati_lq", "riccati_lq_wide", "fgm_boxqp", "fgm_boxqp_resident",
            "fgm_boxqp_column_blocks", "whole_ip", "riccati_lq_free_x0",
            "riccati_lq_wide_free_x0", "whole_ip_cross", "whole_ip_traced",
-           "fgm_boxqp_registers")
+           "fgm_boxqp_registers", "whole_ip_implicit")
 # the tiled Riccati instances phase 1 checks; phase 11 runs (3, 1) (the
 # Δu CSTR), (3, 3) (path following) and (3, 2) (minimum time), phase 16
 # (6, 1) (the SMPC surrogate of a 2-state model)
@@ -779,6 +808,7 @@ def phase1(report):
     phase1_whole_ip(report.setdefault("whole_ip", {}))
     phase1_whole_ip_cross(report.setdefault("whole_ip_cross", {}))
     phase1_whole_ip_traced(report.setdefault("whole_ip_traced", {}))
+    phase1_whole_ip_implicit(report.setdefault("whole_ip_implicit", {}))
 
 
 def idle_lane_share(iterations):
@@ -1528,6 +1558,86 @@ def phase1_whole_ip_traced(report):
         f"{int(k.iterations.max())}); registers float32 {regs['float32'][0]} "
         f"({regs['float32'][1]} bytes spilled), float64 {regs['float64'][0]} "
         f"({regs['float64'][1]} bytes spilled)")
+    assert float(both.float().mean()) >= 0.97 and off <= stray + 5e-4, (off, stray)
+    report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by, float32_registers=regs["float32"],
+                  float64_registers=regs["float64"])
+
+
+# the flagship under Radau collocation of degree 3 (phases 1 and 12(a))
+COLLOC_FLAGSHIP = {**FLAGSHIP, "integration_method": "collocation", "degree": 3}
+
+
+def implicit_problems():
+    """{label: emitted problem} of the whole-solve builds with an implicit
+    step: the collocation flagship (DSL route, a Newton of 6 unknowns) and
+    golden dae_colloc's model at FLAGSHIP's options (traced route, Radau d=3
+    on x and z, 6 unknowns)."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import whole_ip_gate
+    out = {}
+    for label, ctl in (("collocation", build_cstr_nmpc(COLLOC_FLAGSHIP, torch.float32)),
+                       ("dae_colloc", dae_nmpc(torch.float32, options=FLAGSHIP))):
+        problem, why = whole_ip_gate(ctl._funcs, ctl._dims, ctl._bounds, ctl._ip_opts,
+                                     True)
+        assert problem is not None and "implicit.cuh" in problem.text, (label, why)
+        out[label] = problem
+    return out
+
+
+def phase1_whole_ip_implicit(report):
+    """The whole-solve kernel with an emitted implicit step (the flagship
+    under Radau collocation d=3: per stage and IP iteration 8 Newton steps
+    of 6 unknowns on plain values, one tangent solve over the dual type):
+    against its plain version on the first 1024 in both dtypes; at B=131072
+    float32 timed one call and back to back beside its operations bound and
+    the plain version, held to the float32 plain version's stray from the
+    float64 one plus 5e-4; the build's registers and spills."""
+    import torch
+    from hilo_mpc_tpu_torch.ops.whole_ip import WholeIPLaunch, solve_ocp_full_reference
+    f32, f64 = torch.float32, torch.float64
+    ctl = {dt: build_cstr_nmpc(COLLOC_FLAGSHIP, dt) for dt in (f64, f32)}
+    nmpc = ctl[f32]
+    problem = implicit_problems()["collocation"]
+    args = nmpc.prepare_batch(flagship_x0s())
+    err = traced_kernel_vs_plain("phase1 whole_ip_implicit (collocation)", problem, ctl,
+                                 args)
+    f, opts = (nmpc._funcs, nmpc._dims, nmpc._bounds), nmpc._ip_opts
+    launch = WholeIPLaunch(problem, nmpc._dims, f32, args[0].device)
+    kernel = lambda: launch.launch(*args, opts.mu_init)  # noqa: E731
+    ms = cuda_time_ms(kernel)
+    b2b_ms = cuda_time_ms(kernel, inner=INNER)
+    plain_ms = cuda_time_ms(lambda: solve_ocp_full_reference(*f, *args, opts), reps=3,
+                            warmup=1)
+    k = launch.launch(*args, opts.mu_init)
+    r = solve_ocp_full_reference(*f, *args, opts)
+    r64 = solve_ocp_full_reference(ctl[f64]._funcs, ctl[f64]._dims, ctl[f64]._bounds,
+                                   *[a.double() for a in args], opts)
+    torch.cuda.synchronize()
+    both = k.converged & r.converged
+    gap = float((k.U - r.U).abs()[both].max())
+    j = both & r64.converged
+    stray = float((r.U.double() - r64.U).abs()[j].max())
+    off = float((k.U.double() - r64.U).abs()[j].max())
+    its = int(k.iterations.sum())
+    b_ms, b_by = bound_ms(*whole_ip_work(problem, nmpc._dims, B_MAIN,
+                                         args[0].shape[2], its))
+    regs = build_registers(problem)
+    log(f"phase1 whole_ip_implicit (CSTR, Radau d=3, nx=2 nu=1, {problem.region} "
+        f"values per scenario) B={B_MAIN} N={N} float32: converged kernel "
+        f"{float(k.converged.float().mean()):.4f} plain "
+        f"{float(r.converged.float().mean()):.4f}, max|U_kernel - U_plain| on the "
+        f"jointly converged {gap:.3e}; against the float64 plain version: plain "
+        f"{stray:.3e}, kernel {off:.3e}; kernel {ms:.4f} ms one call, {b2b_ms:.4f} "
+        f"ms back to back ({INNER} calls per run), plain {plain_ms:.4f} ms (median "
+        f"of 3 runs); bound {b_ms:.4f} ms ({b_by}; {problem.flops} operations per "
+        f"scenario-iteration, {its} scenario-iterations): {b_ms / ms:.1%} of the "
+        f"bound one call, {b_ms / b2b_ms:.1%} back to back; idle-lane share "
+        f"{idle_lane_share(k.iterations):.4f} (iterations p50 "
+        f"{float(k.iterations.float().median()):g} max {int(k.iterations.max())}); "
+        f"registers float32 {regs['float32'][0]} ({regs['float32'][1]} bytes "
+        f"spilled), float64 {regs['float64'][0]} ({regs['float64'][1]} bytes "
+        f"spilled)")
     assert float(both.float().mean()) >= 0.97 and off <= stray + 5e-4, (off, stray)
     report.update(max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
                   bound_ms=b_ms, bound_by=b_by, float32_registers=regs["float32"],
@@ -2617,7 +2727,7 @@ def phase10(report):
     profile_solve("phase10 msd cold solve", lambda: nmpc.solve_batch_fn()(*args), loops)
 
     # (b) the augmented Lagrangian: card against CPU in float64, float32 told
-    x0c = flagship_x0s(1024)
+    x0c = flagship_x0s(B_CPU_CHECK)
     sols = {}
     for dev_, dt in (("cpu", torch.float64), ("cuda", torch.float64),
                      ("cuda", torch.float32)):
@@ -2630,7 +2740,7 @@ def phase10(report):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         sols[(dev_, dt)] = s_
-        log(f"phase10 CSTR x_N[0] = 0.3 N=15 B=1024 {dev_} {str(dt)[6:]}: "
+        log(f"phase10 CSTR x_N[0] = 0.3 N=15 B={B_CPU_CHECK} {dev_} {str(dt)[6:]}: "
             f"{wall:.4f} s wall, converged {float(s_.converged.float().mean()):.4f}, "
             f"iterations p50 {float(s_.iterations.float().median()):g} max "
             f"{int(s_.iterations.max())}, riccati_lq launches {riccati_lq_cuda.launches}")
@@ -2656,7 +2766,7 @@ def phase10(report):
     n0 = riccati_lq_cuda.launches
     t0 = time.perf_counter()
     devs = []
-    for k in range(U_gold.shape[0]):
+    for k in range(golden_steps(data)):
         u = gold.optimize(X_meas[k])
         devs.append(float(np.abs(u - U_gold[k]).max()))
         assert gold.stats["converged"], (k, gold.stats)
@@ -2848,14 +2958,14 @@ def phase11_pathfollow(report):
 
 
 def phase11_mintime(report):
-    """(c) Golden mintime's controller at B=16384, float64: the card against
-    the CPU on the first 1024 scenarios; the converged fraction and the
-    optimal dt."""
+    """(c) Golden mintime's controller at B=4096, float64: the card against
+    the CPU on the first B_CPU_CHECK scenarios; the converged fraction and
+    the optimal dt."""
     import numpy as np
     import torch
     from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
 
-    Bt = 16384
+    Bt = 4096
     rng = np.random.default_rng(11)
     x0s = np.array([-1.0, 0.0]) + np.array([0.25, 0.15]) * rng.standard_normal((Bt, 2))
     card = mintime_nmpc(torch.float64)
@@ -2878,11 +2988,11 @@ def phase11_mintime(report):
     assert float(dt.min()) >= 0.02 - 1e-9 and float(dt.max()) <= 0.6 + 1e-9
     cpu = mintime_nmpc(torch.float64, device="cpu")
     t0 = time.perf_counter()
-    ref = cpu.solve_batch_fn()(*cpu.prepare_batch(x0s[:1024]))
+    ref = cpu.solve_batch_fn()(*cpu.prepare_batch(x0s[:B_CPU_CHECK]))
     t_cpu = time.perf_counter() - t0
-    dev = float((sol.U[:1024].cpu() - ref.U).abs().max())
-    eq = bool(torch.equal(sol.iterations[:1024].cpu(), ref.iterations))
-    log(f"phase11(c) first 1024 scenarios: card against CPU max|ΔU| {dev:.3e}, equal "
+    dev = float((sol.U[:B_CPU_CHECK].cpu() - ref.U).abs().max())
+    eq = bool(torch.equal(sol.iterations[:B_CPU_CHECK].cpu(), ref.iterations))
+    log(f"phase11(c) first {B_CPU_CHECK} scenarios: card against CPU max|ΔU| {dev:.3e}, equal "
         f"iterations {eq} (CPU {t_cpu:.2f} s)")
     assert eq and dev <= 1e-9, dev
     report["riccati_lq"].setdefault("phase11_launches", {})["mintime"] = launches
@@ -2906,7 +3016,7 @@ def phase11_goldens():
         n0 = riccati_lq_cuda.launches
         t0 = time.perf_counter()
         devs = []
-        for k in range(data["U_gold"].shape[0]):
+        for k in range(golden_steps(data)):
             u = ctl.optimize(data["X_meas"][k])
             assert ctl.stats["converged"], (name, k, ctl.stats)
             devs.append(float(np.abs(u - data["U_gold"][k]).max()))
@@ -3006,12 +3116,11 @@ def phase12(report):
 
 def phase12_colloc_flagship(report):
     """(a) The flagship under Radau collocation of degree 3."""
-    import warnings
     import torch
     from hilo_mpc_tpu_torch.ops import riccati
     from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda, riccati_lq_wide_cuda
     f32, f64 = torch.float32, torch.float64
-    colloc = {**FLAGSHIP, "integration_method": "collocation", "degree": 3}
+    colloc = COLLOC_FLAGSHIP
     ctl = build_cstr_nmpc(colloc, f32)
     x0s = flagship_x0s()
     ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256]))       # untimed warm-up
@@ -3049,20 +3158,21 @@ def phase12_colloc_flagship(report):
         f"({float(both.float().mean()):.4f}); the RK4 path's float32 stray {stray:.3e}")
     assert dev <= stray + 1e-4, (dev, stray)
     card_vs_cpu("phase12(a) card vs CPU",
-                lambda d: build_cstr_nmpc(colloc, f64, device=d), x0s[:1024])
-    # pallas_full declines the implicit integrator and solves on the general path
-    whole = build_cstr_nmpc({**colloc, "pallas_full": True}, f32)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        fn = whole.solve_batch_fn()
-    msgs = [str(w.message) for w in caught]
-    assert any("an implicit integrator (collocation)" in m for m in msgs), msgs
-    s_whole = fn(*args)
-    same = all(torch.equal(a, b) for a, b in zip(s_whole, sol))
-    log(f"phase12(a) pallas_full: warned ({msgs[0][-80:]!r}); the general path's bits "
-        f"{same}")
-    assert same
+                lambda d: build_cstr_nmpc(colloc, f64, device=d), x0s[:B_CPU_CHECK])
+    # pallas_full: the whole-solve kernel with the emitted collocation step
+    label = "phase12(a) pallas_full collocation"
+    two_routes(label, lambda dt, o: build_cstr_nmpc({**colloc, **(o or {})}, dt), x0s,
+               report, warm=True)
+    r = report[label]
+    assert r["route_gap"] <= r["stray"] + 5e-4, r
+    report["whole_ip_implicit"]["launches"] = r["launches"] + r["warm_launches"]
     report["riccati_lq"].setdefault("phase12_launches", {})["colloc_flagship"] = launches
+
+
+# golden dae_colloc's controller at the NMPC defaults (Mehrotra, up to 28
+# iterations) on the general path; its pure-Newton run through both routes
+# is at B_MAIN
+B_DAE_DEFAULTS = 32768
 
 
 def phase12_dae(report):
@@ -3075,32 +3185,33 @@ def phase12_dae(report):
     f32, f64 = torch.float32, torch.float64
     x0s = 0.1 + 0.2 * np.random.default_rng(4).standard_normal((B_MAIN, 1))
     # float32 cannot reach the golden's KKT tolerance 1e-9 (no scenario
-    # converges), so the full-width run takes float32's 1e-4
+    # converges), so this run takes float32's 1e-4; at B_DAE_DEFAULTS
     ctl = dae_nmpc(f32, options={"tol": 1e-4})
     ctl.solve_batch_fn()(*ctl.prepare_batch(x0s[:256]))
     torch.cuda.synchronize()
     riccati_lq_cuda.launches = 0
     with count_calls(riccati, "backward_sweep") as sweeps:
-        _, sol, _, (t_prep, t_cold, _) = timed_batch(ctl, x0s)
+        _, sol, _, (t_prep, t_cold, _) = timed_batch(ctl, x0s[:B_DAE_DEFAULTS])
     launches = riccati_lq_cuda.launches
     loops = int(sol.iterations.max())
     conv = float(sol.converged.float().mean())
-    assert sol.U.shape == (B_MAIN, 12, 1) and bool(torch.isfinite(sol.U).all())
-    log(f"phase12(b) golden dae_colloc's controller B={B_MAIN} N=12 float32 (tol "
+    assert sol.U.shape == (B_DAE_DEFAULTS, 12, 1) and bool(torch.isfinite(sol.U).all())
+    log(f"phase12(b) golden dae_colloc's controller B={B_DAE_DEFAULTS} N=12 float32 (tol "
         f"1e-4, NMPC defaults): prepare_batch {t_prep:.4f} s; cold "
-        f"{B_MAIN / t_cold:.1f} solves/s ({t_cold:.4f} s wall), converged {conv:.4f}, "
+        f"{B_DAE_DEFAULTS / t_cold:.1f} solves/s ({t_cold:.4f} s wall), converged {conv:.4f}, "
         f"iterations p50 {float(sol.iterations.float().median()):g} max {loops}; "
         f"riccati_lq launches {launches} = Newton steps {2 * loops} (Mehrotra: 2 per "
         f"iteration), plain backward sweeps {sweeps.calls}")
     assert conv >= 0.97, conv
     assert (launches, sweeps.calls) == (2 * loops, 0)
-    card_vs_cpu("phase12(b) card vs CPU", lambda d: dae_nmpc(f64, device=d), x0s[:1024])
+    card_vs_cpu("phase12(b) card vs CPU", lambda d: dae_nmpc(f64, device=d),
+                x0s[:B_CPU_CHECK])
     data = np.load(GOLDEN_DAE)
     gold = dae_nmpc(f64)
     n0 = riccati_lq_cuda.launches
     t0 = time.perf_counter()
     devs, its = [], []
-    for k in range(data["U_gold"].shape[0]):
+    for k in range(golden_steps(data)):
         u = gold.optimize(data["X_meas"][k])
         assert gold.stats["converged"], (k, gold.stats)
         devs.append(float(np.abs(u - data["U_gold"][k]).max()))
@@ -3111,6 +3222,13 @@ def phase12_dae(report):
         f"max|u - u_gold| = {max(devs):.3e}")
     assert max(devs) < 1e-4, devs
     report["riccati_lq"].setdefault("phase12_launches", {})["dae_colloc"] = launches
+    # its model at FLAGSHIP's pure-Newton options: the traced build
+    label = "phase12(b) pallas_full dae_colloc"
+    two_routes(label, lambda dt, o: dae_nmpc(dt, options={**FLAGSHIP, **(o or {})}),
+               x0s, report)
+    r = report[label]
+    assert r["route_gap"] <= r["stray"] + 5e-4, r
+    report["whole_ip_implicit"]["phase12_dae_launches"] = r["launches"]
 
 
 def phase12_fleet():
@@ -3708,13 +3826,15 @@ def phase14(report):
     phase14_two_emitters(report)
 
 
-def two_routes(label, build, x0s, report):
+def two_routes(label, build, x0s, report, warm=False):
     """A traced problem at B=131072, float32, through pallas_full (exactly
     one whole-solve launch, no Riccati launch, no warning) and through the
     general path (the Riccati kernel): solves/s of both, each converged on
     >= 0.97, U within the general path's float32 stray from its float64
     answer plus 5e-4 on the jointly converged; the first 1024 through the
-    kernel against its plain version. Returns the kernel route's solution."""
+    kernel against its plain version. ``warm``: also a warm solve through
+    the kernel from the cold solution shifted (one launch, no Riccati
+    launch, converged >= 0.97). Returns the kernel route's solution."""
     import warnings
 
     import torch
@@ -3747,6 +3867,24 @@ def two_routes(label, build, x0s, report):
     (sw, tw, w_full, w_ric), (sg, tg, g_full, g_ric) = runs.values()
     assert (w_full, w_ric) == (1, 0), (label, w_full, w_ric)
     assert g_full == 0 and g_ric > 0, (label, g_full, g_ric)
+    extra = {}
+    if warm:
+        X_w, U_w = shifted(sw, args[1])
+        solve_ocp_full_cuda.launches = riccati_lq_cuda.launches = 0
+        t0 = time.perf_counter()
+        s_w = whole.solve_batch_fn(warm=True)(args[0], args[1], X_w, U_w)
+        torch.cuda.synchronize()
+        t_w = time.perf_counter() - t0
+        conv = float(s_w.converged.float().mean())
+        launches = (solve_ocp_full_cuda.launches, riccati_lq_cuda.launches)
+        log(f"{label} whole-solve kernel warm B={B_MAIN} float32: {B_MAIN / t_w:.1f} "
+            f"solves/s ({t_w:.4f} s wall), converged {conv:.4f}, iterations p50 "
+            f"{float(s_w.iterations.float().median()):g} max "
+            f"{int(s_w.iterations.max())}; whole_ip launches {launches[0]}, "
+            f"riccati_lq launches {launches[1]}")
+        assert bool(torch.isfinite(s_w.U).all()) and conv >= 0.97, (label, conv)
+        assert launches == (1, 0), (label, launches)
+        extra = dict(warm_solves_per_s=B_MAIN / t_w, warm_launches=launches[0])
     g64 = build(f64, None)
     s64 = g64.solve_batch_fn()(*[a.double() for a in args])
     torch.cuda.synchronize()
@@ -3762,7 +3900,8 @@ def two_routes(label, build, x0s, report):
     err = traced_kernel_vs_plain(f"{label} kernel vs plain", whole._wip["problem"],
                                  {f32: whole, f64: g64}, args)
     report[label] = dict(whole_solves_per_s=B_MAIN / tw, general_solves_per_s=B_MAIN / tg,
-                         max_abs_err=err, route_gap=dev, launches=w_full)
+                         max_abs_err=err, route_gap=dev, stray=stray, launches=w_full,
+                         **extra)
     return sw
 
 
@@ -4078,7 +4217,7 @@ def phase15_golden(report):
 
     def replay(ctl):
         us, its = [], []
-        for k in range(data["U_gold"].shape[0]):
+        for k in range(golden_steps(data)):
             us.append(ctl.optimize(data["X_meas"][k]))
             assert ctl.stats["converged"], (k, ctl.stats)
             its.append(ctl.stats["iterations"])
@@ -4088,7 +4227,8 @@ def phase15_golden(report):
         t0 = time.perf_counter()
         us[dev], its = replay(hybrid_nmpc(HYBRID_GOLDEN, f64, horizon=15, device=dev))
         walls[dev] = time.perf_counter() - t0
-    gold = float(np.abs(us["cuda"] - data["U_gold"]).max())
+    u_gold = data["U_gold"][:golden_steps(data)]
+    gold = float(np.abs(us["cuda"] - u_gold).max())
     cpu = float(np.abs(us["cuda"] - us["cpu"]).max())
     log(f"phase15(c) golden hybrid_ann (N=15, float64) general path: card "
         f"{walls['cuda']:.2f} s, CPU {walls['cpu']:.2f} s for {len(us['cuda'])} steps; "
@@ -4101,7 +4241,7 @@ def phase15_golden(report):
     tn._solve = lambda th, x0, X, U, mu0, options=None: launch(th, x0, X, U, mu0)
     solve_ocp_full_cuda.launches = 0
     u_k = replay(tn)[0]
-    dev_k = float(np.abs(u_k - data["U_gold"]).max())
+    dev_k = float(np.abs(u_k - u_gold).max())
     log(f"phase15(c) golden hybrid_ann through the whole-solve kernel's float64 "
         f"instance: max|u - u_gold| {dev_k:.3e}, {solve_ocp_full_cuda.launches} "
         f"launches, max|u_kernel - u_general| {float(np.abs(u_k - us['cuda']).max()):.3e}")
@@ -4268,6 +4408,7 @@ def phase15_learned(report):
 # states, the card-against-CPU batch, the msd of examples/05_stochastic_smpc.py,
 # the GP hybrid's training set and phase 16(e)'s GP work
 SMPC_B_CHECK = 512
+# the golden's steps that phase 16(c) also runs on the CPU
 SMPC_GOLDEN_CPU_STEPS = 10
 SMPC_X0, SMPC_SPREAD = (0.3, 0.0), (0.2, 0.1)
 SMPC_GOLDEN = {"dt": 0.1, "tol": 1e-9, "max_iter": 80}
@@ -4365,7 +4506,7 @@ def phase16_smpc(report):
                                                      riccati_lq_reference)
     f32, f64 = torch.float32, torch.float64
     ctl = smpc_chance_ctl(SMPC_F32, f32)
-    x0s = smpc_x0s(B_MAIN)
+    x0s = smpc_x0s(B_SMPC)
     lq = lq_of_solve(ctl, ctl.prepare_batch(x0s[:4096]))
     riccati_lq_cuda.launches = 0
     args, sol, sol_w, (t_prep, t_cold, t_warm) = timed_batch(ctl, x0s, warm=True)
@@ -4374,7 +4515,7 @@ def phase16_smpc(report):
         assert bool(torch.isfinite(s_.U).all()), kind
         conv = float(s_.converged.float().mean())
         log(f"phase16(a) SMPC golden smpc_chance (surrogate nx=6, N=10, chance "
-            f"x1 <= 0.9 at 0.95) B={B_MAIN} float32 {kind}: {B_MAIN / t:.1f} solves/s "
+            f"x1 <= 0.9 at 0.95) B={B_SMPC} float32 {kind}: {B_SMPC / t:.1f} solves/s "
             f"({t:.4f} s wall), converged {conv:.4f}, iterations p50 "
             f"{float(s_.iterations.float().median()):g} max {int(s_.iterations.max())}")
         assert conv >= 0.97, (kind, conv)
@@ -4488,9 +4629,9 @@ def phase16_feedback(report):
     smpc.set_initial_covariance(np.eye(2) * 1e-4)
     smpc.setup(options=SMPC_F32, device="cuda", dtype=torch.float32)
     rng = np.random.default_rng(0)
-    x0s = np.zeros((B_MAIN, 6))
-    x0s[:, :2] = rng.normal([0.0, 0.0], [0.2, 0.1], size=(B_MAIN, 2))
-    x0s[:, 2:] = np.tile(np.eye(2).ravel() * 1e-4, (B_MAIN, 1))
+    x0s = np.zeros((B_SMPC, 6))
+    x0s[:, :2] = rng.normal([0.0, 0.0], [0.2, 0.1], size=(B_SMPC, 2))
+    x0s[:, 2:] = np.tile(np.eye(2).ravel() * 1e-4, (B_SMPC, 1))
     smpc.optimize_batch(x0s[:256])
     riccati_lq_cuda.launches = 0
     t0 = time.perf_counter()
@@ -4498,7 +4639,7 @@ def phase16_feedback(report):
     t = time.perf_counter() - t0
     conv = float(sol.converged.float().mean())
     log(f"phase16(b) feedback-gain SMPC (K = [1.0, 0.8], N=12) optimize_batch "
-        f"B={B_MAIN} float32: {B_MAIN / t:.1f} solves/s ({t:.4f} s wall), converged "
+        f"B={B_SMPC} float32: {B_SMPC / t:.1f} solves/s ({t:.4f} s wall), converged "
         f"{conv:.4f}, iterations p50 {float(sol.iterations.float().median()):g} max "
         f"{int(sol.iterations.max())}; riccati_lq launches {riccati_lq_cuda.launches}")
     assert np.all(np.isfinite(u)) and conv >= 0.9, conv
@@ -4507,13 +4648,14 @@ def phase16_feedback(report):
 
 
 def phase16_golden(report):
-    """(c) Golden smpc_chance replayed in float64 on the card (25 steps) and
-    its first SMPC_GOLDEN_CPU_STEPS steps on the CPU."""
+    """(c) Golden smpc_chance replayed in float64 on the card (its first
+    GOLDEN_CARD_STEPS steps) and its first SMPC_GOLDEN_CPU_STEPS steps on
+    the CPU."""
     import numpy as np
     import torch
     data = np.load(os.path.join(ROOT, "tests", "golden", "smpc_chance.npz"))
     us, walls, its = {}, {}, {}
-    for dev, steps in (("cuda", data["U_gold"].shape[0]), ("cpu", SMPC_GOLDEN_CPU_STEPS)):
+    for dev, steps in (("cuda", golden_steps(data)), ("cpu", SMPC_GOLDEN_CPU_STEPS)):
         ctl = smpc_chance_ctl(SMPC_GOLDEN, torch.float64, dev)
         t0 = time.perf_counter()
         u_dev, it = [], []
@@ -4523,7 +4665,7 @@ def phase16_golden(report):
             it.append(ctl.stats["iterations"])
         walls[dev], us[dev], its[dev] = time.perf_counter() - t0, np.array(u_dev), it
     n_cpu = SMPC_GOLDEN_CPU_STEPS
-    gold = float(np.abs(us["cuda"] - data["U_gold"]).max())
+    gold = float(np.abs(us["cuda"] - data["U_gold"][:golden_steps(data)]).max())
     cpu = float(np.abs(us["cuda"][:n_cpu] - us["cpu"]).max())
     same = its["cuda"][:n_cpu] == its["cpu"]
     log(f"phase16(c) golden smpc_chance (N=10, float64): card {walls['cuda']:.2f} s for "
@@ -4640,8 +4782,9 @@ def phase16_gp_work(report):
 # cards, a world-size-1 NCCL group and the embedded C export
 # the dense QP's batch: above n = 32 cuSOLVER's batched eigh takes the
 # matrices one at a time (0.75 ms per 64 x 64 float64 matrix on the H100,
-# phase 17(a)), so every iteration costs 0.77 s at 1024 and ~6 s at 8192
-B_QP = 1024
+# phase 17(a)), so every iteration costs ~0.2 s at 256, 0.77 s at 1024 and
+# ~6 s at 8192
+B_QP = 256
 N_QP, M_QP = 64, 32
 B_FUSED, STEPS_FUSED = 8192, 5
 B_GROUP = 16384
@@ -4791,11 +4934,11 @@ def phase17_programs(report):
         dx, df, tight_same)
     # the eigenvalue clip's library call at the QP's shapes: above n = 32
     # cuSOLVER's batched eigh takes the matrices one at a time, so a batch
-    # of 8192 (the QP's batch before the cut) costs 8x that of B_QP
+    # of 2·B_QP costs 2x that of B_QP
     import torch
     from hilo_mpc_tpu_torch.ops.ip_solver import _eigh
     eigh_s = {}
-    for B, n in ((B_QP, 32), (B_QP, N_QP), (8 * B_QP, N_QP)):
+    for B, n in ((B_QP, 32), (B_QP, N_QP), (2 * B_QP, N_QP)):
         M = torch.randn(B, n, n, dtype=torch.float64, device="cuda")
         M = M @ M.transpose(1, 2)
         _eigh(M[:8])
@@ -5103,7 +5246,7 @@ def phase17_embedded(report):
     report["phase17(c)"] = out
 
 
-B_AOT = 8192
+B_AOT = 2048
 # the child process of phase 18(d): the exported solve, reloaded with no
 # model code and no controller
 AOT_CHILD = """
@@ -5445,6 +5588,11 @@ def build_jobs():
     for label, problem in traced_problems().items():
         jobs.append((f"whole_ip traced {label} ({problem.region} values per scenario)",
                      _build.source_library_path, problem.text))
+    # the implicit steps of phases 1 and 12 (the collocation flagship from
+    # the DSL, golden dae_colloc's model traced)
+    for label, problem in implicit_problems().items():
+        jobs.append((f"whole_ip implicit {label} ({problem.region} values per scenario)",
+                     _build.source_library_path, problem.text))
     # the hybrid physics + ANN problems of phase 15 and phase 16's GP hybrid
     # (traced as well)
     for label, problem in hybrid_problems().items():
@@ -5521,6 +5669,11 @@ def main():
             log(f"    traced build registers per thread: float32 {regs['float32'][0]} "
                 f"({regs['float32'][1]} bytes spilled), float64 "
                 f"{regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
+        if label.startswith("whole_ip implicit"):
+            regs = whole_ip_registers(lib + ".log")
+            log(f"    implicit build registers per thread: float32 {regs['float32'][0]} "
+                f"({regs['float32'][1]} bytes spilled), float64 "
+                f"{regs['float64'][0]} ({regs['float64'][1]} bytes spilled)")
         if label.startswith("whole_ip du_cross"):
             regs = whole_ip_registers(lib + ".log")
             log(f"    CROSS build (nx=3, nu=1) registers per thread: float32 "
@@ -5591,7 +5744,10 @@ def main():
                 "whole_ip_cross": "hilo_mpc_tpu/ops/pallas_ip.py:143 with the cost's "
                                   "cross block at :571",
                 "whole_ip_traced": "hilo_mpc_tpu/ops/pallas_ip.py:143 with the traced "
-                                   "model and cost of :215-322"}
+                                   "model and cost of :215-322",
+                "whole_ip_implicit": "hilo_mpc_tpu/ops/pallas_ip.py:143 with an implicit "
+                                     "integrator step (hilo_mpc_tpu/core/integrators.py:"
+                                     "96-118, 249-357)"}
     sources = {"riccati_lq": "riccati_lq.cuh", "riccati_lq_wide": "riccati_lq_wide.cuh",
                "riccati_lq_free_x0": "riccati_lq.cuh",
                "riccati_lq_wide_free_x0": "riccati_lq_wide.cuh",
@@ -5602,7 +5758,7 @@ def main():
                "fgm_boxqp_registers": "fgm_boxqp_reg.cuh",
                "fgm_boxqp_column_blocks": "fgm_boxqp.cu",
                "whole_ip": "whole_ip.cuh", "whole_ip_cross": "whole_ip.cuh",
-               "whole_ip_traced": "whole_ip.cuh"}
+               "whole_ip_traced": "whole_ip.cuh", "whole_ip_implicit": "implicit.cuh"}
     kernels = []
     for name in KERNELS:
         r = report[name]

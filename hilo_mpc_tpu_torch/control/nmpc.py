@@ -35,8 +35,10 @@ u (..., n_u), theta (..., n_theta).
 The model may be a DAE, integrated by any method of core/integrators.py
 (``integration_method``, ``degree``, ``collocation_scheme``,
 ``newton_iters``); the algebraic states' Newton guess is the model's z0, else
-zeros. Such problems, and any implicit integrator, take the general path
-under ``pallas_full`` (with a warning naming the reason).
+zeros. ``pallas_full`` takes them (the emitted step runs the Newton inside
+the kernel, csrc/implicit.cuh) up to a Newton of ``NEWTON_MAX`` unknowns;
+above it, and with a free final time, it warns naming the reason and takes
+the general path.
 
 Same-configuration controllers share what ``setup`` and the whole-solve
 route build (utils/trace_cache.py): the canonical problem objects and, under
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 from torch.func import hessian, jacrev, vmap
 
-from ..core.integrators import IMPLICIT_METHODS, IntegratorSpec, make_step
+from ..core.integrators import IntegratorSpec, make_step
 from ..core.model import Model, one_row_last, records_setup, resolve_device
 from ..core.series import TimeSeries
 from ..ops.codegen_cuda import OCPSource
@@ -657,11 +659,7 @@ class NMPC:
         # what sends a problem from ops/codegen_cuda.py's emitter to the
         # traced route of ops/codegen_fx.py (dsl_error)
         cost_error = dsl_error = None
-        if spec.method.lower() in IMPLICIT_METHODS:
-            cost_error = f"an implicit integrator ({spec.method})"
-        elif model.n_z:
-            cost_error = "algebraic states (a DAE model)"
-        elif mt:
+        if mt:
             cost_error = "a free final time"
         if any(t.path_following for t in stage_terms + term_terms):
             dsl_error = "a path-following reference (a callable of the path parameter)"
@@ -683,7 +681,8 @@ class NMPC:
             soft_weight=soft_w, cost_error=cost_error, augment_du=aug,
             dsl_error=dsl_error,
             n_theta=off_rt + sum(t.n for t in term_terms if t.runtime_ref),
-            dtype=dtype, device=self._device)
+            dtype=dtype, device=self._device,
+            z0=tuple(float(v) for v in z_guess.detach().cpu().double().tolist()))
         funcs = OCPFunctions(dyn=dyn, stage_cost=stage_cost, term_cost=term_cost,
                              stage_ineq=stage_ineq if n_h else None,
                              term_ineq=term_ineq if n_hN else None,
@@ -1441,12 +1440,15 @@ class NMPC:
             warnings.warn("pallas_full requested but the problem is not "
                           "kernel-eligible (the whole-solve kernel takes box "
                           "constraints, soft state bounds and soft generic "
-                          "constraints, pure Newton steps, fix_x0, an explicit "
-                          "integrator, an ODE model in the equation DSL, by "
-                          "state-space matrices or as a callable, and any cost "
-                          "that traces to its op table: quadratic, generic, "
-                          "measurement and path-following terms; declined "
-                          f"here: {cache['why']}); using the general path")
+                          "constraints, pure Newton steps, fix_x0, explicit and "
+                          "implicit integrators (collocation, irk, the "
+                          "cvodes/idas stand-ins) with a Newton of at most "
+                          "NEWTON_MAX unknowns, an ODE or DAE model in the "
+                          "equation DSL, by state-space matrices or as a "
+                          "callable, and any cost that traces to its op table: "
+                          "quadratic, generic, measurement and path-following "
+                          f"terms; declined here: {cache['why']}); using the "
+                          "general path")
         return lambda th, x0s, Xi, Ui: self._solve(th, x0s, Xi, Ui, mu_val)
 
     def _weights_key(self):

@@ -25,7 +25,9 @@
 // the sizes NX, NU, N, NT, the active box rows (row_mask(k) over the 2NU+2NX
 // candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, row_off(k) their
 // first slot, TERM_MASK over [x-ub; lb-x] of the terminal stage), the
-// integrator step `dyn` over a scalar or dual type, and the cost in closed
+// integrator step `dyn` over a scalar or dual type (an implicit step, a
+// collocation or a DAE's algebraic Newton, runs its Newton inside it:
+// csrc/implicit.cuh), and the cost in closed
 // form: the quadratic terms and the soft state bounds' relu² penalty, whose
 // Hessian depends on the point, so stage_hess and term_hess take it (a
 // problem without soft bounds ignores it). Every number (bound offsets, weights, references, scalings,

@@ -10,9 +10,14 @@ in-kernel AD, so this module writes the model as C++ instead:
   ``+ - * / **``, unary minus and calls into the DSL's function table) into
   a function template over a scalar type ``S``; with ``S`` the dual number of
   ``csrc/dual.cuh`` one pass gives F and [A | B] (forward mode);
-- the step wraps it in the configured ERK tableau with substeps, or the
-  discrete map (an implicit integrator, collocation or a DAE model's Newton
-  stages, has no emitter), with the solver scaling and the theta unpack of
+- the step wraps it in the configured ERK tableau with substeps, the
+  discrete map, or a collocation step (Radau or Gauss-Legendre, ``irk``,
+  the ``cvodes``/``idas`` stand-ins); a DAE model's algebraic equations
+  become ``alg`` and the step solves them by Newton (at every ERK stage,
+  at every collocation node together with the node states), as
+  core/integrators.py:make_step does, through csrc/implicit.cuh: the Newton
+  on plain values, the implicit function theorem's tangents in the dual
+  pass; all with the solver scaling and the theta unpack of
   ``control/nmpc.py`` (x = xs·sx, u = us·su, p = theta[2:2+n_p],
   t = theta[0], h = theta[1]); under the Δu augmentation the state carries
   u_prev (scaled by su) after the model's states, the control is Δu, the
@@ -44,9 +49,11 @@ generic cost, a measurement term, a soft generic constraint, a
 path-following reference or path parameter: ``OCPSource.dsl_error``) by
 ops/codegen_fx.py from a ``torch.fx`` trace of the problem functions, which
 shares ``_struct_head``, ``_rows`` and the solver's operation count with
-this module. What neither route can write (an implicit integrator,
-algebraic states, a free final time: ``OCPSource.cost_error``; more than
-``MAX_ROWS`` candidate rows) raises ``NotImplementedError``.
+this module (for an implicit step the traced route traces the model's own
+functions and wraps them in this module's step). What neither route can
+write (a free final time: ``OCPSource.cost_error``; more than ``MAX_ROWS``
+candidate rows; a Newton of more than ``NEWTON_MAX`` unknowns; a path
+parameter with an implicit step) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.integrators import IMPLICIT_METHODS, IntegratorSpec, erk_tableau
+from ..core.integrators import (IMPLICIT_METHODS, IntegratorSpec,
+                                collocation_coefficients, erk_tableau)
 from ..utils.parsing import _CallStripper
 
 # DSL function -> (C++ function in csrc/dual.cuh, arity)
@@ -78,6 +86,10 @@ _FUNCS = {
 _CONSTS = {"pi": math.pi}
 # candidate rows of a stage fit one 32-bit mask
 MAX_ROWS = 32
+# the most unknowns of an implicit step's Newton (d·(nx + nz) for
+# collocation, nz for an explicit or discrete step of a DAE model): its
+# Jacobian, NEWTON_MAX² values, lives in one thread's registers
+NEWTON_MAX = 16
 # the whole-solve kernel's tiles: TB scenarios per block, and the blocks per
 # SM that __launch_bounds__ asks for in the float32 and the float64 build,
 # which caps a thread's registers near 65536 / (TB · MINB). Float32: 8
@@ -102,9 +114,9 @@ class OCPSource:
     problem holds a part that this module's emitter cannot write, what that
     part is (``dsl_error``: the problem then takes the traced route of
     ops/codegen_fx.py); where neither emitter can, what that is
-    (``cost_error``: an implicit integrator, algebraic states, a free final
-    time); and the dtype and device of the problem functions' closures, in
-    which the traced route traces them."""
+    (``cost_error``: a free final time); the dtype and device of the problem
+    functions' closures, in which the traced route traces them; and the
+    algebraic states' Newton guess ``z0``."""
     model: object
     spec: IntegratorSpec
     off_rs: int
@@ -125,6 +137,8 @@ class OCPSource:
     n_theta: Optional[int] = None
     dtype: object = None
     device: object = None
+    # the algebraic states' Newton guess (the model's z0, else zeros)
+    z0: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -258,34 +272,49 @@ def model_emit_error(model) -> Optional[str]:
     return None
 
 
-def emit_model(model) -> tuple:
-    """C++ of the model's state equations: (text of ``rhs``, operation
-    count, function-call count). ``rhs(x, u, p, t, out)`` is a function
-    template over the scalar type ``S`` of x, u and out (T or a dual
-    number); p and t are plain ``T``."""
-    nx, nu = model.n_x, model.n_u
-    if model.n_z:
-        raise NotImplementedError("DAE models (algebraic states) cannot be "
-                                  "emitted as C++")
+def emit_model(model, implicit: bool = False) -> tuple:
+    """C++ of the model's equations: (text, operation count, function-call
+    count of ``rhs``, the same two of ``alg``). ``rhs(x, u, p, t, out)`` is a
+    function template over the scalar type ``S`` of x, u and out (T or a
+    dual number); p and t are plain ``T``. A DAE model's functions take its
+    algebraic states z (type ``S``) after x: ``rhs(x, z, u, p, t, out)``
+    and its algebraic residuals ``alg(x, z, u, p, t, out)``. For an
+    implicit step (``implicit``) both also take ``prm`` before ``out``, as
+    the traced model's functions (ops/codegen_fx.py) need it."""
+    nx, nu, nz = model.n_x, model.n_u, model.n_z
     if nu == 0:
         raise NotImplementedError("a model without inputs cannot be emitted "
                                   "for the whole-solve kernel")
     origin = getattr(model, "_ode_origin", None)
-    body = []
+    body, alg_body = [], []
+    alg_ops = alg_calls = 0
     if origin == "dsl":
         dsl = model._dsl
+        text = getattr(model._ode, "_hilo_dsl_src", None)
+        if nz and not (dsl.alg and text is not None
+                       and getattr(model._alg, "_hilo_dsl_src", None) == text):
+            raise NotImplementedError(
+                "the algebraic equations are not the equation DSL's of the state "
+                "equations (ops/codegen_fx.py traces them)")
         names = {n: f"x[{i}]" for n, i in dsl.x_idx.items()}
+        names.update({n: f"z[{i}]" for n, i in dsl.z_idx.items()})
         names.update({n: f"u[{i}]" for n, i in dsl.u_idx.items()})
         names.update({n: f"p[{i}]" for n, i in dsl.p_idx.items()})
         names.update({n: _lit(v) for n, v in dsl.constants.items()})
         names.update(t="t", k="t")
-        ex = _Expr(names)
-        for j, (name, src) in enumerate(dsl.aux):
-            body.append(f"  const auto a{j} = {ex(src)};")
-            ex.names[name] = f"a{j}"
-        for i, src in enumerate(dsl.rhs):
-            body.append(f"  out[{i}] = S({ex(src)});")
-        ops, calls = ex.ops, ex.calls
+
+        def emit(srcs):
+            ex, lines = _Expr(dict(names)), []
+            for j, (name, src) in enumerate(dsl.aux):
+                lines.append(f"  const auto a{j} = {ex(src)};")
+                ex.names[name] = f"a{j}"
+            for i, src in enumerate(srcs):
+                lines.append(f"  out[{i}] = S({ex(src)});")
+            return lines, ex.ops, ex.calls
+
+        body, ops, calls = emit(dsl.rhs)
+        if nz:
+            alg_body, alg_ops, alg_calls = emit(dsl.alg)
     elif origin == "state_space":
         A = model._ss["A"]
         Bm = model._ss["B"]
@@ -302,11 +331,18 @@ def emit_model(model) -> tuple:
             "the model's equations are a Python callable: this emitter writes "
             "models given in the equation DSL or by state-space matrices "
             "(ops/codegen_fx.py traces the others)")
+    zarg = "const S* z, " if nz else ""
+    parg = "const T* prm, " if implicit else ""
     text = ("  template <typename T, typename S>\n"
-            "  HM_HD static void rhs(const S* x, const S* u, const T* p, T t, "
-            "S* out) {\n"
+            f"  HM_HD static void rhs(const S* x, {zarg}const S* u, const T* p, T t, "
+            f"{parg}S* out) {{\n"
             + "\n".join("  " + line for line in body) + "\n  }\n")
-    return text, ops, calls
+    if nz:
+        text += ("  template <typename T, typename S>\n"
+                 "  HM_HD static void alg(const S* x, const S* z, const S* u, "
+                 f"const T* p, T t, {parg}S* out) {{\n"
+                 + "\n".join("  " + line for line in alg_body) + "\n  }\n")
+    return text, ops, calls, alg_ops, alg_calls
 
 
 class _Prm:
@@ -320,27 +356,274 @@ class _Prm:
         return len(self.vals) - 1
 
 
-def _emit_step(spec: IntegratorSpec, nx: int) -> tuple:
+def _collocation(spec: IntegratorSpec) -> tuple:
+    """(degree, scheme) of a collocation step as core/integrators.py:make_step
+    builds it: ``irk`` as ``collocation``, ``cvodes`` and ``idas`` Radau at
+    degree max(d, 3)."""
+    if spec.method.lower() in ("cvodes", "idas"):
+        return max(int(spec.degree), 3), "radau"
+    return int(spec.degree), spec.scheme
+
+
+def newton_size(spec: IntegratorSpec, nx: int, nz: int) -> int:
+    """Unknowns of the step's Newton solve: d·(nx + nz) for collocation, nz
+    for an explicit or discrete step of a DAE model, 0 for one of an ODE
+    model."""
+    if spec.method.lower() in IMPLICIT_METHODS:
+        return _collocation(spec)[0] * (nx + nz)
+    return nz
+
+
+def _call(fn: str, x: str, z: Optional[str], u: str, t: str, out: str,
+          types: str = "T, S") -> str:
+    """A call of the model's ``rhs`` or ``alg`` in an implicit step: z only
+    for a DAE model."""
+    zarg = f"{z}, " if z is not None else ""
+    return f"{fn}<{types}>({x}, {zarg}{u}, p, {t}, prm, {out});"
+
+
+def _alg_newton(ind: str, nx: int, nz: int, nu: int, x: str, t: str, iters: int,
+                tangents: Optional[str]) -> list:
+    """An explicit or discrete step's algebraic Newton at the state ``x`` and
+    time ``t``: nz unknowns from the guess zg (updated in place), the
+    Jacobian g_z by one Dual<T, nz> pass; with ``tangents`` the name of an
+    S array that receives z with the implicit function theorem's tangents
+    (csrc/implicit.cuh:ift)."""
+    i2 = ind + "  "
+    lines = [f"{ind}{{",
+             f"{i2}T xp[{nx}], up[{nu}];",
+             f"{i2}for (int i = 0; i < {nx}; ++i) xp[i] = hm::plain({x}[i]);",
+             f"{i2}for (int j = 0; j < {nu}; ++j) up[j] = hm::plain(u[j]);",
+             f"{i2}auto rj = [&](const T* w, T* r, T* J) {{",
+             f"{i2}  using V = hm::Dual<T, {nz}>;",
+             f"{i2}  V X[{nx}], Z[{nz}], U[{nu}], G[{nz}];",
+             f"{i2}  for (int i = 0; i < {nx}; ++i) X[i] = V(xp[i]);",
+             f"{i2}  for (int j = 0; j < {nu}; ++j) U[j] = V(up[j]);",
+             f"{i2}  for (int i = 0; i < {nz}; ++i) {{",
+             f"{i2}    Z[i] = V(w[i]);",
+             f"{i2}    Z[i].d[i] = T(1);",
+             f"{i2}  }}",
+             f"{i2}  {_call('alg', 'X', 'Z', 'U', t, 'G', 'T, V')}",
+             f"{i2}  for (int i = 0; i < {nz}; ++i) {{",
+             f"{i2}    r[i] = G[i].v;",
+             f"{i2}    for (int c = 0; c < {nz}; ++c) J[i * {nz} + c] = G[i].d[c];",
+             f"{i2}  }}",
+             f"{i2}}};",
+             f"{i2}hm::newton<T, {nz}, {iters}>(zg, rj);"]
+    if tangents is not None:
+        lines += [f"{i2}auto rs = [&](const T* w, S* r) {{",
+                  f"{i2}  S Z[{nz}];",
+                  f"{i2}  for (int i = 0; i < {nz}; ++i) Z[i] = S(w[i]);",
+                  f"{i2}  {_call('alg', x, 'Z', 'u', t, 'r')}",
+                  f"{i2}}};",
+                  f"{i2}hm::ift<T, S, {nz}>(zg, {tangents}, rj, rs);"]
+    return lines + [f"{ind}}}"]
+
+
+def _colloc_lines(nx: int, nz: int, nu: int, d: int, iters: int, p_c: int,
+                  p_d: int, p_tau: int) -> list:
+    """One collocation step from x at tq over hh, in place on x (and on the
+    algebraic guess zg), as core/integrators.py:make_collocation_step: the
+    unknowns w = (X_1, Z_1, ..., X_d, Z_d) from the guess (x, zg) at every
+    node; each node's residual rows and Jacobian block by one
+    Dual<T, nx + nz> pass; C[j, r] at prm[p_c + j·(d+1) + r], D[r] at
+    prm[p_d + r], the nodes τ_j at prm[p_tau + j]."""
+    nv, M = nx + nz, d * (nx + nz)
+    zx = "Z" if nz else None
+    lines = ["      {",
+             f"        T xp[{nx}], up[{nu}], w[{M}];",
+             f"        for (int i = 0; i < {nx}; ++i) xp[i] = hm::plain(x[i]);",
+             f"        for (int j = 0; j < {nu}; ++j) up[j] = hm::plain(u[j]);",
+             "#pragma unroll",
+             f"        for (int j = 0; j < {d}; ++j) {{",
+             f"          for (int i = 0; i < {nx}; ++i) w[j * {nv} + i] = xp[i];"]
+    if nz:
+        lines.append(f"          for (int i = 0; i < {nz}; ++i) w[j * {nv} + {nx} + i] = "
+                     "zg[i];")
+    lines += ["        }",
+              "        auto rj = [&](const T* w, T* r, T* J) {",
+              f"          using V = hm::Dual<T, {nv}>;",
+              f"          for (int i = 0; i < {M * M}; ++i) J[i] = T(0);",
+              "#pragma unroll",
+              f"          for (int j = 0; j < {d}; ++j) {{",
+              f"            V X[{nx}], U[{nu}], F[{nx}]{f', Z[{nz}], G[{nz}]' if nz else ''};",
+              f"            for (int i = 0; i < {nx}; ++i) {{",
+              f"              X[i] = V(w[j * {nv} + i]);",
+              "              X[i].d[i] = T(1);",
+              "            }"]
+    if nz:
+        lines += [f"            for (int i = 0; i < {nz}; ++i) {{",
+                  f"              Z[i] = V(w[j * {nv} + {nx} + i]);",
+                  f"              Z[i].d[{nx} + i] = T(1);",
+                  "            }"]
+    lines += [f"            for (int k = 0; k < {nu}; ++k) U[k] = V(up[k]);",
+              f"            const T tn = tq + prm[{p_tau} + j] * hh;",
+              "            " + _call("rhs", "X", zx, "U", "tn", "F", "T, V")]
+    if nz:
+        lines.append("            " + _call("alg", "X", "Z", "U", "tn", "G", "T, V"))
+    lines += [f"            for (int a = 0; a < {nx}; ++a) {{",
+              f"              T v = prm[{p_c} + j * {d + 1}] * xp[a];",
+              "#pragma unroll",
+              f"              for (int e = 1; e <= {d}; ++e)",
+              f"                v = v + prm[{p_c} + j * {d + 1} + e] * w[(e - 1) * {nv} + a];",
+              f"              r[j * {nv} + a] = v - hh * F[a].v;",
+              "#pragma unroll",
+              f"              for (int e = 0; e < {d}; ++e)",
+              f"                J[(j * {nv} + a) * {M} + e * {nv} + a] = "
+              f"prm[{p_c} + j * {d + 1} + e + 1];",
+              f"              for (int c = 0; c < {nv}; ++c)",
+              f"                J[(j * {nv} + a) * {M} + j * {nv} + c] =",
+              f"                    J[(j * {nv} + a) * {M} + j * {nv} + c] + (-hh) * F[a].d[c];",
+              "            }"]
+    if nz:
+        lines += [f"            for (int b = 0; b < {nz}; ++b) {{",
+                  f"              r[j * {nv} + {nx} + b] = G[b].v;",
+                  f"              for (int c = 0; c < {nv}; ++c)",
+                  f"                J[(j * {nv} + {nx} + b) * {M} + j * {nv} + c] = G[b].d[c];",
+                  "            }"]
+    lines += ["          }",
+              "        };",
+              f"        hm::newton<T, {M}, {iters}>(w, rj);",
+              "        auto rs = [&](const T* w, S* r) {",
+              "#pragma unroll",
+              f"          for (int j = 0; j < {d}; ++j) {{",
+              f"            S X[{nx}], F[{nx}]{f', Z[{nz}], G[{nz}]' if nz else ''};",
+              f"            for (int i = 0; i < {nx}; ++i) X[i] = S(w[j * {nv} + i]);"]
+    if nz:
+        lines.append(f"            for (int i = 0; i < {nz}; ++i) Z[i] = "
+                     f"S(w[j * {nv} + {nx} + i]);")
+    lines += [f"            const T tn = tq + prm[{p_tau} + j] * hh;",
+              "            " + _call("rhs", "X", zx, "u", "tn", "F")]
+    if nz:
+        lines.append("            " + _call("alg", "X", "Z", "u", "tn", "G"))
+    lines += [f"            for (int a = 0; a < {nx}; ++a) {{",
+              f"              S v = prm[{p_c} + j * {d + 1}] * x[a];",
+              "#pragma unroll",
+              f"              for (int e = 1; e <= {d}; ++e)",
+              f"                v = v + prm[{p_c} + j * {d + 1} + e] * w[(e - 1) * {nv} + a];",
+              f"              r[j * {nv} + a] = v - hh * F[a];",
+              "            }"]
+    if nz:
+        lines.append(f"            for (int b = 0; b < {nz}; ++b) r[j * {nv} + {nx} + b] = "
+                     "G[b];")
+    lines += ["          }",
+              "        };",
+              f"        S ws[{M}];",
+              f"        hm::ift<T, S, {M}>(w, ws, rj, rs);",
+              f"        for (int a = 0; a < {nx}; ++a) {{",
+              f"          S v = prm[{p_d}] * x[a];",
+              "#pragma unroll",
+              f"          for (int e = 1; e <= {d}; ++e) v = v + prm[{p_d} + e] * "
+              f"ws[(e - 1) * {nv} + a];",
+              "          x[a] = v;",
+              "        }"]
+    if nz:
+        lines.append(f"        for (int b = 0; b < {nz}; ++b) zg[b] = "
+                     f"w[{(d - 1) * nv + nx} + b];")
+    return lines + ["      }"]
+
+
+def _solve_ops(M: int, lanes: int = 0) -> int:
+    """Operations of one csrc/implicit.cuh:SmallSolve of size M, its factor
+    and its application to a right-hand side of ``lanes`` derivative lanes."""
+    if M == 1:
+        factor = 0
+    elif M <= 3:
+        factor = 2 * M * M + (7 if M == 2 else 50)
+    else:
+        factor = sum(r * (1 + 2 * r) for r in range(M))
+    apply = 2 * M * M if M > 1 else 1
+    return factor + apply * (1 + lanes)
+
+
+def _emit_step(spec: IntegratorSpec, nx: int, nz: int = 0, nu: int = 1,
+               prm: Optional["_Prm"] = None, z0=()) -> tuple:
     """The integrator step from x at time t0 over h, in place on x, as
-    core/integrators.py:make_step builds it; returns (lines, RHS
-    evaluations, combination count)."""
-    lines, n_rhs, n_comb = [], 0, 0
+    core/integrators.py:make_step builds it; returns (lines, work). The
+    lines call the model's ``rhs`` (and a DAE model's ``alg``) over the
+    active type S or a node's dual type; ``work`` counts the passes:
+    ``("rhs"|"alg", lanes)`` -> passes (lanes "S": the active type's),
+    ``"comb"`` the combinations x + h·a·k of S values per state and
+    ``"plain"`` the Newton's own operations on plain values. Numbers (the
+    collocation matrices C and D, the nodes τ, the algebraic guess z0) go
+    into ``prm``; the structure (the method, d, nx, nz, the tableau, the
+    Newton's iteration count) into the text. Implicit steps use
+    csrc/implicit.cuh: the Newton on plain values, the derivatives of the
+    implicit function theorem. A Newton of more than ``NEWTON_MAX``
+    unknowns raises NotImplementedError."""
+    prm = _Prm() if prm is None else prm
+    lines, work = [], {"comb": 0, "plain": 0}
+
+    def count(key, n=1):
+        work[key] = work.get(key, 0) + n
+
     m = max(int(spec.substeps), 1)
     method = spec.method.lower()
-    if method in IMPLICIT_METHODS:
+    iters = int(spec.newton_iters)
+    size = newton_size(spec, nx, nz)
+    if size > NEWTON_MAX:
         raise NotImplementedError(
-            f"an implicit integrator ({spec.method}) cannot be emitted as C++ "
-            "(ROADMAP.md §B, still to port)")
+            f"a Newton of {size} unknowns in the integrator step (at most "
+            f"{NEWTON_MAX}: NEWTON_MAX)")
+    if nz:
+        z0 = tuple(z0) if len(z0) else (0.0,) * nz
+        p_z0 = len(prm.vals)
+        for v in z0:
+            prm.add(v)
+        lines.append(f"    T zg[{nz}];")
+        lines.append(f"    for (int i = 0; i < {nz}; ++i) zg[i] = prm[{p_z0} + i];")
+        if method == "discrete":
+            lines.append(f"    S zs[{nz}];")
+            lines.append(f"    for (int i = 0; i < {nz}; ++i) zs[i] = S(zg[i]);")
     if m > 1:
         lines += [f"    const T hh = h / {_lit(m)};",
                   f"    for (int q = 0; q < {m}; ++q) {{",
                   "      const T tq = t0 + T(q) * hh;"]
     else:
         lines += ["    const T hh = h;", "    {", "      const T tq = t0;"]
-    if method == "discrete":
-        lines += [f"      S xn[{nx}];", "      rhs(x, u, p, tq, xn);",
-                  f"      for (int i = 0; i < {nx}; ++i) x[i] = xn[i];"]
-        n_rhs = 1
+    # the plain operations of one Newton of M unknowns (its iterations, the
+    # Jacobian at the answer and the tangents' solve over S)
+    newton_plain = lambda M, assemble: (iters * (_solve_ops(M) + M)  # noqa: E731
+                                        + (iters + 1) * assemble + _solve_ops(M, 0))
+    if method in IMPLICIT_METHODS:
+        d, scheme = _collocation(spec)
+        C, D, _, taus = collocation_coefficients(d, scheme)
+        p_c = len(prm.vals)
+        for v in np.asarray(C).reshape(-1):
+            prm.add(v)
+        p_d = len(prm.vals)
+        for v in D:
+            prm.add(v)
+        p_tau = len(prm.vals)
+        for v in taus[1:]:
+            prm.add(v)
+        lines += _colloc_lines(nx, nz, nu, d, iters, p_c, p_d, p_tau)
+        nv, M = nx + nz, d * (nx + nz)
+        count(("rhs", nv), (iters + 1) * d * m)
+        count(("rhs", "S"), d * m)
+        if nz:
+            count(("alg", nv), (iters + 1) * d * m)
+            count(("alg", "S"), d * m)
+        # the residual rows (2(d+1) per state), the Jacobian's node blocks
+        count("plain", m * newton_plain(M, d * nx * (2 * (d + 1) + 2 * nv)))
+        # the tangents' residual rows, their solve and x_next over S
+        work["comb"] += m * (d * (d + 1) + (d + 1))
+        count(("solve", M), m)
+    elif method == "discrete":
+        if nz:
+            lines += [f"      S xn[{nx}];", "      " + _call("rhs", "x", "zs", "u", "tq", "xn"),
+                      f"      for (int i = 0; i < {nx}; ++i) x[i] = xn[i];"]
+            if m > 1:
+                lines.append(f"      if (q + 1 < {m})")
+                lines += _alg_newton("      ", nx, nz, nu, "x", "tq + hh", iters, "zs")
+                count(("alg", nz), (iters + 1) * (m - 1))
+                count(("alg", "S"), m - 1)
+                count("plain", (m - 1) * newton_plain(nz, 0))
+                count(("solve", nz), m - 1)
+        else:
+            lines += [f"      S xn[{nx}];", "      rhs(x, u, p, tq, xn);",
+                      f"      for (int i = 0; i < {nx}; ++i) x[i] = xn[i];"]
+        count(("rhs", "S"), m)
     else:
         A, b, c = erk_tableau(method)
         s = len(b)
@@ -351,20 +634,102 @@ def _emit_step(spec: IntegratorSpec, nx: int) -> tuple:
             for j in range(i):
                 if float(A[i][j]) != 0.0:
                     lines.append(f"        v = v + (hh * {_lit(A[i][j])}) * k{j}[n];")
-                    n_comb += 1
+                    work["comb"] += m
             lines.append(f"        x{i}[n] = v;")
             lines.append("      }")
-            lines.append(f"      rhs(x{i}, u, p, tq + {_lit(c[i])} * hh, k{i});")
+            ti = f"tq + {_lit(c[i])} * hh"
+            if nz:
+                lines.append(f"      S zs{i}[{nz}];")
+                lines += _alg_newton("      ", nx, nz, nu, f"x{i}", ti, iters, f"zs{i}")
+                lines.append("      " + _call("rhs", f"x{i}", f"zs{i}", "u", ti, f"k{i}"))
+            else:
+                lines.append(f"      rhs(x{i}, u, p, {ti}, k{i});")
         lines.append(f"      for (int n = 0; n < {nx}; ++n) {{")
         lines.append("        S v = x[n];")
         for i in range(s):
             if float(b[i]) != 0.0:
                 lines.append(f"        v = v + (hh * {_lit(b[i])}) * k{i}[n];")
-                n_comb += 1
+                work["comb"] += m
         lines += ["        x[n] = v;", "      }"]
-        n_rhs = s
+        count(("rhs", "S"), s * m)
+        if nz:
+            count(("alg", nz), (iters + 1) * s * m)
+            count(("alg", "S"), s * m)
+            count("plain", s * m * newton_plain(nz, 0))
+            count(("solve", nz), s * m)
+            if m > 1:
+                # the guess for the next substep: z at x_next (plain; the
+                # last substep's is not used)
+                lines.append(f"      if (q + 1 < {m})")
+                lines += _alg_newton("      ", nx, nz, nu, "x", "tq + hh", iters, None)
+                count(("alg", nz), iters * (m - 1))
+                count("plain", (m - 1) * iters * (_solve_ops(nz) + nz))
     lines.append("    }")
-    return lines, n_rhs * m, n_comb * m
+    return lines, work
+
+
+def _step_ops(work, rhs_oc, alg_oc, nx: int, D: int) -> int:
+    """Operations of one step over the active type S with D derivative
+    lanes, from ``_emit_step``'s ``work`` and the model functions' (ops,
+    calls): a dual operation counts its value and 3 per lane, a function
+    call 2 and 2 per lane (as ``_iteration_flops``); a solve's application
+    to the tangents 2M² per lane."""
+    total = work.get("plain", 0) + work.get("comb", 0) * nx * (1 + 2 * (1 + D))
+    for key, n in work.items():
+        if key in ("comb", "plain"):
+            continue
+        fn, lanes = key
+        L = D if lanes == "S" else lanes
+        if fn == "solve":
+            total += n * (2 * L * L + L) * D
+            continue
+        ops, calls = rhs_oc if fn == "rhs" else alg_oc
+        total += n * (ops * (1 + 3 * L) + calls * (2 + 2 * L))
+    return int(total)
+
+
+def _check_dims(src: OCPSource, nx: int, nu: int):
+    nxm, num = src.model.n_x, src.model.n_u
+    if (nx, nu) != ((nxm + num, num) if src.augment_du else (nxm, num)):
+        raise NotImplementedError(
+            f"the solver's (nx, nu) = ({nx}, {nu}) is not the model's (or its Δu "
+            f"augmentation's): only the Δu augmentation can be emitted")
+
+
+def _includes(newton: bool) -> str:
+    """The headers of a problem: csrc/implicit.cuh where its step has a
+    Newton."""
+    return '#include "whole_ip.cuh"\n' + ('#include "implicit.cuh"\n' if newton else "")
+
+
+def _emit_dyn(src: OCPSource, nx: int, nu: int, prm: _Prm, p_sx: int,
+              p_su: int) -> tuple:
+    """The problem's ``dyn`` (text, work of ``_emit_step``): x_next of the
+    solver-scaled (xs, us) at the stage parameters th, the solver scaling
+    at prm[p_sx:] and prm[p_su:] (x = xs·sx, u = us·su, p = th + 2, t =
+    th[0], h = th[1]) around the model's step, which calls the problem's
+    ``rhs`` (and ``alg``). Under the Δu augmentation the model sees u =
+    u_prev + Δu and the step appends u/su."""
+    nxm = src.model.n_x
+    step, work = _emit_step(src.spec, nxm, src.model.n_z, nu, prm, src.z0)
+    dyn_in = (f"\n    for (int j = 0; j < {nu}; ++j) u[j] = x[{nxm} + j] + u[j];"
+              if src.augment_du else "")
+    dyn_out = (f"\n    for (int j = 0; j < {nu}; ++j) out[{nxm} + j] = u[j] / prm[{p_su} + j];"
+               if src.augment_du else "")
+    text = f"""  // x_next of the solver-scaled (xs, us) at the stage parameters th
+  template <typename T, typename S>
+  HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
+                        S* out) {{
+    S x[{nx}], u[{nu}];
+    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+    for (int j = 0; j < {nu}; ++j) u[j] = us[j] * prm[{p_su} + j];{dyn_in}
+    const T* p = th + 2;
+    const T t0 = th[0], h = th[1];
+{chr(10).join(step)}
+    for (int i = 0; i < {nxm}; ++i) out[i] = x[i] / prm[{p_sx} + i];{dyn_out}
+  }}
+"""
+    return text, work
 
 
 def _rows(bounds, N: int, nx: int, nu: int):
@@ -566,13 +931,10 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options,
                 f"{why}: the traced route needs the problem functions")
         from .codegen_fx import emit_fx_problem
         return emit_fx_problem(funcs, dims, bounds, n_theta, options)
-    rhs, model_ops, model_calls = emit_model(src.model)
-    nxm = src.model.n_x
+    implicit = newton_size(src.spec, src.model.n_x, src.model.n_z) > 0
+    rhs, model_ops, model_calls, alg_ops, alg_calls = emit_model(src.model, implicit)
+    _check_dims(src, nx, nu)
     aug = src.augment_du
-    if (nx, nu) != ((nxm + src.model.n_u, src.model.n_u) if aug else (nxm, src.model.n_u)):
-        raise NotImplementedError(
-            f"the solver's (nx, nu) = ({nx}, {nu}) is not the model's (or its Δu "
-            f"augmentation's): only the Δu augmentation can be emitted")
     prm = _Prm()
     tol = float(options.tol)
     for name in _IP_FIELDS:
@@ -585,7 +947,7 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options,
     p_su = len(prm.vals)
     for v in src.u_scaling:
         prm.add(v)
-    nx_model = nxm if aug else None
+    nx_model = src.model.n_x if aug else None
     sv, sg, sh, sc, s_ops = _emit_cost(src.stage_terms, src.off_rs, prm, nx, nu, False,
                                        nx_model)
     tv, tg, th_, _, t_ops = _emit_cost(src.term_terms, src.off_rt, prm, nx, nu, True,
@@ -603,7 +965,7 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options,
     for v in toffs:
         prm.add(v)
     prm.add(0.0)                  # keeps P_ROW and P_TROW inside the array
-    step, n_rhs, n_comb = _emit_step(src.spec, nxm)
+    dyn, work = _emit_dyn(src, nx, nu, prm, p_sx, p_su)
 
     scale_in = "\n".join(
         [f"    T x[{nx}], u[{nu}];"]
@@ -619,33 +981,14 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options,
            f"prm[{p_su + b}]));" for a in range(nu) for b in range(nu)]
         + [f"    Hux[{a * nx + b}] = Hux[{a * nx + b}] * (hs * (prm[{p_su + a}] * "
            f"prm[{p_sx + b}]));" for a in range(nu) for b in range(nx) if cross])
-    # the dynamics: under the augmentation the model sees u = u_prev + Δu,
-    # and the step appends u/su
-    dyn_in = (f"\n    for (int j = 0; j < {nu}; ++j) u[j] = x[{nxm} + j] + u[j];"
-              if aug else "")
-    dyn_out = (f"\n    for (int j = 0; j < {nu}; ++j) out[{nxm} + j] = u[j] / prm[{p_su} + j];"
-               if aug else "")
     region = whole_ip_region(nx, nu, N, n_theta, len(offs), len(toffs))
     head = _struct_head(nx, nu, N, n_theta, masks, len(offs), len(toffs), tmask,
                         cross, p_row, p_trow, region)
     text = f"""// Generated by hilo_mpc_tpu_torch/ops/codegen_cuda.py: one NMPC problem
 // for the whole-solve interior point of csrc/whole_ip.cuh.
-#include "whole_ip.cuh"
-
+{_includes(implicit)}
 {head}{rhs}
-  // x_next of the solver-scaled (xs, us) at the stage parameters th
-  template <typename T, typename S>
-  HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
-                        S* out) {{
-    S x[{nx}], u[{nu}];
-    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
-    for (int j = 0; j < {nu}; ++j) u[j] = us[j] * prm[{p_su} + j];{dyn_in}
-    const T* p = th + 2;
-    const T t0 = th[0], h = th[1];
-{chr(10).join(step)}
-    for (int i = 0; i < {nxm}; ++i) out[i] = x[i] / prm[{p_sx} + i];{dyn_out}
-  }}
-
+{dyn}
   template <typename T>
   HM_HD static T stage_cost(const T* xs, const T* us, const T* th,
                             const T* prm) {{
@@ -707,15 +1050,18 @@ HM_WHOLE_IP_EXPORTS(Problem)
     stage_rows = tuple((k, r) for k, m in enumerate(masks)
                        for r in range(2 * nu + 2 * nx) if (m >> r) & 1)
     term_rows = tuple(t for t in range(2 * nx) if (tmask >> t) & 1)
-    flops = _iteration_flops(nx, nu, N, len(offs), len(toffs), model_ops,
-                             model_calls, n_rhs, n_comb, s_ops, cross)
+    n_rhs, n_comb = work.pop(("rhs", "S"), 0), work.pop("comb", 0)
+    flops = _iteration_flops(
+        nx, nu, N, len(offs), len(toffs), model_ops, model_calls, n_rhs, n_comb, s_ops,
+        cross, _step_ops(work, (model_ops, model_calls), (alg_ops, alg_calls),
+                         src.model.n_x, nx + nu))
     return EmittedProblem(text=text, prm=np.asarray(prm.vals, np.float64),
                           stage_rows=stage_rows, term_rows=term_rows, flops=flops,
                           region=region)
 
 
 def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
-                     cost_ops, cross=False) -> int:
+                     cost_ops, cross=False, newton_ops=0) -> int:
     """Operations of one IP iteration of one scenario, as the algorithm
     needs them (one linearization and one gradient evaluation per iteration;
     what csrc/whole_ip.cuh evaluates again instead of storing is left out):
@@ -723,10 +1069,12 @@ def _iteration_flops(nx, nu, N, RS, RT, model_ops, model_calls, n_rhs, n_comb,
     and its D = nx + nu derivative lanes (a product 1 + 3D, a function call
     2 + 2D), one operation per add, multiply, divide, square root or
     exponential of the solver algebra. The cost's cross block adds its
-    scaling (3 per entry) and its sum into the Riccati step's Hux (1)."""
+    scaling (3 per entry) and its sum into the Riccati step's Hux (1). An
+    implicit step adds ``newton_ops`` (``_step_ops``: its Newton on plain
+    values, the algebraic residuals, the tangents' solve)."""
     D = nx + nu
     step = (n_rhs * (model_ops * (1 + 3 * D) + model_calls * (2 + 2 * D))
-            + n_comb * nx * (1 + 2 * (1 + D)) + (2 * nx + nu) * (1 + D))
+            + n_comb * nx * (1 + 2 * (1 + D)) + (2 * nx + nu) * (1 + D) + newton_ops)
     grad = cost_ops + 2 * (nx + nu) + 2
     return int(N * (step + grad) + _solver_flops(nx, nu, N, RS, RT, cross))
 

@@ -48,8 +48,9 @@ import math
 import numpy as np
 import torch
 
-from .codegen_cuda import (_IP_FIELDS, MAX_ROWS, EmittedProblem, _Prm, _rows,
-                           _solver_flops, _struct_head, whole_ip_region)
+from .codegen_cuda import (_IP_FIELDS, MAX_ROWS, EmittedProblem, _check_dims,
+                           _emit_dyn, _includes, _Prm, _rows, _solver_flops,
+                           _step_ops, _struct_head, newton_size, whole_ip_region)
 
 class _V:
     """One scalar of the trace: its C++ (an expression or a name), its kind
@@ -538,7 +539,22 @@ def emit_fx_problem(funcs, dims, bounds, n_theta: int, options) -> EmittedProble
     x = torch.zeros(1, nx, **kw)
     u = torch.zeros(1, nu, **kw)
     th = torch.zeros(1, n_theta, **kw)
-    g_dyn = trace(funcs.dyn, x, u, th)
+    # an implicit step (collocation, or a DAE model's algebraic Newton): the
+    # model's own functions are traced and wrapped in ops/codegen_cuda.py's
+    # step, whose Newton csrc/implicit.cuh runs
+    implicit = (src is not None
+                and newton_size(src.spec, src.model.n_x, src.model.n_z) > 0)
+    if implicit:
+        try:
+            _check_dims(src, nx, nu)
+        except NotImplementedError:
+            raise NotImplementedError(
+                f"{src.dsl_error or 'an augmented state'} together with an implicit "
+                f"integrator step or algebraic states (the step's emitter wraps the "
+                f"model's own functions, with the Δu augmentation at most)") from None
+        g_model = _trace_model(src.model, kw)
+    else:
+        g_dyn = trace(funcs.dyn, x, u, th)
     g_stage = trace(funcs.stage_cost, x, u, th)
     g_term = trace(funcs.term_cost, x, th)
 
@@ -556,18 +572,21 @@ def emit_fx_problem(funcs, dims, bounds, n_theta: int, options) -> EmittedProble
 
     spec = [("xs", "S", nx), ("us", "S", nu), ("th", "T", n_theta)]
     f_dyn, f_stage, f_term = _Fn(prm), _Fn(prm), _Fn(prm)
-    out_dyn = _body(g_dyn, f_dyn, _inputs(spec, (0, nx, 0)), (1, nx))
+    if implicit:
+        dyn_text, model_ops, work = _emit_model_step(src, g_model, prm, nx, nu)
+    else:
+        out_dyn = _body(g_dyn, f_dyn, _inputs(spec, (0, nx, 0)), (1, nx))
+        dyn_text = ("  template <typename T, typename S>\n"
+                    "  HM_HD static void fx_dyn(const S* xs, const S* us, const T* th, "
+                    "const T* prm, S* out) {\n"
+                    + "\n".join(f_dyn.lines) + ("\n" if f_dyn.lines else "")
+                    + "\n".join(f"    out[{i}] = S({v.code});"
+                                for i, v in enumerate(out_dyn[0])) + "\n  }\n")
     out_stage = _body(g_stage, f_stage, _inputs(spec, (0, nx, 0)), (1,))
     out_term = _body(g_term, f_term, _inputs([spec[0], spec[2]], (0, 0)), (1,))
     hp = out_stage[0].hp
     cross = any(i < nx <= j for i, j in hp)
 
-    dyn_text = ("  template <typename T, typename S>\n"
-                "  HM_HD static void fx_dyn(const S* xs, const S* us, const T* th, "
-                "const T* prm, S* out) {\n"
-                + "\n".join(f_dyn.lines) + ("\n" if f_dyn.lines else "")
-                + "\n".join(f"    out[{i}] = S({v.code});"
-                            for i, v in enumerate(out_dyn[0])) + "\n  }\n")
     stage_text = _cost_fn("fx_stage", "const S* xs, const S* us, const T* th, "
                           "const T* prm", f_stage, out_stage)
     term_text = _cost_fn("fx_term", "const S* xs, const T* th, const T* prm",
@@ -579,17 +598,11 @@ def emit_fx_problem(funcs, dims, bounds, n_theta: int, options) -> EmittedProble
     text = f"""// Generated by hilo_mpc_tpu_torch/ops/codegen_fx.py from a torch.fx trace of
 // one NMPC problem, for the whole-solve interior point of csrc/whole_ip.cuh.
 #include "traced.cuh"
-#include "whole_ip.cuh"
-
+{_includes(implicit)}
 {head}{dyn_text}
 {stage_text}
 {term_text}
-  template <typename T, typename S>
-  HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
-                        S* out) {{
-    fx_dyn<T, S>(xs, us, th, prm, out);
-  }}
-  template <typename T>
+{"" if implicit else _FX_DYN}  template <typename T>
   HM_HD static T stage_cost(const T* xs, const T* us, const T* th,
                             const T* prm) {{
     return fx_stage<T, T>(xs, us, th, prm);
@@ -623,11 +636,80 @@ HM_WHOLE_IP_EXPORTS(Problem)
     stage_rows = tuple((k, r) for k, m in enumerate(masks)
                        for r in range(2 * nu + 2 * nx) if (m >> r) & 1)
     term_rows = tuple(t for t in range(2 * nx) if (tmask >> t) & 1)
+    dyn_ops = (_step_ops(work, *model_ops, src.model.n_x, nx + nu)
+               + (2 * nx + nu) * (1 + nx + nu) if implicit else None)
     flops = _traced_flops(nx, nu, N, len(offs), len(toffs), f_dyn, f_stage, f_term,
-                          cross)
+                          cross, dyn_ops)
     return EmittedProblem(text=text, prm=np.asarray(prm.vals, np.float64),
                           stage_rows=stage_rows, term_rows=term_rows, flops=flops,
                           region=region)
+
+
+# the problem's dyn where the whole step is traced
+_FX_DYN = """  template <typename T, typename S>
+  HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
+                        S* out) {
+    fx_dyn<T, S>(xs, us, th, prm, out);
+  }
+"""
+
+
+def _trace_model(model, kw):
+    """``make_fx`` graphs of the model's ``ode`` and (a DAE's) ``alg`` at one
+    probe (x, z, u, p, t), each output in (1, n) form: {"rhs": ..., "alg":
+    ...}."""
+    from ..core.model import one_row_last
+    nx, nz, nu, n_p = model.n_x, model.n_z, model.n_u, model.n_p
+    probe = (torch.zeros(1, nx, **kw), torch.zeros(1, nz, **kw),
+             torch.zeros(1, nu, **kw), torch.zeros(1, n_p, **kw), torch.zeros(1, **kw))
+
+    def rows(fn, n):
+        return lambda x, z, u, p, t: one_row_last(fn(x, z, u, p, t), x, n)
+
+    return {name: trace(rows(fn, n), *probe)
+            for name, fn, n in (("rhs", model.ode_fn(), nx), ("alg", model.alg_fn(), nz))
+            if n}
+
+
+def _emit_model_step(src, graphs, prm: _Prm, nx: int, nu: int) -> tuple:
+    """The problem's ``rhs``, ``alg`` (written from the model's traces, over
+    x, z, u of type S and p, t plain, as ops/codegen_cuda.py:emit_model
+    writes them from the DSL) and ``dyn`` (ops/codegen_cuda.py:_emit_dyn:
+    the scaling and the implicit step): (text, ((ops, calls) of rhs, of
+    alg), the step's work)."""
+    model = src.model
+    nxm, nz = model.n_x, model.n_z
+    p_sx = len(prm.vals)
+    for v in src.x_scaling + (src.u_scaling if src.augment_du else ()):
+        prm.add(v)
+    p_su = len(prm.vals)
+    for v in src.u_scaling:
+        prm.add(v)
+    text, counts = "", []
+    names = [("x", "S", nxm)] + ([("z", "S", nz)] if nz else []) + [("u", "S", nu)]
+    for name, n_out in (("rhs", nxm), ("alg", nz)):
+        if name not in graphs:
+            counts.append((0, 0))
+            continue
+        fn = _Fn(prm)
+        ins = _inputs(names, [0] * len(names))
+        if not nz:
+            ins.insert(1, np.empty((1, 0), dtype=object))
+        ins.append(_inputs([("p", "T", model.n_p)], [0])[0])
+        t = np.empty((1,), dtype=object)
+        t[0] = _V("t", "T")
+        out = _body(graphs[name], fn, ins + [t], (1, n_out))
+        args = ", ".join(f"const S* {nm}" for nm, _, _ in names)
+        text += (f"  template <typename T, typename S>\n"
+                 f"  HM_HD static void {name}({args}, const T* p, T t, const T* prm, "
+                 f"S* out) {{\n"
+                 + "\n".join(fn.lines) + ("\n" if fn.lines else "")
+                 + "\n".join(f"    out[{i}] = S({v.code});" for i, v in enumerate(out[0]))
+                 + "\n    (void)p; (void)t; (void)prm;\n  }\n")
+        calls = [call for kind, call, _, _ in fn.work if kind == "S"]
+        counts.append((calls.count(False), calls.count(True)))
+    dyn, work = _emit_dyn(src, nx, nu, prm, p_sx, p_su)
+    return text + dyn, tuple(counts), work
 
 
 def _lanes_work(fn: _Fn, second: bool) -> int:
@@ -646,12 +728,15 @@ def _lanes_work(fn: _Fn, second: bool) -> int:
     return total
 
 
-def _traced_flops(nx, nu, N, RS, RT, f_dyn, f_stage, f_term, cross) -> int:
+def _traced_flops(nx, nu, N, RS, RT, f_dyn, f_stage, f_term, cross,
+                  dyn_ops=None) -> int:
     """Operations of one IP iteration of one scenario, counted as
     ops/codegen_cuda.py:_iteration_flops counts the DSL route's (as the
-    algorithm needs them): per stage the step with its Jacobian and the
-    stage cost with its gradient and Hessian, the terminal cost with its
-    once, and the solver algebra."""
-    per_stage = _lanes_work(f_dyn, False) + _lanes_work(f_stage, True)
+    algorithm needs them): per stage the step with its Jacobian (``dyn_ops``
+    where the step is emitted around the traced model: an implicit step)
+    and the stage cost with its gradient and Hessian, the terminal cost
+    with its once, and the solver algebra."""
+    per_stage = ((_lanes_work(f_dyn, False) if dyn_ops is None else dyn_ops)
+                 + _lanes_work(f_stage, True))
     return int(N * per_stage + _lanes_work(f_term, True)
                + _solver_flops(nx, nu, N, RS, RT, cross))

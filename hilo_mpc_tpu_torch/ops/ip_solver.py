@@ -240,14 +240,27 @@ EIGH_CHUNK = 1 << 14
 
 
 def _eigh(M, chunk=EIGH_CHUNK):
-    """torch.linalg.eigh of (..., n, n), at most ``chunk`` matrices per call."""
-    batch = M.shape[:-2]
-    flat = M.reshape(-1, *M.shape[-2:])
+    """torch.linalg.eigh of (..., n, n), at most ``chunk`` matrices per call.
+
+    A diagonal matrix (a zero Hessian block among them) is its own
+    decomposition: its sorted diagonal and the permutation that sorts it.
+    cuSOLVER's batched eigh (torch 2.11, CUDA 12.8, H100) has returned NaN
+    for all-zero 6 x 6 float32 matrices in a process whose allocator hands
+    out reused memory, and a clean one on a fresh process."""
+    batch, n = M.shape[:-2], M.shape[-1]
+    flat = M.reshape(-1, n, n)
     if flat.shape[0] <= chunk:
-        return torch.linalg.eigh(M)
-    parts = [torch.linalg.eigh(c) for c in flat.split(chunk)]
-    return (torch.cat([w for w, _ in parts]).reshape(*batch, M.shape[-1]),
-            torch.cat([V for _, V in parts]).reshape(M.shape))
+        w, V = torch.linalg.eigh(M)
+    else:
+        parts = [torch.linalg.eigh(c) for c in flat.split(chunk)]
+        w = torch.cat([w for w, _ in parts]).reshape(*batch, n)
+        V = torch.cat([V for _, V in parts]).reshape(M.shape)
+    d = torch.diagonal(M, dim1=-2, dim2=-1)
+    diag = (M == torch.diag_embed(d)).all(-1).all(-1)
+    wd, order = torch.sort(d, dim=-1, stable=True)
+    Vd = torch.nn.functional.one_hot(order, n).transpose(-1, -2).to(M.dtype)
+    return (torch.where(diag[..., None], wd, w),
+            torch.where(diag[..., None, None], Vd, V))
 
 
 def _convexify(M, min_eig):

@@ -18,7 +18,8 @@ _CHOL_UNROLL = 6
 
 
 def solve_small(G, rhs):
-    """Solve G @ X = rhs for general invertible G, unrolled for n <= 3.
+    """Solve G @ X = rhs for general invertible G, unrolled for n <= 3, by
+    LU with partial pivoting and two triangular solves above.
 
     The n=2/3 paths are cofactor (adjugate) solves made scale-invariant by
     normalizing G to unit max-entry first — otherwise det overflows f32 at
@@ -63,7 +64,14 @@ def solve_small(G, rhs):
         out = (torch.einsum("...ij,...jk->...ik", adj, rhs)
                / (det[..., None, None] * scale))
     else:
-        out = torch.linalg.solve(G, rhs)
+        # LAPACK getrs' own steps: torch.linalg.solve and lu_solve give wrong
+        # tangents when J is batched over an outer vmap only and rhs also
+        # over jacfwd's tangents (torch 2.13), as the Newton's correction
+        # (core/integrators.py:newton_solve) meets them under Model.linearize
+        P, L, U = torch.lu_unpack(*torch.linalg.lu_factor(G))
+        y = torch.linalg.solve_triangular(L, P.mT @ rhs, upper=False,
+                                          unitriangular=True)
+        out = torch.linalg.solve_triangular(U, y, upper=True)
     return out[..., 0] if vec else out
 
 

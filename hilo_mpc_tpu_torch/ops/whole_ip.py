@@ -14,11 +14,11 @@ at its first use (ops/_build.py, cached by the text's hash under
 ``_build/gen/``), and one launch solves every scenario of the batch, one
 thread per scenario, until each has converged, diverged or reached
 ``max_iter``. ``whole_ip_gate`` is the gate (``pallas_full_supported`` and
-an emission: no implicit integrator, algebraic states or free final time,
-no op outside the trace's table, at most ``MAX_ROWS`` candidate rows per
-stage); ``NMPC.solve_batch_fn`` reads ``pallas_full`` and takes this path
-for eligible problems, through a ``WholeIPLaunch`` it prepares once per
-controller, dtype and device.
+an emission: no free final time, a Newton of at most ``NEWTON_MAX``
+unknowns in an implicit step, no op outside the trace's table, at most
+``MAX_ROWS`` candidate rows per stage); ``NMPC.solve_batch_fn`` reads
+``pallas_full`` and takes this path for eligible problems, through a
+``WholeIPLaunch`` it prepares once per controller, dtype and device.
 
 The plain version, ``solve_ocp_full_reference``, is the port's ``solve_ocp``
 with the kernel's options and the plain LQ sweeps, the counterpart of what
@@ -76,8 +76,9 @@ def whole_ip_gate(funcs, dims, bounds, options: IPOptions, fix_x0: bool,
     first (``OCPSource.cost_error``), then the conditions of
     ``pallas_full_supported``, then the emission itself, DSL or traced
     (ops/codegen_cuda.py:emit_problem), for ``n_theta`` (default: the
-    problem's own theta width); a refused op or a branch on a value in the
-    trace is named in ``why``. Nothing is compiled."""
+    problem's own theta width); a refused op, a branch on a value in the
+    trace or a step's Newton above ``NEWTON_MAX`` unknowns is named in
+    ``why``. Nothing is compiled."""
     src = funcs.source
     if src is None:
         return None, "no problem source (OCPFunctions.source, which NMPC.setup attaches)"

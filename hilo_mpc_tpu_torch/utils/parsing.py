@@ -170,6 +170,8 @@ class ParsedEquations:
     ode_src: Dict[str, str] = dataclasses.field(default_factory=dict)
     meas_src: Dict[str, str] = dataclasses.field(default_factory=dict)
     aux_src: List[tuple] = dataclasses.field(default_factory=list)
+    # the algebraic residuals' sources in the order ``alg`` returns them
+    alg_src: List[str] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +180,10 @@ class DSLSource:
     (ops/codegen_cuda.py emits C++ from it): the RHS source of each state in
     state order (ODE or difference equation), the auxiliary definitions in
     dependency order, the numeric constants, and the name -> index maps of
-    the state, input and parameter vectors."""
+    the state, input and parameter vectors; for a DAE the algebraic
+    residuals' sources (``0 = g`` as g, ``z(t) = e`` as ``z - (e)``) in the
+    order of the model's ``alg`` and the algebraic states' name -> index
+    map."""
     rhs: tuple                   # (source, ...) per state, in state order
     aux: tuple                   # ((name, source), ...) in dependency order
     constants: Dict[str, float]
@@ -186,6 +191,8 @@ class DSLSource:
     u_idx: Dict[str, int]
     p_idx: Dict[str, int]
     discrete: bool
+    alg: tuple = ()
+    z_idx: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def parse_equations(text: str, known_states: Optional[List[str]] = None,
@@ -200,6 +207,7 @@ def parse_equations(text: str, known_states: Optional[List[str]] = None,
     aux_srcs: Dict[str, str] = {}
     alg_expl: Dict[str, tuple] = {}
     alg_impl: List[tuple] = []
+    alg_srcs: Dict[object, str] = {}
     quad_exprs: List[tuple] = []
     aux_exprs: Dict[str, tuple] = {}
     constants: Dict[str, float] = {}
@@ -259,10 +267,12 @@ def parse_equations(text: str, known_states: Optional[List[str]] = None,
         if m:
             code, coll = _compile_expr(rhs, where)
             alg_expl[m.group(1)] = (code, coll)
+            alg_srcs[m.group(1)] = f"{m.group(1)} - ({rhs})"
             note(coll)
             continue
         if lhs == "0":
             code, coll = _compile_expr(rhs, where)
+            alg_srcs[len(alg_impl)] = rhs
             alg_impl.append((code, coll))
             note(coll)
             continue
@@ -395,7 +405,9 @@ def parse_equations(text: str, known_states: Optional[List[str]] = None,
         measurements=measurements, constants=constants, meta=meta, discrete=discrete,
         n_quad=len(quad_exprs), ode=ode_fn, alg=alg_fn, meas=meas_fn, quad=quad_fn,
         ode_src=dict(ode_srcs), meas_src=dict(meas_srcs),
-        aux_src=[(n, aux_srcs[n]) for n in aux_order])
+        aux_src=[(n, aux_srcs[n]) for n in aux_order],
+        alg_src=[alg_srcs[i] for i in range(len(alg_impl))]
+        + [alg_srcs[n] for n in alg_expl])
 
 
 def apply_parsed_equations(model, text: str) -> None:
@@ -433,7 +445,8 @@ def apply_parsed_equations(model, text: str) -> None:
             x_idx={n: i for i, n in enumerate(parsed.states)},
             u_idx={n: i for i, n in enumerate(parsed.inputs)},
             p_idx={n: i for i, n in enumerate(parsed.parameters)},
-            discrete=parsed.discrete)
+            discrete=parsed.discrete, alg=tuple(parsed.alg_src),
+            z_idx={n: i for i, n in enumerate(parsed.algebraic)})
     if parsed.alg is not None:
         model._alg = parsed.alg
     if parsed.meas is not None:

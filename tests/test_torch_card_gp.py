@@ -1,5 +1,6 @@
-"""PyTorch port on the card: stochastic MPC on the Riccati kernel, the GP
-hybrid CSTR through the whole-solve kernel, and GPArray's batched fit
+"""PyTorch port on the card: stochastic MPC on the Riccati kernel (and the
+convexification of its zero Hessian blocks), the GP hybrid CSTR through the
+whole-solve kernel, and GPArray's batched fit
 (``cuda``-marked; they skip without a card). This file imports no JAX: it
 holds the card against the CPU and against the plain PyTorch versions; the
 CPU tests against the JAX package are tests/test_torch_smpc.py,
@@ -83,6 +84,25 @@ def gp_hybrid_nmpc(options, dtype):
     nmpc.set_box_constraints(u_lb=[-5.0], u_ub=[5.0])
     nmpc.set_parameters([1.0] * 5)
     return nmpc.setup(options=options, device="cuda", dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_convexify_of_zero_blocks_after_reused_memory():
+    """The SMPC's zero terminal Hessian blocks through the convexification:
+    cuSOLVER's batched eigh returned NaN for every all-zero 6 x 6 float32
+    matrix once the allocator handed out memory that a NaN-filled tensor had
+    held (and for 3 of phase 16's 4096 after earlier phases); ``_eigh``
+    decomposes a diagonal matrix itself."""
+    _need_card()
+    from hilo_mpc_tpu_torch.ops import ip_solver
+    junk = torch.full((1 << 28,), float("nan"), device="cuda")
+    del junk
+    Z = torch.zeros(4096, 6, 6, device="cuda")
+    w, V = ip_solver._eigh(Z)
+    assert bool((w == 0).all())
+    assert torch.equal(V, torch.eye(6, device="cuda").expand_as(V))
+    C = ip_solver._convexify(Z, 1e-6)
+    assert torch.equal(C, 1e-6 * torch.eye(6, device="cuda").expand_as(C))
 
 
 @pytest.mark.cuda

@@ -129,6 +129,27 @@ def test_chunked_eigh_matches_one_call():
     torch.testing.assert_close(V.abs(), V1.abs(), rtol=0, atol=1e-12)
 
 
+def test_eigh_of_diagonal_matrices_is_exact():
+    """A diagonal matrix (zero among them) decomposes as its sorted diagonal
+    and the sorting permutation, in every chunk; the clip then gives
+    diag(max(d, min_eig)) exactly. cuSOLVER's batched eigh returned NaN for
+    zero 6 x 6 blocks on a card (tests/test_torch_card_implicit.py holds
+    that case on the card)."""
+    rng = np.random.default_rng(5)
+    d = torch.as_tensor(rng.standard_normal((9, 6)))
+    d[:3] = 0.0
+    M = torch.diag_embed(d)
+    M[-1, 0, 1] = M[-1, 1, 0] = 0.5              # one full matrix in the batch
+    w, V = tip._eigh(M, chunk=4)
+    w1, V1 = torch.linalg.eigh(M)
+    torch.testing.assert_close(w, w1, rtol=0, atol=1e-14)
+    torch.testing.assert_close(V.abs(), V1.abs(), rtol=0, atol=1e-14)
+    assert torch.equal(w[:-1], torch.sort(d[:-1], dim=-1).values)
+    assert torch.equal(V[:-1] @ torch.diag_embed(w[:-1]) @ V[:-1].mT, M[:-1])
+    C = tip._convexify(M[:-1], 1e-3)
+    assert torch.equal(C, torch.diag_embed(torch.clamp(d[:-1], min=1e-3)))
+
+
 def test_rows_need_their_functions():
     _, tf, _, td, bnd, args = _di_problem(True)
     with pytest.raises(ValueError, match="stage_ineq"):

@@ -13,8 +13,9 @@ Model, NMPC and the estimators, against the JAX package (CPU, float64).
 - NMPC: the CSTR with collocation degree 2 at N=10 (tests/test_nmpc.py:88)
   and the DAE controllers of tests/test_nmpc_breadth.py:22-52, batch and
   closed loop, ≤ 1e-10 with equal iterations; golden ``dae_colloc``
-  replayed (< 1e-4); ``pallas_full`` declines implicit integrators and DAE
-  models with a warning naming the reason and gives the general path's bits.
+  replayed (< 1e-4); ``pallas_full`` takes implicit integrators and DAE
+  models (the whole-solve path, no warning) and declines, naming the
+  reason, a step whose Newton exceeds ``NEWTON_MAX`` unknowns.
 - MHE, EKF, UKF and PF on the DAE model, at the tolerances of
   tests/test_torch_{mhe,kf,pf}.py.
 """
@@ -36,9 +37,11 @@ from hilo_mpc_tpu import UKF as JaxUKF
 from hilo_mpc_tpu import Model as JaxModel
 from hilo_mpc_tpu.library import cstr_schaffner_and_zeitz as jax_cstr
 from hilo_mpc_tpu_torch import EKF, MHE, NMPC, PF, UKF, Model
-from hilo_mpc_tpu_torch.core.integrators import IntegratorSpec
+from hilo_mpc_tpu_torch.core.integrators import IMPLICIT_METHODS, IntegratorSpec
 from hilo_mpc_tpu_torch.library import cstr_schaffner_and_zeitz
 from hilo_mpc_tpu_torch.ops import codegen_cuda
+from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
+from hilo_mpc_tpu_torch.ops.whole_ip import solve_ocp_full_reference
 from hilo_mpc_tpu_torch.utils.interop import (estimator_from, model_from, to_numpy,
                                               to_torch)
 
@@ -426,41 +429,53 @@ PURE_NEWTON = {"tol": 1e-8, "max_iter": 30, "convexify": False, "n_linesearch": 
                "mehrotra": False}
 
 GATE_CASES = {
-    # (controller, the reason the warning names)
-    "collocation": (lambda o: port_cstr_nmpc({**COLLOC, **o}),
-                    r"an implicit integrator \(collocation\)"),
+    # (controller, the options that push its step's Newton above NEWTON_MAX)
+    "collocation": (lambda o: port_cstr_nmpc({**COLLOC, **o}), {"degree": 9}),
     "cvodes": (lambda o: port_cstr_nmpc({"dt": 0.1, "integration_method": "cvodes", **o}),
-               r"an implicit integrator \(cvodes\)"),
+               {"degree": 9}),
     "dae_rk4": (lambda o: port_dae_colloc(options={"dt": 0.1, "integration_method": "rk4",
                                                    **o}),
-                r"algebraic states \(a DAE model\)"),
+                {"integration_method": "collocation", "degree": 9}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GATE_CASES))
 def test_whole_solve_gate_declines_implicit_integration(case):
-    """pallas_full on a problem whose step the emitter cannot write: a
-    warning naming the reason, and the general path's bits."""
-    build, why = GATE_CASES[case]
-    general = build(PURE_NEWTON)
+    """pallas_full on an implicit step or a DAE model: taken without a
+    warning (on CPU tensors the kernel's plain version, bit for bit; no
+    Riccati launch); declined, with a warning naming NEWTON_MAX, only where
+    the step's Newton has more unknowns than the cap."""
+    build, above_cap = GATE_CASES[case]
     whole = build({**PURE_NEWTON, "pallas_full": True})
-    x0s = (np.array(CSTR_X0) if general._model.n_x == 2 else np.array([0.1])) \
-        + 0.02 * np.random.default_rng(1).standard_normal((3, general._model.n_x))
-    args = general.prepare_batch(x0s)
-    with pytest.warns(UserWarning, match=why):
-        fn = whole.solve_batch_fn()
-    a, b = general.solve_batch_fn()(*args), fn(*args)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    x0s = (np.array(CSTR_X0) if whole._model.n_x == 2 else np.array([0.1])) \
+        + 0.02 * np.random.default_rng(1).standard_normal((3, whole._model.n_x))
+    args = whole.prepare_batch(x0s)
+    n_ric = riccati_lq_cuda.launches
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        general.solve_batch_fn()
+        fn = whole.solve_batch_fn()
+    assert whole._wip["eligible"], whole._wip["why"]
+    plain = solve_ocp_full_reference(whole._funcs, whole._dims, whole._bounds, *args,
+                                     whole._ip_opts)
+    for x, y in zip(fn(*args), plain):
+        assert torch.equal(x, y)
+    assert riccati_lq_cuda.launches == n_ric
+    big = build({**PURE_NEWTON, **above_cap, "pallas_full": True})
+    with pytest.warns(UserWarning, match=r"a Newton of 18 unknowns .*NEWTON_MAX"):
+        big.solve_batch_fn()
 
 
 def test_emitter_refuses_implicit_steps():
-    for method in ("collocation", "irk", "cvodes", "idas"):
-        with pytest.raises(NotImplementedError, match="implicit integrator"):
-            codegen_cuda._emit_step(IntegratorSpec(method=method), 2)
+    """_emit_step writes every implicit method (the Newton of
+    csrc/implicit.cuh, d·nx unknowns) and an ERK step's algebraic Newton;
+    it refuses a Newton above NEWTON_MAX."""
+    for method in IMPLICIT_METHODS:
+        lines, _ = codegen_cuda._emit_step(IntegratorSpec(method=method), 2)
+        assert any("hm::newton<T, 6, 8>(w, rj);" in line for line in lines), method
+    lines, _ = codegen_cuda._emit_step(IntegratorSpec(method="rk4"), 1, nz=1)
+    assert sum("hm::newton<T, 1, 8>(zg, rj);" in line for line in lines) == 4
+    with pytest.raises(NotImplementedError, match="NEWTON_MAX"):
+        codegen_cuda._emit_step(IntegratorSpec(method="collocation", degree=9), 2)
 
 
 # -- estimators on the DAE model ----------------------------------------------

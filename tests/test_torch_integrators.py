@@ -210,6 +210,37 @@ def test_collocation_step_derivative_matches_jax():
                                    np.concatenate([np.asarray(a)[0] for a in Jj]), **TOL)
 
 
+@pytest.mark.parametrize("degree", [2, 3])
+def test_collocation_jacobian_under_vmap_of_jacfwd(degree):
+    """vmap over scenarios of jacfwd through a collocation step whose Newton
+    has more than 3 unknowns (a 2-state model): the tangents' solve is LU
+    and triangular solves, because torch.linalg.solve gives wrong tangents
+    in this composition (NaN and other scenarios' values); against jacfwd of
+    each scenario alone and jax.jacfwd."""
+    def rows(x, u, p):
+        return [-x[..., 0] + u[..., 0] * x[..., 1] ** 2, -x[..., 1] * x[..., 0] + p[..., 0]]
+    tstep = TI.make_collocation_step(
+        lambda x, z, u, p, t: torch.stack(rows(x, u, p), dim=-1), nx=2, degree=degree)
+    jstep = JI.make_collocation_step(
+        lambda x, z, u, p, t: jnp.stack(rows(x, u, p), axis=-1), nx=2, degree=degree)
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-0.5, 0.5, (B, 2))
+    u, p = rng.standard_normal((B, 1)), rng.standard_normal((B, 1))
+    z0 = torch.zeros(0, dtype=F64)
+
+    def f(xx, uu, pp):
+        return tstep(xx, z0, uu, pp, 0.0, 0.1)[0]
+    J = vmap(torch.func.jacfwd(f, argnums=(0, 1)))(_t(x), _t(u), _t(p))
+    for i in range(B):
+        Ji = torch.func.jacfwd(f, argnums=(0, 1))(_t(x[i]), _t(u[i]), _t(p[i]))
+        Jj = jax.jacfwd(lambda xx, uu: jstep(xx, jnp.zeros(0), uu, jnp.asarray(p[i]),
+                                             0.0, 0.1)[0], argnums=(0, 1))(
+            jnp.asarray(x[i]), jnp.asarray(u[i]))
+        for a, b, c in zip(J, Ji, Jj):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), **TOL)
+            np.testing.assert_allclose(a[i].numpy(), np.asarray(c), **TOL)
+
+
 # -- algebraic states in the ERK and discrete steps ---------------------------
 
 @pytest.mark.parametrize("method", ["rk4", "euler", "midpoint"])
