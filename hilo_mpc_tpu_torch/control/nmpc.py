@@ -679,6 +679,7 @@ class NMPC:
             x_scaling=tuple(self._x_scaling), u_scaling=tuple(self._u_scaling),
             dt=step_dt, soft_lb=tuple(x_pen_lb), soft_ub=tuple(x_pen_ub),
             soft_weight=soft_w, cost_error=cost_error, augment_du=aug,
+            augment_path=path,
             dsl_error=dsl_error,
             n_theta=off_rt + sum(t.n for t in term_terms if t.runtime_ref),
             dtype=dtype, device=self._device,

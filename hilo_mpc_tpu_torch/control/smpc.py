@@ -20,9 +20,12 @@ callable (``Model.set_dynamical_equations``), so the stochastic controller
 is an NMPC: the interior point's KKT sweeps run the Riccati kernel at
 (nx + nx², nu), and the batch entry points take (B, nx + nx²) states. With
 chance constraints the whole-solve kernel declines the problem (generic
-rows), as JAX's gate does; without them the trace meets the GP variance's
-triangular solve, which neither emitter writes, so ``pallas_full`` warns
-naming the op and runs the general path.
+rows), as JAX's gate does; without them ``pallas_full`` takes it: the
+trace of the surrogate (ops/codegen_fx.py) flattens the mean step's nested
+Jacobian into plain ops and emits the GP variance's triangular solve as a
+substitution. A float32 controller's kernel computes in float32, so it
+takes a float32 GP; a float64 GP predicts in float64 (ml/gp/gp.py:
+predict_fn), which the gate declines, naming the cast.
 """
 from __future__ import annotations
 

@@ -66,17 +66,22 @@ def _device_matrix(M: np.ndarray):
     (dtype, device): a state-space closure does not copy its matrix to the
     device on every call. A tensor made inside a ``torch.func`` transform
     belongs to that transform's level and must not outlive it, so only one
-    made outside every transform is kept."""
+    made outside every transform is kept. Under ``make_fx`` the copy is
+    traced from ``M`` itself, whether or not a call before the trace made
+    one, so a trace (the whole-solve kernel's emitted text) does not depend
+    on what ran before it."""
     from torch._C._functorch import peek_interpreter_stack
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
     cache = {}
 
     def get(like):
         key = (like.dtype, like.device)
-        if key in cache:
+        tracing = get_proxy_mode() is not None
+        if key in cache and not tracing:
             return cache[key]
         t = torch.as_tensor(M, dtype=like.dtype, device=like.device)
-        if peek_interpreter_stack() is None:
+        if peek_interpreter_stack() is None and not tracing:
             cache[key] = t
         return t
 

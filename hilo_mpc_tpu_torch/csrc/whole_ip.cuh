@@ -22,9 +22,11 @@
 // The problem is a struct P that ops/codegen_cuda.py emits per controller
 // (or ops/codegen_fx.py from a torch.fx trace, its costs' derivatives by
 // the dual numbers of traced.cuh):
-// the sizes NX, NU, N, NT, the active box rows (row_mask(k) over the 2NU+2NX
-// candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, row_off(k) their
-// first slot, TERM_MASK over [x-ub; lb-x] of the terminal stage), the
+// the sizes NX, NU, N, NT, the active box rows (row_mask(k, w): word w of
+// RW 32-bit words over the 2NU+2NX candidate rows [u-ub; lb-u; x-ub; lb-x]
+// of stage k, row r being bit r & 31 of word r >> 5; row_off(k) their first
+// slot; term_mask(w), word w of RTW over [x-ub; lb-x] of the terminal
+// stage), the
 // integrator step `dyn` over a scalar or dual type (an implicit step, a
 // collocation or a DAE's algebraic Newton, runs its Newton inside it:
 // csrc/implicit.cuh), and the cost in closed
@@ -145,14 +147,46 @@ struct WipLay {
   HM_HD static int tri(int i, int j) { return i * NX - i * (i - 1) / 2 + (j - i); }
 };
 
-// number of set bits of mask below bit r
-HM_HD int popc_below(unsigned mask, int r) {
-  const unsigned m = mask & ((1u << r) - 1u);
+HM_HD int popc(unsigned m) {
 #ifdef __CUDA_ARCH__
   return __popc(m);
 #else
   return __builtin_popcount(m);
 #endif
+}
+
+// The active rows of a stage (or of the terminal stage) as W 32-bit words:
+// row r is bit r & 31 of word r >> 5. In the solve every r is known at
+// compile time (its loops over rows are unrolled), so each test is one bit
+// of one register and a one-word mask compiles to the single-word tests;
+// only the stores of the slacks and duals (stage_slot, term_slot) ask with
+// a run-time r.
+template <int W>
+struct RowMask {
+  unsigned w[W];
+  HM_HD bool has(int r) const { return (w[r >> 5] >> (r & 31)) & 1u; }
+  // the number of active rows below row r: whole words, then the partial one
+  HM_HD int below(int r) const {
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (i < (r >> 5)) c += popc(w[i]);
+    return c + popc(w[r >> 5] & ((1u << (r & 31)) - 1u));
+  }
+};
+template <typename P>
+HM_HD RowMask<P::RW> stage_rows(int k) {
+  RowMask<P::RW> m;
+#pragma unroll
+  for (int i = 0; i < P::RW; ++i) m.w[i] = P::row_mask(k, i);
+  return m;
+}
+template <typename P>
+HM_HD RowMask<P::RTW> term_rows() {
+  RowMask<P::RTW> m;
+#pragma unroll
+  for (int i = 0; i < P::RTW; ++i) m.w[i] = P::term_mask(i);
+  return m;
 }
 
 template <typename T>
@@ -208,12 +242,13 @@ template <typename P>
 HM_HD int stage_slot(int w) {
   constexpr int M = 2 * P::NU + 2 * P::NX;
   const int k = w / M, r = w - k * M;
-  const unsigned mask = P::row_mask(k);
-  return ((mask >> r) & 1u) ? P::row_off(k) + popc_below(mask, r) : -1;
+  const RowMask<P::RW> mask = stage_rows<P>(k);
+  return mask.has(r) ? P::row_off(k) + mask.below(r) : -1;
 }
 template <typename P>
 HM_HD int term_slot(int t) {
-  return ((P::TERM_MASK >> t) & 1u) ? popc_below(P::TERM_MASK, t) : -1;
+  const RowMask<P::RTW> tm = term_rows<P>();
+  return tm.has(t) ? tm.below(t) : -1;
 }
 
 // The solve of scenario b by one thread; st points at its column of the
@@ -226,7 +261,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
   constexpr int NX = P::NX, NU = P::NU, N = P::N, NT = P::NT;
   constexpr int D = NX + NU;
   constexpr int M = 2 * NU + 2 * NX, MN = 2 * NX;
-  constexpr unsigned TM = P::TERM_MASK;
+  const RowMask<P::RTW> TM = term_rows<P>();
   // candidate row r of a stage: kind, index, sign; terminal row t likewise
   auto row_u = [](int r) { return r < 2 * NU; };
   auto row_i = [](int r) {
@@ -338,11 +373,11 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
     T xk[NX], uk[NU];
     get_x(k, xk);
     get_u(k, uk);
-    const unsigned mask = P::row_mask(k);
+    const RowMask<P::RW> mask = stage_rows<P>(k);
     int ridx = P::row_off(k);
 #pragma unroll
     for (int r = 0; r < M; ++r) {
-      if (!((mask >> r) & 1u)) continue;
+      if (!mask.has(r)) continue;
       const T si = m_fmax(m_abs(c_row(r, ridx, xk, uk)), s_min);
       V(Lay::S + ridx) = si;
       V(Lay::Z + ridx) = in.mu0 / si;
@@ -355,7 +390,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
     int tidx = 0;
 #pragma unroll
     for (int t = 0; t < MN; ++t) {
-      if (!((TM >> t) & 1u)) continue;
+      if (!TM.has(t)) continue;
       const T si = m_fmax(m_abs(c_term(t, tidx, xN)), s_min);
       V(Lay::SN + tidx) = si;
       V(Lay::ZN + tidx) = in.mu0 / si;
@@ -385,7 +420,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       lin_store(k, xk, uk, thk, x1, &A[0][0], &Bm[0][0], rd);
       P::stage_grad(xk, uk, thk, prm, gx, gu);
 
-      const unsigned mask = P::row_mask(k);
+      const RowMask<P::RW> mask = stage_rows<P>(k);
       const int r0 = P::row_off(k);
       // r_u = gu + Bᵀ lam + Cuᵀ z
 #pragma unroll
@@ -393,8 +428,8 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
         T r = gu[j];
 #pragma unroll
         for (int i = 0; i < NX; ++i) r = r + Bm[i][j] * lamk[i];
-        if ((mask >> j) & 1u) r = r + V(Lay::Z + r0 + popc_below(mask, j));
-        if ((mask >> (NU + j)) & 1u) r = r - V(Lay::Z + r0 + popc_below(mask, NU + j));
+        if (mask.has(j)) r = r + V(Lay::Z + r0 + mask.below(j));
+        if (mask.has(NU + j)) r = r - V(Lay::Z + r0 + mask.below(NU + j));
         e_stat = m_fmax(e_stat, m_abs(r));
       }
       // r_x (k >= 1) = gx + Aᵀ lam - lam_{k-1} + Cxᵀ z
@@ -404,10 +439,10 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
           T r = gx[i] - lam_prev[i];
 #pragma unroll
           for (int l = 0; l < NX; ++l) r = r + A[l][i] * lamk[l];
-          if ((mask >> (2 * NU + i)) & 1u)
-            r = r + V(Lay::Z + r0 + popc_below(mask, 2 * NU + i));
-          if ((mask >> (2 * NU + NX + i)) & 1u)
-            r = r - V(Lay::Z + r0 + popc_below(mask, 2 * NU + NX + i));
+          if (mask.has(2 * NU + i))
+            r = r + V(Lay::Z + r0 + mask.below(2 * NU + i));
+          if (mask.has(2 * NU + NX + i))
+            r = r - V(Lay::Z + r0 + mask.below(2 * NU + NX + i));
           e_stat = m_fmax(e_stat, m_abs(r));
         }
       }
@@ -416,13 +451,13 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       int ridx = r0;
 #pragma unroll
       for (int r = 0; r < M; ++r)
-        if ((mask >> r) & 1u) abs_mult = abs_mult + m_abs(V(Lay::Z + ridx++));
+        if (mask.has(r)) abs_mult = abs_mult + m_abs(V(Lay::Z + ridx++));
 #pragma unroll
       for (int i = 0; i < NX; ++i) e_feas = m_fmax(e_feas, m_abs(rd[i]));
       ridx = r0;
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        if (!((mask >> r) & 1u)) continue;
+        if (!mask.has(r)) continue;
         const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
         e_feas = m_fmax(e_feas, m_abs(c_row(r, ridx, xk, uk) + si));
         const T sz = si * zi;
@@ -440,19 +475,19 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       T r = gN[i] - lam_prev[i];
-      if ((TM >> i) & 1u) r = r + V(Lay::ZN + popc_below(TM, i));
-      if ((TM >> (NX + i)) & 1u) r = r - V(Lay::ZN + popc_below(TM, NX + i));
+      if (TM.has(i)) r = r + V(Lay::ZN + TM.below(i));
+      if (TM.has(NX + i)) r = r - V(Lay::ZN + TM.below(NX + i));
       e_stat = m_fmax(e_stat, m_abs(r));
     }
     {
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t)
-        if ((TM >> t) & 1u) abs_mult = abs_mult + m_abs(V(Lay::ZN + tidx++));
+        if (TM.has(t)) abs_mult = abs_mult + m_abs(V(Lay::ZN + tidx++));
       tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
-        if (!((TM >> t) & 1u)) continue;
+        if (!TM.has(t)) continue;
         const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
         e_feas = m_fmax(e_feas, m_abs(c_term(t, tidx, xN) + si));
         const T sz = si * zi;
@@ -480,7 +515,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
-        if (!((TM >> t) & 1u)) continue;
+        if (!TM.has(t)) continue;
         const int i = t < NX ? t : t - NX;
         const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
         const T r_in = c_term(t, tidx, xN) + si;
@@ -504,11 +539,11 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
         P::stage_hess(xk, uk, thk, prm, &Qb[0][0], &Rb[0][0], &Sc[0][0]);
       else
         P::stage_hess(xk, uk, thk, prm, &Qb[0][0], &Rb[0][0]);
-      const unsigned mask = P::row_mask(k);
+      const RowMask<P::RW> mask = stage_rows<P>(k);
       int ridx = P::row_off(k);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        if (!((mask >> r) & 1u)) continue;
+        if (!mask.has(r)) continue;
         const int i = row_i(r);
         const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
         const T sigma = zi / si;
@@ -686,11 +721,11 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
         dxn[i] = a + e + rd[i];
         V(Lay::DX + k * NX + i) = dxn[i];
       }
-      const unsigned mask = P::row_mask(k);
+      const RowMask<P::RW> mask = stage_rows<P>(k);
       int ridx = P::row_off(k);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        if (!((mask >> r) & 1u)) continue;
+        if (!mask.has(r)) continue;
         const T dC = row_s(r) * (row_u(r) ? du[row_i(r)] : dx[row_i(r)]);
         const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
         const T r_in = c_row(r, ridx, xk, uk) + si;
@@ -707,7 +742,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
-        if (!((TM >> t) & 1u)) continue;
+        if (!TM.has(t)) continue;
         const T dC = (t < NX ? T(1) : T(-1)) * dx[t < NX ? t : t - NX];
         const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
         const T r_in = c_term(t, tidx, xN) + si;
@@ -732,11 +767,11 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
     bool fin = true;
     auto stage_cands = [&](int k, const T* xk, const T* uk, const T* dxk,
                            const T* duk, bool write) {
-      const unsigned mask = P::row_mask(k);
+      const RowMask<P::RW> mask = stage_rows<P>(k);
       int ridx = P::row_off(k);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        if (!((mask >> r) & 1u)) continue;
+        if (!mask.has(r)) continue;
         const T dC = row_s(r) * (row_u(r) ? duk[row_i(r)] : dxk[row_i(r)]);
         const T si = V(Lay::S + ridx), zi = V(Lay::Z + ridx);
         const T ds = -(c_row(r, ridx, xk, uk) + si) - dC;
@@ -756,7 +791,7 @@ HM_HDN void solve_lane(const WipIn<T>& in, const WipOut<T>& out, T* st, size_t b
       int tidx = 0;
 #pragma unroll
       for (int t = 0; t < MN; ++t) {
-        if (!((TM >> t) & 1u)) continue;
+        if (!TM.has(t)) continue;
         const T dC = (t < NX ? T(1) : T(-1)) * dx[t < NX ? t : t - NX];
         const T si = V(Lay::SN + tidx), zi = V(Lay::ZN + tidx);
         const T ds = -(c_term(t, tidx, xN) + si) - dC;

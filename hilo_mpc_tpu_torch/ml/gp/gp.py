@@ -580,7 +580,13 @@ class GaussianProcess:
     def predict_fn(self, include_noise: bool = False):
         """(mu, var) = f(x) for x (..., d), batch-first: a plain function of
         the state as it is now (one copy of its numbers per dtype and device
-        of the argument), traceable into Model and NMPC functions."""
+        it computes in), traceable into Model and NMPC functions. It computes
+        in the wider of the argument's dtype and the GP's own, and returns
+        the argument's: a float64 GP under a float32 controller predicts in
+        float64, as JAX's float64 state promotes a float32 query. In float32
+        the exact mean k(x)ᵀα cancels (|α| ~ 150 against a mean of ~0.05 on
+        golden smpc_chance's GP), and its rounding, ~1e-5 and different at
+        every point, made the SMPC's merit line search reject good steps."""
         tag, c = self._constants()
         params = {k: _cached(v) for k, v in c["params"].items()}
         X = _cached(c["X"])
@@ -588,9 +594,17 @@ class GaussianProcess:
         sn2 = float(np.squeeze(self.noise_variance.value)) ** 2
         kernel, mean, lik = self.kernel, self.mean, self.likelihood
         noisy = include_noise and lik.uses_noise
+        own = self._dtype
 
         def fn(x_star):
             x_star = torch.atleast_1d(x_star)
+            wide = torch.promote_types(x_star.dtype, own)
+            if wide == x_star.dtype:
+                return predict(x_star)
+            mu, var = predict(x_star.to(wide))
+            return mu.to(x_star.dtype), var.to(x_star.dtype)
+
+        def predict(x_star):
             with full_precision():
                 p = {k: get(x_star) for k, get in params.items()}
                 s = [get(x_star) for get in state]

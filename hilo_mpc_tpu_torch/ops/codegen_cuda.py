@@ -36,7 +36,8 @@ in-kernel AD, so this module writes the model as C++ instead:
   emits no such code;
 - the box rows become bit masks over the candidate rows
   ``[u-ub; lb-u; x-ub; lb-x]`` of each stage (no x rows at k = 0), then the
-  terminal rows ``[x-ub; lb-x]``.
+  terminal rows ``[x-ub; lb-x]``, in 32-bit words (row r is bit r & 31 of
+  word r >> 5), so any number of rows fits.
 
 Structure goes into the source (sizes, the active-row pattern, the tableau,
 the expressions, the cost's sparsity); numbers go into the array ``prm``
@@ -50,10 +51,10 @@ path-following reference or path parameter: ``OCPSource.dsl_error``) by
 ops/codegen_fx.py from a ``torch.fx`` trace of the problem functions, which
 shares ``_struct_head``, ``_rows`` and the solver's operation count with
 this module (for an implicit step the traced route traces the model's own
-functions and wraps them in this module's step). What neither route can
-write (a free final time: ``OCPSource.cost_error``; more than ``MAX_ROWS``
-candidate rows; a Newton of more than ``NEWTON_MAX`` unknowns; a path
-parameter with an implicit step) raises ``NotImplementedError``.
+functions and wraps them in this module's step, with the Δu augmentation
+and the path parameter around it). What neither route can write (a free
+final time: ``OCPSource.cost_error``; a Newton of more than ``NEWTON_MAX``
+unknowns) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -84,8 +85,6 @@ _FUNCS = {
     "ceil": ("m_ceil", 1), "erf": ("m_erf", 1),
 }
 _CONSTS = {"pi": math.pi}
-# candidate rows of a stage fit one 32-bit mask
-MAX_ROWS = 32
 # the most unknowns of an implicit step's Newton (d·(nx + nz) for
 # collocation, nz for an explicit or discrete step of a DAE model): its
 # Jacobian, NEWTON_MAX² values, lives in one thread's registers
@@ -133,6 +132,9 @@ class OCPSource:
     # the Δu augmentation: u_prev rides in the state after the model's
     # states and the control is Δu
     augment_du: bool = False
+    # a path parameter (create_path_variable): the last solver state th
+    # (after u_prev under Δu) and the last control, its velocity u_pf
+    augment_path: bool = False
     dsl_error: Optional[str] = None
     n_theta: Optional[int] = None
     dtype: object = None
@@ -690,10 +692,11 @@ def _step_ops(work, rhs_oc, alg_oc, nx: int, D: int) -> int:
 
 def _check_dims(src: OCPSource, nx: int, nu: int):
     nxm, num = src.model.n_x, src.model.n_u
-    if (nx, nu) != ((nxm + num, num) if src.augment_du else (nxm, num)):
+    path = int(src.augment_path)
+    if (nx, nu) != (nxm + (num if src.augment_du else 0) + path, num + path):
         raise NotImplementedError(
-            f"the solver's (nx, nu) = ({nx}, {nu}) is not the model's (or its Δu "
-            f"augmentation's): only the Δu augmentation can be emitted")
+            f"the solver's (nx, nu) = ({nx}, {nu}) is not the model's with its Δu "
+            f"and path augmentations: only those can be emitted")
 
 
 def _includes(newton: bool) -> str:
@@ -709,20 +712,25 @@ def _emit_dyn(src: OCPSource, nx: int, nu: int, prm: _Prm, p_sx: int,
     at prm[p_sx:] and prm[p_su:] (x = xs·sx, u = us·su, p = th + 2, t =
     th[0], h = th[1]) around the model's step, which calls the problem's
     ``rhs`` (and ``alg``). Under the Δu augmentation the model sees u =
-    u_prev + Δu and the step appends u/su."""
-    nxm = src.model.n_x
-    step, work = _emit_step(src.spec, nxm, src.model.n_z, nu, prm, src.z0)
-    dyn_in = (f"\n    for (int j = 0; j < {nu}; ++j) u[j] = x[{nxm} + j] + u[j];"
+    u_prev + Δu and the step appends u/su; with a path parameter (the last
+    solver state th_path, unscaled, and the last control u_pf) the step
+    appends th_path + h·u_pf, as control/nmpc.py's ``dyn`` does."""
+    nxm, num = src.model.n_x, src.model.n_u
+    step, work = _emit_step(src.spec, nxm, src.model.n_z, num, prm, src.z0)
+    nxs = nx - int(src.augment_path)     # the scaled states: x (and u_prev)
+    dyn_in = (f"\n    for (int j = 0; j < {num}; ++j) u[j] = x[{nxm} + j] + u[j];"
               if src.augment_du else "")
-    dyn_out = (f"\n    for (int j = 0; j < {nu}; ++j) out[{nxm} + j] = u[j] / prm[{p_su} + j];"
+    dyn_out = (f"\n    for (int j = 0; j < {num}; ++j) out[{nxm} + j] = u[j] / prm[{p_su} + j];"
                if src.augment_du else "")
+    if src.augment_path:
+        dyn_out += f"\n    out[{nxs}] = xs[{nxs}] + h * us[{num}];"
     text = f"""  // x_next of the solver-scaled (xs, us) at the stage parameters th
   template <typename T, typename S>
   HM_HD static void dyn(const S* xs, const S* us, const T* th, const T* prm,
                         S* out) {{
-    S x[{nx}], u[{nu}];
-    for (int i = 0; i < {nx}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
-    for (int j = 0; j < {nu}; ++j) u[j] = us[j] * prm[{p_su} + j];{dyn_in}
+    S x[{nxs}], u[{num}];
+    for (int i = 0; i < {nxs}; ++i) x[i] = xs[i] * prm[{p_sx} + i];
+    for (int j = 0; j < {num}; ++j) u[j] = us[j] * prm[{p_su} + j];{dyn_in}
     const T* p = th + 2;
     const T t0 = th[0], h = th[1];
 {chr(10).join(step)}
@@ -871,35 +879,55 @@ def _emit_soft(src: OCPSource, prm: _Prm, nx: int) -> tuple:
     return val, grad, hess, ops
 
 
+def _words(mask: int, n: int) -> list:
+    """The 32-bit words of a row mask over n candidate rows, low rows first
+    (at least one)."""
+    return [(mask >> (32 * w)) & 0xFFFFFFFF for w in range(max(1, -(-n // 32)))]
+
+
 def _struct_head(nx, nu, N, n_theta, masks, RS, RT, tmask, cross, p_row,
                  p_trow, region) -> str:
     """The head of the problem struct, shared by both emitters: the sizes,
-    the tiles, the row pattern and where the row offsets sit in prm."""
+    the tiles, the row pattern in 32-bit words (RW per stage, RTW at the
+    terminal stage) and where the row offsets sit in prm."""
     runs = _runs(masks)
+    n_rows = 2 * nu + 2 * nx
+    rw, rtw = len(_words(0, n_rows)), len(_words(0, 2 * nx))
+
+    def word_fn(ws):
+        """The body returning word w of ``ws``."""
+        return ("".join(f"if (w == {i}) return {v}u; " for i, v in enumerate(ws[:-1]))
+                + f"return {ws[-1]}u;")
+
     k0, _, m_last, s_last = runs[-1]
-    mask_fn = "".join(f"    if (k < {k1}) return {m}u;\n" for _, k1, m, _ in runs[:-1])
-    mask_fn += f"    return {m_last}u;"
+    mask_fn = "".join(f"    if (k < {k1}) {{ {word_fn(_words(m, n_rows))} }}\n"
+                      for _, k1, m, _ in runs[:-1])
+    mask_fn += f"    {word_fn(_words(m_last, n_rows))}"
     off_fn = "".join(f"    if (k < {k1}) return {s0} + (k - {k0}) * "
                      f"{bin(m).count('1')};\n" for k0, k1, m, s0 in runs[:-1])
     off_fn += f"    return {s_last} + (k - {k0}) * {bin(m_last).count('1')};"
     return f"""struct Problem {{
   static constexpr int NX = {nx}, NU = {nu}, N = {N}, NT = {n_theta};
-  static constexpr int RS = {RS}, RT = {RT};
+  static constexpr int RS = {RS}, RT = {RT}, RW = {rw}, RTW = {rtw};
   static constexpr int TB = {WIP_TB}, MINB_F32 = {WIP_MIN_BLOCKS[0]},
                        MINB_F64 = {WIP_MIN_BLOCKS[1]}, E = {region};
-  static constexpr unsigned TERM_MASK = {tmask}u;
   static constexpr bool CROSS = {"true" if cross else "false"};
   static constexpr int P_TOL = 0, P_TOL10 = 1, P_REG = 2, P_SMIN = 3,
                        P_KEPS = 4, P_KMU = 5, P_TMU = 6, P_TAUMIN = 7,
                        P_MAXIT = 8, P_ROW = {p_row}, P_TROW = {p_trow};
 
-  // active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, and the slot
-  // of the first of them
-  HM_HD static unsigned row_mask(int k) {{
+  // word w of the active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage
+  // k (row r is bit r & 31 of word r >> 5), and the slot of the first of
+  // them; word w of the terminal rows [x-ub; lb-x]
+  HM_HD static unsigned row_mask(int k, int w) {{
+    (void)w;
 {mask_fn}
   }}
   HM_HD static int row_off(int k) {{
 {off_fn}
+  }}
+  HM_HD static constexpr unsigned term_mask(int w) {{
+    {"(void)w; " if rtw == 1 else ""}{word_fn(_words(tmask, 2 * nx))}
   }}
 
 """
@@ -916,10 +944,6 @@ def emit_problem(src: OCPSource, dims, bounds, n_theta: int, options,
     (ops/codegen_fx.py). What neither can write raises
     NotImplementedError."""
     nx, nu, N = dims.nx, dims.nu, dims.N
-    if 2 * nu + 2 * nx > MAX_ROWS:
-        raise NotImplementedError(
-            f"2·nu + 2·nx = {2 * nu + 2 * nx} candidate box rows per stage; the "
-            f"whole-solve kernel takes at most {MAX_ROWS} (ROADMAP.md §B)")
     if src.cost_error is not None:
         raise NotImplementedError(
             f"the whole-solve kernel cannot take {src.cost_error} "

@@ -48,7 +48,7 @@ import math
 import numpy as np
 import torch
 
-from .codegen_cuda import (_IP_FIELDS, MAX_ROWS, EmittedProblem, _check_dims,
+from .codegen_cuda import (_IP_FIELDS, EmittedProblem, _check_dims,
                            _emit_dyn, _includes, _Prm, _rows, _solver_flops,
                            _step_ops, _struct_head, newton_size, whole_ip_region)
 
@@ -74,6 +74,11 @@ def _literal(v) -> _V:
     if math.isnan(v):
         raise NotImplementedError("a NaN literal in the trace cannot be emitted")
     return _V(f"T({v!r})", "T", lit=v)
+
+
+# the zeros of aten._efficientzerotensor: the tangents a traced jvp knows to
+# be zero
+_ZERO_TANGENT = _literal(0.0)
 
 
 def _pairs(a, b):
@@ -134,10 +139,20 @@ class _Fn:
                          a.hp | b.hp)
 
     def mul(self, a, b):
+        # a product with a structural one is the other factor; one with a
+        # zero tangent is a zero tangent, as PyTorch multiplies its zero
+        # tensors (whatever the other factor, inf and NaN too)
+        for x, y in ((a, b), (b, a)):
+            if x.lit == 1.0:
+                return y
+            if x is _ZERO_TANGENT:
+                return x
         return self.emit(self._kind(a, b), f"({a.code} * {b.code})", a.dep | b.dep,
                          a.hp | b.hp | _pairs(a.dep, b.dep))
 
     def div(self, a, b):
+        if b.lit == 1.0:
+            return a
         return self.emit(self._kind(a, b), f"({a.code} / {b.code})", a.dep | b.dep,
                          a.hp | b.hp | _pairs(a.dep | b.dep, b.dep))
 
@@ -199,18 +214,22 @@ _UNARY = {
 _COMPARE = {"gt": ">", "ge": ">=", "lt": "<", "le": "<=", "eq": "==", "ne": "!="}
 # views, copies and creations: the scalars rearranged or made, no code
 _VIEWS = {"alias", "clone", "detach", "lift_fresh", "_to_copy", "select", "slice",
-          "unsqueeze", "squeeze", "expand", "view", "permute", "t", "transpose", "copy",
-          "select_scatter", "slice_scatter", "stack", "cat", "zeros", "zeros_like",
-          "new_zeros", "ones", "ones_like", "new_ones", "full", "full_like",
-          "new_full"}
+          "unsqueeze", "squeeze", "expand", "view", "_unsafe_view", "permute", "t",
+          "transpose", "copy", "select_scatter", "slice_scatter", "stack", "cat",
+          "zeros", "zeros_like", "new_zeros", "_efficientzerotensor", "ones",
+          "ones_like", "new_ones", "full", "full_like", "new_full", "eye", "triu",
+          "tril", "scalar_tensor"}
 _LOGICAL = {"logical_not": "not", "bitwise_not": "not", "logical_and": "&&",
             "bitwise_and": "&&", "logical_or": "||", "bitwise_or": "||"}
 _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "pow", "maximum", "minimum",
           "atan2", "where", "sum", "mean", "mm", "bmm", "mv", "dot", "addmm",
-          "reciprocal", "rsqrt"}
+          "reciprocal", "rsqrt", "linalg_solve_triangular"}
 # every aten op the emitter takes (the functionalized graph names views
 # "<view>_copy"): what the model and costs of
-# tests/test_torch_whole_ip_traced.py trace to, and no more
+# tests/test_torch_whole_ip_traced.py trace to, and what the SMPC surrogate
+# adds (control/smpc.py: the GP variance's triangular solve, and the zeros,
+# views, identity and triangle that make_fx writes for the mean step's
+# nested jvp), each op in its general form
 OPS = frozenset(_VIEWS | _ARITH | set(_LOGICAL) | set(_UNARY) | set(_COMPARE))
 
 
@@ -291,7 +310,11 @@ class _Interp:
         if name == "_to_copy":
             # a device move, a cast of a value that does not depend on (x, u)
             # (prm and theta reach the kernel in its own type), or a widening
-            # cast: the kernel computes all of them in its type
+            # cast: the kernel computes all of them in its type. A narrowing
+            # cast of a value that depends on (x, u) marks a part computed
+            # wider than the controller (a float64 GP under a float32
+            # controller), which a build in the controller's type cannot
+            # compute: it declines
             src, dst = node.args[0].meta["val"].dtype, node.meta["val"].dtype
             if not dst.is_floating_point or (
                     src.is_floating_point and torch.finfo(dst).bits < torch.finfo(src).bits
@@ -369,6 +392,33 @@ class _Interp:
             shape = (a.shape if name == "full_like" else args[1] if name == "new_full"
                      else a)
             return _full(shape, fn.scalar(args[-1]))
+        if name == "_unsafe_view":
+            return np.ascontiguousarray(a).reshape(args[1])
+        if name == "_efficientzerotensor":
+            return _full(a, _ZERO_TANGENT)
+        if name == "eye":
+            n = a
+            m = args[1] if len(args) > 1 else n
+            out = _full((n, m), _literal(0.0))
+            for i in range(min(n, m)):
+                out[i, i] = _literal(1.0)
+            return out
+        if name in ("triu", "tril"):
+            # the elements on and above (below) the diagonal-th diagonal
+            diag = args[1] if len(args) > 1 else kw.get("diagonal", 0)
+            out = a.copy()
+            for idx in np.ndindex(a.shape):
+                i, j = idx[-2], idx[-1]
+                if (j - i < diag) if name == "triu" else (j - i > diag):
+                    out[idx] = _literal(0.0)
+            return out
+        if name == "scalar_tensor":
+            # an integer-valued number is structure, any other a number
+            v = a
+            if not isinstance(v, (bool, np.bool_)) and math.isfinite(float(v)) \
+                    and float(v) != int(float(v)):
+                return _full((), fn.number(float(v)))
+            return _full((), _literal(v))
         return self.arith(name, target, args, kw)
 
     def arith(self, name, target, args, kw):
@@ -440,6 +490,9 @@ class _Interp:
                 for d in dims:
                     out = np.expand_dims(out, d)
             return out
+        if name == "linalg_solve_triangular":
+            return self.tri_solve(args[0], args[1], kw["upper"], kw.get("left", True),
+                                  kw.get("unitriangular", False))
         if name in ("mm", "bmm", "mv", "dot", "addmm"):
             if name == "addmm":
                 beta, alpha = kw.get("beta", 1), kw.get("alpha", 1)
@@ -451,6 +504,31 @@ class _Interp:
             out = self.matmul(a, b)
             return out if bias is None else ew(fn.add, out, bias)
         raise NotImplementedError(f"the op {target} cannot be emitted as C++")
+
+    def tri_solve(self, A, B, upper, left, unit):
+        """X of A X = B (``left``) or X A = B for a triangular A (..., n, n)
+        and B (..., n, k) or (..., k, n), batch dims broadcast: forward or
+        back substitution, one statement per element, each a division by
+        the diagonal (none where ``unit``). A may depend on (x, u) too."""
+        fn = self.fn
+        if not left:                              # X A = B  <=>  Aᵀ Xᵀ = Bᵀ
+            return np.swapaxes(self.tri_solve(np.swapaxes(A, -1, -2),
+                                              np.swapaxes(B, -1, -2), not upper, True,
+                                              unit), -1, -2)
+        lead = np.broadcast_shapes(A.shape[:-2], B.shape[:-2])
+        A = np.broadcast_to(A, lead + A.shape[-2:])
+        B = np.broadcast_to(B, lead + B.shape[-2:])
+        n, k = B.shape[-2:]
+        out = np.empty(lead + (n, k), dtype=object)
+        rows = range(n - 1, -1, -1) if upper else range(n)
+        for idx in np.ndindex(lead + (k,)):
+            l, c = idx[:-1], idx[-1]
+            for i in rows:
+                s = B[l + (i, c)]
+                for j in (range(i + 1, n) if upper else range(i)):
+                    s = fn.sub(s, fn.mul(A[l + (i, j)], out[l + (j, c)]))
+                out[l + (i, c)] = s if unit else fn.div(s, A[l + (i, i)])
+        return out
 
     def matmul(self, a, b):
         """a @ b for (m, k) @ (k, n), (B, m, k) @ (B, k, n), (m, k) @ (k,),
@@ -478,18 +556,23 @@ class _Interp:
 
 
 def trace(f, *args):
-    """``make_fx`` of the functionalized ``f`` on ``args``; a branch on a
+    """``make_fx`` of the functionalized ``f`` on ``args``, its dead nodes
+    removed (an output computed and never used, such as the GP variance
+    inside the SMPC mean step's Jacobian, writes no code); a branch on a
     value raises NotImplementedError."""
     from torch.fx.experimental.proxy_tensor import make_fx
     g = torch.func.functionalize(f, remove="mutations_and_views")
     try:
-        return make_fx(g)(*args)
+        gm = make_fx(g)(*args)
     except RuntimeError as e:
         if "_local_scalar_dense" in str(e):
             raise NotImplementedError(
                 "a branch on a value in the problem functions "
                 "(aten._local_scalar_dense while tracing)") from e
         raise
+    gm.graph.eliminate_dead_code()
+    gm.recompile()
+    return gm
 
 
 def _inputs(names_kinds, offsets):
@@ -526,10 +609,6 @@ def emit_fx_problem(funcs, dims, bounds, n_theta: int, options) -> EmittedProble
     whose constants go into prm. Raises NotImplementedError naming what
     cannot be traced or emitted."""
     nx, nu, N = dims.nx, dims.nu, dims.N
-    if 2 * nu + 2 * nx > MAX_ROWS:
-        raise NotImplementedError(
-            f"2·nu + 2·nx = {2 * nu + 2 * nx} candidate box rows per stage; the "
-            f"whole-solve kernel takes at most {MAX_ROWS}")
     if nu == 0:
         raise NotImplementedError("a problem without controls cannot be emitted "
                                   "for the whole-solve kernel")
@@ -541,17 +620,12 @@ def emit_fx_problem(funcs, dims, bounds, n_theta: int, options) -> EmittedProble
     th = torch.zeros(1, n_theta, **kw)
     # an implicit step (collocation, or a DAE model's algebraic Newton): the
     # model's own functions are traced and wrapped in ops/codegen_cuda.py's
-    # step, whose Newton csrc/implicit.cuh runs
+    # step, whose Newton csrc/implicit.cuh runs, with the Δu augmentation and
+    # the path parameter around it
     implicit = (src is not None
                 and newton_size(src.spec, src.model.n_x, src.model.n_z) > 0)
     if implicit:
-        try:
-            _check_dims(src, nx, nu)
-        except NotImplementedError:
-            raise NotImplementedError(
-                f"{src.dsl_error or 'an augmented state'} together with an implicit "
-                f"integrator step or algebraic states (the step's emitter wraps the "
-                f"model's own functions, with the Δu augmentation at most)") from None
+        _check_dims(src, nx, nu)
         g_model = _trace_model(src.model, kw)
     else:
         g_dyn = trace(funcs.dyn, x, u, th)
@@ -686,7 +760,8 @@ def _emit_model_step(src, graphs, prm: _Prm, nx: int, nu: int) -> tuple:
     for v in src.u_scaling:
         prm.add(v)
     text, counts = "", []
-    names = [("x", "S", nxm)] + ([("z", "S", nz)] if nz else []) + [("u", "S", nu)]
+    names = ([("x", "S", nxm)] + ([("z", "S", nz)] if nz else [])
+             + [("u", "S", model.n_u)])
     for name, n_out in (("rhs", nxm), ("alg", nz)):
         if name not in graphs:
             counts.append((0, 0))

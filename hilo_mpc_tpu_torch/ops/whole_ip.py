@@ -15,8 +15,8 @@ at its first use (ops/_build.py, cached by the text's hash under
 thread per scenario, until each has converged, diverged or reached
 ``max_iter``. ``whole_ip_gate`` is the gate (``pallas_full_supported`` and
 an emission: no free final time, a Newton of at most ``NEWTON_MAX``
-unknowns in an implicit step, no op outside the trace's table, at most
-``MAX_ROWS`` candidate rows per stage); ``NMPC.solve_batch_fn`` reads
+unknowns in an implicit step, no op outside the trace's table);
+``NMPC.solve_batch_fn`` reads
 ``pallas_full`` and takes this path for eligible problems, through a
 ``WholeIPLaunch`` it prepares once per controller, dtype and device.
 
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .codegen_cuda import MAX_ROWS, WIP_TB, EmittedProblem, emit_problem
+from .codegen_cuda import WIP_TB, EmittedProblem, emit_problem
 from .ip_solver import IPOptions, OCPSolution, solve_ocp
 from .riccati import make_plain_lq_solver
 
@@ -44,7 +44,7 @@ def _options_decline(dims, bounds, options: IPOptions, fix_x0: bool) -> Optional
     """Why ``hilo_mpc_tpu/ops/pallas_ip.py:pallas_full_supported`` declines
     this problem, or None: hard generic or equality rows, a free x0, other
     than pure Newton steps, iterate recording or parallel Riccati, pinned
-    controls; and here more than ``MAX_ROWS`` candidate rows per stage."""
+    controls."""
     if dims.n_h or dims.n_hN:
         return "hard generic inequality rows"
     if dims.n_e or dims.n_eN:
@@ -63,9 +63,6 @@ def _options_decline(dims, bounds, options: IPOptions, fix_x0: bool) -> Optional
     ubu = bounds.ubu.detach().cpu().double().numpy()
     if (np.isfinite(lbu) & np.isfinite(ubu) & (ubu - lbu < 1e-9)).any():
         return "pinned controls (lbu = ubu)"
-    if 2 * dims.nu + 2 * dims.nx > MAX_ROWS:
-        return (f"{2 * dims.nu + 2 * dims.nx} candidate box rows per stage (at most "
-                f"{MAX_ROWS})")
     return None
 
 

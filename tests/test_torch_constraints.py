@@ -92,9 +92,10 @@ def test_solve_ocp_generic_rows_match_jax(case):
     jd, td = dataclasses.replace(jd, **n_rows), dataclasses.replace(td, **n_rows)
     args = tuple(a[sel] for a in args)
     opts = dict(max_iter=80, tol=1e-8, mehrotra=mehrotra)
-    jsol = jax.tree.map(np.asarray, jip.solve_ocp_batched(
-        jf, jd, jip.OCPBounds(*map(jnp.asarray, bnd)), *map(jnp.asarray, args),
-        jip.IPOptions(**opts)))
+    # jitted: one compile of the batched solve instead of an eager dispatch
+    jsol = jax.tree.map(np.asarray, jax.jit(lambda b, *a: jip.solve_ocp_batched(
+        jf, jd, b, *a, jip.IPOptions(**opts)))(
+        jip.OCPBounds(*map(jnp.asarray, bnd)), *map(jnp.asarray, args)))
     tbnd = (tip.OCPBounds(*to_torch(bnd, device=CPU)) if bounded
             else tip.default_bounds(td, dtype=F64, device=CPU))
     tsol = to_numpy(tip.solve_ocp(tf, td, tbnd, *to_torch(args, device=CPU),

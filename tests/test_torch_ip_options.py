@@ -134,7 +134,10 @@ def _lq(N, nx=3, nu=2, seed=0, batch=()):
 @pytest.mark.parametrize("N", [1, 3, 20, 37])
 def test_solve_lq_parallel_matches_jax_and_sequential(N):
     blocks = _lq(N, seed=N)
-    jsol = jric.solve_lq_parallel(*map(jnp.asarray, blocks), reg=1e-9)
+    # jitted: one compile instead of an eager dispatch of every op of the
+    # scans (the same bits)
+    jsol = jax.jit(lambda *b: jric.solve_lq_parallel(*b, reg=1e-9))(
+        *map(jnp.asarray, blocks))
     tblocks = [torch.as_tensor(b) for b in blocks]
     psol = tric.solve_lq_parallel(*tblocks, reg=1e-9)
     ssol = tric.solve_lq(*tblocks, reg=1e-9)

@@ -9,6 +9,7 @@ update or a line-search decision by one iteration).
 import dataclasses
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,9 +74,10 @@ def _di_problem(bounded, pinned=False):
                                             (True, True)])
 def test_double_integrator_matches_jax(bounded, pinned):
     jfuncs, tfuncs, jdims, tdims, bnd, args = _di_problem(bounded, pinned)
-    jsol = jip.solve_ocp_batched(jfuncs, jdims, jip.OCPBounds(*map(jnp.asarray, bnd)),
-                                 *map(jnp.asarray, args),
-                                 jip.IPOptions(max_iter=40, tol=1e-6))
+    # jitted: one compile of the batched solve instead of an eager dispatch
+    jsol = jax.jit(lambda b, *a: jip.solve_ocp_batched(
+        jfuncs, jdims, b, *a, jip.IPOptions(max_iter=40, tol=1e-6)))(
+        jip.OCPBounds(*map(jnp.asarray, bnd)), *map(jnp.asarray, args))
     tbnd = (tip.OCPBounds(*to_torch(bnd, device=CPU)) if bounded
             else tip.default_bounds(tdims, dtype=F64, device=CPU))
     tsol = tip.solve_ocp(tfuncs, tdims, tbnd, *to_torch(args, device=CPU),

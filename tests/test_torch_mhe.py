@@ -10,6 +10,7 @@ per module: each JAX setup traces and compiles.
 """
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -396,9 +397,10 @@ def test_free_x0_solve_ocp_matches_jax():
     the start, r_x[0] joins the KKT test."""
     jfuncs, tfuncs, jdims, tdims, bnd, args = _free_x0_problem()
     opts = dict(max_iter=40, tol=1e-8)
-    jsol = jip.solve_ocp_batched(jfuncs, jdims, jip.OCPBounds(*map(jnp.asarray, bnd)),
-                                 *map(jnp.asarray, args), jip.IPOptions(**opts),
-                                 fix_x0=False)
+    # jitted: one compile of the batched solve instead of an eager dispatch
+    jsol = jax.jit(lambda b, *a: jip.solve_ocp_batched(
+        jfuncs, jdims, b, *a, jip.IPOptions(**opts), fix_x0=False))(
+        jip.OCPBounds(*map(jnp.asarray, bnd)), *map(jnp.asarray, args))
     tsol = tip.solve_ocp(tfuncs, tdims, tip.OCPBounds(*to_torch(bnd, device=CPU)),
                          *to_torch(args, device=CPU), tip.IPOptions(**opts),
                          fix_x0=False)

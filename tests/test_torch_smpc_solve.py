@@ -2,18 +2,19 @@
 against the JAX package (CPU, float64), on golden smpc_chance's controller
 (its GP carried across): optimize from the physical x0 (U to 1e-8, equal
 iterations); the batch entry points on (B, nx + nx²) states against JAX's
-and against single solves; pallas_full declining with the op it cannot
-emit named, and the general path's bits."""
+and against single solves; pallas_full taking the SMPC without chance rows
+(the GP variance's triangular solve emitted) and giving the whole-solve
+path's plain version's bits, with no Riccati launch."""
 import warnings
 
 import numpy as np
-import pytest
 import torch
 
 from golden_configs import build_smpc_chance
 from hilo_mpc_tpu import GP as JaxGP
 from hilo_mpc_tpu_torch import SMPC
 from hilo_mpc_tpu_torch.ops import whole_ip as W
+from hilo_mpc_tpu_torch.ops.cuda_kernels import riccati_lq_cuda
 from hilo_mpc_tpu_torch.utils.interop import gp_from, to_numpy, to_torch
 from test_torch_smpc import gps, models
 
@@ -89,32 +90,31 @@ def test_batch_entry_points_match_jax_and_single_solves():
 
 
 def test_pallas_full_declines_the_variance_solve():
-    """Without chance rows the whole-solve gate traces the surrogate and
-    meets the GP variance's triangular solve: pallas_full warns naming the
-    op and the general path's bits come back."""
+    """Without chance rows the whole-solve gate traces the surrogate, the
+    GP variance's triangular solve among its ops, and takes it: pallas_full
+    gives no warning, the whole-solve path's plain version bit for bit and
+    no Riccati launch (the name is kept from when the gate declined it)."""
     opts = {"convexify": False, "n_linesearch": 1, "mehrotra": False, "tol": 1e-8}
-    ctl = {}
-    for full in (False, True):
-        _, tm = models()
-        _, tg = gps()
-        s = SMPC(tm, gps={"x2": tg}, dt=0.1)
-        s.horizon = 4
-        s.quad_stage_cost.add_states(names=["x1", "x2"], weights=[5.0, 1.0],
-                                     ref=[0.85, 0.0])
-        s.quad_stage_cost.add_inputs(weights=0.05)
-        s.set_box_constraints(u_lb=[-2.0], u_ub=[2.0])
-        ctl[full] = s.setup(options={"dt": 0.1, "pallas_full": full, **opts},
-                            device=CPU, dtype=F64)
-    c = ctl[True]
+    _, tm = models()
+    _, tg = gps()
+    c = SMPC(tm, gps={"x2": tg}, dt=0.1)
+    c.horizon = 4
+    c.quad_stage_cost.add_states(names=["x1", "x2"], weights=[5.0, 1.0],
+                                 ref=[0.85, 0.0])
+    c.quad_stage_cost.add_inputs(weights=0.05)
+    c.set_box_constraints(u_lb=[-2.0], u_ub=[2.0])
+    c.setup(options={"dt": 0.1, "pallas_full": True, **opts}, device=CPU, dtype=F64)
     problem, why = W.whole_ip_gate(c._funcs, c._dims, c._bounds, c._ip_opts, True)
-    assert problem is None and "linalg_solve_triangular" in why
-    with pytest.warns(UserWarning, match="linalg_solve_triangular"):
-        fn = c.solve_batch_fn()
-    x0s = np.concatenate([[[0.3, 0.0], [0.1, -0.1]], np.zeros((2, 4))], 1)
-    a = fn(*c.prepare_batch(x0s))
+    assert problem is not None and why is None, why
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        b = ctl[False].solve_batch_fn()(*ctl[False].prepare_batch(x0s))
-    assert torch.equal(a.U, b.U) and torch.equal(a.iterations, b.iterations)
-
-
+        warnings.simplefilter("error")
+        fn = c.solve_batch_fn()
+    assert c._wip["eligible"]
+    x0s = np.concatenate([[[0.3, 0.0], [0.1, -0.1]], np.zeros((2, 4))], 1)
+    args = c.prepare_batch(x0s)
+    n_ric = riccati_lq_cuda.launches
+    a = fn(*args)
+    b = W.solve_ocp_full_reference(c._funcs, c._dims, c._bounds, *args, c._ip_opts)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert riccati_lq_cuda.launches == n_ric

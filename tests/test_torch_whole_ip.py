@@ -152,9 +152,9 @@ def test_plain_matches_general_path(case):
     c = GENERAL_CASES[case]
     jn = _nmpc(JaxNMPC, jax_cstr(), c["N"], c["options"], c["bounds"])
     args = jn.prepare_batch(_x0s(c["B"], c["seed"]))
-    jsol = jax.vmap(lambda th, x0, Xi, Ui: jip.solve_ocp(
+    jsol = jax.jit(jax.vmap(lambda th, x0, Xi, Ui: jip.solve_ocp(
         jn._funcs, jn._dims, jn._bounds, th, x0, Xi, Ui, options=jn._ip_opts,
-        fix_x0=True))(*args)
+        fix_x0=True)))(*args)
     tn = _port(c["N"], c["options"], c["bounds"])
     sol = to_numpy(_plain(tn, to_torch(args, device=CPU)))
     np.testing.assert_array_equal(sol.converged, np.asarray(jsol.converged))

@@ -25,6 +25,7 @@ the cost has one (``CROSS = true``), and csrc/whole_ip.cuh adds it there.
 - ``cuda``: the CROSS kernel against the plain version on the card.
 """
 import hashlib
+import re
 import shutil
 import warnings
 
@@ -188,7 +189,8 @@ def test_host_build_matches_pallas_interpret(pallas_case):
 # the SHA-256 (first 16 hex digits) of each chip_smoke.py row pattern's
 # emitted text at N=20 as it was before the cross block existed; the
 # problems without a cross term emit it still, with the line
-# "CROSS = false" added
+# "CROSS = false" added and the row masks written as 32-bit words (one
+# word here: _one_word_as_before maps them back to the single-mask text)
 NO_CROSS_TEXT = {
     "flagship": (dict(u_lb=[-5.0], u_ub=[5.0]), "98526e642d3b5cfe"),
     "state_terminal_bounds": (dict(u_lb=[-5.0], u_ub=[5.0], x_lb=[0.0, 0.0],
@@ -197,6 +199,30 @@ NO_CROSS_TEXT = {
     "softcon_active": (dict(u_lb=[-5.0], u_ub=[5.0], x_ub=[0.27, float("inf")],
                             x_soft=True, soft_weight=500.0), "f2ba5611cc680635"),
 }
+
+
+def _one_word_as_before(text):
+    """A one-word problem's text with its row words written as the single
+    masks of the text before them (RW = RTW = 1: row_mask(k, 0) is the
+    stage's mask, term_mask(0) the terminal one); any other difference
+    stays."""
+    assert text.count("RW = 1, RTW = 1;") == 1
+    text = text.replace(", RW = 1, RTW = 1;", ";")
+    term = re.search(r"  HM_HD static constexpr unsigned term_mask\(int w\) \{\n"
+                     r"    \(void\)w; return (\d+u);\n  \}\n", text)
+    text = text.replace(term.group(0), "")
+    text = text.replace("  static constexpr bool CROSS",
+                        f"  static constexpr unsigned TERM_MASK = {term.group(1)};\n"
+                        "  static constexpr bool CROSS")
+    text = text.replace(
+        "  // word w of the active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage\n"
+        "  // k (row r is bit r & 31 of word r >> 5), and the slot of the first of\n"
+        "  // them; word w of the terminal rows [x-ub; lb-x]\n",
+        "  // active candidate rows [u-ub; lb-u; x-ub; lb-x] of stage k, and the slot\n"
+        "  // of the first of them\n")
+    text = text.replace("row_mask(int k, int w) {\n    (void)w;\n", "row_mask(int k) {\n")
+    return re.sub(r"    if \(k < (\d+)\) \{ return (\d+u); \}", r"    if (k < \1) return \2;",
+                  text)
 
 
 @pytest.mark.parametrize("case", sorted(NO_CROSS_TEXT))
@@ -209,7 +235,8 @@ def test_problems_without_cross_terms_emit_the_same_text(case):
     tn.set_box_constraints(**bounds)
     tn.set_parameters(CSTR_P)
     tn.setup(options={**KERNEL_OPTS, "max_iter": 25}, device=CPU, dtype=torch.float32)
-    text = _problem(tn, tn.prepare_batch([[0.2, 0.1]])[0].shape[2]).text
+    text = _one_word_as_before(
+        _problem(tn, tn.prepare_batch([[0.2, 0.1]])[0].shape[2]).text)
     line = "  static constexpr bool CROSS = false;\n"
     assert text.count(line) == 1 and "Hux" not in text
     assert hashlib.sha256(text.replace(line, "").encode()).hexdigest()[:16] == digest

@@ -16,8 +16,8 @@ DSL takes the DSL route, its algebraic equations emitted as ``alg``.
   version, equal iterations and U/X to 1e-9; F and [A | B] against
   ``torch.func.jacfwd`` of the port's ``dyn`` to 1e-10.
 - The gate: ``pallas_full`` takes each without a warning and without a
-  Riccati launch; it declines, naming the reason, a free final time and a
-  path parameter with an implicit step.
+  Riccati launch, a path parameter with an implicit step too (emitted
+  around the wrapped step); it declines a free final time, naming it.
 The card tests of these builds are tests/test_torch_card_implicit.py.
 """
 import shutil
@@ -189,19 +189,34 @@ DECLINES = {
     "free_final_time": (lambda n: n.minimize_final_time(weight=1.0, dt_min=0.05,
                                                         dt_max=0.5),
                         "a free final time"),
+    # taken since the path state is emitted around the implicit step (why =
+    # None): the whole-solve path's plain version, no Riccati launch
     "path_parameter": (lambda n: n.create_path_variable(u_pf_lb=0.0, u_pf_ub=2.0,
                                                         speed_ref=1.0,
                                                         speed_weight=1.0),
-                       r"a path parameter \(create_path_variable\) together with "
-                       r"an implicit integrator step"),
+                       None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DECLINES))
 def test_gate_declines_naming_the_reason(case):
+    """A free final time: pallas_full warns naming it and gives the general
+    path's bits. A path parameter under collocation: taken without a
+    warning, the whole-solve path's plain version bit for bit, no Riccati
+    launch."""
     configure, why = DECLINES[case]
     tn = _port(3, "collocation", options={"pallas_full": True}, configure=configure)
     args = tn.prepare_batch(_x0s(2, 3))
+    if why is None:
+        n_ric = riccati_lq_cuda.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            fn = tn.solve_batch_fn()
+        assert tn._wip["eligible"]
+        for a, b in zip(fn(*args), _plain(tn, args)):
+            assert torch.equal(a, b)
+        assert riccati_lq_cuda.launches == n_ric
+        return
     with pytest.warns(UserWarning, match=why):
         fn = tn.solve_batch_fn()
     ref = _port(3, "collocation", configure=configure)

@@ -159,6 +159,29 @@ def _host(nmpc, args):
 # -- every op of the table ------------------------------------------------------------
 
 _W = torch.tensor([[0.3, -0.2, 0.1], [0.05, 0.4, -0.3]], dtype=F64)
+_T = torch.tensor([[2.0, 0.3, -0.1], [0.2, 1.5, 0.4], [-0.3, 0.1, 1.8]], dtype=F64)
+
+
+def _triangular_ops(x):
+    """The ops the SMPC surrogate's trace adds (control/smpc.py): triangular
+    solves in every form (a factor that depends on x among them), the
+    identity, both triangles, scalar tensors, the raw view and zeros."""
+    lo = torch.tril(_T.to(x.dtype), diagonal=-1) + 2.0 * torch.eye(3, dtype=x.dtype)
+    up = torch.triu(_T.to(x.dtype))
+    lo_x = lo * (1 + 0.1 * x[..., :1, None] ** 2)
+    row = x[..., None, :]                                   # (..., 1, 3)
+    col = x[..., :, None]                                   # (..., 3, 1)
+    parts = [
+        torch.linalg.solve_triangular(up, row, upper=True, left=False),
+        torch.linalg.solve_triangular(lo, row, upper=False, left=False).mT,
+        torch.linalg.solve_triangular(lo_x, col, upper=False),
+        torch.linalg.solve_triangular(up, col, upper=True, unitriangular=True),
+    ]
+    s = torch.cat([p.reshape(p.shape[:-2] + (3,)) for p in parts], -1)
+    flat = torch.ops.aten._unsafe_view(s.contiguous(), s.shape[:-1] + (4, 3))
+    zero = torch.ops.aten._efficientzerotensor([3], dtype=x.dtype)
+    return (flat.sum(-2) * torch.scalar_tensor(0.25, dtype=x.dtype)
+            * torch.scalar_tensor(2.0, dtype=x.dtype) + zero.clone())
 
 
 def _all_ops_ode(x, u, p):
@@ -190,7 +213,7 @@ def _all_ops_ode(x, u, p):
     z = out.clone()
     z[..., 1] = z[..., 1] * 0.5                           # in place: select_scatter
     z[..., :1] = z[..., :1] - 0.1 * x[..., 2:3]           # slice_scatter
-    z = z + 0.01 * k.unsqueeze(-1)
+    z = z + 0.01 * k.unsqueeze(-1) + 0.01 * _triangular_ops(x)
     return (z / torch.ones_like(z) + torch.zeros(3, dtype=x.dtype)
             + torch.full((3,), 0.0, dtype=x.dtype) + torch.ones(3, dtype=x.dtype)
             - torch.full_like(z, 1.0) + x.new_zeros(3) + x.new_ones(3)
